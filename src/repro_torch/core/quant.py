@@ -1,0 +1,69 @@
+"""CIM numeric-path quantization (port of ``repro/core/quant.py``).
+
+The paper's split-precision tile stores signed 8-bit µ and unsigned
+4-bit σ.  Only the quantizers that ``sampling.prepare_serving_head``
+reaches when ``quant.enabled`` are ported here; the IDAC/ADC path
+(``quantize_input``, ``adc_quantize``) comes with the chip-instance
+slice.  ``torch.round`` rounds half to even, as ``jnp.round`` does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    mu_bits: int = 8
+    sigma_bits: int = 4
+    input_bits: int = 8
+    adc_bits: int = 6
+    # ADC full-scale as a multiple of the partial-sum RMS (calibrated).
+    adc_clip_sigmas: float = 4.0
+    # Depth of the analog accumulation before ADC digitization.
+    chunk: int = 64
+    enabled: bool = True
+
+
+def _amax(x: torch.Tensor, axis) -> torch.Tensor:
+    return x.amax() if axis is None else x.amax(dim=axis, keepdim=True)
+
+
+def symmetric_scale(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
+    """Max-abs scale so that x/scale fits signed ``bits`` integers."""
+    qmax = 2 ** (bits - 1) - 1
+    return _amax(x.abs(), axis).clamp_min(1e-12) / qmax
+
+
+def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int,
+             signed: bool = True) -> torch.Tensor:
+    """Round-to-nearest-even integer code."""
+    if signed:
+        lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    else:
+        lo, hi = 0, 2**bits - 1
+    return torch.clamp(torch.round(x / scale), lo, hi)
+
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor, bits: int,
+               signed: bool = True) -> torch.Tensor:
+    return quantize(x, scale, bits, signed) * scale
+
+
+def quantize_mu(mu: torch.Tensor, cfg: QuantConfig,
+                per_channel: bool = True):
+    """Quantize mean weights (per-output-channel scale) -> (µq, scale)."""
+    axis = tuple(range(mu.ndim - 1)) if per_channel else None
+    scale = symmetric_scale(mu, cfg.mu_bits, axis=axis)
+    return fake_quant(mu, scale, cfg.mu_bits), scale
+
+
+def quantize_sigma(sigma: torch.Tensor, cfg: QuantConfig,
+                   per_channel: bool = True):
+    """Quantize σ ≥ 0 to unsigned 4-bit codes -> (σq, scale)."""
+    axis = tuple(range(sigma.ndim - 1)) if per_channel else None
+    qmax = 2**cfg.sigma_bits - 1
+    scale = _amax(sigma, axis).clamp_min(1e-12) / qmax
+    return quantize(sigma, scale, cfg.sigma_bits, signed=False) * scale, scale
