@@ -20,8 +20,9 @@ JSON line):
      just before and read just after.  The same stream through
      ``fused=False`` (no kernel) must give the same decisions, and so
      must an escalating policy (0.55, 0.05) and a CPU run of 64 requests;
-  5. kernel timing with CUDA events at the main path's shape, beside
-     the plain version's time and the card's byte/flop bound;
+  5. kernel timing at the main path's shape: device time from CUDA
+     graph replays and per-call time of eager calls (CUDA events), beside
+     the plain version's and the card's byte/flop bound;
   6. last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the reference package.
 """
@@ -222,7 +223,9 @@ def run_main_path() -> dict:
 # ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
-def cuda_ms(fn, iters: int, warmup: int = 50) -> float:
+def call_ms(fn, iters: int, warmup: int = 50) -> float:
+    """Per-call time of eager calls, host included: CUDA events around a
+    Python loop of ``iters`` calls."""
     import torch
     for _ in range(warmup):
         fn()
@@ -237,16 +240,60 @@ def cuda_ms(fn, iters: int, warmup: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, replays: int = 5) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph,
+    whose replay runs them back to back without the host; the least of
+    ``replays`` timed replays, over ``iters``."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):              # warm-up outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
 def decision_bound_ms(args: dict) -> tuple[float, str, int, int]:
-    """Least time for one round: each input read once, each output
-    written once, over HBM bandwidth; the operations the active slots
-    need over the float32 rate.  Returns (ms, bound_by, bytes, ops)."""
+    """Least time for one round: the bytes the function must move over
+    HBM bandwidth, against the operations it must do over the float32
+    rate.  A masked slot costs its mask byte and its zeroed outputs; an
+    active slot also reads its rows of every per-slot input.  Returns
+    (ms, bound_by, bytes, ops)."""
     b, n = args["y_mu"].shape
     r = args["sel"].shape[0]
-    reads = sum(args[k].numel() * args[k].element_size()
-                for k in ("y_mu", "x_sigma", "m", "sel", "mask"))
-    writes = 2 * b * n * 4 + 2 * b * 4
     active = int(args["mask"].sum())
+    per_slot = n * 4 * (2 + 16)                # y_mu, x_sigma, m rows
+    shared = 0                                 # read once for all slots
+    if args["sel"].ndim == 3:
+        per_slot += r * 16 * 4
+    else:
+        shared += r * 16 * 4
+    if args["cfg"].read_sigma > 0:
+        per_slot += n * 4                      # x_sigsq
+        if args["sample_idx"].ndim == 2:
+            per_slot += r * 8
+        else:
+            shared += r * 8
+        if args["rows"] is not None:
+            per_slot += 8
+    reads = b + active * per_slot + shared     # mask: one byte a slot
+    writes = 2 * b * n * 4 + 2 * b * 4
     # per logit: 16-term mix (32), −sum_mean·x_sigma (2), /sum_std + y_mu
     # (2); softmax + entropy + the two sums (~8)
     ops = r * active * n * 44
@@ -259,13 +306,22 @@ def decision_bound_ms(args: dict) -> tuple[float, str, int, int]:
 def run_timing(inputs: dict, launches: int, worst: float) -> None:
     from repro_torch.kernels.decision import (decision_stats,
                                               decision_stats_plain)
-    args = inputs["main_r4"]
-    kernel_ms = cuda_ms(lambda: decision_stats(**args), iters=2000)
-    plain_ms = cuda_ms(lambda: decision_stats_plain(**args), iters=1000)
-    args20 = inputs["main_r20"]
-    kernel20_ms = cuda_ms(lambda: decision_stats(**args20), iters=2000)
-    plain20_ms = cuda_ms(lambda: decision_stats_plain(**args20), iters=1000)
-    bound, bound_by, nbytes, ops = decision_bound_ms(args)
+    times = {}
+    for case in ("main_r4", "main_r20"):
+        args = inputs[case]
+
+        def kernel():
+            return decision_stats(**args)
+
+        def plain():
+            return decision_stats_plain(**args)
+
+        times[case] = dict(ms=device_ms(kernel, 1000),
+                           plain_ms=device_ms(plain, 1000),
+                           call_ms=call_ms(kernel, 1000),
+                           plain_call_ms=call_ms(plain, 1000))
+    bound, bound_by, nbytes, ops = decision_bound_ms(inputs["main_r4"])
+    r4, r20 = times["main_r4"], times["main_r20"]
     emit({"kernels": [{
         "name": "decision_stats",
         "route": "cuda",
@@ -274,9 +330,14 @@ def run_timing(inputs: dict, launches: int, worst: float) -> None:
         "launches": launches,
         "max_abs_err": worst,
         "shape": "B=32 N=2 R=4, half the slots masked",
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "ms": r4["ms"],
+        "kernel_ms": r4["ms"],
+        "plain_ms": r4["plain_ms"],
+        "timing": "ms and plain_ms: device time per call, 1000 calls "
+                  "replayed from one CUDA graph; call_ms: eager calls, "
+                  "host included",
+        "call_ms": r4["call_ms"],
+        "plain_call_ms": r4["plain_call_ms"],
         "bound_ms": bound,
         "bound_by": bound_by,
         "bound_bytes": nbytes,
@@ -284,8 +345,11 @@ def run_timing(inputs: dict, launches: int, worst: float) -> None:
         "library_ms": None,
         "library_note": "no single PyTorch call computes the fused "
                         "mix -> softmax -> masked statistic sums",
-        "ms_r20": kernel20_ms,
-        "plain_ms_r20": plain20_ms,
+        "ms_r20": r20["ms"],
+        "plain_ms_r20": r20["plain_ms"],
+        "call_ms_r20": r20["call_ms"],
+        "plain_call_ms_r20": r20["plain_call_ms"],
+        "bound_ms_r20": decision_bound_ms(inputs["main_r20"])[0],
     }]})
 
 
@@ -299,7 +363,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     card = card_line()
-    print(card, flush=True)
+    print(card, flush=True)            # verbatim, as nvidia-smi gives it
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, _, power = card.partition(",")
@@ -321,7 +385,6 @@ def main() -> int:
     worst, inputs = run_kernel_checks()
     main_path = run_main_path()
     run_timing(inputs, main_path["launches"], worst)
-    print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

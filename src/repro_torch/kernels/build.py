@@ -9,8 +9,7 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
 The libraries go into ``kernels/_build/`` (git-ignored), keyed by a hash
 of every source under ``csrc/`` and the flags, and are built at first
 use: ``load(name)`` builds the one library it needs, ``build_all()``
-starts one ``nvcc`` per source at once and waits for all of them.  The
-compiler's report (registers, shared memory, spills) is kept beside
+loads every source in turn.  The compiler's report (registers, shared memory, spills) is kept beside
 each library as ``<lib>.log``.  Nothing here touches CUDA at import
 time, so CPU-only machines import the package freely.
 """
@@ -59,48 +58,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_key()}.so"
 
 
-def _start(name: str):
-    """Start nvcc for ``name`` unless its library is built; returns
-    (process, temp path, final path, log file) or None."""
+def _build(name: str) -> None:
+    """Run nvcc for ``name`` unless its library is built."""
     out = library_path(name)
     if out.exists():
-        return None
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    log = open(out.with_suffix(".so.log"), "w")
-    proc = subprocess.Popen(
+    proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=log, stderr=subprocess.STDOUT)
-    return proc, tmp, out, log
-
-
-def _finish(name: str, job) -> None:
-    proc, tmp, out, log = job
-    try:
-        rc = proc.wait()
-    finally:
-        log.close()
-    if rc != 0:
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out.with_suffix(".so.log").write_text(proc.stdout)
+    if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed on csrc/{name}.cu (exit {rc}):\n"
-            + Path(log.name).read_text())
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)               # atomic: a half-built file never loads
 
 
 def build_all() -> dict[str, Path]:
-    """Build every source not yet built, one nvcc each, all started
-    together; returns {name: library path}."""
-    jobs = {name: _start(name) for name in sources()}
-    try:
-        for name, job in jobs.items():
-            if job is not None:
-                _finish(name, job)
-    finally:
-        for job in jobs.values():      # stop what an error left running
-            if job is not None and job[0].poll() is None:
-                job[0].kill()
-                job[0].wait()
+    """Build and load every source; returns {name: library path}."""
+    for name in sources():
+        load(name)
     return {name: library_path(name) for name in sources()}
 
 
@@ -114,7 +93,5 @@ def build_log(name: str) -> str:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of ``lib<name>``, built first if needed."""
-    job = _start(name)
-    if job is not None:
-        _finish(name, job)
+    _build(name)
     return ctypes.CDLL(str(library_path(name)))
