@@ -9,21 +9,37 @@ Phases (any failure ends the run with a non-zero exit; each prints a
 JSON line):
   1. the card (name and power limit from nvidia-smi), torch and CUDA
      versions; TF32 is switched off for matmuls and convolutions;
-  2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
-  3. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at ragged / read-noise / shared-selection
-     shapes, plus a run-to-run bit-identity check (rtol 1e-5, atol 1e-5,
-     as tests/test_decision_kernel.py);
-  4. the main path: ``serve_sar`` on the card, 192 fog-mixed requests in
-     32 slots under TriagePolicy(0.7, 0.05, r_min=4, r_max=20), random
-     full-width params from a seed; the kernel launch counts are zeroed
-     just before and read just after.  The same stream through
-     ``fused=False`` (no kernel) must give the same decisions, and so
-     must an escalating policy (0.55, 0.05) and a CPU run of 64 requests;
-  5. kernel timing at the main path's shape: device time from CUDA
+  2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
+     one process per source, all started together;
+  3. every kernel against its plain PyTorch version on the card:
+     the decision kernel at the main path's shapes and at ragged /
+     read-noise / shared-selection shapes (rtol 1e-5, atol 1e-5, as
+     tests/test_decision_kernel.py); the CIM kernel at the three trunk
+     shapes an admission of 32 slots gives on the gate die and at two
+     ragged shapes, ideal and with the die's ADC front end (rtol 1e-4,
+     atol 1e-4, as tests/test_kernels.py; an output off by more is an
+     ADC code flipped by the order of the 64-term sum, counted and held
+     to one LSB and to at most 1e-4 of the outputs); run-to-run bit
+     identity for both, zero-variation CIM = ideal CIM bit for bit;
+  4. the ideal-die main path: ``serve_sar`` on the card, 192 fog-mixed
+     requests in 32 slots under TriagePolicy(0.7, 0.05, r_min=4,
+     r_max=20), random full-width params from a seed; the kernel launch
+     counts are zeroed just before and read just after.  The same stream
+     through ``fused=False`` (no kernel) must give the same decisions,
+     and so must an escalating policy (0.55, 0.05) and a CPU run of 64
+     requests;
+  5. the chip-instance main path: the same 192 requests served on the
+     gate die ``sample_instances(11, 1, VariationSpec().scaled(2.0))``,
+     calibrated: the conv trunk through the CIM kernel (3 launches per
+     admission), the head on the die's degraded GRNG (the decision
+     kernel's read-noise branch, one launch per round); counts zeroed
+     just before and read just after.  ``fused=False`` must give the
+     same decisions, the uncalibrated die must serve every request, and
+     a CPU run of 64 requests must decide as the card does;
+  6. kernel timing at the main path's shapes: device time from CUDA
      graph replays and per-call time of eager calls (CUDA events), beside
      the plain version's and the card's byte/flop bound;
-  6. last line: {"ok": true, "device": {...}}.
+  7. last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the reference package.
 """
 
@@ -39,7 +55,17 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
 TOL = dict(rtol=1e-5, atol=1e-5)
+CIM_TOL = dict(rtol=1e-4, atol=1e-4)
 STAT_KEYS = ("sum_p", "sum_psq", "sum_ent", "sum_entsq")
+POLICY = dict(conf_threshold=0.7, mi_threshold=0.05, r_min=4, r_max=20)
+STREAM = dict(n_slots=32, corrupt_frac=0.25, corruption="fog", seed=0)
+# Card vs CPU on a chip instance: the trunk's 64-term sums and ADC full
+# scale are reduced in another order on each, and where a partial sum
+# sits on a half-code tie one 6-bit code flips by an LSB, which moves
+# that request's confidence by up to ~1e-3 (tests/test_torch_cim.py
+# counts such flips); verdicts, predictions and sample counts must
+# still be equal.
+CIM_CPU_ATOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -143,10 +169,126 @@ def run_kernel_checks() -> tuple[float, dict]:
     return worst, inputs
 
 
+def gate_die():
+    """The die the chip-instance main path serves on."""
+    from repro_torch.hw import VariationSpec, sample_instances
+    return sample_instances(11, 1, VariationSpec().scaled(2.0))[0]
+
+
+def cim_cases() -> dict:
+    """CIM kernel operands on the card.  ``trunk<i>``: what conv layer i
+    gives the kernel when the main path admits 32 slots on the gate die
+    (the port's params, images and trunk arrays; K padded to 64).
+    ``ragged_*``: random operands at the reference's ragged test shapes.
+    Every case carries the gate die's column front end."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import quant as q
+    from repro_torch.kernels.ops import measured_full_scale
+    from repro_torch.launch.serve import make_sar_stream
+    from repro_torch.models import sar_cnn
+    cfg = sar_cnn.SarCnnConfig()
+    params = sar_cnn.init_sar_cnn(torch.Generator().manual_seed(3), cfg,
+                                  device="cuda")
+    die = gate_die()
+    trunk = sar_cnn.program_trunk(params, cfg, die)
+    h = torch.as_tensor(np.stack(
+        [r.payload for r in make_sar_stream(32, corrupt_frac=0.25)]),
+        device="cuda")
+    cases = {}
+    for i, layer in enumerate(trunk):
+        cols = sar_cnn._im2col(h, layer["k"], 2)
+        d = cols.shape[-1]
+        xq, _ = q.quantize_input(cols.reshape(-1, d), cfg.quant)
+        xq = F.pad(xq, (0, layer["w"].shape[0] - d)).contiguous()
+        cases[f"trunk{i}"] = dict(
+            x=xq, w=layer["w"], fs=measured_full_scale(
+                xq, layer["w"], cfg.quant).reshape(1),
+            gain=layer["gain"], offset=layer["offset"])
+        h = sar_cnn._cim_conv(h, layer, cfg)
+    gen = torch.Generator().manual_seed(5)
+    for m, k, n in ((130, 192, 257), (8, 192, 70)):
+        x = torch.randn((m, k), generator=gen).cuda()
+        w = (torch.randn((k, n), generator=gen) * 0.05).cuda()
+        gain, off = die.adc_columns(n)
+        cases[f"ragged_{m}x{k}x{n}"] = dict(
+            x=x, w=w, fs=measured_full_scale(x, w, cfg.quant).reshape(1),
+            gain=torch.as_tensor(gain, device="cuda"),
+            offset=torch.as_tensor(off, device="cuda"))
+    return cases
+
+
+def run_cim_checks() -> tuple[dict, dict]:
+    import torch
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels.cim import cim_mvm, cim_mvm_plain
+    qcfg = QuantConfig(enabled=True)
+    cases = cim_cases()
+    summary = {"max_abs_err": 0.0, "max_abs_err_no_flip": 0.0,
+               "adc_code_flips": 0, "outputs": 0}
+    for name, c in cases.items():
+        m, k = c["x"].shape
+        n = c["w"].shape[1]
+        lsb = float(c["fs"]) / 31
+        for front in ("ideal", "die"):
+            gain, off = ((None, None) if front == "ideal"
+                         else (c["gain"], c["offset"]))
+            got = cim_mvm(c["x"], c["w"], c["fs"], qcfg, gain, off)
+            want = cim_mvm_plain(c["x"], c["w"], c["fs"], qcfg, gain, off)
+            again = cim_mvm(c["x"], c["w"], c["fs"], qcfg, gain, off)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            flips = err > CIM_TOL["atol"]
+            n_flips = int(flips.sum())
+            check(n_flips <= 1e-4 * got.numel(),
+                  f"CIM {name} {front}: {n_flips} outputs off by more "
+                  f"than 1e-4")
+            check(bool((err[flips] <= lsb * (1 + 1e-4)).all()),
+                  f"CIM {name} {front}: an output off by more than one "
+                  f"LSB ({lsb})")
+            check(torch.allclose(got[~flips], want[~flips], **CIM_TOL),
+                  f"CIM kernel != plain version: {name} {front}")
+            identical = torch.equal(got, again)
+            check(identical, f"two CIM launches differ: {name} {front}")
+            rest = float(err[~flips].max()) if n_flips < err.numel() else 0.
+            summary["max_abs_err"] = max(summary["max_abs_err"],
+                                         float(err.max()))
+            summary["max_abs_err_no_flip"] = max(
+                summary["max_abs_err_no_flip"], rest)
+            summary["adc_code_flips"] += n_flips
+            summary["outputs"] += got.numel()
+            emit({"kernel_check": "cim_mvm", "case": name, "front": front,
+                  "M": m, "K": k, "N": n, "max_abs_err": float(err.max()),
+                  "adc_code_flips": n_flips, "lsb": lsb,
+                  "rtol": CIM_TOL["rtol"], "atol": CIM_TOL["atol"],
+                  "bit_identical_relaunch": identical})
+        ideal = cim_mvm(c["x"], c["w"], c["fs"], qcfg)
+        zero = cim_mvm(c["x"], c["w"], c["fs"], qcfg,
+                       torch.ones_like(c["gain"]),
+                       torch.zeros_like(c["offset"]))
+        torch.cuda.synchronize()
+        check(torch.equal(ideal, zero),
+              f"CIM {name}: zero-variation front end != ideal ADC")
+    c = cases["ragged_8x192x70"]
+    for what, args in (
+            ("K % 64", (c["x"][:, :100].contiguous(), c["w"][:100])),
+            ("a CPU operand", (c["x"], c["w"].cpu()))):
+        try:
+            cim_mvm(*args, c["fs"], qcfg)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"the CIM wrapper took {what}")
+    emit({"cim_checks": "ok", **summary, "zero_variation_is_ideal": True})
+    return summary, cases
+
+
 # ----------------------------------------------------------------------
 # main path
 # ----------------------------------------------------------------------
-def same_decisions(a: dict, b: dict, what: str) -> None:
+def same_decisions(a: dict, b: dict, what: str,
+                   atol: float = 1e-5) -> None:
     va = {v["rid"]: v for v in a["verdicts"]}
     vb = {v["rid"]: v for v in b["verdicts"]}
     check(set(va) == set(vb), f"{what}: different requests retired")
@@ -155,9 +297,9 @@ def same_decisions(a: dict, b: dict, what: str) -> None:
         check((x["verdict"], x["prediction"], x["n_samples"])
               == (y["verdict"], y["prediction"], y["n_samples"]),
               f"{what}: rid {rid} decided differently: {x} vs {y}")
-        check(abs(x["confidence"] - y["confidence"]) <= 1e-5
+        check(abs(x["confidence"] - y["confidence"]) <= atol
               and abs(x["mutual_information"]
-                      - y["mutual_information"]) <= 1e-5,
+                      - y["mutual_information"]) <= atol,
               f"{what}: rid {rid} confidence/MI differ: {x} vs {y}")
 
 
@@ -165,9 +307,8 @@ def run_main_path() -> dict:
     from repro_torch.kernels.decision import decision_stats
     from repro_torch.launch.serve import serve_sar
     from repro_torch.serving import TriagePolicy
-    policy = TriagePolicy(conf_threshold=0.7, mi_threshold=0.05, r_min=4,
-                          r_max=20)
-    kw = dict(n_slots=32, corrupt_frac=0.25, corruption="fog", seed=0)
+    policy = TriagePolicy(**POLICY)
+    kw = STREAM
     serve_sar(n_requests=32, policy=policy, device="cuda", **kw)  # warm-up
 
     decision_stats.launches = 0
@@ -218,6 +359,78 @@ def run_main_path() -> dict:
               esc_f["host_syncs_per_decision"],
           "card_vs_cpu_requests": 64})
     return {"launches": launches}
+
+
+def run_chip_path() -> dict:
+    """The chip-instance main path on the card, and its cross-checks."""
+    from repro_torch.kernels.cim import cim_mvm
+    from repro_torch.kernels.decision import decision_stats
+    from repro_torch.launch.serve import serve_sar
+    from repro_torch.serving import TriagePolicy
+    policy = TriagePolicy(**POLICY)
+    die = gate_die()
+    kw = dict(STREAM, policy=policy, chip_instance=die)
+    serve_sar(n_requests=32, device="cuda", **kw)                # warm-up
+
+    cim_mvm.launches = decision_stats.launches = 0
+    out = serve_sar(n_requests=192, device="cuda", **kw)
+    cim_launches, launches = cim_mvm.launches, decision_stats.launches
+    check(out["chip_read_sigma"] > 0, "the gate die has no read noise")
+    check(out["requests"] == 192 and out["decisions"] == 192,
+          f"only {out['requests']} of 192 requests retired on the die")
+    check(cim_launches == 3 * out["admissions"] > 0,
+          f"CIM launches {cim_launches} != 3 x {out['admissions']} "
+          f"admissions")
+    check(launches == out["rounds_launched"] > 0,
+          f"decision launches {launches} != rounds "
+          f"{out['rounds_launched']}")
+    emit({"main_path": "serve_sar(chip_instance=gate die)",
+          "device": out["device"], "chip_id": out["chip_id"],
+          "chip_device_seed": out["chip_device_seed"],
+          "chip_read_sigma": out["chip_read_sigma"],
+          "chip_temp_c": out["chip_temp_c"], "calibrated": out["calibrated"],
+          "requests": out["requests"], "wall_s": out["wall_s"],
+          "decisions_per_s_wall": out["decisions"] / out["wall_s"],
+          "mean_samples_per_decision": out["mean_samples_per_decision"],
+          "flag_fraction": out["flag_fraction"],
+          "host_syncs": out["host_syncs"],
+          "host_syncs_per_decision": out["host_syncs_per_decision"],
+          "admissions": out["admissions"], "cim_kernel_launches":
+          cim_launches, "rounds_launched": out["rounds_launched"],
+          "decision_kernel_launches": launches})
+
+    decision_stats.launches = 0
+    plain = serve_sar(n_requests=192, device="cuda", fused=False, **kw)
+    check(decision_stats.launches == 0, "fused=False launched the kernel")
+    same_decisions(out, plain, "chip: fused vs fused=False on the card")
+    esc = dict(kw, policy=TriagePolicy(**dict(POLICY, conf_threshold=0.55)))
+    esc_f = serve_sar(n_requests=192, device="cuda", **esc)
+    esc_p = serve_sar(n_requests=192, device="cuda", fused=False, **esc)
+    same_decisions(esc_f, esc_p,
+                   "chip, escalating policy: fused vs fused=False")
+    depths = sorted({v["n_samples"] for v in esc_f["verdicts"]})
+    check(len(depths) >= 3, f"escalating policy did not escalate: {depths}")
+    uncal = serve_sar(n_requests=192, device="cuda",
+                      **dict(kw, calibrated=False))
+    check(uncal["requests"] == 192 and not uncal["calibrated"],
+          "the uncalibrated die did not serve every request")
+    cpu = serve_sar(n_requests=64, device="cpu", **kw)
+    card = serve_sar(n_requests=64, device="cuda", **kw)
+    conf_gap = max(abs(x["confidence"] - y["confidence"]) for x, y in
+                   zip(sorted(card["verdicts"], key=lambda v: v["rid"]),
+                       sorted(cpu["verdicts"], key=lambda v: v["rid"])))
+    same_decisions(card, cpu, "chip: card vs CPU", atol=CIM_CPU_ATOL)
+    emit({"chip_cross_checks": "ok", "fused_vs_plain_requests": 192,
+          "escalating_policy_depths": depths,
+          "escalating_decisions_per_s_wall":
+              esc_f["decisions"] / esc_f["wall_s"],
+          "escalating_mean_samples_per_decision":
+              esc_f["mean_samples_per_decision"],
+          "uncalibrated_requests": uncal["requests"],
+          "uncalibrated_flag_fraction": uncal["flag_fraction"],
+          "card_vs_cpu_requests": 64,
+          "card_vs_cpu_max_confidence_gap": conf_gap})
+    return {"launches": cim_launches}
 
 
 # ----------------------------------------------------------------------
@@ -303,7 +516,76 @@ def decision_bound_ms(args: dict) -> tuple[float, str, int, int]:
             else "operations", reads + writes, ops)
 
 
-def run_timing(inputs: dict, launches: int, worst: float) -> None:
+def cim_bound_ms(c: dict) -> tuple[float, str, int, int]:
+    """Least time for one CIM product: x, w, gain, offset and fs read
+    once and out written once over HBM bandwidth, against 2·M·K·N
+    multiply-adds plus the front end and ADC of every chunk (gain·psum +
+    offset·lsb, divide, round, two clamps, code·lsb, accumulate: 8
+    operations an output a chunk) over the float32 rate."""
+    m, k = c["x"].shape
+    n = c["w"].shape[1]
+    nbytes = 4 * (m * k + k * n + 2 * n + 1 + m * n)
+    ops = 2 * m * k * n + 8 * m * n * (k // 64)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
+            else "operations", nbytes, ops)
+
+
+def cim_timing(cases: dict, launches: int, summary: dict) -> dict:
+    """The CIM kernel's line: device and eager times at the three trunk
+    shapes, with the die's front end, as the main path calls it."""
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels.cim import cim_mvm, cim_mvm_plain
+    qcfg = QuantConfig(enabled=True)
+    shapes = []
+    for name in ("trunk0", "trunk1", "trunk2"):
+        c = cases[name]
+        args = (c["x"], c["w"], c["fs"], qcfg, c["gain"], c["offset"])
+
+        def kernel():
+            return cim_mvm(*args)
+
+        def plain():
+            return cim_mvm_plain(*args)
+
+        bound, bound_by, nbytes, ops = cim_bound_ms(c)
+        shapes.append({
+            "case": name, "M": c["x"].shape[0], "K": c["x"].shape[1],
+            "N": c["w"].shape[1], "ms": device_ms(kernel, 1000),
+            "plain_ms": device_ms(plain, 1000),
+            "call_ms": call_ms(kernel, 1000),
+            "plain_call_ms": call_ms(plain, 1000), "bound_ms": bound,
+            "bound_by": bound_by, "bound_bytes": nbytes, "bound_ops": ops})
+    first = shapes[0]
+    return {
+        "name": "cim_mvm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cim_mvm.cu",
+        "replaces": "src/repro/kernels/cim_mvm.py:72",
+        "launches": launches,
+        "max_abs_err": summary["max_abs_err"],
+        "max_abs_err_no_flip": summary["max_abs_err_no_flip"],
+        "adc_code_flips": summary["adc_code_flips"],
+        "shape": "trunk0: M=7200 K=64 N=16 (the first conv of a 32-slot "
+                 "admission), the gate die's front end; every trunk "
+                 "shape under 'shapes'",
+        "ms": first["ms"], "kernel_ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "timing": "ms and plain_ms: device time per call, 1000 calls "
+                  "replayed from one CUDA graph; call_ms: eager calls, "
+                  "host included",
+        "call_ms": first["call_ms"], "plain_call_ms": first["plain_call_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call applies a per-chunk ADC "
+                        "between the partial sums of a matrix product",
+        "shapes": shapes,
+    }
+
+
+def run_timing(inputs: dict, launches: int, worst: float,
+               cim_line: dict) -> None:
     from repro_torch.kernels.decision import (decision_stats,
                                               decision_stats_plain)
     times = {}
@@ -350,7 +632,7 @@ def run_timing(inputs: dict, launches: int, worst: float) -> None:
         "call_ms_r20": r20["call_ms"],
         "plain_call_ms_r20": r20["plain_call_ms"],
         "bound_ms_r20": decision_bound_ms(inputs["main_r20"])[0],
-    }]})
+    }, cim_line]})
 
 
 def main() -> int:
@@ -377,14 +659,19 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     build_s = time.perf_counter() - t0
+    check(set(libs) == {"cim_mvm", "decision"},
+          f"built {sorted(libs)}, expected cim_mvm and decision")
     ptxas = {n: [ln.strip() for ln in build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln]
              for n in libs}
     emit({"build_s": build_s, "libraries": sorted(libs), "ptxas": ptxas})
 
     worst, inputs = run_kernel_checks()
+    cim_summary, cim_inputs = run_cim_checks()
     main_path = run_main_path()
-    run_timing(inputs, main_path["launches"], worst)
+    chip_path = run_chip_path()
+    run_timing(inputs, main_path["launches"], worst,
+               cim_timing(cim_inputs, chip_path["launches"], cim_summary))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,9 +8,11 @@ of the reference becomes a kernel written by hand for Hopper under
 CPU tensors (the tests), while CUDA tensors always go through the
 kernel.
 
-Ported so far: the ideal-die SAR triage serving path
-(``launch.serve.serve_sar`` → ``serving.engine.SarServingEngine``) with
-its one kernel, the fused decision update (``kernels/decision.py``).
+Ported so far: SAR triage serving (``launch.serve.serve_sar`` →
+``serving.engine.SarServingEngine``) on the ideal die and on a sampled
+chip instance (``hw/``), with two kernels: the fused decision update
+(``kernels/decision.py``) and the chunked-ADC CIM product of the conv
+trunk on a die (``kernels/cim.py``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``): ``resolve_device(None)`` is ``"cuda"``.

@@ -4,7 +4,9 @@ The bridge takes and gives numpy only, so it imports no JAX: callers
 holding JAX arrays pass ``jax.device_get(tree)``.  The one layout move
 is the conv weights: the reference keeps HWIO ``(k, k, cin, cout)``,
 the port OIHW ``(cout, cin, k, k)``; biases and the Bayesian head's
-``mu``/``rho`` pass through.
+``mu``/``rho`` pass through.  A chip instance crosses as the dict of
+numpy arrays its ``to_tree`` gives, a deployed serving head as its
+arrays.
 """
 
 from __future__ import annotations
@@ -32,6 +34,20 @@ def params_to_jax(params: dict) -> dict:
                    "b": to_numpy(c["b"])} for c in params["convs"]],
         "head": to_numpy(params["head"]),
     }
+
+
+def instance_from_tree(tree: dict):
+    """The reference's ``ChipInstance.to_tree()`` (numpy) -> the port's
+    ``hw.ChipInstance``, field for field."""
+    from repro_torch.hw.instance import ChipInstance
+    return ChipInstance.from_tree(tree)
+
+
+def head_from_jax(head: dict) -> dict:
+    """A deployed serving head of the reference (``mu_prime``,
+    ``sigma``, ``sigma_basis``…; numpy) -> CPU tensors (the engine
+    moves them to its device)."""
+    return {k: torch.tensor(np.asarray(v)) for k, v in head.items()}
 
 
 def to_numpy(tree):

@@ -10,8 +10,9 @@ the currents of the 8 devices the shared LFSR selection picks,
 
     ε(k,n,r) = (Σ_j s_r[j] · I(k,n,j) + read noise − sum_mean) / sum_std.
 
-Only the 'layer' selection granularity is ported (the serving path's);
-'tile' and 'cell' wait for a later slice.
+Only the 'layer' selection granularity is ported (the serving path's
+and the per-chip calibration's); 'tile' and 'cell' wait for a later
+slice.
 """
 
 from __future__ import annotations
@@ -115,6 +116,60 @@ def read_noise_at(cfg: GRNGConfig, rows, cols, r_abs) -> torch.Tensor:
         hash3(rows, cols, r_abs, cfg.noise_seed))
 
 
+def read_noise(cfg: GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
+               sample0: int = 0, row0: int = 0, col0: int = 0,
+               device=None) -> torch.Tensor:
+    """Cycle-to-cycle read noise on the raw 8-device sum (µA):
+    -> [R, n_rows, n_cols], keyed by (cell, ABSOLUTE sample index) so a
+    draw at ``sample0 = s`` reproduces sample ``s`` of a larger draw."""
+    rows, cols = _grid(n_rows, n_cols, row0, col0, device)
+    r_abs = sample0 + torch.arange(num_samples, dtype=torch.int64,
+                                   device=device)
+    return read_noise_at(cfg, rows[None], cols[None], r_abs[:, None, None])
+
+
+def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis term by term, j = 0, 1, …: the order the
+    reference's reductions give these 16-term sums (``torch.sum`` would
+    pair the terms differently)."""
+    total = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        total = total + x[..., j]
+    return total
+
+
+def raw_sums(cfg: GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
+             sample0: int = 0, row0: int = 0, col0: int = 0,
+             device=None) -> torch.Tensor:
+    """Un-standardized subset sums, 'layer' granularity:
+    -> [R, n_rows, n_cols] (µA)."""
+    currents = device_currents_grid(cfg, n_rows, n_cols, row0, col0,
+                                    device=device)             # [K, N, 16]
+    sel = selections(cfg, num_samples, sample0, device=device)  # [R, 16]
+    raw = _sum_in_order(sel[:, None, None, :] * currents[None])
+    if cfg.read_sigma:
+        raw = raw + read_noise(cfg, n_rows, n_cols, num_samples, sample0,
+                               row0, col0, device=device)
+    return raw
+
+
+def eps(cfg: GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
+        sample0: int = 0, row0: int = 0, col0: int = 0,
+        device=None) -> torch.Tensor:
+    """Standardized ε samples -> [R, n_rows, n_cols]."""
+    raw = raw_sums(cfg, n_rows, n_cols, num_samples, sample0, row0, col0,
+                   device=device)
+    return (raw - cfg.sum_mean) / cfg.sum_std
+
+
+def estimate_mean_offset(cfg: GRNGConfig, n_rows: int, n_cols: int,
+                         num_samples: int, sample0: int = 0,
+                         device=None) -> torch.Tensor:
+    """N-sample estimate of Δε: the paper's measurement procedure."""
+    return eps(cfg, n_rows, n_cols, num_samples, sample0,
+               device=device).mean(dim=0)
+
+
 def cell_mean_offset(cfg: GRNGConfig, n_rows: int, n_cols: int,
                      row0: int = 0, col0: int = 0,
                      device=None) -> torch.Tensor:
@@ -122,11 +177,7 @@ def cell_mean_offset(cfg: GRNGConfig, n_rows: int, n_cols: int,
     every device is selected with probability k/n."""
     currents = device_currents_grid(cfg, n_rows, n_cols, row0, col0,
                                     device=device)
-    # Sum the devices in order, as the reference's reduction does, so
-    # the offset (a difference of nearly equal terms) matches bit for
-    # bit; torch.sum would pair the terms differently.
-    total = currents[..., 0]
-    for j in range(1, cfg.n_devices):
-        total = total + currents[..., j]
-    expect_raw = total * (cfg.k_select / cfg.n_devices)
+    # in order, so the offset (a difference of nearly equal terms)
+    # matches the reference bit for bit
+    expect_raw = _sum_in_order(currents) * (cfg.k_select / cfg.n_devices)
     return (expect_raw - cfg.sum_mean) / cfg.sum_std

@@ -1,15 +1,17 @@
 """CIM numeric-path quantization (port of ``repro/core/quant.py``).
 
 The paper's split-precision tile stores signed 8-bit µ and unsigned
-4-bit σ.  Only the quantizers that ``sampling.prepare_serving_head``
-reaches when ``quant.enabled`` are ported here; the IDAC/ADC path
-(``quantize_input``, ``adc_quantize``) comes with the chip-instance
-slice.  ``torch.round`` rounds half to even, as ``jnp.round`` does.
+4-bit σ; inputs enter through 8-bit IDACs, and every 64-deep analog
+partial sum is digitized by a 6-bit SAR ADC before digital
+accumulation.  The straight-through (QAT) flavours wait for the
+training slice.  ``torch.round`` rounds half to even, as ``jnp.round``
+does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -67,3 +69,24 @@ def quantize_sigma(sigma: torch.Tensor, cfg: QuantConfig,
     qmax = 2**cfg.sigma_bits - 1
     scale = _amax(sigma, axis).clamp_min(1e-12) / qmax
     return quantize(sigma, scale, cfg.sigma_bits, signed=False) * scale, scale
+
+
+def quantize_input(x: torch.Tensor, cfg: QuantConfig):
+    """IDAC path: per-tensor symmetric 8-bit -> (xq, scale)."""
+    scale = symmetric_scale(x, cfg.input_bits)
+    return fake_quant(x, scale, cfg.input_bits), scale
+
+
+def adc_quantize(psum: torch.Tensor, full_scale, cfg: QuantConfig):
+    """6-bit mid-tread ADC on an analog partial sum; codes saturate
+    (clip) as a SAR ADC does.  ``full_scale`` is the ±range."""
+    levels = 2 ** (cfg.adc_bits - 1) - 1
+    lsb = full_scale / levels
+    code = torch.clamp(torch.round(psum / lsb), -levels - 1, levels)
+    return code * lsb
+
+
+def adc_full_scale(x_rms, w_rms, cfg: QuantConfig):
+    """Calibrated ADC range: clip_sigmas × RMS of a 64-product sum
+    (Var[Σ_64 x·w] = 64·σx²·σw² for zero-mean independent x, w)."""
+    return cfg.adc_clip_sigmas * math.sqrt(float(cfg.chunk)) * x_rms * w_rms

@@ -35,8 +35,15 @@ buffers, the pool and the statistics are updated IN PLACE: admission
 scatters the featurized rows with ``index_copy_`` and zeroes the
 admitted slots' statistics with ``index_fill_``.
 
-Telemetry, tracing, profiling, SLO tracking, slot sharding, chip
-instances and head hot-swap wait for later slices.
+On a chip instance (``chip=``) admission runs the conv trunk on that
+die's nonideal CIM arrays (``models/sar_cnn.features``): the weight
+matrices are programmed once, when the engine binds the die, and each
+admission pays the input quantization, the ADC full scale and one CIM
+kernel launch per conv layer.  The head deployed on the same die
+(``hw.calib.prepare_instance_head``) comes in through ``head``/``hcfg``.
+
+Telemetry, tracing, profiling, SLO tracking, slot sharding and head
+hot-swap wait for later slices.
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ from repro_torch.core.lfsr import indexed_selections
 from repro_torch.core.sampling import (BayesHeadConfig, activation_basis,
                                        mix_samples)
 from repro_torch.kernels.ops import decision_update
-from repro_torch.models.sar_cnn import features
+from repro_torch.models.sar_cnn import features, program_trunk
 from repro_torch.serving import adaptive, triage
 from repro_torch.serving.metrics import RequestRecord, ServingMetrics
 from repro_torch.serving.triage import ESCALATE, TriagePolicy
@@ -97,9 +104,10 @@ class SarServingEngine:
     ``params``: port params (``models.sar_cnn.init_sar_cnn`` or
     ``bridge.params_from_jax``); ``head``/``hcfg``: a pre-deployed
     serving head and its config (default: the golden head from
-    ``params``); ``adaptive_mode=False`` runs the paper's fixed-R
-    dataflow (one r_max-sample round, decide); ``device``: None = the
-    card (raises without CUDA), "cpu" on purpose.
+    ``params``); ``chip``: a ``hw.ChipInstance`` whose nonideal CIM
+    arrays run the conv trunk; ``adaptive_mode=False`` runs the paper's
+    fixed-R dataflow (one r_max-sample round, decide); ``device``: None
+    = the card (raises without CUDA), "cpu" on purpose.
     """
 
     def __init__(self, params, cfg, *, n_slots: int = 32,
@@ -108,7 +116,7 @@ class SarServingEngine:
                  metrics: ServingMetrics | None = None,
                  head: dict | None = None,
                  hcfg: BayesHeadConfig | None = None,
-                 fused: bool = True, device=None):
+                 chip=None, fused: bool = True, device=None):
         self.device = resolve_device(device)
         self.n_slots = n_slots
         self.policy = policy
@@ -122,6 +130,8 @@ class SarServingEngine:
         self.host_syncs = 0
         # Escalation rounds launched, wasted ones after the exit included.
         self.rounds_launched = 0
+        # Featurized admission batches (one trunk pass each).
+        self.admissions = 0
         self.cfg = cfg
         self.adaptive_mode = adaptive_mode
         self.fused = fused
@@ -131,6 +141,8 @@ class SarServingEngine:
         self._params = _to_device(params, self.device)
         self._head = (to_serving(self._params["head"], self.hcfg)
                       if head is None else _to_device(head, self.device))
+        self._trunk = (None if chip is None
+                       else program_trunk(self._params, cfg, chip))
         self.r_step = policy.r_min if adaptive_mode else policy.r_max
         self.max_rounds = (math.ceil(policy.r_max / self.r_step)
                            if adaptive_mode else 1)
@@ -167,9 +179,8 @@ class SarServingEngine:
         """Images [B, H, W, 1] -> activation-basis rows on the device."""
         x = torch.as_tensor(np.asarray(images), dtype=torch.float32,
                             device=self.device)
-        return activation_basis(self._head,
-                                features(self._params, x, self.cfg),
-                                self.hcfg)
+        feats = features(self._params, x, self.cfg, trunk=self._trunk)
+        return activation_basis(self._head, feats, self.hcfg)
 
     def ensure_pool(self, like: dict) -> None:
         """Allocate the (pool, stats) device state shaped like ``like``
@@ -193,6 +204,7 @@ class SarServingEngine:
             pad = np.repeat(imgs[-1:], self.n_slots - take, axis=0)
             imgs = np.concatenate([imgs, pad], axis=0)
         rows = self.featurize(imgs)
+        self.admissions += 1
         now = time.perf_counter()
         bases = self._next_bases(take)
         taken = []

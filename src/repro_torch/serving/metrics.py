@@ -10,8 +10,9 @@ Bayesian blocks, 640 aJ per GRNG sample.  With a compiled
 ``TileProgram`` (hw/tilemap.py) the accounting charges PLACED blocks and
 the summary carries the deployed area and utilization.
 
-Telemetry, stage profiles, SLO snapshots, lifecycle stamps and run
-metadata (``extra``) of the reference's summary wait for later slices.
+Run metadata (``extra``, e.g. the chip instance served on) is merged
+into the summary.  Telemetry, stage profiles, SLO snapshots and
+lifecycle stamps of the reference's summary wait for later slices.
 """
 
 from __future__ import annotations
@@ -179,9 +180,11 @@ def request_energy(rec: RequestRecord, layers, tile_program=None,
 class ServingMetrics:
     """Aggregates RequestRecords into the serving report."""
 
-    def __init__(self, layers=None, tile_program=None):
+    def __init__(self, layers=None, extra: dict | None = None,
+                 tile_program=None):
         self.records: list[RequestRecord] = []
         self.layers = layers          # energy.LayerShape list or None
+        self.extra = dict(extra or {})
         self.tile_program = tile_program
         self.wall_start: float | None = None
         self.wall_end: float | None = None
@@ -215,6 +218,7 @@ class ServingMetrics:
                                placed_decisions_per_s=nan,
                                placed_latency_replicated_s=nan)
             out.update(self._tile_summary())
+            out.update(self.extra)
             return out
         n_dec = sum(r.n_decisions for r in self.records)
         samples = np.array([r.n_samples / max(r.n_decisions, 1)
@@ -272,6 +276,7 @@ class ServingMetrics:
                                             self.tile_program,
                                             replicated=True)
         out.update(self._tile_summary())
+        out.update(self.extra)
         return out
 
     def _tile_summary(self) -> dict:
