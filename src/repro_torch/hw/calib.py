@@ -29,11 +29,17 @@ from repro_torch.core.sampling import (BayesHeadConfig, hoisted_sigma_basis,
 from repro_torch.hw.instance import ChipInstance
 
 
-def measured_grng(icfg: g.GRNGConfig, n_cells: int = 2048,
-                  n_samples: int = 128) -> g.GRNGConfig:
+# The calibration measurement: reads of a block of cells, and samples
+# per cell both for the sum constants and for each cell's offset.
+_CALIB_CELLS = 2048
+_CALIB_SAMPLES = 64
+
+
+def measured_grng(icfg: g.GRNGConfig) -> g.GRNGConfig:
     """The calibrated serving view: physical params + measured
-    constants (mean and population SD, ddof 0, of the raw sums)."""
-    raw = g.raw_sums(icfg, n_cells, 1, n_samples)
+    constants (mean and population SD, ddof 0, of the raw sums of
+    ``_CALIB_SAMPLES`` reads of ``_CALIB_CELLS`` cells)."""
+    raw = g.raw_sums(icfg, _CALIB_CELLS, 1, _CALIB_SAMPLES)
     return dataclasses.replace(icfg, sum_mean=float(raw.mean()),
                                sum_std=float(raw.std(correction=0)))
 
@@ -41,8 +47,7 @@ def measured_grng(icfg: g.GRNGConfig, n_cells: int = 2048,
 def prepare_instance_head(mu: torch.Tensor, sigma: torch.Tensor,
                           cfg: BayesHeadConfig,
                           instance: ChipInstance | None = None,
-                          calibrated: bool = True,
-                          n_offset_samples: int = 64
+                          calibrated: bool = True
                           ) -> tuple[dict, BayesHeadConfig]:
     """Deploy (µ, σ) onto a chip instance.
 
@@ -56,9 +61,9 @@ def prepare_instance_head(mu: torch.Tensor, sigma: torch.Tensor,
         return prepare_serving_head(mu, sigma, cfg), cfg
     icfg = instance.grng(cfg.grng)
     if calibrated:
-        scfg = measured_grng(icfg, n_samples=max(n_offset_samples, 64))
+        scfg = measured_grng(icfg)
         mu_p = compensate_mu(mu, sigma, scfg, exact=False,
-                             n_est=n_offset_samples)
+                             n_est=_CALIB_SAMPLES)
     else:
         # the factory (golden) transform: right math, wrong chip
         scfg = icfg

@@ -32,12 +32,15 @@ _SEED_DEVICE = 0xD1E0
 _SEED_NOISE = 0x0A15
 _SEED_WEIGHT = 0x3E17
 _SEED_IMPRINT = 0x16B1
+# Physical ADC columns of one array tile; ``adc_columns`` tiles their
+# front ends over a layer's logical output columns.
+_ADC_COLUMNS = 64
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ChipInstance:
     """One die.  Scalars are its frozen corner draw; ``adc_gain`` /
-    ``adc_offset`` are per-physical-column ([tile] = 64) arrays tiled
+    ``adc_offset`` are per-physical-column ([_ADC_COLUMNS]) arrays tiled
     over logical output columns by ``adc_columns``."""
     chip_id: int
     device_seed: int            # GRNG array programming draw
@@ -53,21 +56,18 @@ class ChipInstance:
     age_s: float = 0.0          # simulated seconds since programming
     imprint: float = 0.0        # accumulated Vth-walk RMS [µA] at age_s
     adc_gain: np.ndarray = dataclasses.field(
-        default_factory=lambda: np.ones((64,), np.float32))
+        default_factory=lambda: np.ones((_ADC_COLUMNS,), np.float32))
     adc_offset: np.ndarray = dataclasses.field(
-        default_factory=lambda: np.zeros((64,), np.float32))
+        default_factory=lambda: np.zeros((_ADC_COLUMNS,), np.float32))
 
-    def grng(self, base: GRNGConfig,
-             temp_c: float | None = None) -> GRNGConfig:
-        """This chip's physical GRNG config (uncalibrated view: nominal
-        standardization constants); ``temp_c`` overrides the stored
-        operating point."""
-        t = self.temp_c if temp_c is None else temp_c
+    def grng(self, base: GRNGConfig) -> GRNGConfig:
+        """This chip's physical GRNG config at its operating point
+        (uncalibrated view: nominal standardization constants)."""
         return dev.degraded_grng(
             base, device_seed=self.device_seed, noise_seed=self.noise_seed,
             f_i_lo=self.f_i_lo, f_delta_i=self.f_delta_i,
             f_gamma=self.f_gamma,
-            drift=dev.drift_factor(self.tc_current, t),
+            drift=dev.drift_factor(self.tc_current, self.temp_c),
             read_sigma=self.read_sigma,
             imprint=self.imprint,
             # an un-aged die keeps the base seed, so that a golden die's
@@ -113,25 +113,23 @@ class ChipInstance:
         return cls(**kw)
 
 
-def golden_instance(base: GRNGConfig | None = None,
-                    tile: int = 64) -> ChipInstance:
+def golden_instance() -> ChipInstance:
     """The characterized die itself: every nonideality zero and the
     golden config's hash seeds, so the instance path reproduces the
     golden path bit for bit."""
-    base = base or GRNGConfig()
-    return ChipInstance(
-        chip_id=-1, device_seed=base.seed, noise_seed=base.noise_seed,
-        weight_seed=_SEED_WEIGHT,
-        adc_gain=np.ones((tile,), np.float32),
-        adc_offset=np.zeros((tile,), np.float32))
+    base = GRNGConfig()
+    return ChipInstance(chip_id=-1, device_seed=base.seed,
+                        noise_seed=base.noise_seed, weight_seed=_SEED_WEIGHT)
 
 
 def sample_instances(seed: int, n: int,
-                     spec: dev.VariationSpec | None = None,
-                     tile: int = 64) -> tuple[ChipInstance, ...]:
+                     spec: dev.VariationSpec | None = None
+                     ) -> tuple[ChipInstance, ...]:
     """Draw ``n`` frozen chip instances from the population ``spec``
-    (numpy ``default_rng(seed)``, draw for draw as the reference)."""
+    (numpy ``default_rng(seed)``, draw for draw as the reference), each
+    with ``_ADC_COLUMNS`` physical column front ends."""
     spec = spec or dev.VariationSpec()
+    tile = _ADC_COLUMNS
     rng = np.random.default_rng(seed)
     chips = []
     for i in range(n):

@@ -9,7 +9,8 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
 The libraries go into ``kernels/_build/`` (git-ignored), keyed by a hash
 of every source under ``csrc/`` and the flags, and are built at first
 use: ``load(name)`` builds the one library it needs, ``build_all()``
-starts one ``nvcc`` per source, all together, and loads them.  The compiler's report (registers, shared memory, spills) is kept beside
+runs one ``nvcc`` per source, all at once, and loads them.  The
+compiler's report (registers, shared memory, spills) is kept beside
 each library as ``<lib>.log``.  Nothing here touches CUDA at import
 time, so CPU-only machines import the package freely.
 """
@@ -22,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -58,50 +60,33 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_key()}.so"
 
 
-def _start(name: str):
-    """Start nvcc for ``name`` unless its library is built; returns the
-    running job or None."""
+def _build(name: str) -> None:
+    """Run nvcc for ``name`` unless its library is built."""
     out = library_path(name)
     if out.exists():
-        return None
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.Popen(
+    proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, tmp
-
-
-def _finish(name: str, job) -> None:
-    """Wait for a job of ``_start`` and move its library into place."""
-    if job is None:
-        return
-    proc, tmp = job
-    log = proc.communicate()[0]
-    out = library_path(name)
-    out.with_suffix(".so.log").write_text(log)
+    out.with_suffix(".so.log").write_text(proc.stdout)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)               # atomic: a half-built file never loads
 
 
 def build_all() -> dict[str, Path]:
     """Build every source, one nvcc each, all started together, then
     load them; returns {name: library path}."""
-    jobs = {name: _start(name) for name in sources()}
-    failed = []
-    for name, job in jobs.items():      # wait for every job, then report
-        try:
-            _finish(name, job)
-        except RuntimeError as err:
-            failed.append(str(err))
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    for name in jobs:
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(_build, names))  # re-raises a failed build
+    for name in names:
         load(name)
-    return {name: library_path(name) for name in jobs}
+    return {name: library_path(name) for name in names}
 
 
 def build_log(name: str) -> str:
@@ -114,5 +99,5 @@ def build_log(name: str) -> str:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of ``lib<name>``, built first if needed."""
-    _finish(name, _start(name))
+    _build(name)
     return ctypes.CDLL(str(library_path(name)))
