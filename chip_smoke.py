@@ -40,10 +40,33 @@ JSON line):
      in kind and depth); confidence and MI agree to 1e-5 unless the
      trunk flipped an ADC code between card and CPU on the batches the
      card admitted (counted), then to 1e-3;
-  6. kernel timing at the main path's shapes: device time from CUDA
-     graph replays and per-call time of eager calls (CUDA events), beside
-     the plain version's and the card's byte/flop bound;
-  7. last line: {"ok": true, "device": {...}}.
+  6. the head kernels against their plain versions on the card: the
+     GRNG ε kernel at Fig. 9's block (256×256, R=8) and at a ragged die
+     block with offsets (atol 1e-5, unequal elements counted: expected
+     0); the rank16 and paper head kernels at the SAR head's shape
+     (B=64, K=64, N=2, R=20) and at kernel_bench's (B=8, K=512, N=2048),
+     ideal, with read noise and (paper) with the 6-bit ADC (rtol/atol
+     1e-4; an ADC code flipped by the K order is counted and held to one
+     LSB); run-to-run bit identity; wrapper refusals;
+  7. the SAR UQ path (Fig. 16's protocol): ``logit_samples_serve`` at
+     R=20 in rank16 and in paper mode over 16 batches of 64 SARD images
+     (``batch_at(SardConfig(image_size=32, seed=7), 10000+i, 64)``),
+     clean and fog severity 1.0, then ``uq_report``; again on the gate
+     die (the trunk through the CIM kernel, the head deployed by
+     ``prepare_instance_head``, read noise on); launch counts zeroed
+     before and read after (one head launch per batch per mode, three
+     CIM launches per die batch); card against CPU on 2 batches (equal
+     predictions, confidence within 1e-5, or 1e-3 where the trunk
+     flipped an ADC code, counted); the Fig. 9 path (``ops.grng_eps`` at
+     256×256×8, one ε launch; ``calibrate``; ``distribution_sample``'s
+     mean and SD);
+  8. kernel timing: device time from CUDA graph replays and per-call
+     time of eager calls (CUDA events), beside the plain version's and
+     the card's byte/flop bound: decision and CIM at the serving path's
+     shapes, ε at Fig. 9's block, the head kernels at kernel_bench's
+     shape for R = 4, 16, 20, 64 (paper with the ADC at R = 20) and at
+     the SAR head's shape for R = 20;
+  9. last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the reference package.
 """
 
@@ -72,6 +95,14 @@ STREAM = dict(n_slots=32, corrupt_frac=0.25, corruption="fog", seed=0)
 # to this only when one is present, to TOL's atol otherwise; verdicts,
 # predictions and sample counts must be equal either way.
 CIM_CPU_ATOL = 1e-3
+# The sampled head: kernel_bench's shape (benchmarks/kernel_bench.py:32)
+# and its sample counts (:73), the SAR head's shape at Fig. 16's batch.
+BENCH_HEAD = dict(b=8, k=512, n=2048)
+BENCH_R = (4, 16, 20, 64)
+SAR_HEAD = dict(b=64, k=64, n=2)
+UQ_R = 20
+UQ_BATCHES = 16                      # Fig. 16: 16 batches of 64 images
+FIG9 = dict(n_rows=256, n_cols=256, num_samples=8)
 
 
 def emit(obj) -> None:
@@ -510,6 +541,366 @@ def chip_card_vs_cpu(kw: dict, die) -> dict:
 
 
 # ----------------------------------------------------------------------
+# the sampled head: ε and head kernels against their plain versions
+# ----------------------------------------------------------------------
+def head_inputs(b, k, n, *, read_sigma=0.0, r=UQ_R, sample0=0, seed=0,
+                dtype="float32"):
+    """x, µ', σ of a head product made on the CPU from a seed, on the
+    card, with the config and selections."""
+    import torch
+    from repro_torch.core.clt_grng import GRNGConfig, selections
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, k), generator=gen)
+    mu = torch.randn((k, n), generator=gen) * 0.05
+    sigma = torch.nn.functional.softplus(
+        torch.randn((k, n), generator=gen) - 2.0) * 0.1
+    cfg = GRNGConfig(read_sigma=read_sigma)
+    td = getattr(torch, dtype)
+    return dict(x=x.to("cuda", td), mu=mu.to("cuda", td),
+                sigma=sigma.to("cuda", td), cfg=cfg,
+                sel=selections(cfg, r, sample0, device="cuda"),
+                sample0=sample0)
+
+
+def head_full_scale(c) -> "torch.Tensor":
+    """The paper ADC's full scales as ``ops.bayes_head_mvm`` computes
+    them, on the card."""
+    import torch
+    from repro_torch.core.quant import QuantConfig, adc_full_scale
+
+    def rms(t):
+        return torch.sqrt((t.float() ** 2).mean() + 1e-12)
+    q = QuantConfig(enabled=True)
+    return torch.stack([adc_full_scale(rms(c["x"]), rms(w), q)
+                        for w in (c["mu"], c["sigma"])])
+
+
+def head_call(kind: str, c: dict, plain: bool = False):
+    """One call of a head kernel (or its plain version) on case ``c``:
+    kind 'rank16', 'paper' or 'paper_adc'."""
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import bayes
+    kw = dict(sample0=c["sample0"])
+    if kind == "rank16":
+        fn = bayes.bayes_rank16_plain if plain else bayes.bayes_rank16
+        return fn(c["x"], c["mu"], c["sigma"], c["sel"], c["cfg"], **kw)
+    fn = bayes.bayes_paper_plain if plain else bayes.bayes_paper
+    qcfg = QuantConfig(enabled=True) if kind == "paper_adc" else None
+    return fn(c["x"], c["mu"], c["sigma"], c["sel"], c.get("fs"), c["cfg"],
+              qcfg, **kw)
+
+
+def run_grng_checks() -> dict:
+    import torch
+    from repro_torch.core.clt_grng import GRNGConfig, selections
+    from repro_torch.kernels import grng
+    cases = {
+        "fig9_256x256_r8": dict(cfg=GRNGConfig(), k=256, n=256, r=8,
+                                row0=0, col0=0, sample0=0),
+        "die_200x130_r8_offsets": dict(
+            cfg=GRNGConfig(read_sigma=0.5, imprint=0.37), k=200, n=130, r=8,
+            row0=16, col0=40, sample0=5),
+    }
+    worst, unequal, inputs = 0.0, 0, {}
+    for name, c in cases.items():
+        sel = selections(c["cfg"], c["r"], c["sample0"], device="cuda")
+        kw = dict(row0=c["row0"], col0=c["col0"], sample0=c["sample0"])
+        got = grng.grng_eps(sel, c["cfg"], c["k"], c["n"], **kw)
+        want = grng.grng_eps_plain(sel, c["cfg"], c["k"], c["n"], **kw)
+        again = grng.grng_eps(sel, c["cfg"], c["k"], c["n"], **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        n_unequal = int((got != want).sum())
+        check(torch.allclose(got, want, rtol=0, atol=1e-5),
+              f"GRNG ε kernel != plain version: {name} ({err})")
+        identical = torch.equal(got, again)
+        check(identical, f"two ε launches differ: {name}")
+        worst, unequal = max(worst, err), unequal + n_unequal
+        inputs[name] = dict(sel=sel, cfg=c["cfg"], n_rows=c["k"],
+                            n_cols=c["n"], **kw)
+        emit({"kernel_check": "grng_eps", "case": name, "K": c["k"],
+              "N": c["n"], "R": c["r"], "max_abs_err": err,
+              "unequal_elements": n_unequal, "elements": got.numel(),
+              "atol": 1e-5, "bit_identical_relaunch": identical})
+    return {"max_abs_err": worst, "unequal_elements": unequal,
+            "inputs": inputs}
+
+
+def run_head_checks() -> dict:
+    """The rank16 and paper head kernels against their plain versions at
+    the SAR head's shape and at kernel_bench's, with and without read
+    noise, paper also with the ADC; run-to-run bit identity; refusals."""
+    import torch
+    worst = {"rank16": 0.0, "paper": 0.0}
+    flips = outputs = 0
+    for shape_name, shape in (("sar_head", SAR_HEAD),
+                              ("kernel_bench", BENCH_HEAD)):
+        for read_sigma in (0.0, 0.4):
+            c = head_inputs(**shape, read_sigma=read_sigma, sample0=7)
+            c["fs"] = head_full_scale(c)
+            for kind in ("rank16", "paper", "paper_adc"):
+                got = head_call(kind, c)
+                want = head_call(kind, c, plain=True)
+                again = head_call(kind, c)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()),
+                      f"{kind} {shape_name}: non-finite samples")
+                err = (got - want).abs()
+                off = err > 1e-4 + 1e-4 * want.abs()
+                n_flips = int(off.sum()) if kind == "paper_adc" else 0
+                if kind == "paper_adc":
+                    lsb = float(c["fs"].max()) / 31
+                    check(n_flips <= 1e-4 * got.numel(),
+                          f"{kind} {shape_name}: {n_flips} outputs off")
+                    check(bool((err[off] <= lsb * (1 + 1e-4)).all()),
+                          f"{kind} {shape_name}: an output off by more "
+                          f"than one LSB ({lsb})")
+                    check(torch.allclose(got[~off], want[~off], rtol=1e-4,
+                                         atol=1e-4),
+                          f"paper ADC kernel != plain: {shape_name}")
+                else:
+                    check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+                          f"{kind} kernel != plain version: {shape_name} "
+                          f"read_sigma={read_sigma} ({float(err.max())})")
+                identical = torch.equal(got, again)
+                check(identical, f"two {kind} launches differ: {shape_name}")
+                key = "rank16" if kind == "rank16" else "paper"
+                rest = float(err[~off].max()) if n_flips < err.numel() else 0.
+                worst[key] = max(worst[key], rest if n_flips else
+                                 float(err.max()))
+                flips += n_flips
+                outputs += got.numel() if kind == "paper_adc" else 0
+                emit({"kernel_check": f"bayes_{kind}", "case": shape_name,
+                      **shape, "R": UQ_R, "read_sigma": read_sigma,
+                      "max_abs_err": float(err.max()),
+                      "adc_code_flips": n_flips, "rtol": 1e-4, "atol": 1e-4,
+                      "bit_identical_relaunch": identical})
+    c = head_inputs(**SAR_HEAD)
+    for what, bad in (("a CPU operand", dict(c, mu=c["mu"].cpu())),
+                      ("float64 x", dict(c, x=c["x"].double()))):
+        try:
+            head_call("rank16", bad)
+        except (ValueError, TypeError):
+            pass
+        else:
+            raise AssertionError(f"the head wrapper took {what}")
+    emit({"head_checks": "ok", "max_abs_err": worst,
+          "paper_adc_code_flips": flips, "paper_adc_outputs": outputs})
+    return {"worst": worst, "flips": flips}
+
+
+# ----------------------------------------------------------------------
+# the SAR UQ path (Fig. 16) and the Fig. 9 path
+# ----------------------------------------------------------------------
+def uq_batches(device: str, n: int = UQ_BATCHES) -> dict:
+    """Fig. 16's test batches: {condition: [(images, labels), ...]}."""
+    from repro_torch.data.sard import SardConfig, batch_at, corrupted_batch
+    dcfg = SardConfig(image_size=32, seed=7)
+    out = {"clean": [], "fog": []}
+    for i in range(n):
+        clean = batch_at(dcfg, 10_000 + i, 64)
+        fog = corrupted_batch(dcfg, 10_000 + i, 64, "fog", 1.0)
+        for cond, data in (("clean", clean), ("fog", fog)):
+            out[cond].append((data["images"].to(device),
+                              data["labels"].to(device)))
+    return out
+
+
+def uq_params(device: str):
+    import torch
+    from repro_torch.models import sar_cnn
+    cfg = sar_cnn.SarCnnConfig()
+    return cfg, sar_cnn.init_sar_cnn(torch.Generator().manual_seed(3), cfg,
+                                     device=device)
+
+
+def die_head(params, cfg, mode: str, die):
+    """The gate die's calibrated head, deployed on the host (as the
+    serving engine deploys it) and moved to the params' device."""
+    import torch
+    from repro_torch.core.bayes_layer import sigma_of
+    from repro_torch.core.sampling import BayesHeadConfig
+    from repro_torch.hw import prepare_instance_head
+    host = {k: v.cpu() for k, v in params["head"].items()}
+    hcfg = BayesHeadConfig(num_samples=UQ_R, mode=mode, grng=cfg.grng,
+                           compute_dtype=torch.float32)
+    head, scfg = prepare_instance_head(host["mu"], sigma_of(host), hcfg,
+                                       die, calibrated=True)
+    dev = params["head"]["mu"].device
+    return {k: v.to(dev) for k, v in head.items()}, scfg
+
+
+def sample_uq(params, cfg, batches: dict, die=None) -> dict:
+    """R=20 logit samples of every batch in both modes, through
+    ``logit_samples_serve`` (ideal die) or the die's trunk and calibrated
+    head (``features(trunk=)`` + ``logit_samples``): {mode: {condition:
+    [R, B·n, 2]}} and the labels."""
+    import torch
+    from repro_torch.core.sampling import logit_samples
+    from repro_torch.models import sar_cnn
+    modes = ("rank16", "paper")
+    out = {m: {} for m in modes}
+    labels = {}
+    if die is not None:
+        trunk = sar_cnn.program_trunk(params, cfg, die)
+        heads = {m: die_head(params, cfg, m, die) for m in modes}
+    for cond, items in batches.items():
+        per = {m: [] for m in modes}
+        for images, _ in items:
+            if die is None:
+                for m in modes:
+                    per[m].append(sar_cnn.logit_samples_serve(
+                        params, images, cfg, UQ_R, mode=m))
+            else:
+                feats = sar_cnn.features(params, images, cfg, trunk=trunk)
+                for m in modes:
+                    head, scfg = heads[m]
+                    per[m].append(logit_samples(head, feats, scfg))
+        for m in modes:
+            out[m][cond] = torch.cat(per[m], dim=1)
+        labels[cond] = torch.cat([lab for _, lab in items])
+    return {"samples": out, "labels": labels}
+
+
+def uq_reports(res: dict) -> dict:
+    from repro_torch.core.uncertainty import uq_report
+    return {m: {cond: {k: float(v) for k, v in uq_report(
+        s, res["labels"][cond]).items()} for cond, s in per.items()}
+        for m, per in res["samples"].items()}
+
+
+def run_uq_path() -> dict:
+    """The SAR UQ path on the ideal die and on the gate die, launch
+    counts zeroed just before each and read just after."""
+    import torch
+    from repro_torch.kernels import bayes
+    from repro_torch.kernels.cim import cim_mvm
+    cfg, params = uq_params("cuda")
+    batches = uq_batches("cuda")
+    n_batches = sum(len(v) for v in batches.values())
+    sample_uq(params, cfg, {"clean": batches["clean"][:1]})      # warm-up
+    die = gate_die()
+    launches = {}
+    reports = {}
+    results = {}
+    for name, chip in (("ideal", None), ("gate_die", die)):
+        torch.cuda.synchronize()
+        bayes.bayes_rank16.launches = bayes.bayes_paper.launches = 0
+        cim_mvm.launches = 0
+        t0 = time.perf_counter()
+        res = sample_uq(params, cfg, batches, die=chip)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"bayes_rank16": bayes.bayes_rank16.launches,
+                  "bayes_paper": bayes.bayes_paper.launches,
+                  "cim_mvm": cim_mvm.launches}
+        check(counts["bayes_rank16"] == counts["bayes_paper"] == n_batches,
+              f"{name}: head launches {counts} != {n_batches} batches a mode")
+        check(counts["cim_mvm"] == (3 * n_batches if chip else 0),
+              f"{name}: CIM launches {counts['cim_mvm']}")
+        for m, per in res["samples"].items():
+            for cond, s in per.items():
+                check(tuple(s.shape) == (UQ_R, 64 * UQ_BATCHES, 2)
+                      and bool(torch.isfinite(s).all()),
+                      f"{name} {m} {cond}: samples {tuple(s.shape)}")
+        r16, pap = res["samples"]["rank16"], res["samples"]["paper"]
+        if chip is None:   # no read noise: the modes give the same samples
+            gap = max(float((r16[c] - pap[c]).abs().max()) for c in r16)
+            check(gap <= 1e-4, f"ideal die: rank16 vs paper samples {gap}")
+        else:
+            # read noise: per-cell draws (paper) against their logit-level
+            # projection (rank16) agree in distribution; the per-logit
+            # means over R samples, as z-scores against the samples' own
+            # spread, stay inside 6 (2048 logits a condition)
+            gap = max(float(((r16[c].mean(0) - pap[c].mean(0)).abs()
+                             / torch.sqrt((r16[c].var(0) + pap[c].var(0))
+                                          / UQ_R + 1e-12)).max())
+                      for c in r16)
+            check(gap <= 6.0, f"die: rank16 vs paper mean z-score {gap}")
+        reports[name] = uq_reports(res)
+        launches[name] = counts
+        results[name] = res
+        emit({"uq_path": name, "images": 64 * n_batches,
+              "conditions": list(batches), "R": UQ_R, "wall_s": wall,
+              "launches": counts, "rank16_vs_paper_gap": gap,
+              "uq_report": reports[name]})
+    card_vs_cpu = uq_card_vs_cpu(results, die)
+    emit({"uq_cross_checks": "ok", "card_vs_cpu": card_vs_cpu})
+    return {"launches": launches, "reports": reports}
+
+
+def uq_card_vs_cpu(results: dict, die) -> dict:
+    """The first clean and fog batch on the CPU against the card's
+    samples of them: equal predictions, confidence within 1e-5 (1e-3
+    on the die if its trunk flipped an ADC code between the two)."""
+    import torch
+    from repro_torch.core.uncertainty import predictive_stats
+    from repro_torch.models import sar_cnn
+    cfg, params = uq_params("cpu")
+    batches = uq_batches("cpu", n=1)
+    out = {}
+    for name, chip in (("ideal", None), ("gate_die", die)):
+        cpu = sample_uq(params, cfg, batches, die=chip)
+        flips = 0
+        if chip is not None:
+            trunks = {"cpu": sar_cnn.program_trunk(params, cfg, die),
+                      "cuda": sar_cnn.program_trunk(uq_params("cuda")[1],
+                                                    cfg, die)}
+            for images, _ in batches["clean"] + batches["fog"]:
+                h = {"cpu": images, "cuda": images.cuda()}
+                for i in range(len(trunks["cpu"])):
+                    h = {d: sar_cnn._cim_conv(h[d], trunks[d][i], cfg)
+                         for d in h}
+                    flips += int(((h["cuda"].cpu() - h["cpu"]).abs()
+                                  > CIM_TOL["atol"]).sum())
+        atol = CIM_CPU_ATOL if flips else TOL["atol"]
+        gap = 0.0
+        for m, per in cpu["samples"].items():
+            for cond, s_cpu in per.items():
+                s_card = results[name]["samples"][m][cond][:, :64].cpu()
+                a, b = predictive_stats(s_card), predictive_stats(s_cpu)
+                check(torch.equal(a["prediction"], b["prediction"]),
+                      f"{name} {m} {cond}: card and CPU predict differently")
+                d = float((a["confidence"] - b["confidence"]).abs().max())
+                check(d <= atol, f"{name} {m} {cond}: confidence gap {d}")
+                gap = max(gap, d)
+        out[name] = {"batches": 2, "trunk_code_flips": flips, "atol": atol,
+                     "max_confidence_gap": gap}
+    return out
+
+
+def run_fig9_path() -> dict:
+    """Fig. 9: the ε block through ``ops.grng_eps`` (count zeroed before,
+    read after), the calibration and the distribution sample."""
+    import numpy as np
+    import torch
+    from repro_torch.core import clt_grng as g
+    from repro_torch.kernels import grng, ops
+    cfg = g.GRNGConfig()
+    torch.cuda.synchronize()
+    grng.grng_eps.launches = 0
+    e = ops.grng_eps(cfg, **FIG9)
+    torch.cuda.synchronize()
+    launches = grng.grng_eps.launches
+    check(launches == 1, f"Fig. 9 path: {launches} ε launches")
+    check(tuple(e.shape) == (8, 256, 256) and bool(torch.isfinite(e).all()),
+          "Fig. 9 ε block malformed")
+    mean, std = g.calibrate(cfg, 4096, 64, device="cuda")
+    flat = g.distribution_sample(cfg, 8192, 32, device="cuda")
+    check(abs(float(mean) - 10.1) < 0.2 and abs(float(std) - 0.993) < 0.1,
+          f"Fig. 9 sum statistics off: {float(mean)}, {float(std)}")
+    out = {"launches": launches, "eps_mean": float(e.mean()),
+           "eps_sd": float(e.std()), "sum_mean_uA": float(mean),
+           "sum_sd_uA": float(std),
+           "distribution_sample_mean": float(np.mean(flat)),
+           "distribution_sample_sd": float(np.std(flat)),
+           "distribution_sample_size": int(flat.size)}
+    emit({"fig9_path": "ops.grng_eps + calibrate + distribution_sample",
+          **out})
+    return out
+
+
+# ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
 def call_ms(fn, iters: int, warmup: int = 50) -> float:
@@ -660,8 +1051,158 @@ def cim_timing(cases: dict, launches: int, summary: dict) -> dict:
     }
 
 
+def timed(kernel, plain, eager_iters: int = 200) -> dict:
+    """Device ms of a kernel call and of its plain version by graph
+    replay (the replayed count sized from one eager call so that a
+    replay takes ~20 ms, 3 to 1000 calls), and of eager calls.  A plain
+    version slower than 2 ms a call (hundreds of kernels over large
+    temporaries) is timed by CUDA events over 3 eager calls instead:
+    its launch overhead is then a small share."""
+    import torch
+
+    def one_call_s(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return max(time.perf_counter() - t0, 1e-6)
+
+    def iters(t):
+        return max(3, min(1000, int(0.02 / t)))
+    tk, tp = one_call_s(kernel), one_call_s(plain)
+    out = {"ms": device_ms(kernel, iters(tk)),
+           "call_ms": call_ms(kernel, min(eager_iters, iters(tk)), warmup=5),
+           "replayed_calls": iters(tk)}
+    if tp < 2e-3:
+        out.update(plain_ms=device_ms(plain, iters(tp)),
+                   plain_timing="graph replay")
+    else:
+        out.update(plain_ms=call_ms(plain, 3, warmup=1),
+                   plain_timing="eager calls, CUDA events")
+    return out
+
+
+def bound_line(nbytes: int, ops: int, hashes: int) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes": nbytes, "bound_ops": ops, "hash3_evals": hashes}
+
+
+def grng_bound(k: int, n: int, r: int, cfg) -> dict:
+    """Least time for one ε block: sel read and ε written once, against
+    its float operations: per current (i_lo+Δi·bit) + γ·gauss with the
+    three-byte gauss (7; 6 more for an imprint term), per sample and cell
+    the 16 products and adds, the read noise (6) and the standardization
+    (2).  The integer hashing (hash3 evaluations, counted apart) has no
+    peak rate in the table and is not in the bound."""
+    per_current = 7 + (6 if cfg.imprint else 0)
+    per_eps = 34 + (6 if cfg.read_sigma else 0)
+    nbytes = 4 * (r * 16 + r * k * n)
+    ops = k * n * 16 * per_current + r * k * n * per_eps
+    hashes = k * n * 16 * (2 if cfg.imprint else 1) + (
+        r * k * n if cfg.read_sigma else 0)
+    return bound_line(nbytes, ops, hashes)
+
+
+def head_bound(kind: str, b: int, k: int, n: int, r: int, cfg,
+               wbytes: int = 4) -> dict:
+    """Least time for one head product: x, µ', σ, sel (and fs) read and
+    the [R, B, N] samples written once, against the float operations the
+    function needs.  rank16: the 18 products 2BKN (x·µ', x·σ, 16 basis;
+    a 19th for (x²)·(σ²) with read noise), the currents (7 a device, 1
+    more for σ·I_j) and per sample the 16-term mix and epilogue (36, and
+    8 more with read noise).  paper: x·µ' and one 2BKN product per
+    sample, the currents, per sample and cell the ε sum (34, 6 more with
+    read noise) and σ·ε; with the ADC 6 operations a partial sum.  The
+    hash3 count is reported apart."""
+    nbytes = wbytes * (b * k + 2 * k * n) + 4 * (r * 16 + r * b * n)
+    currents = k * n * 16 * 8
+    if kind == "rank16":
+        noisy = bool(cfg.read_sigma)
+        ops = (2 * b * k * n * (18 + noisy) + currents
+               + r * b * n * (36 + 8 * noisy))
+        hashes = k * n * 16 + (r * b * n if noisy else 0)
+    else:
+        per_eps = 35 + (6 if cfg.read_sigma else 0)
+        ops = 2 * b * k * n * (1 + r) + currents + r * k * n * per_eps
+        if kind == "paper_adc":
+            nbytes += 8
+            ops += 6 * b * n * -(-k // 64) * (1 + r)
+        hashes = k * n * 16 + (r * k * n if cfg.read_sigma else 0)
+    return bound_line(nbytes, ops, hashes)
+
+
+def head_timing(uq_launches: dict, fig9: dict, grng_checks: dict,
+                head_checks: dict) -> list[dict]:
+    """The kernels-line entries of the ε and head kernels: ε at Fig. 9's
+    block, the head kernels at kernel_bench's shape for every R (paper
+    also with the ADC at R=20); the R=20 entry is the headline."""
+    from repro_torch.kernels import grng
+    g9 = grng_checks["inputs"]["fig9_256x256_r8"]
+    t = timed(lambda: grng.grng_eps(**g9), lambda: grng.grng_eps_plain(**g9))
+    eps_line = {
+        "name": "grng_eps", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/grng_eps.cu",
+        "replaces": "src/repro/kernels/clt_grng_kernel.py:103",
+        "launches": fig9["launches"],
+        "launches_on": "the Fig. 9 path (ops.grng_eps at 256x256x8)",
+        "max_abs_err": grng_checks["max_abs_err"],
+        "unequal_elements": grng_checks["unequal_elements"],
+        "shape": "K=256 N=256 R=8 (Fig. 9's block)",
+        **t, "kernel_ms": t["ms"],
+        **grng_bound(256, 256, 8, g9["cfg"]), "library_ms": None,
+        "library_note": "no single PyTorch call hashes the device currents",
+        "timing": "ms and plain_ms: device time per call from CUDA graph "
+                  "replays; call_ms: eager calls, host included"}
+    launches = {k: uq_launches["ideal"][k] + uq_launches["gate_die"][k]
+                for k in ("bayes_rank16", "bayes_paper")}
+    lines = {}
+    for kind in ("rank16", "paper"):
+        cases = [(kind, BENCH_HEAD, r) for r in BENCH_R]
+        if kind == "paper":
+            cases.append(("paper_adc", BENCH_HEAD, UQ_R))
+        cases.append((kind, SAR_HEAD, UQ_R))     # launch-bound: recorded
+        shapes = []
+        for case, shape, r in cases:
+            c = head_inputs(**shape, r=r, seed=1)
+            c["fs"] = head_full_scale(c)
+            t = timed(lambda: head_call(case, c),
+                      lambda: head_call(case, c, plain=True))
+            shapes.append({"case": case, **shape, "R": r, **t,
+                           **head_bound(case, **shape, r=r, cfg=c["cfg"])})
+            emit({"timing": f"bayes_{case}", **shapes[-1]})
+        first = shapes[BENCH_R.index(UQ_R)]
+        body = 58 if kind == "rank16" else 130
+        lines[kind] = {
+            "name": f"bayes_{kind}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bayes_mvm.cu",
+            "replaces": f"src/repro/kernels/bayes_mvm.py:202 (mode "
+                        f"'{kind}', body at :{body})",
+            "launches": launches[f"bayes_{kind}"],
+            "launches_on": "the SAR UQ path, ideal die and gate die",
+            "max_abs_err": head_checks["worst"][kind],
+            "shape": f"B=8 K=512 N=2048 R={UQ_R} (kernel_bench's head); "
+                     "every R under 'shapes'",
+            "ms": first["ms"], "kernel_ms": first["ms"],
+            "plain_ms": first["plain_ms"], "call_ms": first["call_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "bound_bytes": first["bound_bytes"],
+            "bound_ops": first["bound_ops"],
+            "hash3_evals": first["hash3_evals"], "library_ms": None,
+            "library_note": "no single PyTorch call hashes the device "
+                            "currents into the weights it multiplies",
+            "timing": "ms and plain_ms: device time per call from CUDA "
+                      "graph replays; call_ms: eager calls, host included",
+            "shapes": shapes}
+    lines["paper"]["adc_code_flips"] = head_checks["flips"]
+    return [eps_line, lines["rank16"], lines["paper"]]
+
+
 def run_timing(inputs: dict, launches: int, worst: float,
-               cim_line: dict) -> None:
+               cim_line: dict, head_lines: list) -> None:
     from repro_torch.kernels.decision import (decision_stats,
                                               decision_stats_plain)
     times = {}
@@ -708,7 +1249,7 @@ def run_timing(inputs: dict, launches: int, worst: float,
         "call_ms_r20": r20["call_ms"],
         "plain_call_ms_r20": r20["plain_call_ms"],
         "bound_ms_r20": decision_bound_ms(inputs["main_r20"])[0],
-    }, cim_line]})
+    }, cim_line, *head_lines]})
 
 
 def main() -> int:
@@ -735,8 +1276,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     build_s = time.perf_counter() - t0
-    check(set(libs) == {"cim_mvm", "decision"},
-          f"built {sorted(libs)}, expected cim_mvm and decision")
+    expected = {"bayes_mvm", "cim_mvm", "decision", "grng_eps"}
+    check(set(libs) == expected,
+          f"built {sorted(libs)}, expected {sorted(expected)}")
     ptxas = {n: [ln.strip() for ln in build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln]
              for n in libs}
@@ -744,10 +1286,16 @@ def main() -> int:
 
     worst, inputs = run_kernel_checks()
     cim_summary, cim_inputs = run_cim_checks()
+    grng_checks = run_grng_checks()
+    head_checks = run_head_checks()
     main_path = run_main_path()
     chip_path = run_chip_path()
+    uq_path = run_uq_path()
+    fig9 = run_fig9_path()
     run_timing(inputs, main_path["launches"], worst,
-               cim_timing(cim_inputs, chip_path["launches"], cim_summary))
+               cim_timing(cim_inputs, chip_path["launches"], cim_summary),
+               head_timing(uq_path["launches"], fig9, grng_checks,
+                           head_checks))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,7 +12,11 @@ Ported so far: SAR triage serving (``launch.serve.serve_sar`` →
 ``serving.engine.SarServingEngine``) on the ideal die and on a sampled
 chip instance (``hw/``), with two kernels: the fused decision update
 (``kernels/decision.py``) and the chunked-ADC CIM product of the conv
-trunk on a die (``kernels/cim.py``).
+trunk on a die (``kernels/cim.py``); fixed-R sampling of the Bayesian
+head and its UQ report (``models.sar_cnn.logit_samples_serve``,
+``core.sampling.logit_samples``, ``core.uncertainty``), with the fused
+head kernels in rank16 and paper mode (``kernels/bayes.py``), and the
+GRNG ε block (``kernels/grng.py``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``): ``resolve_device(None)`` is ``"cuda"``.

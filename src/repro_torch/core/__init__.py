@@ -7,7 +7,9 @@ Layout (mirrors ``repro/core``):
   offset.py       static offset compensation (exact)
   quant.py        8b µ / 4b σ quantizers reached by the serving head
   bayes_layer.py  variational head parameters -> serving head
-  sampling.py     rank16 activation basis and sample mixing
+  sampling.py     rank16 activation basis and sample mixing; paper and
+                  rank16 logit samples
+  uncertainty.py  predictive statistics, AURC, AECE/AMCE, UQ reports
   energy.py       analytic hardware energy model (pure Python)
 """
 

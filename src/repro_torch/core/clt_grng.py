@@ -10,9 +10,9 @@ the currents of the 8 devices the shared LFSR selection picks,
 
     ε(k,n,r) = (Σ_j s_r[j] · I(k,n,j) + read noise − sum_mean) / sum_std.
 
-Only the 'layer' selection granularity is ported (the serving path's
-and the per-chip calibration's); 'tile' and 'cell' wait for a later
-slice.
+Only the 'layer' selection granularity is ported (the serving path's,
+the per-chip calibration's and Fig. 9's); 'tile' and 'cell' wait for a
+later slice.
 """
 
 from __future__ import annotations
@@ -128,7 +128,7 @@ def read_noise(cfg: GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
     return read_noise_at(cfg, rows[None], cols[None], r_abs[:, None, None])
 
 
-def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
+def sum_in_order(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis term by term, j = 0, 1, …: the order the
     reference's reductions give these 16-term sums (``torch.sum`` would
     pair the terms differently)."""
@@ -146,7 +146,7 @@ def raw_sums(cfg: GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
     currents = device_currents_grid(cfg, n_rows, n_cols, row0, col0,
                                     device=device)             # [K, N, 16]
     sel = selections(cfg, num_samples, sample0, device=device)  # [R, 16]
-    raw = _sum_in_order(sel[:, None, None, :] * currents[None])
+    raw = sum_in_order(sel[:, None, None, :] * currents[None])
     if cfg.read_sigma:
         raw = raw + read_noise(cfg, n_rows, n_cols, num_samples, sample0,
                                row0, col0, device=device)
@@ -179,5 +179,22 @@ def cell_mean_offset(cfg: GRNGConfig, n_rows: int, n_cols: int,
                                     device=device)
     # in order, so the offset (a difference of nearly equal terms)
     # matches the reference bit for bit
-    expect_raw = _sum_in_order(currents) * (cfg.k_select / cfg.n_devices)
+    expect_raw = sum_in_order(currents) * (cfg.k_select / cfg.n_devices)
     return (expect_raw - cfg.sum_mean) / cfg.sum_std
+
+
+def calibrate(cfg: GRNGConfig, n_cells: int = 4096, num_samples: int = 64,
+              device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Empirical (sum_mean, sum_std) of the raw sums over ``n_cells``
+    cells × ``num_samples`` samples: the paper's Fig. 9 measurement.
+    Two 0-dim tensors (µA); the SD is the population one (ddof 0)."""
+    raw = raw_sums(cfg, n_cells, 1, num_samples, device=device)
+    return raw.mean(), raw.std(correction=0)
+
+
+def distribution_sample(cfg: GRNGConfig, n_cells: int, num_samples: int,
+                        device=None) -> np.ndarray:
+    """Flat numpy array of ε draws for distribution-quality analysis
+    (Fig. 9)."""
+    e = eps(cfg, n_cells, 1, num_samples, device=device)
+    return e.reshape(-1).cpu().numpy()

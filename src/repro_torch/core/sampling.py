@@ -12,9 +12,16 @@ mixing of ``mix_samples``.  With read noise (``read_sigma > 0``) each
 logit also carries N(0, read_sigma²·x_sigsq), hashed from the absolute
 sample index.
 
-Ported: the 'rank16' mode with a dense basis, hoisted or not.  The
-host-chunked hoist (``hoist_tile_n``) and the 'paper'/'moment' modes
-wait for later slices.
+The 'paper' mode is the faithful baseline: R explicit σε products, ε
+materialized per sample (``logit_samples_paper``).  ``logit_samples``
+sends both modes through the fused head kernels
+(``kernels/ops.bayes_head_mvm``); ``logit_samples_paper`` and
+``logit_samples_rank16`` stay the plain functions.
+
+Ported: the 'rank16' mode with a dense basis, hoisted or not, and the
+'paper' mode, at 'layer' granularity.  The host-chunked hoist
+(``hoist_tile_n``), the 'moment' mode and the 'tile'/'cell'
+granularities of 'paper' wait for later slices.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from repro_torch.core import clt_grng as g
 from repro_torch.core import quant as q
 from repro_torch.core.hashing import as_u32, gaussianish, hash3
 from repro_torch.core.offset import compensate_mu
+from repro_torch.kernels.grng import eps_at
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +65,7 @@ def prepare_serving_head(mu: torch.Tensor, sigma: torch.Tensor,
     quantization when ``cfg.quant.enabled``).  Returns {mu_prime,
     sigma} in compute dtype, plus ``sigma_basis`` [K, N, 16] when the
     rank16 basis is hoisted."""
-    if cfg.mode != "rank16":
+    if cfg.mode not in ("rank16", "paper"):
         raise NotImplementedError(f"mode={cfg.mode!r} is not ported yet")
     mu_p = compensate_mu(mu, sigma, cfg.grng)
     if cfg.quant.enabled:
@@ -65,10 +73,25 @@ def prepare_serving_head(mu: torch.Tensor, sigma: torch.Tensor,
         sigma, _ = q.quantize_sigma(sigma, cfg.quant)
     head = {"mu_prime": mu_p.to(cfg.compute_dtype),
             "sigma": sigma.to(cfg.compute_dtype)}
-    if cfg.hoist_basis:
+    if cfg.hoist_basis and cfg.mode == "rank16":
         head["sigma_basis"] = hoisted_sigma_basis(sigma, cfg.grng,
                                                   cfg.compute_dtype)
     return head
+
+
+def sigma_basis_products(x: torch.Tensor, sigma: torch.Tensor,
+                         grng: g.GRNGConfig, row0: int = 0,
+                         col0: int = 0) -> torch.Tensor:
+    """The 16 basis products m[..., j] = x·(σ⊙I_j), I_j hashed at global
+    coordinates offset by (row0, col0), one device at a time ->
+    [B, N, 16] in x's dtype."""
+    kdim, n = sigma.shape
+    rows = row0 + torch.arange(kdim, dtype=torch.int64,
+                               device=x.device)[:, None]
+    cols = col0 + torch.arange(n, dtype=torch.int64, device=x.device)[None]
+    return torch.stack(
+        [x @ (sigma * g.device_current_j(grng, rows, cols, j).to(x.dtype))
+         for j in range(grng.n_devices)], dim=-1)
 
 
 def activation_basis(head: dict, x: torch.Tensor,
@@ -86,13 +109,7 @@ def activation_basis(head: dict, x: torch.Tensor,
     if "sigma_basis" in head:                          # hoisted at deployment
         m = torch.einsum("bk,knj->bnj", x, head["sigma_basis"].to(x.dtype))
     else:
-        kdim, n = sigma.shape
-        rows = torch.arange(kdim, dtype=torch.int64, device=x.device)[:, None]
-        cols = torch.arange(n, dtype=torch.int64, device=x.device)[None, :]
-        m = torch.stack(
-            [x @ (sigma * g.device_current_j(cfg.grng, rows, cols, j)
-                  .to(x.dtype)) for j in range(cfg.grng.n_devices)],
-            dim=-1)                                    # [B, N, 16]
+        m = sigma_basis_products(x, sigma, cfg.grng)   # [B, N, 16]
     ab = {"y_mu": y_mu, "x_sigma": x_sigma, "m": m}
     if cfg.grng.read_sigma:
         ab["x_sigsq"] = (x * x) @ (sigma * sigma)      # [B, N]
@@ -157,3 +174,64 @@ def mix_samples(abasis: dict, sel: torch.Tensor, cfg: BayesHeadConfig,
                    sel, cfg, key, col0=c0)
         for m, c0, c1 in basis_blocks(abasis)]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def _sigma_eps_mvm(x: torch.Tensor, sigma: torch.Tensor, grng: g.GRNGConfig,
+                   sel: torch.Tensor, sample0: int = 0, row0: int = 0,
+                   col0: int = 0) -> torch.Tensor:
+    """The paper mode's inner loop: R explicit x·(σ⊙ε_r) products, ε_r
+    from the block's currents (hashed once) and sample r's selection,
+    with the per-cell read noise at absolute sample ``sample0 + r`` ->
+    [R, B, N] ('layer' granularity)."""
+    if grng.granularity != "layer":
+        raise NotImplementedError(
+            f"granularity={grng.granularity!r} is not ported yet")
+    kdim, n = sigma.shape
+    currents = g.device_currents_grid(grng, kdim, n, row0, col0,
+                                      device=x.device)       # [K, N, 16]
+    return torch.stack([
+        x @ (sigma * eps_at(currents, sel[r], grng, sample0 + r, row0,
+                            col0).to(x.dtype))
+        for r in range(sel.shape[0])])
+
+
+def logit_samples_paper(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
+                        num_samples: int | None = None,
+                        sample0: int = 0) -> torch.Tensor:
+    """Faithful R-pass sampling: x [B, K] -> [R, B, N]."""
+    num = num_samples or cfg.num_samples
+    sel = g.selections(cfg.grng, num, sample0, device=x.device)
+    y_mu = x @ head["mu_prime"]
+    return y_mu[None] + _sigma_eps_mvm(x, head["sigma"], cfg.grng, sel,
+                                       sample0)
+
+
+def logit_samples_rank16(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
+                         num_samples: int | None = None,
+                         sample0: int = 0) -> torch.Tensor:
+    """Exact rank-16 sampling: the activation basis (16 basis products)
+    and its mixing, keyed by the absolute sample indices -> [R, B, N]."""
+    if cfg.grng.granularity != "layer":
+        raise ValueError("rank16 requires shared ('layer') selection")
+    num = num_samples or cfg.num_samples
+    sel = g.selections(cfg.grng, num, sample0, device=x.device)
+    idx = sample0 + torch.arange(sel.shape[0], dtype=torch.int64,
+                                 device=x.device)
+    return mix_samples(activation_basis(head, x, cfg), sel, cfg,
+                       sample_idx=idx)
+
+
+def logit_samples(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
+                  num_samples: int | None = None,
+                  sample0: int = 0) -> torch.Tensor:
+    """R logit samples [R, B, N] of the head for x [B, K] from sample
+    ``sample0`` of the selection stream, by ``cfg.mode``: 'paper' and
+    'rank16' through the fused head kernels
+    (``kernels/ops.bayes_head_mvm``; on CPU tensors their plain
+    versions).  The 'moment' mode is not ported yet."""
+    from repro_torch.kernels import ops
+    if cfg.mode not in ("paper", "rank16"):
+        raise NotImplementedError(f"mode={cfg.mode!r} is not ported yet")
+    num = num_samples or cfg.num_samples
+    return ops.bayes_head_mvm(x, head["mu_prime"], head["sigma"], cfg.grng,
+                              num, sample0=sample0, mode=cfg.mode)

@@ -54,8 +54,9 @@ def prepare_instance_head(mu: torch.Tensor, sigma: torch.Tensor,
     Returns (head, serving_cfg): the head whose stored values went
     through compensation → quantization → conductance programming
     error, and the config whose ``grng`` is the die's physical view
-    (measured constants when ``calibrated``).  ``instance=None`` is
-    ``prepare_serving_head``.
+    (measured constants when ``calibrated``).  ``cfg.mode`` may be
+    'rank16' or 'paper'; the σ⊙I_j basis is hoisted (``hoist_basis``)
+    for rank16 only.  ``instance=None`` is ``prepare_serving_head``.
     """
     if instance is None:
         return prepare_serving_head(mu, sigma, cfg), cfg

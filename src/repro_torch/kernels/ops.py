@@ -1,15 +1,67 @@
 """Public entry points of the kernels package (port of
-``repro/kernels/ops.py``): the decision update and the chunked-ADC CIM
-products of a chip instance's conv trunk."""
+``repro/kernels/ops.py``): the GRNG ε block, the fused Bayesian head,
+the decision update and the chunked-ADC CIM products of a chip
+instance's conv trunk."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import clt_grng as g
-from repro_torch.core.quant import QuantConfig
+from repro_torch.core.quant import QuantConfig, adc_full_scale
+from repro_torch.kernels import bayes
+from repro_torch.kernels import grng as grng_kernel
 from repro_torch.kernels.cim import cim_mvm
 from repro_torch.kernels.decision import decision_stats
+
+
+def grng_eps(cfg: g.GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
+             sample0: int = 0, row0: int = 0, col0: int = 0,
+             device=None) -> torch.Tensor:
+    """CLT-GRNG ε block [R, n_rows, n_cols] through the ε kernel, on
+    ``device`` (None = the card; "cpu" runs the plain version)."""
+    dev = resolve_device(device)
+    sel = g.selections(cfg, num_samples, sample0, device=dev)
+    return grng_kernel.grng_eps(sel, cfg, n_rows, n_cols, row0=row0,
+                                col0=col0, sample0=sample0)
+
+
+def _rms(t: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt((t.to(torch.float32) ** 2).mean() + 1e-12)
+
+
+def bayes_head_mvm(x: torch.Tensor, mu_prime: torch.Tensor,
+                   sigma: torch.Tensor, cfg: g.GRNGConfig, num_samples: int,
+                   sample0: int = 0, mode: str = "rank16",
+                   qcfg: QuantConfig | None = None) -> torch.Tensor:
+    """Fused Bayesian head: [R, B, N] logit samples on x's device.
+
+    mode='rank16': R-independent (16 basis products and a mix); on a die
+    with read noise it adds the logit-level projection, drawn from the
+    same hash stream as ``core/sampling.mix_samples``.  mode='paper':
+    one σε product per sample with per-cell read noise; ``qcfg``
+    (enabled) adds the 6-bit chunked ADC, whose full scales
+    ``adc_full_scale(rms(x), rms(µ'))`` and ``adc_full_scale(rms(x),
+    rms(σ))`` stay on the device.
+    """
+    sel = g.selections(cfg, num_samples, sample0, device=x.device)
+    if qcfg is not None and not qcfg.enabled:
+        qcfg = None
+    if mode == "rank16":
+        assert qcfg is None, "ADC path requires hardware sample order"
+        return bayes.bayes_rank16(x, mu_prime, sigma, sel, cfg,
+                                  sample0=sample0)
+    if mode != "paper":
+        raise ValueError(mode)
+    fs = None
+    if qcfg is not None:
+        x_rms = _rms(x)
+        # σε RMS: Var[σ·ε] ≈ E[σ²] for standardized ε.
+        fs = torch.stack([adc_full_scale(x_rms, _rms(mu_prime), qcfg),
+                          adc_full_scale(x_rms, _rms(sigma), qcfg)])
+    return bayes.bayes_paper(x, mu_prime, sigma, sel, fs, cfg, qcfg=qcfg,
+                             sample0=sample0)
 
 
 def decision_update(stats: dict, abasis: dict, sel: torch.Tensor,

@@ -20,9 +20,13 @@ the input quantization, the full scale and the kernel per admission.
 The pure-tensor ``cim_execution`` trunk (``repro/core/cim.py``) is not
 ported yet.
 
+``logit_samples_serve`` draws R logit samples of a batch through the
+head kernels (rank16 or paper mode): the Fig. 16 uncertainty path.
+
 Port params: {"convs": [{"w": [Cout, Cin, k, k], "b": [Cout]}, ...],
-"head": {"mu": [C, n_classes], "rho": [C, n_classes]}}; ``bridge.py``
-converts the reference's HWIO pytree.
+"head": {"mu": [C, n_classes], "rho": [C, n_classes]}} (a deterministic
+head: {"w": [C, n_classes], "b": [n_classes]}); ``bridge.py`` converts
+the reference's HWIO pytree.
 """
 
 from __future__ import annotations
@@ -66,9 +70,9 @@ class SarCnnConfig:
 def init_sar_cnn(generator: torch.Generator, cfg: SarCnnConfig,
                  device=None) -> dict:
     """Random params from a CPU ``generator`` (He-style normal convs,
-    zero biases, the Bayesian head's (µ, ρ)), moved to ``device``."""
-    if not cfg.bayesian_head:
-        raise NotImplementedError("only the Bayesian head is ported")
+    zero biases, the Bayesian head's (µ, ρ) or, with ``bayesian_head``
+    off, a deterministic head {w ~ 0.05·N(0,1), b = 0}), moved to
+    ``device``."""
     params: dict = {"convs": []}
     c_in = 1
     for c_out in cfg.channels:
@@ -77,8 +81,14 @@ def init_sar_cnn(generator: torch.Generator, cfg: SarCnnConfig,
         params["convs"].append({"w": w.to(device),
                                 "b": torch.zeros(c_out, device=device)})
         c_in = c_out
-    params["head"] = bayes_layer.init(generator, cfg.head_cfg(),
-                                      device=device)
+    if cfg.bayesian_head:
+        params["head"] = bayes_layer.init(generator, cfg.head_cfg(),
+                                          device=device)
+    else:
+        w = torch.randn((cfg.channels[-1], cfg.n_classes),
+                        generator=generator) * 0.05
+        params["head"] = {"w": w.to(device),
+                          "b": torch.zeros(cfg.n_classes, device=device)}
     return params
 
 
@@ -160,3 +170,27 @@ def features(params: dict, images: torch.Tensor, cfg: SarCnnConfig,
         y = F.conv2d(h, layer["w"], stride=2)           # VALID
         h = F.relu(y + layer["b"][None, :, None, None])
     return h.mean(dim=(2, 3))                           # GAP -> [B, C]
+
+
+def logit_samples_serve(params: dict, images: torch.Tensor,
+                        cfg: SarCnnConfig, num_samples: int,
+                        mode: str = "rank16", sample0: int = 0, chip=None,
+                        trunk: list | None = None) -> torch.Tensor:
+    """MC logit samples [R, B, C] through the CLT-GRNG serving path, on
+    the params' device: the trunk (``features``; ``chip``/``trunk`` run
+    it on a die's CIM arrays), then the head deployed by the golden
+    factory transform (``bayes_layer.to_serving``) and sampled by
+    ``core/sampling.logit_samples`` in ``mode`` ('rank16' or 'paper',
+    through the fused head kernels).  A deterministic head
+    (``bayesian_head`` off) gives its logits as one sample [1, B, C].
+    To serve the head on the die too, deploy it with
+    ``hw.calib.prepare_instance_head`` and sample with
+    ``core/sampling.logit_samples``."""
+    from repro_torch.core.sampling import BayesHeadConfig, logit_samples
+    feats = features(params, images, cfg, chip=chip, trunk=trunk)
+    if not cfg.bayesian_head:
+        return (feats @ params["head"]["w"] + params["head"]["b"])[None]
+    hcfg = BayesHeadConfig(num_samples=num_samples, mode=mode, grng=cfg.grng,
+                           compute_dtype=torch.float32)
+    head = bayes_layer.to_serving(params["head"], hcfg)
+    return logit_samples(head, feats, hcfg, sample0=sample0)

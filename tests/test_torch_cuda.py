@@ -11,19 +11,24 @@ each 64-term partial sum in its own order, so an output may land one
 ADC code away where the partial sum sits on a half-code tie: such
 outputs are counted, held to one LSB and to at most 1e-4 of the
 outputs.
+GRNG ε kernel: atol 1e-5 (tests/test_kernels.py:26); it rounds every
+step as the plain version does, so the elements are expected equal.
+Head kernels (rank16, paper, paper with the ADC): rtol/atol 1e-4, as
+tests/test_kernels.py; they sum over K in their own order.
 """
 
 import pytest
 import torch
 
-from repro_torch.core.clt_grng import GRNGConfig
-from repro_torch.core.quant import QuantConfig
+from repro_torch.core.clt_grng import GRNGConfig, selections
+from repro_torch.core.quant import QuantConfig, adc_full_scale
 from repro_torch.core.sampling import (BayesHeadConfig, activation_basis,
                                        prepare_serving_head)
+from repro_torch.kernels import bayes, grng
 from repro_torch.kernels.cim import cim_mvm, cim_mvm_plain
 from repro_torch.kernels.decision import (decision_stats,
                                           decision_stats_plain)
-from repro_torch.kernels.ops import measured_full_scale
+from repro_torch.kernels.ops import bayes_head_mvm, measured_full_scale
 from repro_torch.serving import adaptive
 
 pytestmark = pytest.mark.cuda
@@ -149,3 +154,113 @@ def test_cim_wrapper_refuses_what_the_kernel_does_not_take(hopper):
     with pytest.raises(ValueError, match="contiguous"):
         cim_mvm(args["x"], args["w"].t().contiguous().t(), args["fs"],
                 QCFG)
+
+
+@pytest.mark.parametrize("case", [(256, 256, 8, 0, 0, 0), (200, 130, 8, 16, 40, 5),
+                                  (1, 1, 3, 3, 9, 11), (300, 70, 64, 0, 0, 100)])
+@pytest.mark.parametrize("die", [False, True])
+def test_grng_eps_kernel_matches_plain(hopper, case, die):
+    k, n, r, row0, col0, sample0 = case
+    cfg = (GRNGConfig(read_sigma=0.5, imprint=0.37) if die
+           else GRNGConfig())
+    sel = selections(cfg, r, sample0, device=hopper)
+    kw = dict(row0=row0, col0=col0, sample0=sample0)
+    before = grng.grng_eps.launches
+    got = grng.grng_eps(sel, cfg, k, n, **kw)
+    want = grng.grng_eps_plain(sel, cfg, k, n, **kw)
+    again = grng.grng_eps(sel, cfg, k, n, **kw)
+    torch.cuda.synchronize()
+    assert grng.grng_eps.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def _rms(t):
+    return torch.sqrt((t.float() ** 2).mean() + 1e-12)
+
+
+def _head_case(dev, b, k, n, dtype=torch.float32, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, k), generator=gen)
+    mu = torch.randn((k, n), generator=gen) * 0.05
+    sigma = torch.nn.functional.softplus(
+        torch.randn((k, n), generator=gen) - 2.0) * 0.1
+    return [t.to(dev, dtype) for t in (x, mu, sigma)]
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 2048), (64, 64, 2), (3, 130, 70),
+                                   (9, 200, 33)])
+@pytest.mark.parametrize("r", [4, 20, 64])
+@pytest.mark.parametrize("mode", ["rank16", "paper", "paper_adc"])
+@pytest.mark.parametrize("read_sigma", [0.0, 0.4])
+def test_head_kernels_match_plain(hopper, shape, r, mode, read_sigma):
+    cfg = GRNGConfig(read_sigma=read_sigma)
+    x, mu, sigma = _head_case(hopper, *shape)
+    sel = selections(cfg, r, 7, device=hopper)
+    if mode == "rank16":
+        fn, plain, args = bayes.bayes_rank16, bayes.bayes_rank16_plain, ()
+    else:
+        fn, plain = bayes.bayes_paper, bayes.bayes_paper_plain
+        qcfg = QCFG if mode == "paper_adc" else None
+        fs = torch.stack([adc_full_scale(_rms(x), _rms(w), QCFG)
+                          for w in (mu, sigma)])
+        args = (fs, cfg, qcfg)
+    kw = dict(row0=3, col0=5, sample0=7)
+    before = fn.launches
+    if mode == "rank16":
+        got = fn(x, mu, sigma, sel, cfg, **kw)
+        want = plain(x, mu, sigma, sel, cfg, **kw)
+        again = fn(x, mu, sigma, sel, cfg, **kw)
+    else:
+        got = fn(x, mu, sigma, sel, *args, **kw)
+        want = plain(x, mu, sigma, sel, *args, **kw)
+        again = fn(x, mu, sigma, sel, *args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert got.shape == (r, shape[0], shape[2])
+    assert torch.equal(got, again)                        # deterministic
+    if mode == "paper_adc":
+        # an ADC code may flip where a partial sum sits on a half-code
+        # tie and the two sum in another order: held to one LSB, rare
+        err = (got - want).abs()
+        flips = err > 1e-4
+        assert int(flips.sum()) <= 1e-4 * got.numel()
+        assert bool((err[flips] <= float(fs.max()) / 31 * (1 + 1e-4)).all())
+        got, want = got[~flips], want[~flips]
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["rank16", "paper"])
+def test_head_kernels_read_bf16(hopper, mode):
+    cfg = GRNGConfig()
+    x, mu, sigma = _head_case(hopper, 8, 256, 192, dtype=torch.bfloat16)
+    got = bayes_head_mvm(x, mu, sigma, cfg, 5, mode=mode)
+    want = bayes_head_mvm(x.float(), mu.float(), sigma.float(), cfg, 5,
+                          mode=mode)
+    mixed = bayes_head_mvm(x.float(), mu, sigma, cfg, 5, mode=mode)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(mixed, want, rtol=1e-4, atol=1e-4)
+
+
+def test_head_and_grng_wrappers_refuse_what_the_kernels_do_not_take(hopper):
+    cfg = GRNGConfig()
+    x, mu, sigma = _head_case(hopper, 4, 64, 8)
+    sel = selections(cfg, 4, device=hopper)
+    with pytest.raises(ValueError, match="expected cuda"):
+        bayes.bayes_rank16(x, mu.cpu(), sigma, sel, cfg)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bayes.bayes_rank16(x.double(), mu, sigma, sel, cfg)
+    with pytest.raises(TypeError, match="must match"):
+        bayes.bayes_paper(x, mu, sigma.bfloat16(), sel, None, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        bayes.bayes_paper(x, mu.t().contiguous().t(), sigma, sel, None, cfg)
+    with pytest.raises(ValueError, match="fs must be"):
+        bayes.bayes_paper(x, mu, sigma, sel, torch.zeros(2), cfg, QCFG)
+    with pytest.raises(ValueError, match="every 64 rows"):
+        bayes.bayes_paper(x, mu, sigma, sel, torch.zeros(2, device=hopper),
+                          cfg, QuantConfig(chunk=32))
+    with pytest.raises(ValueError, match=r"\[R, 16\]"):
+        grng.grng_eps(sel.t().contiguous(), cfg, 8, 8)
+    with pytest.raises(TypeError, match="float32"):
+        grng.grng_eps(sel.double(), cfg, 8, 8)
