@@ -48,7 +48,9 @@ JSON line):
      ideal, with read noise and (paper) with the 6-bit ADC (rtol/atol
      1e-4; an ADC code flipped by the K order is counted and held to one
      LSB); run-to-run bit identity; wrapper refusals;
-  7. the SAR UQ path (Fig. 16's protocol): ``logit_samples_serve`` at
+  7. the SAR UQ path (Fig. 16's batches and R, on the float trunk: the
+     reference's this-work row runs the ``cim_execution`` trunk, not
+     ported yet): ``logit_samples_serve`` at
      R=20 in rank16 and in paper mode over 16 batches of 64 SARD images
      (``batch_at(SardConfig(image_size=32, seed=7), 10000+i, 64)``),
      clean and fog severity 1.0, then ``uq_report``; again on the gate
@@ -885,8 +887,10 @@ def run_fig9_path() -> dict:
     check(launches == 1, f"Fig. 9 path: {launches} ε launches")
     check(tuple(e.shape) == (8, 256, 256) and bool(torch.isfinite(e).all()),
           "Fig. 9 ε block malformed")
-    mean, std = g.calibrate(cfg, 4096, 64, device="cuda")
-    flat = g.distribution_sample(cfg, 8192, 32, device="cuda")
+    # the entry points' default device is the card
+    mean, std = g.calibrate(cfg, 4096, 64)
+    check(mean.device.type == "cuda", "calibrate ran off the card")
+    flat = g.distribution_sample(cfg, 8192, 32)
     check(abs(float(mean) - 10.1) < 0.2 and abs(float(std) - 0.993) < 0.1,
           f"Fig. 9 sum statistics off: {float(mean)}, {float(std)}")
     out = {"launches": launches, "eps_mean": float(e.mean()),

@@ -22,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import lfsr as lfsr_mod
 from repro_torch.core.hashing import gaussianish, hash3, uniform_bit
 
@@ -138,6 +139,21 @@ def sum_in_order(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def subset_sums(currents: torch.Tensor, sel: torch.Tensor, cfg: GRNGConfig,
+                sample0: int = 0, row0: int = 0,
+                col0: int = 0) -> torch.Tensor:
+    """Raw sums of a block's device currents [K, N, 16] under the
+    selections sel [R, 16] (samples ``sample0`` …), the 16 terms summed
+    in order, plus the read noise -> [R, K, N] (µA)."""
+    raw = sum_in_order(sel[:, None, None, :].to(torch.float32)
+                       * currents[None])
+    if cfg.read_sigma:
+        k, n = currents.shape[:2]
+        raw = raw + read_noise(cfg, k, n, sel.shape[0], sample0, row0, col0,
+                               device=raw.device)
+    return raw
+
+
 def raw_sums(cfg: GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
              sample0: int = 0, row0: int = 0, col0: int = 0,
              device=None) -> torch.Tensor:
@@ -146,11 +162,7 @@ def raw_sums(cfg: GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
     currents = device_currents_grid(cfg, n_rows, n_cols, row0, col0,
                                     device=device)             # [K, N, 16]
     sel = selections(cfg, num_samples, sample0, device=device)  # [R, 16]
-    raw = sum_in_order(sel[:, None, None, :] * currents[None])
-    if cfg.read_sigma:
-        raw = raw + read_noise(cfg, n_rows, n_cols, num_samples, sample0,
-                               row0, col0, device=device)
-    return raw
+    return subset_sums(currents, sel, cfg, sample0, row0, col0)
 
 
 def eps(cfg: GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
@@ -160,6 +172,16 @@ def eps(cfg: GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
     raw = raw_sums(cfg, n_rows, n_cols, num_samples, sample0, row0, col0,
                    device=device)
     return (raw - cfg.sum_mean) / cfg.sum_std
+
+
+def eps_at(currents: torch.Tensor, sel_r: torch.Tensor, cfg: GRNGConfig,
+           r_abs: int, row0: int = 0, col0: int = 0) -> torch.Tensor:
+    """ε of one sample from a block's device currents [K, N, 16]: its
+    ``subset_sums`` at absolute sample ``r_abs``, standardized as the
+    GRNG kernels do, times float32(1/sum_std) rather than ``eps``'s
+    division -> [K, N]."""
+    raw = subset_sums(currents, sel_r[None], cfg, r_abs, row0, col0)[0]
+    return (raw - cfg.sum_mean) * (1.0 / cfg.sum_std)
 
 
 def estimate_mean_offset(cfg: GRNGConfig, n_rows: int, n_cols: int,
@@ -187,14 +209,16 @@ def calibrate(cfg: GRNGConfig, n_cells: int = 4096, num_samples: int = 64,
               device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Empirical (sum_mean, sum_std) of the raw sums over ``n_cells``
     cells × ``num_samples`` samples: the paper's Fig. 9 measurement.
-    Two 0-dim tensors (µA); the SD is the population one (ddof 0)."""
-    raw = raw_sums(cfg, n_cells, 1, num_samples, device=device)
+    Two 0-dim tensors (µA); the SD is the population one (ddof 0).
+    ``device``: None runs on the card, "cpu" on the CPU."""
+    raw = raw_sums(cfg, n_cells, 1, num_samples,
+                   device=resolve_device(device))
     return raw.mean(), raw.std(correction=0)
 
 
 def distribution_sample(cfg: GRNGConfig, n_cells: int, num_samples: int,
                         device=None) -> np.ndarray:
     """Flat numpy array of ε draws for distribution-quality analysis
-    (Fig. 9)."""
-    e = eps(cfg, n_cells, 1, num_samples, device=device)
+    (Fig. 9), computed on ``device`` (None = the card)."""
+    e = eps(cfg, n_cells, 1, num_samples, device=resolve_device(device))
     return e.reshape(-1).cpu().numpy()

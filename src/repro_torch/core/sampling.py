@@ -34,7 +34,6 @@ from repro_torch.core import clt_grng as g
 from repro_torch.core import quant as q
 from repro_torch.core.hashing import as_u32, gaussianish, hash3
 from repro_torch.core.offset import compensate_mu
-from repro_torch.kernels.grng import eps_at
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,8 +189,8 @@ def _sigma_eps_mvm(x: torch.Tensor, sigma: torch.Tensor, grng: g.GRNGConfig,
     currents = g.device_currents_grid(grng, kdim, n, row0, col0,
                                       device=x.device)       # [K, N, 16]
     return torch.stack([
-        x @ (sigma * eps_at(currents, sel[r], grng, sample0 + r, row0,
-                            col0).to(x.dtype))
+        x @ (sigma * g.eps_at(currents, sel[r], grng, sample0 + r, row0,
+                              col0).to(x.dtype))
         for r in range(sel.shape[0])])
 
 

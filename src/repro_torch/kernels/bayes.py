@@ -17,9 +17,9 @@ shared selections sel [R, 16] -> R logit samples [R, B, N] float32:
     full scales ``fs`` = [fs_µ, fs_σε] on the device.
 
 Both route by where x lies: CPU tensors take the plain versions
-(``bayes_rank16_plain``, the kernel's basis-and-mix arithmetic on
-``core/sampling.sigma_basis_products``; ``bayes_paper_plain``, which is
-``core/sampling._sigma_eps_mvm`` without the ADC — the oracles
+(``bayes_rank16_plain``, ``core/sampling``'s basis products and mix;
+``bayes_paper_plain``, ``core/sampling._sigma_eps_mvm`` without the ADC
+and ``cim.cim_mvm_plain``'s chunked ADC with it — the oracles
 ``bayes_mvm_ref``, ``bayes_mvm_rank16_ref`` and ``bayes_mvm_adc_ref`` of
 ``repro/kernels/ref.py``); CUDA tensors launch ``csrc/bayes_mvm.cu`` or
 raise.  There is no fallback.  ``bayes_rank16.launches`` and
@@ -35,10 +35,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import clt_grng as g
-from repro_torch.core.hashing import gaussianish, hash3
-from repro_torch.core.quant import QuantConfig, adc_quantize
-from repro_torch.core.sampling import _sigma_eps_mvm, sigma_basis_products
-from repro_torch.kernels.grng import GrngParams, eps_at, grng_params
+from repro_torch.core.quant import QuantConfig
+from repro_torch.core.sampling import (BayesHeadConfig, _mix_block,
+                                       _noise_key, _sigma_eps_mvm,
+                                       sigma_basis_products)
+from repro_torch.kernels.cim import cim_mvm_plain
+from repro_torch.kernels.grng import GrngParams, grng_params
 
 CHUNK = 64                # the ADC's analog accumulation depth
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -52,43 +54,18 @@ def _f32(*ts):
 
 def bayes_rank16_plain(x, mu, sigma, sel, cfg: g.GRNGConfig, row0: int = 0,
                        col0: int = 0, sample0: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of the rank16 kernel: the basis products
-    in float32, the mix and the kernel's epilogue."""
+    """Plain PyTorch version of the rank16 kernel: the activation basis
+    in float32 (``core/sampling.sigma_basis_products``) mixed by
+    ``core/sampling._mix_block``, the read noise keyed on the absolute
+    sample indices."""
     x, mu, sigma = _f32(x, mu, sigma)
-    b, n = x.shape[0], mu.shape[1]
     m = sigma_basis_products(x, sigma, cfg, row0, col0)        # [B, N, 16]
-    num = (torch.einsum("rj,bnj->rbn", sel.to(torch.float32), m)
-           - cfg.sum_mean * (x @ sigma)[None])
-    if cfg.read_sigma:
-        dev = x.device
-        r_abs = sample0 + torch.arange(sel.shape[0], dtype=torch.int64,
-                                       device=dev)
-        h = hash3(r_abs[:, None, None],
-                  torch.arange(b, dtype=torch.int64, device=dev)[None, :,
-                                                                 None],
-                  col0 + torch.arange(n, dtype=torch.int64,
-                                      device=dev)[None, None],
-                  cfg.noise_seed)                               # [R, B, N]
-        xq = (x * x) @ (sigma * sigma)
-        num = num + gaussianish(h) * (cfg.read_sigma
-                                      * torch.sqrt(xq.clamp_min(0.0)))[None]
-    return (x @ mu)[None] + num * (1.0 / cfg.sum_std)
-
-
-def _chunked_adc(x, w, fs, qcfg: QuantConfig) -> torch.Tensor:
-    """x·w with every 64-row partial sum digitized, the codes summed in
-    chunk order (K zero-padded to the chunk)."""
-    pad = (-x.shape[1]) % qcfg.chunk
-    x = F.pad(x, (0, pad))
-    w = F.pad(w, (0, 0, 0, pad))
-    kc = x.shape[1] // qcfg.chunk
-    ps = torch.einsum("bkc,kcn->kbn", x.reshape(x.shape[0], kc, qcfg.chunk),
-                      w.reshape(kc, qcfg.chunk, w.shape[1]))
-    steps = adc_quantize(ps, fs, qcfg)
-    out = steps[0]
-    for c in range(1, kc):
-        out = out + steps[c]
-    return out
+    x_sigsq = (x * x) @ (sigma * sigma) if cfg.read_sigma else None
+    idx = sample0 + torch.arange(sel.shape[0], dtype=torch.int64,
+                                 device=x.device)
+    return _mix_block(m, x @ mu, x @ sigma, x_sigsq, sel,
+                      BayesHeadConfig(grng=cfg), _noise_key(sel, idx),
+                      col0=col0)
 
 
 def bayes_paper_plain(x, mu, sigma, sel, fs, cfg: g.GRNGConfig,
@@ -96,20 +73,26 @@ def bayes_paper_plain(x, mu, sigma, sel, fs, cfg: g.GRNGConfig,
                       col0: int = 0, sample0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the paper kernel: x·µ' plus one σε
     product per sample (``core/sampling._sigma_eps_mvm``), or with
-    ``qcfg`` the chunked 6-bit ADC on each, full scales fs [2]."""
+    ``qcfg`` each product through ``cim.cim_mvm_plain`` (the chunked
+    6-bit ADC, K zero-padded to the chunk), full scales fs [2]."""
     x, mu, sigma = _f32(x, mu, sigma)
     if qcfg is None:
         return (x @ mu)[None] + _sigma_eps_mvm(x, sigma, cfg, sel, sample0,
                                                row0, col0)
     kdim, n = sigma.shape
     fs = fs.to(torch.float32).reshape(2)
+    pad = (-kdim) % qcfg.chunk
+    xp = F.pad(x, (0, pad))
+
+    def adc_mvm(w, full_scale):
+        return cim_mvm_plain(xp, F.pad(w, (0, 0, 0, pad)), full_scale, qcfg)
+
     currents = g.device_currents_grid(cfg, kdim, n, row0, col0,
                                       device=x.device)
-    y_mu = _chunked_adc(x, mu, fs[0], qcfg)
+    y_mu = adc_mvm(mu, fs[0])
     return torch.stack([
-        y_mu + _chunked_adc(x, sigma * eps_at(currents, sel[r], cfg,
-                                              sample0 + r, row0, col0),
-                            fs[1], qcfg)
+        y_mu + adc_mvm(sigma * g.eps_at(currents, sel[r], cfg, sample0 + r,
+                                        row0, col0), fs[1])
         for r in range(sel.shape[0])])
 
 

@@ -58,28 +58,15 @@ def grng_params(cfg: g.GRNGConfig) -> GrngParams:
                       cfg.seed & m, cfg.imprint_seed & m, cfg.noise_seed & m)
 
 
-def eps_at(currents: torch.Tensor, sel_r: torch.Tensor, cfg: g.GRNGConfig,
-           r_abs: int, row0: int = 0, col0: int = 0) -> torch.Tensor:
-    """ε of one sample from a block's device currents [K, N, 16]: the
-    16 selected currents summed in order, the read noise at absolute
-    sample ``r_abs``, standardized with float32(1/sum_std) -> [K, N]."""
-    raw = g.sum_in_order(sel_r.to(torch.float32) * currents)
-    if cfg.read_sigma:
-        k, n = raw.shape
-        raw = raw + g.read_noise(cfg, k, n, 1, r_abs, row0, col0,
-                                 device=raw.device)[0]
-    return (raw - cfg.sum_mean) * (1.0 / cfg.sum_std)
-
-
 def grng_eps_plain(sel, cfg: g.GRNGConfig, n_rows: int, n_cols: int,
                    row0: int = 0, col0: int = 0,
                    sample0: int = 0) -> torch.Tensor:
-    """Plain PyTorch version: the block's currents once, then ``eps_at``
-    per sample -> [R, n_rows, n_cols]."""
+    """Plain PyTorch version: the block's currents once, then
+    ``clt_grng.eps_at`` per sample -> [R, n_rows, n_cols]."""
     currents = g.device_currents_grid(cfg, n_rows, n_cols, row0, col0,
                                       device=sel.device)
-    return torch.stack([eps_at(currents, sel[r], cfg, sample0 + r, row0,
-                               col0) for r in range(sel.shape[0])])
+    return torch.stack([g.eps_at(currents, sel[r], cfg, sample0 + r, row0,
+                                 col0) for r in range(sel.shape[0])])
 
 
 @functools.lru_cache(maxsize=None)

@@ -174,11 +174,11 @@ def features(params: dict, images: torch.Tensor, cfg: SarCnnConfig,
 
 def logit_samples_serve(params: dict, images: torch.Tensor,
                         cfg: SarCnnConfig, num_samples: int,
-                        mode: str = "rank16", sample0: int = 0, chip=None,
-                        trunk: list | None = None) -> torch.Tensor:
+                        mode: str = "rank16", sample0: int = 0,
+                        chip=None) -> torch.Tensor:
     """MC logit samples [R, B, C] through the CLT-GRNG serving path, on
-    the params' device: the trunk (``features``; ``chip``/``trunk`` run
-    it on a die's CIM arrays), then the head deployed by the golden
+    the params' device: the trunk (``features``; ``chip`` runs it on
+    that die's CIM arrays), then the head deployed by the golden
     factory transform (``bayes_layer.to_serving``) and sampled by
     ``core/sampling.logit_samples`` in ``mode`` ('rank16' or 'paper',
     through the fused head kernels).  A deterministic head
@@ -187,7 +187,7 @@ def logit_samples_serve(params: dict, images: torch.Tensor,
     ``hw.calib.prepare_instance_head`` and sample with
     ``core/sampling.logit_samples``."""
     from repro_torch.core.sampling import BayesHeadConfig, logit_samples
-    feats = features(params, images, cfg, chip=chip, trunk=trunk)
+    feats = features(params, images, cfg, chip=chip)
     if not cfg.bayesian_head:
         return (feats @ params["head"]["w"] + params["head"]["b"])[None]
     hcfg = BayesHeadConfig(num_samples=num_samples, mode=mode, grng=cfg.grng,

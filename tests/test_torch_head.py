@@ -328,11 +328,11 @@ def test_die_head_modes_agree_in_distribution(severity):
 def test_fig9_calibrate_and_distribution_sample():
     jcfg = jg.GRNGConfig()
     cfg = _port_grng(jcfg)
-    mean, std = tg.calibrate(cfg, 4096, 64)
+    mean, std = tg.calibrate(cfg, 4096, 64, device="cpu")
     jmean, jstd = jg.calibrate(jcfg, 4096, 64)
     np.testing.assert_allclose(float(mean), float(jmean), rtol=1e-6)
     np.testing.assert_allclose(float(std), float(jstd), rtol=1e-6)
-    got = tg.distribution_sample(cfg, 8192, 32)
+    got = tg.distribution_sample(cfg, 8192, 32, device="cpu")
     want = jg.distribution_sample(jcfg, 8192, 32)
     assert got.shape == want.shape == (8192 * 32,)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
