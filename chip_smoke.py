@@ -10,7 +10,8 @@ JSON line):
   1. the card (name and power limit from nvidia-smi), torch and CUDA
      versions; TF32 is switched off for matmuls and convolutions;
   2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
-     one process per source, all started together;
+     one process per source, all started together; ptxas must report no
+     spill in ``cim_mvm`` and ``decision``;
   3. every kernel against its plain PyTorch version on the card:
      the decision kernel at the main path's shapes and at ragged /
      read-noise / shared-selection shapes (rtol 1e-5, atol 1e-5, as
@@ -67,7 +68,10 @@ JSON line):
      the card's byte/flop bound: decision and CIM at the serving path's
      shapes, ε at Fig. 9's block, the head kernels at kernel_bench's
      shape for R = 4, 16, 20, 64 (paper with the ADC at R = 20) and at
-     the SAR head's shape for R = 20;
+     the SAR head's shape for R = 20.  The decision and CIM entries
+     name their design and carry the previous design's times at the
+     same shapes (``prev_ms``, constants from PERF.md: the old kernels
+     are not timed here) and the launch plan each shape took;
   9. last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the reference package.
 """
@@ -75,6 +79,7 @@ It imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -105,6 +110,18 @@ SAR_HEAD = dict(b=64, k=64, n=2)
 UQ_R = 20
 UQ_BATCHES = 16                      # Fig. 16: 16 batches of 64 images
 FIG9 = dict(n_rows=256, n_cols=256, num_samples=8)
+# The two main-path kernels were redesigned for Hopper.  The previous
+# design's times at the same shapes (PERF.md §6: chip_smoke.py,
+# CUDA-graph replay, on the card named here), for the kernels line; the
+# old kernels are not timed here.
+DESIGN = {"decision_stats": "small-N variant: a thread per (sample, class) "
+                            "pair; streaming passes for N > 32",
+          "cim_mvm": "tiles to the shape; chunks split over a thread-block "
+                     "cluster, folded in order"}
+PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+PREV_DECISION_MS = {"main_r4": 0.00399, "main_r20": 0.0104}
+PREV_CIM_MS = {"trunk0": 0.00707, "trunk1": 0.0118, "trunk2": 0.0186}
+NO_SPILL = ("cim_mvm", "decision")
 
 
 def emit(obj) -> None:
@@ -1006,8 +1023,9 @@ def cim_bound_ms(c: dict) -> tuple[float, str, int, int]:
 def cim_timing(cases: dict, launches: int, summary: dict) -> dict:
     """The CIM kernel's line: device and eager times at the three trunk
     shapes, with the die's front end, as the main path calls it."""
+    import torch
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.kernels.cim import cim_mvm, cim_mvm_plain
+    from repro_torch.kernels.cim import cim_mvm, cim_mvm_plain, launch_plan
     qcfg = QuantConfig(enabled=True)
     shapes = []
     for name in ("trunk0", "trunk1", "trunk2"):
@@ -1021,9 +1039,13 @@ def cim_timing(cases: dict, launches: int, summary: dict) -> dict:
             return cim_mvm_plain(*args)
 
         bound, bound_by, nbytes, ops = cim_bound_ms(c)
+        plan = launch_plan(*c["x"].shape, c["w"].shape[1],
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
         shapes.append({
             "case": name, "M": c["x"].shape[0], "K": c["x"].shape[1],
-            "N": c["w"].shape[1], "ms": device_ms(kernel, 1000),
+            "N": c["w"].shape[1], "plan": plan._asdict(),
+            "prev_ms": PREV_CIM_MS[name], "ms": device_ms(kernel, 1000),
             "plain_ms": device_ms(plain, 1000),
             "call_ms": call_ms(kernel, 1000),
             "plain_call_ms": call_ms(plain, 1000), "bound_ms": bound,
@@ -1034,6 +1056,8 @@ def cim_timing(cases: dict, launches: int, summary: dict) -> dict:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cim_mvm.cu",
         "replaces": "src/repro/kernels/cim_mvm.py:72",
+        "design": DESIGN["cim_mvm"],
+        "prev_ms": first["prev_ms"], "prev_card": PREV_CARD,
         "launches": launches,
         "max_abs_err": summary["max_abs_err"],
         "max_abs_err_no_flip": summary["max_abs_err_no_flip"],
@@ -1207,7 +1231,7 @@ def head_timing(uq_launches: dict, fig9: dict, grng_checks: dict,
 
 def run_timing(inputs: dict, launches: int, worst: float,
                cim_line: dict, head_lines: list) -> None:
-    from repro_torch.kernels.decision import (decision_stats,
+    from repro_torch.kernels.decision import (decision_plan, decision_stats,
                                               decision_stats_plain)
     times = {}
     for case in ("main_r4", "main_r20"):
@@ -1223,6 +1247,9 @@ def run_timing(inputs: dict, launches: int, worst: float,
                            plain_ms=device_ms(plain, 1000),
                            call_ms=call_ms(kernel, 1000),
                            plain_call_ms=call_ms(plain, 1000))
+    plans = {case: decision_plan(inputs[case]["y_mu"].shape[1],
+                                 inputs[case]["sel"].shape[0])._asdict()
+             for case in times}
     bound, bound_by, nbytes, ops = decision_bound_ms(inputs["main_r4"])
     r4, r20 = times["main_r4"], times["main_r20"]
     emit({"kernels": [{
@@ -1230,6 +1257,12 @@ def run_timing(inputs: dict, launches: int, worst: float,
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decision.cu",
         "replaces": "src/repro/kernels/decision_kernel.py:165",
+        "design": DESIGN["decision_stats"],
+        "prev_ms": PREV_DECISION_MS["main_r4"],
+        "prev_ms_r20": PREV_DECISION_MS["main_r20"],
+        "prev_card": PREV_CARD,
+        "plan": plans["main_r4"],
+        "plan_r20": plans["main_r20"],
         "launches": launches,
         "max_abs_err": worst,
         "shape": "B=32 N=2 R=4, half the slots masked",
@@ -1287,6 +1320,11 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
              for n in libs}
     emit({"build_s": build_s, "libraries": sorted(libs), "ptxas": ptxas})
+    for name in NO_SPILL:
+        spills = [ln for ln in ptxas[name] if "spill" in ln]
+        check(spills and all(re.search(r"\b0 bytes spill stores, 0 bytes "
+                                       r"spill loads", ln) for ln in spills),
+              f"ptxas reports spills in {name}: {spills}")
 
     worst, inputs = run_kernel_checks()
     cim_summary, cim_inputs = run_cim_checks()

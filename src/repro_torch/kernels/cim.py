@@ -14,19 +14,79 @@ ADC is ideal; gain 1 and offset 0 give the same bits.
 ``cim_mvm_nonideal_ref`` that accumulates the chunks in order, as the
 TPU kernel does); CUDA tensors launch ``csrc/cim_mvm.cu`` or raise.
 There is no fallback.  ``cim_mvm.launches`` counts kernel launches.
+``launch_plan`` picks the kernel's tiles and chunk split from the shape.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.quant import QuantConfig, adc_quantize
 
 CHUNK = 64                # the kernel's analog accumulation depth
+H100_SMS = 132
+TILE_M = (32, 16, 8, 4)   # output rows a block may own, largest first
+MAX_SPLIT = 8             # blocks of a portable thread-block cluster
+SMEM_LIMIT = 48 * 1024    # static-size shared memory, no opt-in needed
+_X_STRIDE = CHUNK + 4     # a padded x row in shared memory (floats)
 _P = ctypes.c_void_p
+
+
+class CimPlan(NamedTuple):
+    """How ``csrc/cim_mvm.cu`` covers one product: a grid of
+    ``tile_m × tile_n`` output tiles; ``split`` > 1 runs the K/64 chunks
+    of a tile at once in a cluster of ``split`` blocks (one chunk each,
+    codes folded in chunk order), ``split`` = 1 has one block walk them
+    in order through ``stages`` shared-memory stages."""
+    tile_m: int
+    tile_n: int
+    split: int
+    threads: int
+    blocks: int
+    stages: int
+    smem_bytes: int
+
+
+def _smem_bytes(tile_m: int, tile_n: int, split: int, chunks: int) -> int:
+    stage = tile_m * _X_STRIDE + CHUNK * tile_n
+    if split > 1:                                 # + every chunk's codes
+        return 4 * (stage + split * tile_m * tile_n)
+    return 4 * stage * (2 if chunks > 1 else 1)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(m: int, k: int, n: int, sms: int = H100_SMS) -> CimPlan:
+    """The CIM kernel's launch plan for x [m, k] · w [k, n] on a card of
+    ``sms`` SMs.  tile_n is n rounded up to 16, at most 64.  The chunks
+    are split over a cluster when the tiles of the largest tile_m do not
+    give every SM a block and there are 2..8 chunks.  tile_m is then the
+    largest (of 32, 16, 8, 4, within the shared memory) that gives
+    every SM a block, else the smallest."""
+    chunks = k // CHUNK
+    tile_n = min(64, -(-n // 16) * 16)
+    tiles_n = -(-n // tile_n)
+
+    def blocks(tile_m, split):
+        return -(-m // tile_m) * tiles_n * split
+
+    split = (chunks if 1 < chunks <= MAX_SPLIT
+             and blocks(TILE_M[0], 1) < sms else 1)
+    fits = [t for t in TILE_M
+            if _smem_bytes(t, tile_n, split, chunks) <= SMEM_LIMIT]
+    tile_m = next((t for t in fits if blocks(t, split) >= sms), fits[-1])
+    return CimPlan(tile_m, tile_n, split, tile_m * tile_n // 4,
+                   blocks(tile_m, split),
+                   1 if split > 1 or chunks == 1 else 2,
+                   _smem_bytes(tile_m, tile_n, split, chunks))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _levels(qcfg: QuantConfig) -> int:
@@ -64,7 +124,7 @@ def cim_mvm_plain(x, w, fs, qcfg: QuantConfig, col_gain=None,
 def _launcher():
     from repro_torch.kernels.build import load
     fn = load("cim_mvm").cim_mvm_launch
-    fn.argtypes = [_P] * 6 + [ctypes.c_int] * 4 + [_P]
+    fn.argtypes = [_P] * 6 + [ctypes.c_int] * 7 + [_P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -95,6 +155,7 @@ def _launch(x, w, fs, qcfg: QuantConfig, col_gain, col_offset):
         if t is not None:
             _check(name, t, (n,), dev)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    plan = launch_plan(m, kdim, n, _sm_count(dev.index))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -103,7 +164,8 @@ def _launch(x, w, fs, qcfg: QuantConfig, col_gain, col_offset):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(ptr(x), ptr(w), ptr(fs), ptr(col_gain),
                           ptr(col_offset), ptr(out), m, kdim, n,
-                          _levels(qcfg), stream)
+                          _levels(qcfg), plan.tile_m, plan.tile_n,
+                          plan.split, stream)
     if err != 0:
         raise RuntimeError(f"CIM kernel launch failed: cudaError {err}")
     cim_mvm.launches += 1

@@ -8,9 +8,11 @@ the masked deltas of the running predictive statistics
     {sum_p [B,N], sum_psq [B,N], sum_ent [B], sum_entsq [B]}
 
 without the [R, B, N] logit samples ever reaching device memory.  The
-kernel (``csrc/decision.cu``) is bound by bytes — about 14 KB a round
-at the main path's shape — and in practice by its launch; its source
-notes the design.
+kernel (``csrc/decision.cu``) moves about 7 KB a round at the main
+path's shape and is bound in practice by its launch; its source notes
+the design.  ``decision_plan`` routes a round to the kernel's small-N
+variant (N ≤ 32: a thread per (sample, class) pair) or to its streaming
+variant (N > 32).
 
 ``decision_stats`` routes by where the tensors lie: CPU tensors go to
 ``decision_stats_plain``, the plain PyTorch version (mix, log-softmax,
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,7 +33,29 @@ from repro_torch.core.clt_grng import GRNGConfig
 from repro_torch.core.hashing import as_u32, gaussianish, hash3
 
 MAX_SAMPLES = 64          # the kernel keeps a round's R selections in smem
+SMALL_N_MAX = 32          # widest N of the small-N variant: one warp
+STREAMING_THREADS = 128
 _P = ctypes.c_void_p
+
+
+class DecisionPlan(NamedTuple):
+    """The decision kernel's variant for one round: ``np`` = 0 is the
+    streaming variant; ``np`` > 0 the small-N variant, whose threads
+    cover the R × np (sample, column) pairs, np = N rounded up to a
+    power of two (padding lanes carry no logit)."""
+    variant: str
+    np: int
+    threads: int
+
+
+def decision_plan(n: int, r: int) -> DecisionPlan:
+    """Route a round of ``r`` samples over ``n`` classes: N ≤ 32 to the
+    small-N variant (a thread per pair, at least a warp, at most 1024
+    threads, pairs beyond that loop), N > 32 to the streaming one."""
+    if n > SMALL_N_MAX:
+        return DecisionPlan("streaming", 0, STREAMING_THREADS)
+    np_ = 1 << (n - 1).bit_length()
+    return DecisionPlan("small_n", np_, min(1024, -(-r * np_ // 32) * 32))
 
 
 def decision_stats_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
@@ -76,7 +101,8 @@ def _launcher():
     from repro_torch.kernels.build import load
     fn = load("decision").decision_stats_launch
     fn.argtypes = ([_P] * 12 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] * 3 + [ctypes.c_uint, _P])
+                   + [ctypes.c_float] * 3
+                   + [ctypes.c_uint, ctypes.c_int, ctypes.c_int, _P])
     fn.restype = ctypes.c_int
     return fn
 
@@ -126,6 +152,7 @@ def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq, sample_idx,
            "sum_psq": torch.empty((b, n), dtype=f32, device=dev),
            "sum_ent": torch.empty((b,), dtype=f32, device=dev),
            "sum_entsq": torch.empty((b,), dtype=f32, device=dev)}
+    plan = decision_plan(n, r)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -140,7 +167,7 @@ def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq, sample_idx,
             ptr(out["sum_p"]), ptr(out["sum_psq"]), ptr(out["sum_ent"]),
             ptr(out["sum_entsq"]), b, n, r, int(sel_per_slot),
             int(idx_per_slot), cfg.sum_mean, cfg.sum_std, cfg.read_sigma,
-            cfg.noise_seed & 0xFFFFFFFF, stream)
+            cfg.noise_seed & 0xFFFFFFFF, plan.np, plan.threads, stream)
     if err != 0:
         raise RuntimeError(f"decision kernel launch failed: cudaError {err}")
     decision_stats.launches += 1

@@ -10,8 +10,8 @@ given policy) and prints JSON lines:
     busy and idle share; the profiler's own host cost makes this idle
     share an upper bound), kernel launches per dispatch, the device time
     of the decision kernel and, on a chip instance, of the CIM kernel
-    (per launch and as a share of device-busy time), and the kernels
-    with the most device time.
+    (each per launch and as a share of device-busy time), and the
+    kernels with the most device time.
 
 ``--chip-instance N`` serves on a die sampled with seed N (severity
 ``--chip-severity``, calibrated): the conv trunk runs through the CIM
@@ -79,7 +79,8 @@ def profile_once(policy: TriagePolicy, n_requests: int, fused: bool,
     for e in kernels:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
-    decision = [v for k, v in by_name.items() if "decision_stats" in k]
+    decision = [u for k, v in by_name.items() if "decision_stats" in k
+                for u in v]
     cim = [u for k, v in by_name.items() if "cim_mvm" in k for u in v]
     int64 = sum(len(v) for k, v in by_name.items() if "<long" in k)
     return {
@@ -92,9 +93,10 @@ def profile_once(policy: TriagePolicy, n_requests: int, fused: bool,
         "device_kernels": len(kernels),
         "device_kernels_per_dispatch": len(kernels) / engine.host_syncs,
         "int64_elementwise_kernels": int64,
-        "decision_kernel_launches": sum(len(v) for v in decision),
+        "decision_kernel_launches": len(decision),
         "decision_kernel_device_us_mean": (
-            statistics.fmean(decision[0]) if decision else None),
+            statistics.fmean(decision) if decision else None),
+        "decision_kernel_share_of_device_busy": sum(decision) / busy_us,
         "chip_instance": chip is not None,
         "admissions": engine.admissions,
         "cim_kernel_launches": len(cim),

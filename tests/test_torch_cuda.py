@@ -5,12 +5,19 @@ test here skips with its reason.  Run on the card with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Decision kernel: rtol/atol 1e-5, as tests/test_decision_kernel.py: the
-kernel sums the online logsumexp and the 16-term mix in its own order.
+kernel sums the logsumexp, the 16-term mix and the sums over samples in
+its own order.  The cases cover both variants (N ≤ 32 small-N, N > 32
+streaming, ``kernels/decision.py`` ``decision_plan``), R from 1 to 64,
+read noise keyed on global ``rows``, masked slots, and shared and
+per-slot selections.
 CIM kernel: rtol/atol 1e-4, as tests/test_kernels.py; the kernel sums
 each 64-term partial sum in its own order, so an output may land one
 ADC code away where the partial sum sits on a half-code tie: such
 outputs are counted, held to one LSB and to at most 1e-4 of the
-outputs.
+outputs.  The shapes cover every branch of ``kernels/cim.py``
+``launch_plan``: chunks split over a cluster and walked by one block
+(one chunk, and several double-buffered), N of 16, 32, 48, 64, 70 and
+257, ragged M, K of 64 to 640, and x not 16-byte aligned.
 GRNG ε kernel: atol 1e-5 (tests/test_kernels.py:26); it rounds every
 step as the plain version does, so the elements are expected equal.
 Head kernels (rank16, paper, paper with the ADC): rtol/atol 1e-4, as
@@ -44,7 +51,8 @@ def hopper():
     return torch.device("cuda")
 
 
-def _case(dev, b, n, r, read_sigma, seed=0):
+def _case(dev, b, n, r, read_sigma, seed=0, shared_sel=False,
+          row_offset=0):
     gen = torch.Generator().manual_seed(seed)
     grng = GRNGConfig(read_sigma=read_sigma)
     hcfg = BayesHeadConfig(mode="rank16", grng=grng,
@@ -56,20 +64,21 @@ def _case(dev, b, n, r, read_sigma, seed=0):
     ab = activation_basis(prepare_serving_head(mu, sigma, hcfg), x, hcfg)
     base = torch.arange(b, dtype=torch.int64, device=dev) * 20
     drawn = torch.zeros(b, dtype=torch.int32, device=dev)
+    sel = adaptive.stream_selections(grng, base, drawn, r)
+    idx = adaptive.stream_indices(base, drawn, r)
+    if shared_sel:
+        sel, idx = sel[:, 0].contiguous(), idx[:, 0].contiguous()
+    rows = (torch.arange(b, dtype=torch.int64, device=dev) + row_offset
+            if row_offset else None)
     return dict(y_mu=ab["y_mu"].contiguous(),
                 x_sigma=ab["x_sigma"].contiguous(), m=ab["m"].contiguous(),
-                sel=adaptive.stream_selections(grng, base, drawn, r),
-                cfg=grng,
+                sel=sel, cfg=grng,
                 x_sigsq=(ab["x_sigsq"].contiguous() if read_sigma else None),
-                sample_idx=adaptive.stream_indices(base, drawn, r),
-                mask=torch.arange(b, device=dev) % 3 != 0)
+                sample_idx=idx, mask=torch.arange(b, device=dev) % 3 != 0,
+                rows=rows)
 
 
-@pytest.mark.parametrize("shape", [(32, 2, 4), (32, 2, 20), (9, 300, 6),
-                                   (3, 129, 64)])
-@pytest.mark.parametrize("read_sigma", [0.0, 0.4])
-def test_decision_kernel_matches_plain(hopper, shape, read_sigma):
-    args = _case(hopper, *shape, read_sigma)
+def _check_decision(args):
     before = decision_stats.launches
     got = decision_stats(**args)
     want = decision_stats_plain(**args)
@@ -80,6 +89,28 @@ def test_decision_kernel_matches_plain(hopper, shape, read_sigma):
         torch.testing.assert_close(got[key], want[key], rtol=1e-5,
                                    atol=1e-5, msg=key)
         assert torch.equal(got[key], again[key]), key     # deterministic
+    masked = ~args["mask"]
+    assert bool((got["sum_p"][masked] == 0).all())
+    assert bool((got["sum_ent"][masked] == 0).all())
+
+
+@pytest.mark.parametrize("shape", [
+    (32, 2, 1), (32, 2, 4), (32, 2, 20), (32, 2, 32), (32, 2, 33),
+    (32, 2, 64), (7, 1, 5), (6, 3, 17), (7, 32, 64), (7, 33, 64),
+    (9, 300, 6), (3, 129, 64)])
+@pytest.mark.parametrize("read_sigma", [0.0, 0.4])
+def test_decision_kernel_matches_plain(hopper, shape, read_sigma):
+    _check_decision(_case(hopper, *shape, read_sigma))
+
+
+@pytest.mark.parametrize("n", [2, 32, 33])
+@pytest.mark.parametrize("shared_sel", [False, True])
+def test_decision_kernel_rows_and_shared_selections(hopper, n, shared_sel):
+    """Read noise keyed on global slot ids (a shard's ``rows``), with a
+    selection per slot or one for all slots, on both sides of the small-N
+    routing threshold."""
+    _check_decision(_case(hopper, 12, n, 20, 0.4, seed=3,
+                          shared_sel=shared_sel, row_offset=1000))
 
 
 def test_decision_wrapper_refuses_what_the_kernel_does_not_take(hopper):
@@ -108,7 +139,9 @@ def _cim_case(dev, m, k, n, seed=0):
 
 @pytest.mark.parametrize("shape", [(7200, 64, 16), (1568, 192, 32),
                                    (288, 320, 64), (130, 192, 257),
-                                   (8, 192, 70)])
+                                   (8, 192, 70), (7200, 192, 64),
+                                   (130, 320, 16), (8, 64, 32),
+                                   (288, 640, 70), (576, 320, 48)])
 @pytest.mark.parametrize("front", ["ideal", "die"])
 def test_cim_kernel_matches_plain(hopper, shape, front):
     args = _cim_case(hopper, *shape)
@@ -127,6 +160,23 @@ def test_cim_kernel_matches_plain(hopper, shape, front):
     assert bool((err[flips] <= float(args["fs"]) / 31 * (1 + 1e-4)).all())
     torch.testing.assert_close(got[~flips], want[~flips], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(7200, 64, 16), (288, 320, 64),
+                                   (130, 192, 257)])
+def test_cim_kernel_reads_unaligned_x(hopper, shape):
+    """x 4 bytes past a 16-byte boundary takes the kernel's 4-byte copies;
+    the bits are those of the aligned copy."""
+    args = _cim_case(hopper, *shape, seed=2)
+    m, k = args["x"].shape
+    flat = torch.empty(m * k + 1, device=hopper)
+    x = flat[1:].view(m, k)
+    x.copy_(args["x"])
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    got = cim_mvm(qcfg=QCFG, **dict(args, x=x))
+    want = cim_mvm(qcfg=QCFG, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_cim_zero_variation_is_the_ideal_adc(hopper):
