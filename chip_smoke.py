@@ -69,9 +69,12 @@ JSON line):
      shapes, ε at Fig. 9's block, the head kernels at kernel_bench's
      shape for R = 4, 16, 20, 64 (paper with the ADC at R = 20) and at
      the SAR head's shape for R = 20.  The decision and CIM entries
-     name their design and carry the previous design's times at the
-     same shapes (``prev_ms``, constants from PERF.md: the old kernels
-     are not timed here) and the launch plan each shape took;
+     name their design and the launch plan each shape took.  Every
+     plan the CIM kernel takes, timed at the trunk's shapes for 32
+     slots and for a UQ batch of 64 images, each giving the chosen
+     plan's bits (line ``cim_plans``).  The previous design's times at
+     the same shapes, constants from PERF.md and not timed here, stand
+     on a line of their own (``previous_design``);
   9. last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the reference package.
 """
@@ -112,7 +115,8 @@ UQ_BATCHES = 16                      # Fig. 16: 16 batches of 64 images
 FIG9 = dict(n_rows=256, n_cols=256, num_samples=8)
 # The two main-path kernels were redesigned for Hopper.  The previous
 # design's times at the same shapes (PERF.md §6: chip_smoke.py,
-# CUDA-graph replay, on the card named here), for the kernels line; the
+# CUDA-graph replay, on the card named here), printed as constants on
+# the ``previous_design`` line, apart from this run's measurements; the
 # old kernels are not timed here.
 DESIGN = {"decision_stats": "small-N variant: a thread per (sample, class) "
                             "pair; streaming passes for N > 32",
@@ -231,12 +235,10 @@ def gate_die():
     return sample_instances(11, 1, VariationSpec().scaled(2.0))[0]
 
 
-def cim_cases() -> dict:
-    """CIM kernel operands on the card.  ``trunk<i>``: what conv layer i
-    gives the kernel when the main path admits 32 slots on the gate die
-    (the port's params, images and trunk arrays; K padded to 64).
-    ``ragged_*``: random operands at the reference's ragged test shapes.
-    Every case carries the gate die's column front end."""
+def trunk_cases(n_images: int, die) -> dict:
+    """What each conv layer gives the CIM kernel when the die's trunk
+    runs ``n_images`` patches of the serving stream (the port's params,
+    images and trunk arrays; K padded to 64), by layer: ``trunk<i>``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -247,10 +249,9 @@ def cim_cases() -> dict:
     cfg = sar_cnn.SarCnnConfig()
     params = sar_cnn.init_sar_cnn(torch.Generator().manual_seed(3), cfg,
                                   device="cuda")
-    die = gate_die()
     trunk = sar_cnn.program_trunk(params, cfg, die)
     h = torch.as_tensor(np.stack(
-        [r.payload for r in make_sar_stream(32, corrupt_frac=0.25)]),
+        [r.payload for r in make_sar_stream(n_images, corrupt_frac=0.25)]),
         device="cuda")
     cases = {}
     for i, layer in enumerate(trunk):
@@ -263,6 +264,20 @@ def cim_cases() -> dict:
                 xq, layer["w"], cfg.quant).reshape(1),
             gain=layer["gain"], offset=layer["offset"])
         h = sar_cnn._cim_conv(h, layer, cfg)
+    return cases
+
+
+def cim_cases() -> dict:
+    """CIM kernel operands on the card.  ``trunk<i>``: what conv layer i
+    gives the kernel when the main path admits 32 slots on the gate die.
+    ``ragged_*``: random operands at the reference's ragged test shapes.
+    Every case carries the gate die's column front end."""
+    import torch
+    from repro_torch.kernels.ops import measured_full_scale
+    from repro_torch.models.sar_cnn import SarCnnConfig
+    cfg = SarCnnConfig()
+    die = gate_die()
+    cases = trunk_cases(32, die)
     gen = torch.Generator().manual_seed(5)
     for m, k, n in ((130, 192, 257), (8, 192, 70)):
         x = torch.randn((m, k), generator=gen).cuda()
@@ -1045,7 +1060,7 @@ def cim_timing(cases: dict, launches: int, summary: dict) -> dict:
         shapes.append({
             "case": name, "M": c["x"].shape[0], "K": c["x"].shape[1],
             "N": c["w"].shape[1], "plan": plan._asdict(),
-            "prev_ms": PREV_CIM_MS[name], "ms": device_ms(kernel, 1000),
+            "ms": device_ms(kernel, 1000),
             "plain_ms": device_ms(plain, 1000),
             "call_ms": call_ms(kernel, 1000),
             "plain_call_ms": call_ms(plain, 1000), "bound_ms": bound,
@@ -1057,7 +1072,6 @@ def cim_timing(cases: dict, launches: int, summary: dict) -> dict:
         "source": "src/repro_torch/kernels/csrc/cim_mvm.cu",
         "replaces": "src/repro/kernels/cim_mvm.py:72",
         "design": DESIGN["cim_mvm"],
-        "prev_ms": first["prev_ms"], "prev_card": PREV_CARD,
         "launches": launches,
         "max_abs_err": summary["max_abs_err"],
         "max_abs_err_no_flip": summary["max_abs_err_no_flip"],
@@ -1077,6 +1091,53 @@ def cim_timing(cases: dict, launches: int, summary: dict) -> dict:
                         "between the partial sums of a matrix product",
         "shapes": shapes,
     }
+
+
+def cim_plan_sweep(cases: dict) -> None:
+    """Every plan the CIM kernel takes (each tile_m, split or walked),
+    timed by graph replay at the trunk's shapes for a 32-slot admission
+    (``cases``) and for 64 images (a UQ batch's shapes), with the die's
+    front end.  Each plan must give the bits of the plan ``launch_plan``
+    picks."""
+    import torch
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import cim
+    qcfg = QuantConfig(enabled=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for images, trunk in ((32, cases), (64, trunk_cases(64, gate_die()))):
+        for name in ("trunk0", "trunk1", "trunk2"):
+            c = trunk[name]
+            (m, k), n = c["x"].shape, c["w"].shape[1]
+            args = (c["x"], c["w"], c["fs"], qcfg, c["gain"], c["offset"])
+            chosen = cim.launch_plan(m, k, n, sms)
+            want = cim._launch(*args, plan=chosen)
+            chunks = k // cim.CHUNK
+            splits = {1, chunks} if chunks <= cim.MAX_SPLIT else {1}
+            sweep = []
+            for tile_m in cim.TILE_M:
+                for split in sorted(splits):
+                    plan = cim.make_plan(m, n, tile_m, chosen.tile_n, split)
+                    if plan.smem_bytes > cim.SMEM_LIMIT:
+                        continue
+                    got = cim._launch(*args, plan=plan)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want),
+                          f"CIM plan {plan} gives other bits than "
+                          f"{chosen} at {name} of {images} images")
+                    sweep.append({"tile_m": tile_m, "split": split,
+                                  "blocks": plan.blocks,
+                                  "ms": device_ms(lambda p=plan: cim._launch(
+                                      *args, plan=p), 1000)})
+            ms = {(r["tile_m"], r["split"]): r["ms"] for r in sweep}
+            rows.append({"case": f"{name}_{images}", "M": m, "K": k, "N": n,
+                         "chosen": chosen._asdict(),
+                         "chosen_ms": ms[chosen.tile_m, chosen.split],
+                         "fastest": min(sweep, key=lambda r: r["ms"]),
+                         "sweep": sweep})
+    emit({"cim_plans": rows, "same_bits": True,
+          "timing": "device time per call, 1000 calls replayed from one "
+                    "CUDA graph"})
 
 
 def timed(kernel, plain, eager_iters: int = 200) -> dict:
@@ -1252,15 +1313,18 @@ def run_timing(inputs: dict, launches: int, worst: float,
              for case in times}
     bound, bound_by, nbytes, ops = decision_bound_ms(inputs["main_r4"])
     r4, r20 = times["main_r4"], times["main_r20"]
+    emit({"previous_design": {
+        "card": PREV_CARD,
+        "what": "constants from PERF.md, not measured in this run: the "
+                "previous design of each kernel at the same shapes, by "
+                "CUDA-graph replay",
+        "decision_stats_ms": PREV_DECISION_MS, "cim_mvm_ms": PREV_CIM_MS}})
     emit({"kernels": [{
         "name": "decision_stats",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decision.cu",
         "replaces": "src/repro/kernels/decision_kernel.py:165",
         "design": DESIGN["decision_stats"],
-        "prev_ms": PREV_DECISION_MS["main_r4"],
-        "prev_ms_r20": PREV_DECISION_MS["main_r20"],
-        "prev_card": PREV_CARD,
         "plan": plans["main_r4"],
         "plan_r20": plans["main_r20"],
         "launches": launches,
@@ -1334,6 +1398,7 @@ def main() -> int:
     chip_path = run_chip_path()
     uq_path = run_uq_path()
     fig9 = run_fig9_path()
+    cim_plan_sweep(cim_inputs)
     run_timing(inputs, main_path["launches"], worst,
                cim_timing(cim_inputs, chip_path["launches"], cim_summary),
                head_timing(uq_path["launches"], fig9, grng_checks,

@@ -31,6 +31,7 @@ CHUNK = 64                # the kernel's analog accumulation depth
 H100_SMS = 132
 TILE_M = (32, 16, 8, 4)   # output rows a block may own, largest first
 MAX_SPLIT = 8             # blocks of a portable thread-block cluster
+SPLIT_TILE_M = 16         # a split block's rows: fastest in the plan sweep
 SMEM_LIMIT = 48 * 1024    # static-size shared memory, no opt-in needed
 _X_STRIDE = CHUNK + 4     # a padded x row in shared memory (floats)
 _P = ctypes.c_void_p
@@ -41,47 +42,52 @@ class CimPlan(NamedTuple):
     ``tile_m × tile_n`` output tiles; ``split`` > 1 runs the K/64 chunks
     of a tile at once in a cluster of ``split`` blocks (one chunk each,
     codes folded in chunk order), ``split`` = 1 has one block walk them
-    in order through ``stages`` shared-memory stages."""
+    in order.  The launcher refuses ``threads`` and ``smem_bytes`` that
+    differ from what the tiles need."""
     tile_m: int
     tile_n: int
     split: int
     threads: int
     blocks: int
-    stages: int
     smem_bytes: int
 
 
-def _smem_bytes(tile_m: int, tile_n: int, split: int, chunks: int) -> int:
-    stage = tile_m * _X_STRIDE + CHUNK * tile_n
-    if split > 1:                                 # + every chunk's codes
-        return 4 * (stage + split * tile_m * tile_n)
-    return 4 * stage * (2 if chunks > 1 else 1)
+def _smem_bytes(tile_m: int, tile_n: int, split: int) -> int:
+    stage = tile_m * _X_STRIDE + CHUNK * tile_n   # one chunk's x and w
+    return 4 * (stage + (split * tile_m * tile_n if split > 1 else 0))
+
+
+def make_plan(m: int, n: int, tile_m: int, tile_n: int,
+              split: int) -> CimPlan:
+    """The plan of the given tiles and split, for an [m, n] output."""
+    blocks = -(-m // tile_m) * -(-n // tile_n) * split
+    return CimPlan(tile_m, tile_n, split, tile_m * tile_n // 4, blocks,
+                   _smem_bytes(tile_m, tile_n, split))
 
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(m: int, k: int, n: int, sms: int = H100_SMS) -> CimPlan:
     """The CIM kernel's launch plan for x [m, k] · w [k, n] on a card of
-    ``sms`` SMs.  tile_n is n rounded up to 16, at most 64.  The chunks
-    are split over a cluster when the tiles of the largest tile_m do not
-    give every SM a block and there are 2..8 chunks.  tile_m is then the
-    largest (of 32, 16, 8, 4, within the shared memory) that gives
-    every SM a block, else the smallest."""
+    ``sms`` SMs.  tile_n is n rounded up to 16, at most 64.  The 2..8
+    chunks of a tile are split over a cluster when the largest tiles do
+    not give every SM a block; a split takes tile_m = 16 where the
+    shared memory holds it, the fastest at every split trunk shape of
+    ``chip_smoke.py``'s plan sweep (PERF.md), else the largest that
+    fits.  Unsplit, tile_m is the largest that gives every SM a block,
+    else the smallest."""
     chunks = k // CHUNK
     tile_n = min(64, -(-n // 16) * 16)
-    tiles_n = -(-n // tile_n)
 
-    def blocks(tile_m, split):
-        return -(-m // tile_m) * tiles_n * split
+    def plan(tile_m, split):
+        return make_plan(m, n, tile_m, tile_n, split)
 
-    split = (chunks if 1 < chunks <= MAX_SPLIT
-             and blocks(TILE_M[0], 1) < sms else 1)
-    fits = [t for t in TILE_M
-            if _smem_bytes(t, tile_n, split, chunks) <= SMEM_LIMIT]
-    tile_m = next((t for t in fits if blocks(t, split) >= sms), fits[-1])
-    return CimPlan(tile_m, tile_n, split, tile_m * tile_n // 4,
-                   blocks(tile_m, split),
-                   1 if split > 1 or chunks == 1 else 2,
-                   _smem_bytes(tile_m, tile_n, split, chunks))
+    if 1 < chunks <= MAX_SPLIT and plan(TILE_M[0], 1).blocks < sms:
+        fits = [plan(t, chunks) for t in TILE_M
+                if t <= SPLIT_TILE_M
+                and _smem_bytes(t, tile_n, chunks) <= SMEM_LIMIT]
+        return fits[0]
+    fits = [plan(t, 1) for t in TILE_M]
+    return next((p for p in fits if p.blocks >= sms), fits[-1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,7 +130,7 @@ def cim_mvm_plain(x, w, fs, qcfg: QuantConfig, col_gain=None,
 def _launcher():
     from repro_torch.kernels.build import load
     fn = load("cim_mvm").cim_mvm_launch
-    fn.argtypes = [_P] * 6 + [ctypes.c_int] * 7 + [_P]
+    fn.argtypes = [_P] * 6 + [ctypes.c_int] * 9 + [_P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -141,7 +147,10 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(x, w, fs, qcfg: QuantConfig, col_gain, col_offset):
+def _launch(x, w, fs, qcfg: QuantConfig, col_gain, col_offset,
+            plan: CimPlan | None = None):
+    """Launches the kernel under ``launch_plan``'s plan, or under
+    ``plan`` where one is given (a plan sweep)."""
     dev = x.device
     m, kdim = x.shape
     n = w.shape[1]
@@ -155,7 +164,8 @@ def _launch(x, w, fs, qcfg: QuantConfig, col_gain, col_offset):
         if t is not None:
             _check(name, t, (n,), dev)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    plan = launch_plan(m, kdim, n, _sm_count(dev.index))
+    if plan is None:
+        plan = launch_plan(m, kdim, n, _sm_count(dev.index))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -165,7 +175,8 @@ def _launch(x, w, fs, qcfg: QuantConfig, col_gain, col_offset):
         err = _launcher()(ptr(x), ptr(w), ptr(fs), ptr(col_gain),
                           ptr(col_offset), ptr(out), m, kdim, n,
                           _levels(qcfg), plan.tile_m, plan.tile_n,
-                          plan.split, stream)
+                          plan.split, plan.threads, plan.smem_bytes,
+                          stream)
     if err != 0:
         raise RuntimeError(f"CIM kernel launch failed: cudaError {err}")
     cim_mvm.launches += 1

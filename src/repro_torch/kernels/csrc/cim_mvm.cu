@@ -19,10 +19,10 @@
 // 32-slot admission, (M,K,N) = (7200,64,16), (1568,192,32) and
 // (288,320,64), move at most 2.3 MB (0.7 µs at 3.35 TB/s) and do at most
 // 15 MFLOP (0.2 µs at the float32 rate), while an empty kernel alone
-// costs about 1 µs by graph replay on the H100 (launch/kernel_probe.py
-// --floor).  Inside a block the floor is a memory round trip and one
-// 64-deep dependent fmaf chain per chunk, so the kernel puts every
-// chunk's chain on the card at once.
+// costs about 0.8 µs by graph replay on the H100 (PERF.md).  Inside a
+// block the floor is a memory round trip and one 64-deep dependent fmaf
+// chain per chunk, so the kernel puts every chunk's chain on the card at
+// once.
 //
 // The contract is bit for bit: every output's 64-term partial sum is one
 // fmaf chain in order k = 0…63, and the front end, the division, rintf,
@@ -34,32 +34,33 @@
 // would change the partial sums or their order.  This kernel gives the
 // bits of the previous design (below).
 //
-// The design.  The launch plan (tile sides, chunk split, threads) is
-// picked from (M, K, N) in Python (kernels/cim.py: launch_plan) and
-// checked here:
+// The design.  The launch plan (tile sides, chunk split, threads, shared
+// memory) is picked from (M, K, N) in Python (kernels/cim.py:
+// launch_plan) and checked here:
 //   tiles    a block owns a tile_m × tile_n output tile; tile_n is N
 //            rounded up to 16, at most 64, so N = 16 wastes no thread;
-//            tile_m (32, 16, 8 or 4) is the largest that still puts a
-//            block on every SM.  Each thread carries 4 rows of one
+//            tile_m is 32, 16, 8 or 4.  Each thread carries 4 rows of one
 //            column: four independent fmaf chains, interleaved, reading
 //            x as float4 along k from shared memory (rows padded to 68
-//            floats: no bank conflicts).
-//   split    where the tiles alone do not fill the card and K/64 ≤ 8,
-//            the chunks of a tile run at once in the blocks of a thread
-//            block cluster, one chunk each.  Each block stores its
-//            code·lsb per output into rank 0's shared memory (distributed
-//            shared memory, after a barrier phase that only shows every
-//            block has started); after one cluster barrier rank 0 folds
-//            them in order c = 0…C-1, from 0: the additions of the serial
-//            walk, in its order, and no atomics.
+//            floats: no bank conflicts).  Tiles are copied with cp.async,
+//            16 bytes a copy where aligned.
+//   split    where the largest tiles alone do not fill the card and
+//            K/64 is 2..8 (every trunk product but the first conv's one
+//            chunk), the chunks of a tile run at once in the blocks of a
+//            thread-block cluster, one chunk each, at tile_m = 16.  Each
+//            block stores its code·lsb per output into rank 0's shared
+//            memory (distributed shared memory, after a barrier phase
+//            that only shows every block has started); after one cluster
+//            barrier rank 0 folds them in order c = 0…C-1, from 0: the
+//            additions of the serial walk, in its order, and no atomics.
 //   walk     otherwise one block walks the chunks in order, its
-//            accumulators in registers; the x and w tiles of chunk c+1
-//            are copied with cp.async (16-byte copies where aligned) into
-//            the other of two shared-memory stages while chunk c is
-//            summed.
+//            accumulators in registers, one shared-memory stage copied
+//            and summed per chunk.  No path of the port walks more than
+//            one chunk: it is kept for K > 512 and for tiles that fill
+//            the card.
 //   edges    ragged M and N are masked (zero-filled copies, no stores);
 //            there are no pad chunks, K % 64 != 0 is refused.
-// Two launches on the same inputs give the same bits.
+// Two launches on the same inputs give the same bits, under any plan.
 //
 // The previous design, for comparison: one 32×32 tile a block, 256 threads,
 // the K/64 chunks walked in series with synchronous global→shared copies
@@ -110,9 +111,8 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // The cluster barrier in two halves: a block may touch another block's
@@ -228,18 +228,17 @@ __global__ void __launch_bounds__(kMaxThreads) cim_mvm_kernel(Params p) {
       __fmul_rn((p.offset != nullptr && n < p.N) ? p.offset[n] : 0.f, lsb);
   const float lo = static_cast<float>(-p.levels - 1);
   const float hi = static_cast<float>(p.levels);
-  const int stage = p.tile_m * kXStride + kChunk * p.tile_n;
+  float* xs = smem;                          // one stage: x and w tiles
+  float* ws = smem + p.tile_m * kXStride;
   float psum[kRows];
 
   if constexpr (kSplit) {
     cluster_arrive_relaxed();
-    float* xs = smem;
-    float* ws = smem + p.tile_m * kXStride;
     // [split][tile_m, tile_n] code·lsb of every chunk, in rank 0's block
-    float* q = smem + stage;
+    float* q = ws + kChunk * p.tile_n;
     load_chunk(p, rank, m0, n0, xs, ws);
     cp_async_commit();
-    cp_async_wait<0>();
+    cp_async_wait_all();
     __syncthreads();
     chunk_sums(xs, ws, p.tile_n, g, rs, col, psum);
     cg::cluster_group cluster = cg::this_cluster();
@@ -263,24 +262,16 @@ __global__ void __launch_bounds__(kMaxThreads) cim_mvm_kernel(Params p) {
     float acc[kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
-    load_chunk(p, 0, m0, n0, smem, smem + p.tile_m * kXStride);
-    cp_async_commit();
     for (int c = 0; c < chunks; ++c) {
-      if (c + 1 < chunks) {                  // next chunk into the other stage
-        float* next = smem + ((c + 1) & 1) * stage;
-        load_chunk(p, c + 1, m0, n0, next, next + p.tile_m * kXStride);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
+      load_chunk(p, c, m0, n0, xs, ws);
+      cp_async_commit();
+      cp_async_wait_all();
       __syncthreads();
-      const float* xs = smem + (c & 1) * stage;
-      chunk_sums(xs, xs + p.tile_m * kXStride, p.tile_n, g, rs, col, psum);
+      chunk_sums(xs, ws, p.tile_n, g, rs, col, psum);
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
         acc[i] = __fadd_rn(acc[i], adc_step(psum[i], gn, off_lsb, lsb, lo, hi));
-      __syncthreads();                       // stage c&1 is free again
+      __syncthreads();                       // the stage is free again
     }
     if (n < p.N) {
 #pragma unroll
@@ -295,16 +286,17 @@ __global__ void __launch_bounds__(kMaxThreads) cim_mvm_kernel(Params p) {
 }  // namespace
 
 // Launches one product on ``stream`` without synchronising, with the
-// plan (tile_m, tile_n, split) picked by kernels/cim.py.  Returns the
-// launch's cudaError_t (0 = cudaSuccess); cudaErrorInvalidValue for a
-// shape or plan the kernel does not take.  The wrapper has checked
-// devices, types, shapes and contiguity; ``gain`` and ``offset`` may
-// both be null (the ideal ADC).
+// plan (tile_m, tile_n, split, threads, smem_bytes) picked by
+// kernels/cim.py.  Returns the launch's cudaError_t (0 = cudaSuccess);
+// cudaErrorInvalidValue for a shape the kernel does not take or a plan
+// whose threads or shared memory differ from what its tiles need here.
+// The wrapper has checked devices, types, shapes and contiguity;
+// ``gain`` and ``offset`` may both be null (the ideal ADC).
 extern "C" int cim_mvm_launch(const float* x, const float* w, const float* fs,
                               const float* gain, const float* offset,
                               float* out, int M, int K, int N, int levels,
-                              int tile_m, int tile_n, int split,
-                              void* stream) {
+                              int tile_m, int tile_n, int split, int threads,
+                              int smem_bytes, void* stream) {
   if (M < 1 || N < 1 || K < kChunk || K % kChunk != 0 || levels < 1)
     return cudaErrorInvalidValue;
   const int chunks = K / kChunk;
@@ -314,11 +306,13 @@ extern "C" int cim_mvm_launch(const float* x, const float* w, const float* fs,
   const bool split_ok =
       split == 1 || (split == chunks && split <= kMaxCluster);
   if (!tile_ok || !split_ok) return cudaErrorInvalidValue;
-  const int stage = tile_m * kXStride + kChunk * tile_n;
-  const size_t smem =
-      sizeof(float) * (split > 1 ? stage + split * tile_m * tile_n
-                                 : (chunks > 1 ? 2 : 1) * stage);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  // one stage of x and w tiles, and in a split every chunk's codes
+  const int need = static_cast<int>(sizeof(float)) *
+                   (tile_m * kXStride + kChunk * tile_n +
+                    (split > 1 ? split * tile_m * tile_n : 0));
+  if (threads != tile_m * tile_n / kRows || smem_bytes != need ||
+      smem_bytes > kMaxSmem)
+    return cudaErrorInvalidValue;
 
   Params p{x, w, fs, gain, offset, out, M, K, N, levels, tile_m, tile_n,
            split,
@@ -326,16 +320,16 @@ extern "C" int cim_mvm_launch(const float* x, const float* w, const float* fs,
            N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0};
   const unsigned tiles_m = (M + tile_m - 1) / tile_m;
   const unsigned tiles_n = (N + tile_n - 1) / tile_n;
-  const unsigned threads = tile_m * tile_n / kRows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (split == 1) {
-    cim_mvm_kernel<false><<<dim3(tiles_m, tiles_n), threads, smem, s>>>(p);
+    cim_mvm_kernel<false><<<dim3(tiles_m, tiles_n), threads, smem_bytes, s>>>(
+        p);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles_m * split, tiles_n);
   cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

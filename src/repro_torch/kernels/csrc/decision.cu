@@ -18,8 +18,8 @@
 //
 // What bounds it on this card: at the main path's shapes, the launch.
 // A round at B=32 slots, N=2 classes, R=4 samples moves about 7 KB (2 ns
-// at 3.35 TB/s) and does some 6,000 flops, while an empty kernel alone costs about 1 µs
-// by graph replay on the H100 (launch/kernel_probe.py --floor).  So what
+// at 3.35 TB/s) and does some 6,000 flops, while an empty kernel alone
+// costs about 0.8 µs by graph replay on the H100 (PERF.md).  So what
 // counts is the dependent chain inside a block: one round trip of loads
 // and a few hundred cycles of arithmetic, not R times that.
 //
@@ -410,9 +410,9 @@ decision_stats_streaming_kernel(Params p) {
 // Launches one round on ``stream`` without synchronising, as the plan of
 // kernels/decision.py says: ``np`` = 0 runs the streaming variant on
 // 128 threads; ``np`` > 0 (a power of two, N <= np <= 32) the small-N
-// variant on ``threads`` (a multiple of 32).  Returns the launch's
-// cudaError_t (0 = cudaSuccess); cudaErrorInvalidValue for what the
-// kernels do not take.  The wrapper has checked shapes, types, devices,
+// variant on ``threads`` (a multiple of 32, at least R).  Returns the
+// launch's cudaError_t (0 = cudaSuccess); cudaErrorInvalidValue for what
+// the kernels do not take.  The wrapper has checked shapes, types, devices,
 // contiguity and 16-byte alignment of m.
 extern "C" int decision_stats_launch(
     const float* y_mu, const float* x_sigma, const float* m, const float* sel,
@@ -424,7 +424,7 @@ extern "C" int decision_stats_launch(
   if (B < 1 || N < 1 || R < 1 || R > kMaxR) return cudaErrorInvalidValue;
   if (np != 0 && (np < N || np > kMaxSmallN || (np & (np - 1)) != 0 ||
                   threads < 32 || threads > kMaxSmallThreads ||
-                  threads % 32 != 0))
+                  threads % 32 != 0 || threads < R))  // a key_s[r] each
     return cudaErrorInvalidValue;
   if (np == 0 && threads != kThreads) return cudaErrorInvalidValue;
   if (read_sigma > 0.f && (x_sigsq == nullptr || sample_idx == nullptr))

@@ -16,8 +16,9 @@ ADC code away where the partial sum sits on a half-code tie: such
 outputs are counted, held to one LSB and to at most 1e-4 of the
 outputs.  The shapes cover every branch of ``kernels/cim.py``
 ``launch_plan``: chunks split over a cluster and walked by one block
-(one chunk, and several double-buffered), N of 16, 32, 48, 64, 70 and
-257, ragged M, K of 64 to 640, and x not 16-byte aligned.
+(one chunk, and several), N of 16, 32, 48, 64, 70 and 257, ragged M, K
+of 64 to 640, and x not 16-byte aligned; and every plan the kernel
+takes gives the bits of the one ``launch_plan`` picks.
 GRNG ε kernel: atol 1e-5 (tests/test_kernels.py:26); it rounds every
 step as the plain version does, so the elements are expected equal.
 Head kernels (rank16, paper, paper with the ADC): rtol/atol 1e-4, as
@@ -31,7 +32,7 @@ from repro_torch.core.clt_grng import GRNGConfig, selections
 from repro_torch.core.quant import QuantConfig, adc_full_scale
 from repro_torch.core.sampling import (BayesHeadConfig, activation_basis,
                                        prepare_serving_head)
-from repro_torch.kernels import bayes, grng
+from repro_torch.kernels import bayes, cim, grng
 from repro_torch.kernels.cim import cim_mvm, cim_mvm_plain
 from repro_torch.kernels.decision import (decision_stats,
                                           decision_stats_plain)
@@ -177,6 +178,31 @@ def test_cim_kernel_reads_unaligned_x(hopper, shape):
     want = cim_mvm(qcfg=QCFG, **args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1568, 192, 32), (288, 320, 64),
+                                   (130, 192, 257), (8, 512, 70)])
+def test_cim_every_plan_gives_the_same_bits(hopper, shape):
+    """Each tile_m, split or walked, folds the same chunk codes in the
+    same order: the bits do not depend on the plan."""
+    args = _cim_case(hopper, *shape, seed=3)
+    x, w, fs = args["x"], args["w"], args["fs"]
+    (m, k), n = x.shape, w.shape[1]
+    chosen = cim.launch_plan(m, k, n)
+    want = cim_mvm(qcfg=QCFG, **args)
+    splits = sorted({1, k // cim.CHUNK})
+    tried = 0
+    for tile_m in cim.TILE_M:
+        for split in splits:
+            plan = cim.make_plan(m, n, tile_m, chosen.tile_n, split)
+            if plan.smem_bytes > cim.SMEM_LIMIT:
+                continue
+            got = cim._launch(x, w, fs, QCFG, args["col_gain"],
+                              args["col_offset"], plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), plan
+            tried += 1
+    assert tried >= len(cim.TILE_M)
 
 
 def test_cim_zero_variation_is_the_ideal_adc(hopper):

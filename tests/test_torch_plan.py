@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 
 from repro_torch.kernels.cim import (CHUNK, H100_SMS, SMEM_LIMIT, CimPlan,
-                                     launch_plan)
+                                     launch_plan, make_plan)
 from repro_torch.kernels.decision import (MAX_SAMPLES, SMALL_N_MAX,
                                           decision_plan)
 
@@ -84,14 +84,19 @@ def test_cim_plan_fits_the_kernel(shape):
     assert plan.threads == plan.tile_m * plan.tile_n // 4 <= 512
     assert plan.smem_bytes <= SMEM_LIMIT
     assert plan.split <= 8                           # a portable cluster
-    walks = plan.split == 1 and k > CHUNK
-    assert plan.stages == (2 if walks else 1)        # double-buffered walk
 
 
 @pytest.mark.parametrize("shape", TRUNK_32 + TRUNK_64)
 def test_cim_plan_fills_the_card_at_trunk_shapes(shape):
+    """Every trunk shape puts a block on every SM but the third conv of
+    a 32-slot admission, (288, 320, 64): its split at tile_m 16 makes 90
+    blocks, which ran faster than tile_m 8's 180 blocks in
+    ``chip_smoke.py``'s plan sweep on the H100 (PERF.md)."""
     plan = launch_plan(*shape)
-    assert plan.blocks >= H100_SMS
+    if shape == (288, 320, 64):
+        assert (plan.tile_m, plan.split, plan.blocks) == (16, 5, 90)
+    else:
+        assert plan.blocks >= H100_SMS
     if shape[1] > CHUNK and launch_plan(shape[0], CHUNK, shape[2]).blocks \
             < H100_SMS:
         assert plan.split == shape[1] // CHUNK       # chunks run at once
@@ -101,22 +106,36 @@ def test_cim_plan_at_the_main_path_shapes():
     """The plans the served path launches (32 slots), as the kernel's
     source note describes them."""
     got = [launch_plan(*s)[:3] for s in TRUNK_32]
-    assert got == [(32, 16, 1), (32, 32, 3), (8, 64, 5)]
+    assert got == [(32, 16, 1), (16, 32, 3), (16, 64, 5)]
+
+
+def test_cim_plan_at_the_uq_batch_shapes():
+    """A UQ batch of 64 images takes the same tiles and splits."""
+    got = [launch_plan(*s)[:3] for s in TRUNK_64]
+    assert got == [(32, 16, 1), (16, 32, 3), (16, 64, 5)]
 
 
 def test_cim_plan_of_a_product_too_small_to_fill_the_card():
-    """(8, 192, 70) has 560 outputs: at the smallest tile (4 × 64) and
-    all three chunks split it still makes only 12 blocks, so the plan
-    takes the smallest tile rather than fill the card."""
+    """(8, 192, 70) has 560 outputs: split over its three chunks at
+    tile_m 16 it makes 6 blocks, and no plan would fill the card."""
     plan = launch_plan(8, 192, 70)
     assert plan.blocks < H100_SMS
-    assert (plan.tile_m, plan.split, plan.blocks) == (4, 3, 12)
+    assert (plan.tile_m, plan.split, plan.blocks) == (16, 3, 6)
+
+
+def test_cim_plan_split_shrinks_the_tile_to_fit_shared_memory():
+    """Eight chunks of 64-wide tiles hold 16 rows' codes in no less
+    than 53.5 KB, over the 48 KB a block takes without opting in: the
+    split takes tile_m 8."""
+    plan = launch_plan(8, 512, 70)
+    assert (plan.tile_m, plan.split) == (8, 8)
+    assert make_plan(8, 70, 16, 64, 8).smem_bytes > SMEM_LIMIT
+    assert plan.smem_bytes <= SMEM_LIMIT
 
 
 def test_cim_plan_walks_chunks_when_the_tiles_fill_the_card_or_k_is_deep():
     assert launch_plan(7200, 192, 64).split == 1     # tiles fill the card
     assert launch_plan(288, 640, 64).split == 1      # 10 chunks > a cluster
-    assert launch_plan(288, 640, 64).stages == 2
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 16, 31, SMALL_N_MAX])
@@ -145,12 +164,3 @@ def test_decision_plan_small_n_covers_each_pair_once(n, r):
 def test_decision_plan_routes_wide_n_to_streaming(n):
     plan = decision_plan(n, 4)
     assert (plan.variant, plan.np, plan.threads) == ("streaming", 0, 128)
-
-
-def test_kernel_probe_refuses_to_run_without_a_card(monkeypatch):
-    """The card-only probe tool imports on the CPU and stops there."""
-    from repro_torch.launch import kernel_probe
-    monkeypatch.setattr(kernel_probe.torch.cuda, "is_available",
-                        lambda: False)
-    with pytest.raises(SystemExit, match="CUDA card"):
-        kernel_probe.main(["--floor"])
