@@ -13,7 +13,7 @@ from repro_torch.core.quant import QuantConfig, adc_full_scale
 from repro_torch.kernels import bayes
 from repro_torch.kernels import grng as grng_kernel
 from repro_torch.kernels.cim import cim_mvm
-from repro_torch.kernels.decision import decision_stats
+from repro_torch.kernels.decision import MAX_SAMPLES, decision_stats
 
 
 def grng_eps(cfg: g.GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
@@ -71,22 +71,32 @@ def decision_update(stats: dict, abasis: dict, sel: torch.Tensor,
 
     Folds one escalation round into the running statistics through the
     fused decision kernel (``kernels/decision.py``): the [R, B, N]
-    logit samples never exist.  Unlike the reference, which returns new
-    arrays, the sums are updated IN PLACE (the serving pool keeps one
-    copy of its statistics) and ``stats`` is returned.  ``mask`` [B]
-    bool: False rows keep their sums and count.
+    logit samples never exist.  A round of R > ``MAX_SAMPLES`` samples
+    (a fixed-R round of r_max) is cut along R into consecutive pieces of
+    at most ``MAX_SAMPLES``, one ``decision_stats`` call each, whose
+    deltas are added in sample order; every draw keeps its absolute
+    stream index, so only the float order of the sums changes.  Unlike
+    the reference, which returns new arrays, the sums are updated IN
+    PLACE (the serving pool keeps one copy of its statistics) and
+    ``stats`` is returned.  ``mask`` [B] bool: False rows keep their
+    sums and count.
     """
-    delta = decision_stats(abasis["y_mu"], abasis["x_sigma"], abasis["m"],
-                           sel, cfg, x_sigsq=abasis.get("x_sigsq"),
-                           sample_idx=sample_idx, mask=mask, rows=rows)
     r = sel.shape[0]
+    for r0 in range(0, r, MAX_SAMPLES):
+        piece = slice(r0, min(r, r0 + MAX_SAMPLES))
+        delta = decision_stats(
+            abasis["y_mu"], abasis["x_sigma"], abasis["m"],
+            sel[piece].contiguous(), cfg, x_sigsq=abasis.get("x_sigsq"),
+            sample_idx=(None if sample_idx is None
+                        else sample_idx[piece].contiguous()),
+            mask=mask, rows=rows)
+        for key in ("sum_p", "sum_psq", "sum_ent", "sum_entsq"):
+            stats[key] += delta[key]
     if mask is None:
         stats["n"] += r
     else:
         stats["n"] += torch.as_tensor(mask, device=stats["n"].device).to(
             stats["n"].dtype) * r
-    for key in ("sum_p", "sum_psq", "sum_ent", "sum_entsq"):
-        stats[key] += delta[key]
     return stats
 
 

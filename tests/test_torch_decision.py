@@ -204,3 +204,33 @@ def test_decision_stats_routes_by_device():
     with pytest.raises(ValueError, match="no decision kernel"):
         tdec.decision_stats(meta["y_mu"], meta["x_sigma"], meta["m"],
                             sel.to("meta"), gt)
+
+
+@pytest.mark.parametrize("r", [65, 100, 128])
+@pytest.mark.parametrize("read_sigma", [0.0, 0.4])
+def test_decision_update_splits_rounds_above_the_kernel_cap(
+        monkeypatch, r, read_sigma):
+    """A round of R > MAX_SAMPLES goes to ``decision_stats`` in
+    ⌈R / MAX_SAMPLES⌉ consecutive pieces whose deltas add up, within
+    rtol/atol 1e-5, to one unsplit plain call over the whole round."""
+    b, n = 6, 5
+    abt, gt = _port_basis(b, 24, n, read_sigma, seed=4)
+    sel, idx = _port_round(b, r, n_drawn=3)
+    mask = torch.as_tensor(np.arange(b) % 3 != 0)
+    pieces = []
+
+    def counting(*args, **kw):
+        pieces.append(args[3].shape[0])
+        return tdec.decision_stats(*args, **kw)
+
+    monkeypatch.setattr(tops, "decision_stats", counting)
+    got = tops.decision_update(tad.init_stats(b, n), abt, sel, gt,
+                               sample_idx=idx, mask=mask)
+    assert pieces == [min(tdec.MAX_SAMPLES, r - r0)
+                      for r0 in range(0, r, tdec.MAX_SAMPLES)]
+    want = tdec.decision_stats_plain(abt["y_mu"], abt["x_sigma"], abt["m"],
+                                     sel, gt, x_sigsq=abt.get("x_sigsq"),
+                                     sample_idx=idx, mask=mask)
+    _assert_stats({k: v.numpy() for k, v in got.items()},
+                  {k: v.numpy() for k, v in want.items()}, keys=KEYS[:4])
+    assert (got["n"].numpy() == np.where(mask.numpy(), r, 0)).all()

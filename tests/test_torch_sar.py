@@ -216,3 +216,54 @@ def test_serve_cli_on_cpu(capsys):
     assert out["host_syncs"] <= 40 and out["device"] == "cpu"
     assert out["mean_samples_per_decision"] >= 4
     assert np.isfinite(out["energy_total_J"])
+
+
+def test_fixed_rounds_above_the_kernel_cap_match_reference(jax_params,
+                                                           stream_192):
+    """Fixed-R serving at r_max = 100, more samples a round than one
+    decision launch takes (``kernels/decision.MAX_SAMPLES``): the port's
+    fused path cuts each round into pieces and gives the reference
+    engine's verdicts request for request, on 8 requests in 4 slots."""
+    from repro.hw import compile_network
+    from repro.serving import SarServingEngine as JEngine
+    from repro.serving import ServingMetrics as JMetrics
+    from repro.serving import TriagePolicy as JPolicy
+    from repro_torch.hw import compile_network as t_compile
+    from repro_torch.kernels import decision as tdec
+    from repro_torch.serving import (Request, SarServingEngine,
+                                     ServingMetrics, TriagePolicy)
+    reqs = stream_192[:8]
+    policy = dict(conf_threshold=0.7, mi_threshold=0.05, r_min=4,
+                  r_max=100)
+    layers = j_shapes(JCfg())
+    eng_j = JEngine(jax_params, JCfg(), n_slots=4, policy=JPolicy(**policy),
+                    adaptive_mode=False,
+                    metrics=JMetrics(layers=layers,
+                                     tile_program=compile_network(layers)),
+                    telemetry=False, profiler=False, slo=False)
+    for r in reqs:
+        eng_j.submit(r)
+    eng_j.run()
+    layers = sar_layer_shapes(SarCnnConfig())
+    eng_t = SarServingEngine(
+        params_from_jax(jax.device_get(jax_params)), SarCnnConfig(),
+        n_slots=4, policy=TriagePolicy(**policy), adaptive_mode=False,
+        metrics=ServingMetrics(layers=layers,
+                               tile_program=t_compile(layers)),
+        device="cpu")
+    assert eng_t.r_step == 100 > tdec.MAX_SAMPLES
+    for r in reqs:
+        eng_t.submit(Request(rid=r.rid, payload=np.asarray(r.payload),
+                             meta=dict(r.meta)))
+    eng_t.run()
+    _assert_same_decisions(eng_t, eng_j, 8)
+    assert {r.n_samples for r in eng_t.metrics.records} == {100}
+
+
+def test_serve_cli_fixed_above_the_kernel_cap(capsys):
+    from repro_torch.launch.serve import main
+    main(["--arch", "sar_cnn", "--requests", "8", "--slots", "4",
+          "--fixed", "--r-max", "100", "--device", "cpu"])
+    line = capsys.readouterr().out.strip().splitlines()
+    assert len(line) == 1 and line[0].startswith("[sar] 8 decisions")
+    assert "mean samples/decision 100.0" in line[0]
