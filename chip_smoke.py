@@ -11,7 +11,8 @@ JSON line):
      versions; TF32 is switched off for matmuls and convolutions;
   2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all started together; ptxas must report no
-     spill in ``cim_mvm`` and ``decision``;
+     spill in ``cim_mvm``, ``decision`` and ``bayes_mvm``, but for the
+     rank16 head kernel's 4 bytes (its correctly rounded sqrtf);
   3. every kernel against its plain PyTorch version on the card:
      the decision kernel at the main path's shapes and at ragged /
      read-noise / shared-selection shapes (rtol 1e-5, atol 1e-5, as
@@ -41,6 +42,10 @@ JSON line):
      in kind and depth); confidence and MI agree to 1e-5 unless the
      trunk flipped an ADC code between card and CPU on the batches the
      card admitted (counted), then to 1e-3;
+  5b. fixed-R serving on the gate die at r_max = 100, above one decision
+     launch's 64 samples: 64 requests, every round cut into two decision
+     launches (counts zeroed just before, read just after), the same
+     decisions as a CPU run (confidence/MI as in 5);
   6. the head kernels against their plain versions on the card: the
      GRNG ε kernel at Fig. 9's block (256×256, R=8) and at a ragged die
      block with offsets (atol 1e-5, unequal elements counted: expected
@@ -68,13 +73,16 @@ JSON line):
      the card's byte/flop bound: decision and CIM at the serving path's
      shapes, ε at Fig. 9's block, the head kernels at kernel_bench's
      shape for R = 4, 16, 20, 64 (paper with the ADC at R = 20) and at
-     the SAR head's shape for R = 20.  The decision and CIM entries
-     name their design and the launch plan each shape took.  Every
-     plan the CIM kernel takes, timed at the trunk's shapes for 32
-     slots and for a UQ batch of 64 images, each giving the chosen
-     plan's bits (line ``cim_plans``).  The previous design's times at
-     the same shapes, constants from PERF.md and not timed here, stand
-     on a line of their own (``previous_design``);
+     the UQ path's shape (B=64, K=64, N=2, R=20; the head entries'
+     ``path``).  The entries name their design and the launch plan each
+     shape took.  Every plan the CIM kernel takes, timed at the trunk's
+     shapes for 32 slots and for a UQ batch of 64 images, each giving
+     the chosen plan's bits (line ``cim_plans``); every plan the head
+     kernels take, timed at the UQ path's shape and at kernel_bench's
+     (R=20), rank16, paper and paper with the ADC, each giving the
+     chosen plan's bits (line ``head_plans``).  The previous design's
+     times at the same shapes, constants from PERF.md and not timed
+     here, stand on a line of their own (``previous_design``);
   9. last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the reference package.
 """
@@ -110,6 +118,8 @@ CIM_CPU_ATOL = 1e-3
 BENCH_HEAD = dict(b=8, k=512, n=2048)
 BENCH_R = (4, 16, 20, 64)
 SAR_HEAD = dict(b=64, k=64, n=2)
+# kernel_bench's head cut to 64 columns: few column tiles, K in 8 chunks
+NARROW_HEAD = dict(b=8, k=512, n=64)
 UQ_R = 20
 UQ_BATCHES = 16                      # Fig. 16: 16 batches of 64 images
 FIG9 = dict(n_rows=256, n_cols=256, num_samples=8)
@@ -121,11 +131,44 @@ FIG9 = dict(n_rows=256, n_cols=256, num_samples=8)
 DESIGN = {"decision_stats": "small-N variant: a thread per (sample, class) "
                             "pair; streaming passes for N > 32",
           "cim_mvm": "tiles to the shape; chunks split over a thread-block "
-                     "cluster, folded in order"}
+                     "cluster, folded in order",
+          "bayes_head": "tile to the shape; each current hashed once per "
+                        "tile by the whole block into a generated weight "
+                        "tile; K chunks split over a cluster or walked, "
+                        "folded in order; paper loops its sample chunks "
+                        "over the kept currents"}
 PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PREV_DECISION_MS = {"main_r4": 0.00399, "main_r20": 0.0104}
 PREV_CIM_MS = {"trunk0": 0.00707, "trunk1": 0.0118, "trunk2": 0.0186}
-NO_SPILL = ("cim_mvm", "decision")
+# the head kernels' first design (PR 13), by R at kernel_bench's head and
+# at the UQ path's shape (PERF.md §6)
+PREV_HEAD_MS = {
+    "bayes_rank16": {"r4": 0.147, "r16": 0.150, "r20": 0.151, "r64": 0.162,
+                     "path_r20": 0.0255},
+    "bayes_paper": {"r4": 0.0895, "r16": 0.154, "r20": 0.234, "r64": 0.289,
+                    "adc_r20": 0.245, "path_r20": 0.0323}}
+NO_SPILL = ("cim_mvm", "decision", "bayes_mvm")
+# ptxas may spill these bytes in a kernel whose name holds the key: the
+# rank16 epilogue's correctly rounded sqrtf (its slow path), as
+# torch.sqrt rounds.
+SPILL_ALLOWED = {"bayes_rank16_kernel": 4}
+# fixed-R serving above one decision launch's samples (MAX_SAMPLES = 64)
+FIXED_R = 100
+
+
+def kernel_spills(log: str) -> dict:
+    """{kernel: the larger of its spill stores and loads in bytes} from
+    a ``-Xptxas=-v`` report."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            out[fn] = max(int(m.group(1)), int(m.group(2)))
+    return out
 
 
 def emit(obj) -> None:
@@ -566,12 +609,41 @@ def chip_card_vs_cpu(kw: dict, die) -> dict:
                   ("confidence", "mutual_information"))
               for v in card["verdicts"])
     return {"requests": card["requests"], "admissions": len(batches),
+            "rounds_launched": card["rounds_launched"],
+            "depths": sorted({v["n_samples"] for v in card["verdicts"]}),
             "trunk_outputs": outputs, "trunk_code_flips": flips,
             "atol": atol, "max_confidence_mi_gap": gap,
             "flag_fraction": card["flag_fraction"],
             "decision_kinds": len({(v["verdict"], v["prediction"],
                                     v["n_samples"])
                                    for v in card["verdicts"]})}
+
+
+def run_fixed_path() -> dict:
+    """Fixed-R serving (one round of r_max samples a dispatch) at r_max =
+    FIXED_R on the gate die, 64 requests: each round is cut into
+    ⌈FIXED_R / 64⌉ decision launches (counts zeroed just before, read
+    just after); the card decides as the CPU does."""
+    from repro_torch.kernels.decision import MAX_SAMPLES, decision_stats
+    from repro_torch.serving import TriagePolicy
+    die = gate_die()
+    kw = dict(STREAM, chip_instance=die, adaptive=False,
+              policy=TriagePolicy(**dict(POLICY, r_max=FIXED_R)))
+    decision_stats.launches = 0
+    out = chip_card_vs_cpu(kw, die)
+    launches = decision_stats.launches
+    pieces = -(-FIXED_R // MAX_SAMPLES)
+    check(launches == pieces * out["rounds_launched"] > 0,
+          f"fixed R={FIXED_R}: {launches} decision launches for "
+          f"{out['rounds_launched']} rounds, expected {pieces} a round")
+    check(out["depths"] == [FIXED_R],
+          f"fixed R={FIXED_R}: requests decided at {out['depths']} samples")
+    emit({"fixed_path": f"serve_sar(adaptive=False, r_max={FIXED_R}, "
+                        "chip_instance=gate die)",
+          "decision_kernel_launches": launches,
+          "launches_per_round": launches / out["rounds_launched"],
+          "card_vs_cpu": out})
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1140,6 +1212,72 @@ def cim_plan_sweep(cases: dict) -> None:
                     "CUDA graph"})
 
 
+def replay_iters(fn) -> int:
+    """Calls a graph replays so that a replay takes ~20 ms (3 to 1000),
+    from one timed eager call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return max(3, min(1000, int(0.02 / max(time.perf_counter() - t0,
+                                           1e-6))))
+
+
+def head_plan_sweep() -> list:
+    """Every plan the head kernels take (``bayes.head_plans``), timed by
+    graph replay, with read noise, for rank16, paper and paper with the
+    ADC: at the UQ path's shape and at kernel_bench's (R=20), paper also
+    at kernel_bench's R=64 (samples a block carries against its shared
+    memory), and at kernel_bench's depth cut to 64 columns (NARROW_HEAD,
+    where one-column tiles leave SMs without a block: the split branch
+    of ``head_plan``).  Each plan must give the bits of the plan
+    ``head_plan`` picks."""
+    import torch
+    from repro_torch.kernels import bayes
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for shape_name, shape, r, cases in (
+            ("path", SAR_HEAD, UQ_R, ("rank16", "paper", "paper_adc")),
+            ("kernel_bench", BENCH_HEAD, UQ_R,
+             ("rank16", "paper", "paper_adc")),
+            ("kernel_bench", BENCH_HEAD, 64, ("paper",)),
+            ("narrow", NARROW_HEAD, UQ_R, ("rank16", "paper"))):
+        c = head_inputs(**shape, read_sigma=0.4, r=r, seed=2)
+        c["fs"] = head_full_scale(c)
+        dims = (shape["b"], shape["k"], shape["n"], r)
+        for case in cases:
+            kind = "rank16" if case == "rank16" else "paper"
+            args = (kind, c["x"], c["mu"], c["sigma"], c["sel"], c["fs"],
+                    c["cfg"], 31 if case == "paper_adc" else 0, 0, 0,
+                    c["sample0"])
+            chosen = bayes.head_plan(kind, *dims, sms)
+            want = bayes._launch(*args, plan=chosen)
+            sweep = []
+            for plan in bayes.head_plans(kind, *dims):
+                def call(p=plan):
+                    return bayes._launch(*args, plan=p)
+                got = call()
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"head plan {plan} gives other bits than {chosen} "
+                      f"({case} at the {shape_name} shape, R={r})")
+                sweep.append({**plan._asdict(),
+                              "ms": device_ms(call, replay_iters(call))})
+            ms = {tuple(p[k] for k in ("tile_n", "split", "samples",
+                                       "threads")): p["ms"] for p in sweep}
+            rows.append({"case": case, "shape": shape_name, **shape,
+                         "R": r, "chosen": chosen._asdict(),
+                         "chosen_ms": ms[chosen.tile_n, chosen.split,
+                                         chosen.samples, chosen.threads],
+                         "fastest": min(sweep, key=lambda p: p["ms"]),
+                         "sweep": sweep})
+    emit({"head_plans": rows, "same_bits": True,
+          "timing": "device time per call by CUDA graph replay"})
+    return rows
+
+
 def timed(kernel, plain, eager_iters: int = 200) -> dict:
     """Device ms of a kernel call and of its plain version by graph
     replay (the replayed count sized from one eager call so that a
@@ -1229,7 +1367,8 @@ def head_timing(uq_launches: dict, fig9: dict, grng_checks: dict,
     """The kernels-line entries of the ε and head kernels: ε at Fig. 9's
     block, the head kernels at kernel_bench's shape for every R (paper
     also with the ADC at R=20); the R=20 entry is the headline."""
-    from repro_torch.kernels import grng
+    import torch
+    from repro_torch.kernels import bayes, grng
     g9 = grng_checks["inputs"]["fig9_256x256_r8"]
     t = timed(lambda: grng.grng_eps(**g9), lambda: grng.grng_eps_plain(**g9))
     eps_line = {
@@ -1248,33 +1387,41 @@ def head_timing(uq_launches: dict, fig9: dict, grng_checks: dict,
                   "replays; call_ms: eager calls, host included"}
     launches = {k: uq_launches["ideal"][k] + uq_launches["gate_die"][k]
                 for k in ("bayes_rank16", "bayes_paper")}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     lines = {}
     for kind in ("rank16", "paper"):
         cases = [(kind, BENCH_HEAD, r) for r in BENCH_R]
         if kind == "paper":
             cases.append(("paper_adc", BENCH_HEAD, UQ_R))
-        cases.append((kind, SAR_HEAD, UQ_R))     # launch-bound: recorded
+        cases.append((kind, SAR_HEAD, UQ_R))     # the UQ path's shape
         shapes = []
         for case, shape, r in cases:
             c = head_inputs(**shape, r=r, seed=1)
             c["fs"] = head_full_scale(c)
             t = timed(lambda: head_call(case, c),
                       lambda: head_call(case, c, plain=True))
-            shapes.append({"case": case, **shape, "R": r, **t,
+            plan = bayes.head_plan(kind, shape["b"], shape["k"], shape["n"],
+                                   r, sms)
+            shapes.append({"case": case, **shape, "R": r,
+                           "plan": plan._asdict(), **t,
                            **head_bound(case, **shape, r=r, cfg=c["cfg"])})
             emit({"timing": f"bayes_{case}", **shapes[-1]})
-        first = shapes[BENCH_R.index(UQ_R)]
+        first, path = shapes[BENCH_R.index(UQ_R)], shapes[-1]
         body = 58 if kind == "rank16" else 130
         lines[kind] = {
             "name": f"bayes_{kind}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bayes_mvm.cu",
             "replaces": f"src/repro/kernels/bayes_mvm.py:202 (mode "
                         f"'{kind}', body at :{body})",
+            "design": DESIGN["bayes_head"],
             "launches": launches[f"bayes_{kind}"],
-            "launches_on": "the SAR UQ path, ideal die and gate die",
+            "launches_on": "the SAR UQ path, ideal die and gate die, at "
+                           "B=64 K=64 N=2 R=20",
             "max_abs_err": head_checks["worst"][kind],
             "shape": f"B=8 K=512 N=2048 R={UQ_R} (kernel_bench's head); "
+                     "the UQ path's B=64 K=64 N=2 R=20 under 'path'; "
                      "every R under 'shapes'",
+            "plan": first["plan"],
             "ms": first["ms"], "kernel_ms": first["ms"],
             "plain_ms": first["plain_ms"], "call_ms": first["call_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -1283,6 +1430,9 @@ def head_timing(uq_launches: dict, fig9: dict, grng_checks: dict,
             "hash3_evals": first["hash3_evals"], "library_ms": None,
             "library_note": "no single PyTorch call hashes the device "
                             "currents into the weights it multiplies",
+            "path": {k: path[k] for k in (
+                "b", "k", "n", "R", "plan", "ms", "plain_ms", "call_ms",
+                "bound_ms", "bound_by", "bound_bytes", "bound_ops")},
             "timing": "ms and plain_ms: device time per call from CUDA "
                       "graph replays; call_ms: eager calls, host included",
             "shapes": shapes}
@@ -1317,8 +1467,10 @@ def run_timing(inputs: dict, launches: int, worst: float,
         "card": PREV_CARD,
         "what": "constants from PERF.md, not measured in this run: the "
                 "previous design of each kernel at the same shapes, by "
-                "CUDA-graph replay",
-        "decision_stats_ms": PREV_DECISION_MS, "cim_mvm_ms": PREV_CIM_MS}})
+                "CUDA-graph replay (the head kernels: PR 13's design, r<R> "
+                "at kernel_bench's head, path_r20 at the UQ path's)",
+        "decision_stats_ms": PREV_DECISION_MS, "cim_mvm_ms": PREV_CIM_MS,
+        **{f"{name}_ms": ms for name, ms in PREV_HEAD_MS.items()}}})
     emit({"kernels": [{
         "name": "decision_stats",
         "route": "cuda",
@@ -1385,10 +1537,12 @@ def main() -> int:
              for n in libs}
     emit({"build_s": build_s, "libraries": sorted(libs), "ptxas": ptxas})
     for name in NO_SPILL:
-        spills = [ln for ln in ptxas[name] if "spill" in ln]
-        check(spills and all(re.search(r"\b0 bytes spill stores, 0 bytes "
-                                       r"spill loads", ln) for ln in spills),
-              f"ptxas reports spills in {name}: {spills}")
+        spills = kernel_spills(build.build_log(name))
+        check(spills, f"ptxas reported nothing for {name}")
+        over = {fn: n for fn, n in spills.items()
+                if n > next((v for key, v in SPILL_ALLOWED.items()
+                             if key in fn), 0)}
+        check(not over, f"ptxas reports spills in {name}: {over}")
 
     worst, inputs = run_kernel_checks()
     cim_summary, cim_inputs = run_cim_checks()
@@ -1396,9 +1550,11 @@ def main() -> int:
     head_checks = run_head_checks()
     main_path = run_main_path()
     chip_path = run_chip_path()
+    run_fixed_path()
     uq_path = run_uq_path()
     fig9 = run_fig9_path()
     cim_plan_sweep(cim_inputs)
+    head_plan_sweep()
     run_timing(inputs, main_path["launches"], worst,
                cim_timing(cim_inputs, chip_path["launches"], cim_summary),
                head_timing(uq_path["launches"], fig9, grng_checks,

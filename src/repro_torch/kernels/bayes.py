@@ -23,13 +23,15 @@ and ``cim.cim_mvm_plain``'s chunked ADC with it — the oracles
 ``bayes_mvm_ref``, ``bayes_mvm_rank16_ref`` and ``bayes_mvm_adc_ref`` of
 ``repro/kernels/ref.py``); CUDA tensors launch ``csrc/bayes_mvm.cu`` or
 raise.  There is no fallback.  ``bayes_rank16.launches`` and
-``bayes_paper.launches`` count kernel launches.
+``bayes_paper.launches`` count kernel launches.  ``head_plan`` picks the
+kernel's tile, K split and samples a block carries from the shape.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +45,14 @@ from repro_torch.kernels.cim import cim_mvm_plain
 from repro_torch.kernels.grng import GrngParams, grng_params
 
 CHUNK = 64                # the ADC's analog accumulation depth
+H100_SMS = 132
+TILE_N = (1, 2, 4, 8, 16, 32)   # output columns a block may own
+SAMPLES = (4, 8, 16, 32, 64)    # samples a paper block may carry at once
+THREADS = (128, 256, 512)       # a block's threads
+MAX_TILE_B = 64           # output rows a block owns (B > 64: more tiles)
+MAX_SPLIT = 8             # blocks of a portable thread-block cluster
+SMEM_LIMIT = 227 * 1024   # a block's opt-in shared memory on the H100
+_X_STRIDE = CHUNK + 4     # a padded x row in shared memory (floats)
 _DTYPES = (torch.float32, torch.bfloat16)
 _P = ctypes.c_void_p
 _U32 = ctypes.c_uint
@@ -96,20 +106,139 @@ def bayes_paper_plain(x, mu, sigma, sel, fs, cfg: g.GRNGConfig,
         for r in range(sel.shape[0])])
 
 
+class HeadPlan(NamedTuple):
+    """How ``csrc/bayes_mvm.cu`` covers one head product: a grid of
+    output tiles of ``tile_n`` columns × ``tile_b`` rows (B rounded up to
+    4, at most 64); ``split`` > 1 runs the K/64 chunks of a tile at once
+    in a cluster of ``split`` blocks (one chunk each, folded in chunk
+    order), ``split`` = 1 has one block walk them in order; a paper block
+    carries ``samples`` samples at once and loops over the rest (0 for
+    rank16).  The launcher refuses ``threads`` and ``smem_bytes`` that
+    differ from what the tiles need."""
+    tile_n: int
+    tile_b: int
+    split: int
+    samples: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+def _quad(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _tile_cols(kind: str, tile_n: int, samples: int) -> int:
+    """Columns of a block's weight tile, whole 4-column micro-tiles:
+    rank16 the 16 currents', µ's and σ's; paper ``samples`` σε columns
+    and µ's."""
+    return _quad((samples + 1) * tile_n if kind == "paper" else 18 * tile_n)
+
+
+def _smem_bytes(kind: str, tile_n: int, tile_b: int, split: int,
+                samples: int, r: int, chunks: int) -> int:
+    """The kernel's shared memory (``layout`` in ``csrc/bayes_mvm.cu``),
+    each region on 16 bytes: the selections (4 zero rows after R), x rows
+    and µ/σ columns (two stages where a block walks several chunks),
+    hash prefixes (the read noise's: paper a sample and column's, rank16
+    a row and column's), (paper: the chunk's currents), the weight tile
+    and the sums (every chunk's in a split; rank16 20 a column)."""
+    paper = kind == "paper"
+    stages = 2 if split == 1 and chunks > 1 else 1
+    sums = (r + 1) * tile_n if paper else 20 * tile_n
+    regions = [(_quad(r) + 4) * 16, stages * tile_b * _X_STRIDE,
+               stages * CHUNK * tile_n, stages * CHUNK * tile_n,
+               16 * tile_n, 16 * tile_n,
+               samples * tile_n if paper else tile_b * tile_n,
+               CHUNK * 16 * tile_n if paper else 0,
+               CHUNK * _tile_cols(kind, tile_n, samples),
+               split * tile_b * sums]
+    return 4 * sum(_quad(f) for f in regions)
+
+
+def make_head_plan(kind: str, b: int, k: int, n: int, r: int, tile_n: int,
+                   split: int, samples: int, threads: int) -> HeadPlan:
+    """The plan of the given tile width, split, samples (paper; 0 for
+    rank16) and block threads for a product of x [b, k] and [k, n]
+    weights into r samples."""
+    if kind not in ("rank16", "paper"):
+        raise ValueError(f"no head kernel of kind {kind!r}")
+    tile_b = min(MAX_TILE_B, _quad(b))
+    samples = samples if kind == "paper" else 0
+    blocks = -(-n // tile_n) * -(-b // tile_b) * split
+    return HeadPlan(tile_n, tile_b, split, samples, threads, blocks,
+                    _smem_bytes(kind, tile_n, tile_b, split, samples, r,
+                                -(-k // CHUNK)))
+
+
+def _fits(kind: str, plan: HeadPlan) -> bool:
+    """Shared memory within the card's; a thread for each of the 16
+    tile_n generated columns, and (paper) for each of a chunk's cells."""
+    cells = CHUNK if kind == "paper" else 16
+    return (plan.smem_bytes <= SMEM_LIMIT
+            and cells * plan.tile_n <= plan.threads)
+
+
+def head_plans(kind: str, b: int, k: int, n: int, r: int) -> list[HeadPlan]:
+    """Every plan the kernel takes for this product: each tile width up
+    to N's power of two, walked and (2..8 chunks) split, and for paper
+    each sample count of ``SAMPLES`` below R, and R itself up to 64."""
+    chunks = -(-k // CHUNK)
+    splits = (1, chunks) if 2 <= chunks <= MAX_SPLIT else (1,)
+    widest = 1 << (n - 1).bit_length()
+    counts = ((0,) if kind == "rank16" else sorted(
+        {s for s in SAMPLES if s < r} | ({r} if r <= SAMPLES[-1] else set())))
+    plans = [make_head_plan(kind, b, k, n, r, t, sp, s, th)
+             for t in TILE_N if t <= widest for sp in splits for s in counts
+             for th in THREADS]
+    return [p for p in plans if _fits(kind, p)]
+
+
 @functools.lru_cache(maxsize=None)
-def _launchers():
+def head_plan(kind: str, b: int, k: int, n: int, r: int,
+              sms: int = H100_SMS) -> HeadPlan:
+    """The head kernel's launch plan for ``kind`` ('rank16' or 'paper')
+    on a card of ``sms`` SMs, fitted to ``chip_smoke.py``'s head plan
+    sweep (PERF.md), where it is the fastest plan at the UQ path's shape,
+    at kernel_bench's (R = 20, and paper at R = 64) and at kernel_bench's
+    depth cut to 64 columns:
+
+    * K's 2..8 chunks are split over a cluster only where one-column
+      tiles leave SMs without a block (the cut head), else walked;
+    * paper carries all R samples at once where they fit, else the most
+      of ``SAMPLES`` that fit;
+    * the widest tile that still gives every SM a block, else the
+      narrowest;
+    * a walking block has 512 threads, a split one 256 (rank16) or 128
+      (paper)."""
+    chunks = -(-k // CHUNK)
+    narrow = n * -(-b // MAX_TILE_B)
+    split = chunks if 2 <= chunks <= MAX_SPLIT and narrow < sms else 1
+    threads = 512 if split == 1 else 256 if kind == "rank16" else 128
+    plans = [p for p in head_plans(kind, b, k, n, r)
+             if p.split == split and p.threads == threads]
+    if not plans:
+        raise ValueError(f"no {kind} head plan fits B={b} K={k} N={n} "
+                         f"R={r}")
+    most = max(p.samples for p in plans)
+    plans = [p for p in plans if p.samples == most]
+    return next((p for p in reversed(plans) if p.blocks >= sms), plans[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
     from repro_torch.kernels.build import load
-    lib = load("bayes_mvm")
-    params = ctypes.POINTER(GrngParams)
-    rank16 = lib.bayes_rank16_launch
-    rank16.argtypes = ([_P] * 5 + [ctypes.c_int] * 4 + [_U32] * 3
-                       + [ctypes.c_int] * 2 + [params, _P])
-    rank16.restype = ctypes.c_int
-    paper = lib.bayes_paper_launch
-    paper.argtypes = ([_P] * 6 + [ctypes.c_int] * 4 + [_U32] * 3
-                      + [ctypes.c_int] * 3 + [params, _P])
-    paper.restype = ctypes.c_int
-    return rank16, paper
+    fn = load("bayes_mvm").bayes_head_launch
+    fn.argtypes = ([ctypes.c_int] + [_P] * 6 + [ctypes.c_int] * 4
+                   + [_U32] * 3 + [ctypes.c_int] * 9
+                   + [ctypes.POINTER(GrngParams), _P])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(x, mu, sigma, sel):
@@ -126,6 +255,8 @@ def _check(x, mu, sigma, sel):
                              f"{shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if sel.data_ptr() % 16:
+        raise ValueError("sel must be 16-byte aligned (float4 loads)")
     if x.dtype not in _DTYPES or mu.dtype not in _DTYPES:
         raise TypeError(f"x is {x.dtype} and mu {mu.dtype}: the kernels take "
                         f"float32 or bfloat16")
@@ -143,6 +274,32 @@ def _u32(v: int) -> int:
     return v & 0xFFFFFFFF
 
 
+def _launch(kind: str, x, mu, sigma, sel, fs, cfg: g.GRNGConfig,
+            levels: int = 0, row0: int = 0, col0: int = 0, sample0: int = 0,
+            plan: HeadPlan | None = None) -> torch.Tensor:
+    """Launches the head kernel of ``kind`` under ``head_plan``'s plan, or
+    under ``plan`` where one is given (a plan sweep)."""
+    b, kdim, n, r = _check(x, mu, sigma, sel)
+    if plan is None:
+        plan = head_plan(kind, b, kdim, n, r, _sm_count(x.device.index))
+    out = torch.empty((r, b, n), dtype=torch.float32, device=x.device)
+    params = grng_params(cfg)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _launcher()(
+            int(kind == "paper"), x.data_ptr(), mu.data_ptr(),
+            sigma.data_ptr(), sel.data_ptr(),
+            fs.data_ptr() if levels else None, out.data_ptr(), b, kdim, n,
+            r, _u32(row0), _u32(col0), _u32(sample0), levels,
+            int(x.dtype == torch.bfloat16), int(mu.dtype == torch.bfloat16),
+            plan.tile_n, plan.tile_b, plan.split, plan.samples, plan.threads,
+            plan.smem_bytes, ctypes.byref(params), stream)
+    if err != 0:
+        raise RuntimeError(f"{kind} head kernel launch failed: cudaError "
+                           f"{err}")
+    return out
+
+
 def bayes_rank16(x, mu, sigma, sel, cfg: g.GRNGConfig, row0: int = 0,
                  col0: int = 0, sample0: int = 0) -> torch.Tensor:
     """Rank-16 head samples [R, B, N] float32.  CPU tensors take the
@@ -153,19 +310,8 @@ def bayes_rank16(x, mu, sigma, sel, cfg: g.GRNGConfig, row0: int = 0,
                                   sample0)
     if x.device.type != "cuda":
         raise ValueError(f"no head kernel for device {x.device}")
-    b, kdim, n, r = _check(x, mu, sigma, sel)
-    out = torch.empty((r, b, n), dtype=torch.float32, device=x.device)
-    params = grng_params(cfg)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _launchers()[0](
-            x.data_ptr(), mu.data_ptr(), sigma.data_ptr(), sel.data_ptr(),
-            out.data_ptr(), b, kdim, n, r, _u32(row0), _u32(col0),
-            _u32(sample0), int(x.dtype == torch.bfloat16),
-            int(mu.dtype == torch.bfloat16), ctypes.byref(params), stream)
-    if err != 0:
-        raise RuntimeError(f"rank16 head kernel launch failed: cudaError "
-                           f"{err}")
+    out = _launch("rank16", x, mu, sigma, sel, None, cfg, row0=row0,
+                  col0=col0, sample0=sample0)
     bayes_rank16.launches += 1
     return out
 
@@ -183,32 +329,25 @@ def bayes_paper(x, mu, sigma, sel, fs, cfg: g.GRNGConfig,
                                  col0, sample0)
     if x.device.type != "cuda":
         raise ValueError(f"no head kernel for device {x.device}")
-    b, kdim, n, r = _check(x, mu, sigma, sel)
-    levels = 0
-    if qcfg is not None:
-        if qcfg.chunk != CHUNK:
-            raise ValueError(f"the head kernel digitizes every {CHUNK} rows, "
-                             f"got chunk={qcfg.chunk}")
-        levels = 2 ** (qcfg.adc_bits - 1) - 1
-        if (fs.device != x.device or fs.dtype != torch.float32
-                or fs.numel() != 2 or not fs.is_contiguous()):
-            raise ValueError("fs must be 2 contiguous float32 values on "
-                             f"{x.device}")
-    out = torch.empty((r, b, n), dtype=torch.float32, device=x.device)
-    params = grng_params(cfg)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _launchers()[1](
-            x.data_ptr(), mu.data_ptr(), sigma.data_ptr(), sel.data_ptr(),
-            fs.data_ptr() if levels else None, out.data_ptr(), b, kdim, n, r,
-            _u32(row0), _u32(col0), _u32(sample0), levels,
-            int(x.dtype == torch.bfloat16), int(mu.dtype == torch.bfloat16),
-            ctypes.byref(params), stream)
-    if err != 0:
-        raise RuntimeError(f"paper head kernel launch failed: cudaError "
-                           f"{err}")
+    out = _launch("paper", x, mu, sigma, sel, fs, cfg, _paper_levels(
+        x, fs, qcfg), row0, col0, sample0)
     bayes_paper.launches += 1
     return out
+
+
+def _paper_levels(x, fs, qcfg: QuantConfig | None) -> int:
+    """The ADC's largest code (0 without the ADC), after checking that
+    the kernel takes ``qcfg`` and ``fs``."""
+    if qcfg is None:
+        return 0
+    if qcfg.chunk != CHUNK:
+        raise ValueError(f"the head kernel digitizes every {CHUNK} rows, "
+                         f"got chunk={qcfg.chunk}")
+    if (fs.device != x.device or fs.dtype != torch.float32
+            or fs.numel() != 2 or not fs.is_contiguous()):
+        raise ValueError("fs must be 2 contiguous float32 values on "
+                         f"{x.device}")
+    return 2 ** (qcfg.adc_bits - 1) - 1
 
 
 bayes_rank16.launches = 0

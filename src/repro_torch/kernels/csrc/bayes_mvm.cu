@@ -12,13 +12,13 @@
 // What they compute (all float32; x [B,K], mu/sigma [K,N] float32 or
 // bfloat16, loaded as float32; sel [R,16]; out [R,B,N]):
 //   rank16  y = x.mu, xs = x.sigma, m_j = x.(sigma (.) I_j) for the 16
-//           devices, xq = (x^2).(sigma^2) when read_sigma > 0; then
+//           devices, xq = (x^2).(sigma^2); then
 //           out[r] = y + (sum_j sel[r,j] m_j - sum_mean xs
 //                    + read_sigma sqrt(max(xq,0))
 //                      gauss(hash3(sample0+r, b, col0+n, noise_seed)))
 //                    * inv_std
 //           (the read noise as its exact logit-level projection,
-//           bayes_mvm.py:96-124).
+//           bayes_mvm.py:96-124; without read noise xq is unused).
 //   paper   eps_r[k,n] = ((sum_j sel[r,j] I_j) + read_noise(k,n,sample0+r)
 //                        - sum_mean) * inv_std, the grng_eps kernel's
 //           arithmetic; out[r] = x.mu + x.(sigma (.) eps_r).  With the
@@ -29,139 +29,211 @@
 //           codes accumulate in chunk order; the chunks are rows
 //           64c .. 64c+63 of x (bayes_mvm.py:153-169).
 //
-// What bounds them on this card: operations.  At kernel_bench's head
-// (B=8, K=512, N=2048) they move about 9.7 MB (2.9 us at 3.35 TB/s);
-// rank16 does ~0.4 GFLOP (18 products of 2BKN plus the currents and the
-// mix, ~6 us at the float32 rate) and paper at R=20 ~1.1 GFLOP (~16 us).
-// Both hash 16.8 M device currents (K N 16), integer work beside the
-// float count that may well set the pace.
+// What bounds them on this card.  By float operations: at kernel_bench's
+// head (B=8, K=512, N=2048) the float bound is ~6.7 us (rank16) and
+// ~18 us (paper, R=20) at 67 TFLOP/s, the bytes ~3 us at 3.35 TB/s.
+// Beside them is integer work with no peak in the float table: every one
+// of the K N 16 device currents (16.8 M there) is a hash, and paper mixes
+// 16 currents into every eps (K N R of them).  At the UQ path's shape
+// (B=64, K=64, N=2, R=20) the whole call is a few thousand currents and
+// ~0.17 M multiply-adds: latency and the launch bound it.
 //
-// What the design does about it: one block owns a 16-column x 8-row
-// output tile and walks K in steps of 16 rows, the TPU's sequential k
-// grid axis as a loop inside the block.  Per step, every (k, n) cell's
-// 16 currents are hashed once, by one thread, and reused by all B rows
-// and all R samples of the block: rank16 stores sigma (.) I_j for the 16
-// devices in shared memory, paper stores sigma (.) eps_r for the block's
-// samples.  Then each of the 128 threads accumulates its (b, n) output:
-// rank16 its 19 sums, paper its RC sample sums (and RC chunk sums with
-// the ADC) in registers.  R above the block's RC (a template: 4, 8, 16,
-// 24 or 32) is split over the grid's z axis, which re-hashes the
-// currents for each R chunk rather than spilling accumulators.  The
-// currents, eps, ADC and epilogue are written with round-to-nearest
-// intrinsics (no FMA contraction), as the plain PyTorch versions round
-// them; only the K sums' order differs.  No atomics: two launches give
-// the same bits.  Tensor cores, TMA and a split over K are later work.
+// The design.  The launch plan (output tile, K split, samples a block
+// carries, threads, shared memory) is picked from the shape in Python
+// (kernels/bayes.py: head_plan, fitted to chip_smoke.py's plan sweep) and
+// checked here:
+//   tile     a block owns tile_n (a power of two) output columns and
+//            tile_b = B rounded up to 4 (at most 64) rows, so N = 2
+//            leaves no thread idle.  B > 64 takes a grid row a 64-row
+//            tile (no path of the port has one), which hashes the tile's
+//            currents again.
+//   loads    a chunk's x rows and mu/sigma columns, and all R selections
+//            once, arrive by cp.async (float32; bfloat16 through
+//            registers); a block that walks several chunks copies the
+//            next chunk while it works on this one.  A global round trip
+//            costs ~900 cycles on the H100, so none is left in a loop.
+//   hashing  every current of the tile is hashed once, by the whole
+//            block, one current a thread per pass: a thread keeps one of
+//            the 16 tile_n (device, column) pairs and steps over rows.
+//            hash3's first two mix32 rounds depend only on that pair, so
+//            they come from a per-block table and a current costs one
+//            mix32; gauss's bytes become floats by their bit patterns
+//            (2^23 + b), exactly; kBatch currents are computed before any
+//            is stored, so their chains overlap.
+//   weights  rank16 writes sigma (.) I_j, mu and sigma as the weight tile
+//            W [64 rows][cols] in shared memory; paper keeps a chunk's
+//            currents and, per sample chunk, mixes them into
+//            sigma (.) eps_r columns: a thread takes one cell's 16
+//            currents in registers and a run of samples, 4 side by side.
+//   product  a micro-tile is one x row against 4 W columns: 4 in-order
+//            fmaf chains over a chunk's 64 rows, x and W read as float4.
+//            rank16's (x^2).(sigma^2) is one chain per (row, column).
+//   K split  K is cut at the ADC's 64-row chunks.  split > 1 runs the
+//            chunks of a tile at once in a thread-block cluster, one
+//            chunk a block; each block stores its partial sums (or ADC
+//            codes) into rank 0's shared memory, and after one cluster
+//            barrier rank 0 folds them in chunk order c = 0, 1, ... from
+//            0, no atomics (cim_mvm.cu's scheme).  split = 1 walks the
+//            chunks in order and folds the same way.
+//   samples  rank16 hoists its per-(row, column) terms (sum_mean * x.sigma,
+//            the read noise's scale and hash prefix) before the R samples.
+// So every plan computes each chunk's partial sum as the same chain and
+// folds the same values in the same order: all plans give the same bits,
+// with the ADC or without, and two launches give the same bits.  The
+// currents, eps, ADC and epilogue are round-to-nearest intrinsics (no
+// FMA contraction), as the plain PyTorch versions round them; only the K
+// sums' order differs from those.  Tensor cores stay out: TF32 would
+// move the products past the tolerance and the ADC codes with them.
+//
+// The previous design, for comparison: a fixed 16-column x 8-row tile, K
+// walked 16 rows a step, one thread hashing a cell's 16 currents in
+// series, grid over B (each B tile hashing again) and, in paper mode,
+// over sample chunks (each hashing again).  Times of both: PERF.md.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hash.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using repro_torch::GrngParams;
+using repro_torch::mix32;
 
-constexpr int kTileN = 16;     // output columns a block
-constexpr int kTileB = 8;      // output rows (batch) a block
-constexpr int kTileK = 16;     // K rows a step
-constexpr int kThreads = kTileN * kTileB;            // 128
-constexpr int kCells = kTileK * kTileN;              // 256 a step
+constexpr int kChunk = 64;            // ADC accumulation depth, K step
+constexpr int kXStride = kChunk + 4;  // padded x row: 16-byte aligned
 constexpr int kDevices = 16;
-constexpr int kChunk = 64;     // ADC accumulation depth
-static_assert(kChunk % kTileK == 0, "a step must not straddle ADC chunks");
-static_assert(kTileB * kTileK == kThreads, "one x element a thread");
+constexpr int kEpsGroup = 4;          // samples mixed side by side
+constexpr int kRank16Sums = 20;       // rank16 sums a tile column
+constexpr int kBatch = 4;             // items a thread computes before storing
+constexpr int kMaxTileB = 64;
+constexpr int kMaxCluster = 8;        // portable cluster size
+constexpr int kMaxThreads = 512;      // 128 registers a thread
+constexpr int kMaxSmem = 227 * 1024;  // a block's opt-in shared memory
+
+struct Params {
+  const void* x;         // [B, K]
+  const void* mu;        // [K, N]
+  const void* sigma;     // [K, N]
+  const float* sel;      // [R, 16]
+  const float* fs;       // [2] ADC full scales (paper with the ADC)
+  float* out;            // [R, B, N]
+  int B, K, N, R;
+  uint32_t row0, col0, sample0;
+  int levels;            // 0: no ADC, else the largest code (31)
+  int tile_n, tile_b, split, samples;
+  int tn_shift;          // log2(tile_n): tile widths are powers of two
+  int vec_x;             // x rows start on 16 bytes: 16-byte copies
+  GrngParams g;
+};
+
+__host__ __device__ inline int quad(int n) { return (n + 3) & ~3; }
+
+// The weight tile's columns (rank16: the 16 tile_n sigma (.) I_j, then
+// mu and sigma; paper: ``samples`` tile_n sigma (.) eps_r, then mu),
+// rounded up to whole 4-column micro-tiles; and the sums' columns
+// (rank16: 20 a tile column n at 20 n + v, v = device 0..15, mu, sigma,
+// sigma^2 and one unused; paper: mu at n, sample r at (1 + r) tile_n + n).
+__host__ __device__ inline int tile_cols(bool paper, int tn, int samples) {
+  return quad(paper ? (samples + 1) * tn : (kDevices + 2) * tn);
+}
+__host__ __device__ inline int sum_cols(bool paper, int tn, int R) {
+  return paper ? (R + 1) * tn : kRank16Sums * tn;
+}
+// The product's micro-tiles: one x row against 4 weight columns.
+__host__ __device__ inline int micro_tiles(bool paper, int tn, int tb,
+                                           int samples) {
+  return tb * (tile_cols(paper, tn, samples) / 4);
+}
+
+// Shared memory, in floats from the start, each region on 16 bytes;
+// kernels/bayes.py (_smem_bytes) computes the same total.  A block that
+// walks several chunks double-buffers a chunk's x rows and mu/sigma.
+struct Layout {
+  int sels, xs, mus, sgs, h2c, h2i, h2n, cur, w, acc, total;
+  int stages, ws, acols;
+};
+
+__host__ __device__ inline Layout layout(bool paper, int tn, int tb,
+                                         int split, int samples, int R,
+                                         int chunks) {
+  Layout l;
+  int at = 0;
+  l.stages = split == 1 && chunks > 1 ? 2 : 1;
+  l.ws = tile_cols(paper, tn, samples);
+  l.acols = sum_cols(paper, tn, R);
+  // selections [r][j], zero rows after R for paper's last group of 4
+  l.sels = at; at += (quad(R) + kEpsGroup) * kDevices;
+  l.xs = at;   at += l.stages * tb * kXStride;      // x rows [b][k]
+  l.mus = at;  at += l.stages * kChunk * tn;        // mu [k][n]
+  l.sgs = at;  at += l.stages * kChunk * tn;        // sigma [k][n]
+  l.h2c = at;  at += quad(kDevices * tn);           // hash prefixes: currents
+  l.h2i = at;  at += quad(kDevices * tn);           //   imprint
+  l.h2n = at;  at += quad(paper ? samples * tn : tb * tn);  //   read noise
+  l.cur = at;  at += paper ? kChunk * kDevices * tn : 0;  // currents [k][j][n]
+  l.w = at;    at += kChunk * l.ws;                 // weight tile [k][col]
+  l.acc = at;  at += quad(split * tb * l.acols);    // sums [chunk][b][col]
+  l.total = at;
+  return l;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// The x tile [kTileB][kTileK] of step k0, zero outside [B, K].
-template <typename TX>
-__device__ __forceinline__ void load_x(const TX* __restrict__ x,
-                                       float (*xs)[kTileK], int tid, int b0,
-                                       int k0, int B, int K) {
-  const int bb = tid / kTileK, kk = tid % kTileK;
-  const int gb = b0 + bb, gk = k0 + kk;
-  xs[bb][kk] = (gb < B && gk < K)
-                   ? to_f32(x[static_cast<size_t>(gb) * K + gk]) : 0.f;
+// gauss_of (hash.cuh) with each byte turned into a float by its bit
+// pattern: 0x4B0000bb is 2^23 + bb exactly, so b0 + b1 = f0 + (f1 - 2^24)
+// and the sum b0 + b1 + b2 - 382.5 are exact, as in gauss_of, and one
+// rounding (times the scale) follows: the same bits, without int->float
+// conversions.
+__device__ __forceinline__ float gauss_bytes(uint32_t h) {
+  const float f0 = __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7440));
+  const float f1 = __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7441));
+  const float f2 = __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7442));
+  const float b01 = __fadd_rn(f0, __fadd_rn(f1, -16777216.f));
+  const float sum = __fadd_rn(b01, __fadd_rn(f2, -8388608.f));
+  return __fmul_rn(__fadd_rn(sum, -382.5f), 0x1.00038p-7f);
 }
 
-template <typename TX, typename TW>
-__global__ void __launch_bounds__(kThreads)
-bayes_rank16_kernel(const TX* __restrict__ x, const TW* __restrict__ mu,
-                    const TW* __restrict__ sigma,
-                    const float* __restrict__ sel, float* __restrict__ out,
-                    int B, int K, int N, int R, uint32_t row0, uint32_t col0,
-                    uint32_t sample0, GrngParams p) {
-  __shared__ float xs[kTileB][kTileK];
-  __shared__ float mus[kTileK][kTileN];
-  __shared__ float sgs[kTileK][kTileN];
-  __shared__ float basis[kDevices][kTileK][kTileN];
+// hash3(k, n, j, seed) = mix32(k*0x9E3779B9 + prefix(n, j, seed)): the
+// prefix depends on the column and the device (or sample) only.
+__device__ __forceinline__ uint32_t col_prefix(uint32_t n, uint32_t j,
+                                               uint32_t seed) {
+  return mix32(n * 0x85EBCA6Bu + mix32(j * 0xC2B2AE35u + seed));
+}
+__device__ __forceinline__ uint32_t row_hash(uint32_t k, uint32_t prefix) {
+  return mix32(k * 0x9E3779B9u + prefix);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % kTileN, ty = tid / kTileN;
-  const int n0 = blockIdx.x * kTileN, b0 = blockIdx.y * kTileB;
-  const bool noisy = p.read_sigma != 0.f;
+// device_current (hash.cuh) of row ``row`` from its column's prefixes;
+// kImprint: the die has an imprint term (p.imprint != 0).
+template <bool kImprint>
+__device__ __forceinline__ float current(uint32_t row, uint32_t pc,
+                                         uint32_t pi, const GrngParams& p) {
+  const uint32_t h = row_hash(row, pc);
+  float out = __fadd_rn(__fadd_rn(p.i_lo, (h >> 31) ? p.delta_i : 0.f),
+                        __fmul_rn(p.gamma, gauss_bytes(h)));
+  if constexpr (kImprint)
+    out = __fadd_rn(out, __fmul_rn(p.imprint,
+                                   gauss_bytes(row_hash(row, pi))));
+  return out;
+}
 
-  float acc_mu = 0.f, acc_xs = 0.f, acc_xq = 0.f;
-  float acc[kDevices];
-#pragma unroll
-  for (int j = 0; j < kDevices; ++j) acc[j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    load_x(x, xs, tid, b0, k0, B, K);
-    for (int c = tid; c < kCells; c += kThreads) {
-      const int kk = c / kTileN, nn = c % kTileN;
-      const int gk = k0 + kk, gn = n0 + nn;
-      const bool valid = gk < K && gn < N;
-      const size_t at = static_cast<size_t>(gk) * N + gn;
-      const float s = valid ? to_f32(sigma[at]) : 0.f;
-      mus[kk][nn] = valid ? to_f32(mu[at]) : 0.f;
-      sgs[kk][nn] = s;
-#pragma unroll
-      for (int j = 0; j < kDevices; ++j)
-        basis[j][kk][nn] =
-            valid ? __fmul_rn(s, repro_torch::device_current(
-                                     row0 + gk, col0 + gn, j, p))
-                  : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float xv = xs[ty][kk];
-      const float s = sgs[kk][tx];
-      acc_mu = fmaf(xv, mus[kk][tx], acc_mu);
-      acc_xs = fmaf(xv, s, acc_xs);
-      if (noisy) acc_xq = fmaf(__fmul_rn(xv, xv), __fmul_rn(s, s), acc_xq);
-#pragma unroll
-      for (int j = 0; j < kDevices; ++j)
-        acc[j] = fmaf(xv, basis[j][kk][tx], acc[j]);
-    }
-    __syncthreads();
-  }
-
-  const int b = b0 + ty, n = n0 + tx;
-  if (b >= B || n >= N) return;
-  const float sigma_read =
-      noisy ? __fmul_rn(p.read_sigma, sqrtf(fmaxf(acc_xq, 0.f))) : 0.f;
-  const float mean_xs = __fmul_rn(p.sum_mean, acc_xs);
-  for (int r = 0; r < R; ++r) {
-    const float* s = sel + r * kDevices;
-    float mixed = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDevices; ++j)
-      mixed = __fadd_rn(mixed, __fmul_rn(__ldg(s + j), acc[j]));
-    float num = __fsub_rn(mixed, mean_xs);
-    if (noisy)
-      num = __fadd_rn(num, __fmul_rn(repro_torch::gauss_of(repro_torch::hash3(
-                                         sample0 + r, b, col0 + n,
-                                         p.noise_seed)),
-                                     sigma_read));
-    out[(static_cast<size_t>(r) * B + b) * N + n] =
-        __fadd_rn(acc_mu, __fmul_rn(num, p.inv_std));
-  }
+// Runs f(std::true_type) or f(std::false_type) as ``on`` says, so that a
+// uniform branch stays outside the loops in f.
+template <typename F>
+__device__ __forceinline__ void with_flag(bool on, F f) {
+  if (on)
+    f(std::true_type{});
+  else
+    f(std::false_type{});
 }
 
 __device__ __forceinline__ float adc(float v, float lsb, float lo, float hi) {
@@ -169,213 +241,583 @@ __device__ __forceinline__ float adc(float v, float lsb, float lo, float hi) {
   return __fmul_rn(code, lsb);
 }
 
-template <typename TX, typename TW, int RC>
-__global__ void __launch_bounds__(kThreads)
-bayes_paper_kernel(const TX* __restrict__ x, const TW* __restrict__ mu,
-                   const TW* __restrict__ sigma,
-                   const float* __restrict__ sel,
-                   const float* __restrict__ fs, float* __restrict__ out,
-                   int B, int K, int N, int R, uint32_t row0, uint32_t col0,
-                   uint32_t sample0, int levels, GrngParams p) {
-  __shared__ float xs[kTileB][kTileK];
-  __shared__ float mus[kTileK][kTileN];
-  __shared__ float sels[RC][kDevices];
-  __shared__ float se[RC][kTileK][kTileN];
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const void* src,
+                                          int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % kTileN, ty = tid / kTileN;
-  const int n0 = blockIdx.x * kTileN, b0 = blockIdx.y * kTileB;
-  const int r0 = blockIdx.z * RC;
-  const int rc = min(RC, R - r0);
-  const bool noisy = p.read_sigma != 0.f;
-  for (int i = tid; i < RC * kDevices; i += kThreads)
-    sels[i / kDevices][i % kDevices] =
-        i < rc * kDevices ? sel[r0 * kDevices + i] : 0.f;
+// The cluster barrier in two halves (cim_mvm.cu): arrive at entry, wait
+// before the first store into another block's shared memory.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
 
+// Items (r, c) of [rows) x [cols), c fastest, the thread's every
+// blockDim.x-th, kBatch at a time: each thread computes its batch's
+// values (loads, hashes) without a branch, on a clamped row, before it
+// stores any, so that their latencies overlap.  No division in the loop.
+template <typename Value, typename Store>
+__device__ __forceinline__ void walk2(int rows, int cols, Value value,
+                                      Store store) {
+  const int step_r = blockDim.x / cols, step_c = blockDim.x % cols;
+  int r = threadIdx.x / cols, c = threadIdx.x % cols;
+  while (r < rows) {
+    int rr[kBatch], cc[kBatch];
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      rr[u] = r;
+      cc[u] = c;
+      v[u] = value(min(r, rows - 1), c);
+      c += step_c;
+      r += step_r;
+      if (c >= cols) {
+        c -= cols;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (rr[u] < rows) store(rr[u], cc[u], v[u]);
+  }
+}
+
+// f(r, c) for the items of [rows) x [cols), c fastest, the thread's
+// every blockDim.x-th, one at a time.  No division in the loop.
+template <typename F>
+__device__ __forceinline__ void for_each2(int rows, int cols, F f) {
+  const int step_r = blockDim.x / cols, step_c = blockDim.x % cols;
+  int r = threadIdx.x / cols, c = threadIdx.x % cols;
+  while (r < rows) {
+    f(r, c);
+    c += step_c;
+    r += step_r;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+}
+
+// The current prefixes of the tile's 16 x tile_n (device, column) pairs.
+__device__ void col_prefixes(const Params& p, int n0, uint32_t* h2c,
+                             uint32_t* h2i) {
+  for (int i = threadIdx.x; i < kDevices * p.tile_n; i += blockDim.x) {
+    const uint32_t col = p.col0 + n0 + (i & (p.tile_n - 1));
+    const uint32_t j = i >> p.tn_shift;
+    h2c[i] = col_prefix(col, j, p.g.seed);
+    h2i[i] = col_prefix(col, j, p.g.imprint_seed);
+  }
+}
+
+// The selections [R][16] into sels, the region's rows after R zero.
+__device__ void stage_selections(const Params& p, float* sels) {
+  for (int i = threadIdx.x; i < (quad(p.R) + kEpsGroup) * 4;
+       i += blockDim.x)
+    cp_async16(sels + 4 * i, p.sel + (i < p.R * 4 ? 4 * i : 0),
+               i < p.R * 4 ? 16 : 0);
+}
+
+// Chunk c's x rows [b][k] and mu/sigma [k][n], zero outside [B, K] and
+// [K, N]: asynchronous copies for float32 (wait with cp_async_wait_all),
+// converted loads for bfloat16.
+template <typename TX, typename TW>
+__device__ void load_chunk(const Params& p, int c, int b0, int n0,
+                           float* xs, float* mus, float* sgs) {
+  const int k0 = c * kChunk, tn = p.tile_n;
+  if constexpr (std::is_same_v<TX, float>) {
+    const float* x = static_cast<const float*>(p.x);
+    if (p.vec_x) {                     // a quad of k is all in or all out
+      for (int i = threadIdx.x; i < p.tile_b * (kChunk / 4); i += blockDim.x) {
+        const int row = i / (kChunk / 4), k = 4 * (i % (kChunk / 4));
+        const bool in = b0 + row < p.B && k0 + k < p.K;
+        cp_async16(xs + row * kXStride + k,
+                   in ? x + static_cast<size_t>(b0 + row) * p.K + k0 + k : x,
+                   in ? 16 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < p.tile_b * kChunk; i += blockDim.x) {
+        const int row = i / kChunk, k = i % kChunk;
+        const bool in = b0 + row < p.B && k0 + k < p.K;
+        cp_async4(xs + row * kXStride + k,
+                  in ? x + static_cast<size_t>(b0 + row) * p.K + k0 + k : x,
+                  in ? 4 : 0);
+      }
+    }
+  } else {
+    const TX* x = static_cast<const TX*>(p.x);
+    walk2(p.tile_b, kChunk,
+          [&](int row, int k) {
+            return (b0 + row < p.B && k0 + k < p.K)
+                       ? to_f32(x[static_cast<size_t>(b0 + row) * p.K + k0 +
+                                  k])
+                       : 0.f;
+          },
+          [&](int row, int k, float v) { xs[row * kXStride + k] = v; });
+  }
+  auto weights = [&](const TW* src, float* dst) {
+    if constexpr (std::is_same_v<TW, float>) {
+      for (int i = threadIdx.x; i < kChunk * tn; i += blockDim.x) {
+        const int k = i >> p.tn_shift, n = i & (tn - 1);
+        const bool in = k0 + k < p.K && n0 + n < p.N;
+        cp_async4(dst + i,
+                  in ? src + static_cast<size_t>(k0 + k) * p.N + n0 + n : src,
+                  in ? 4 : 0);
+      }
+    } else {
+      walk2(kChunk, tn,
+            [&](int k, int n) {
+              return (k0 + k < p.K && n0 + n < p.N)
+                         ? to_f32(src[static_cast<size_t>(k0 + k) * p.N + n0 +
+                                      n])
+                         : 0.f;
+            },
+            [&](int k, int n, float v) { dst[k * tn + n] = v; });
+    }
+  };
+  weights(static_cast<const TW*>(p.mu), mus);
+  weights(static_cast<const TW*>(p.sigma), sgs);
+}
+
+// A micro-tile's 64-term partial sums: x row xr against weight columns
+// c4 .. c4+3, each one fmaf chain in order k = 0..63.
+__device__ __forceinline__ void tile_sums(const float* xr, const float* w,
+                                          int ws, int c4, float (&ps)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ps[j] = 0.f;
+  const float* wc = w + c4;
+#pragma unroll 4
+  for (int k = 0; k < kChunk; k += 4) {
+    const float4 xv = *reinterpret_cast<const float4*>(xr + k);
+    float4 wv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      wv[u] = *reinterpret_cast<const float4*>(wc + (k + u) * ws);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float xk = u == 0 ? xv.x : u == 1 ? xv.y : u == 2 ? xv.z : xv.w;
+      ps[0] = fmaf(xk, wv[u].x, ps[0]);
+      ps[1] = fmaf(xk, wv[u].y, ps[1]);
+      ps[2] = fmaf(xk, wv[u].z, ps[2]);
+      ps[3] = fmaf(xk, wv[u].w, ps[3]);
+    }
+  }
+}
+
+// One chunk's value of sum (row, acol): folded into the block's sums
+// (walk), or stored as chunk c's into rank 0's (split; chunk c = the
+// block's rank).
+template <bool kSplit>
+__device__ __forceinline__ void put(float* acc, int c, int sums, int at,
+                                    float v) {
+  if constexpr (kSplit) {
+    cg::this_cluster().map_shared_rank(acc, 0)[c * sums + at] = v;
+  } else {
+    acc[at] = __fadd_rn(c == 0 ? 0.f : acc[at], v);
+  }
+}
+
+// Rank 0 of a split: fold the ``split`` chunks' values of each sum in
+// chunk order, from 0, into the first chunk's place.
+__device__ void fold_chunks(float* acc, int split, int sums) {
+  for (int o = threadIdx.x; o < sums; o += blockDim.x) {
+    float a = 0.f;
+    for (int c = 0; c < split; ++c) a = __fadd_rn(a, acc[c * sums + o]);
+    acc[o] = a;
+  }
+  __syncthreads();
+}
+
+// One kernel for both modes.  kSplit = false: grid (tiles_n, tiles_b),
+// one block walks every chunk; kSplit = true: grid (split * tiles_n,
+// tiles_b) in clusters of ``split`` blocks along x, the block of rank c
+// taking chunk c.
+template <bool kPaper, typename TX, typename TW, bool kSplit>
+__global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int tn = p.tile_n, tb = p.tile_b, sh = p.tn_shift;
+  const int ns = kPaper ? p.samples : 0;
+  const int chunks = (p.K + kChunk - 1) / kChunk;
+  const Layout L = layout(kPaper, tn, tb, p.split, ns, p.R, chunks);
+  float* sels = smem + L.sels;
+  uint32_t* h2c = reinterpret_cast<uint32_t*>(smem + L.h2c);
+  uint32_t* h2i = reinterpret_cast<uint32_t*>(smem + L.h2i);
+  uint32_t* h2n = reinterpret_cast<uint32_t*>(smem + L.h2n);
+  float* cur = smem + L.cur;
+  float* w = smem + L.w;
+  float* acc = smem + L.acc;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int rank =
+      kSplit ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const int n0 = (kSplit ? static_cast<int>(blockIdx.x) / p.split
+                         : static_cast<int>(blockIdx.x)) * tn;
+  const int b0 = blockIdx.y * tb;
+  const int c_first = kSplit ? rank : 0, c_end = kSplit ? rank + 1 : chunks;
+  const int sums = tb * L.acols;
+  const int tiles = micro_tiles(kPaper, tn, tb, ns);
+  if constexpr (kSplit) cluster_arrive_relaxed();
+  stage_selections(p, sels);
+  load_chunk<TX, TW>(p, c_first, b0, n0, smem + L.xs, smem + L.mus,
+                     smem + L.sgs);
+  cp_async_commit();
+  col_prefixes(p, n0, h2c, h2i);
   float lsb_mu = 0.f, lsb_se = 0.f;
-  const float lo = static_cast<float>(-levels - 1);
-  const float hi = static_cast<float>(levels);
-  if (levels > 0) {
-    lsb_mu = __fdiv_rn(fs[0], static_cast<float>(levels));
-    lsb_se = __fdiv_rn(fs[1], static_cast<float>(levels));
+  const float lo = static_cast<float>(-p.levels - 1);
+  const float hi = static_cast<float>(p.levels);
+  if (kPaper && p.levels > 0) {
+    lsb_mu = __fdiv_rn(p.fs[0], static_cast<float>(p.levels));
+    lsb_se = __fdiv_rn(p.fs[1], static_cast<float>(p.levels));
   }
 
-  float ps_mu = 0.f, acc_mu = 0.f;
-  float ps[RC], acc[RC];
+  for (int c = c_first; c < c_end; ++c) {
+    const int st = L.stages > 1 ? c & 1 : 0;
+    const float* xs = smem + L.xs + st * tb * kXStride;
+    const float* mus = smem + L.mus + st * kChunk * tn;
+    const float* sgs = smem + L.sgs + st * kChunk * tn;
+    cp_async_wait_all();
+    __syncthreads();                   // chunk c (and the selections) in
+    if (L.stages > 1 && c + 1 < c_end) {   // prefetch the next chunk
+      const int nx = (c + 1) & 1;
+      load_chunk<TX, TW>(p, c + 1, b0, n0, smem + L.xs + nx * tb * kXStride,
+                         smem + L.mus + nx * kChunk * tn,
+                         smem + L.sgs + nx * kChunk * tn);
+      cp_async_commit();
+    }
+    const uint32_t row_c = p.row0 + c * kChunk;
+    // the chunk's currents, one a thread per pass: rank16 sigma (.) I_j
+    // into the weight tile, paper I_j kept for every sample chunk.  The
+    // 16 tile_n columns divide the threads, so a thread keeps its column
+    // cc (and its hash prefixes) and steps over rows k.
+    {
+      const int gen = kDevices * tn;
+      const int cc = tid & (gen - 1), n = cc & (tn - 1), dk = nthreads / gen;
+      const uint32_t pc = h2c[cc], pi = h2i[cc];
+      with_flag(p.g.imprint != 0.f, [&](auto imprint) {
+        for (int k = tid / gen; k < kChunk; k += kBatch * dk) {
+          float v[kBatch];
 #pragma unroll
-  for (int r = 0; r < RC; ++r) ps[r] = acc[r] = 0.f;
-
-  __syncthreads();
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    load_x(x, xs, tid, b0, k0, B, K);
-    for (int c = tid; c < kCells; c += kThreads) {
-      const int kk = c / kTileN, nn = c % kTileN;
-      const int gk = k0 + kk, gn = n0 + nn;
-      const bool valid = gk < K && gn < N;
-      const size_t at = static_cast<size_t>(gk) * N + gn;
-      mus[kk][nn] = valid ? to_f32(mu[at]) : 0.f;
-      int r = 0;
-      if (valid) {
-        const float s = to_f32(sigma[at]);
-        const uint32_t row = row0 + gk, col = col0 + gn;
-        float cur[kDevices];
+          for (int u = 0; u < kBatch; ++u) {
+            const int ku = min(k + u * dk, kChunk - 1);
+            v[u] = current<decltype(imprint)::value>(row_c + ku, pc, pi, p.g);
+            if constexpr (!kPaper) v[u] = __fmul_rn(sgs[ku * tn + n], v[u]);
+          }
 #pragma unroll
-        for (int j = 0; j < kDevices; ++j)
-          cur[j] = repro_torch::device_current(row, col, j, p);
-        for (; r < rc; ++r) {
-          float raw = 0.f;
+          for (int u = 0; u < kBatch; ++u) {
+            const int ku = k + u * dk;
+            if (ku < kChunk) {
+              if constexpr (kPaper)
+                cur[ku * gen + cc] = v[u];
+              else
+                w[ku * L.ws + cc] = v[u];
+            }
+          }
+        }
+      });
+    }
+    const int sample_chunks = kPaper ? (p.R + ns - 1) / ns : 1;
+    for (int q = 0; q < sample_chunks; ++q) {
+      const int r0 = q * ns, rc = kPaper ? min(ns, p.R - r0) : 0;
+      if constexpr (kPaper) {
+        for (int i = tid; i < rc * tn; i += nthreads)
+          h2n[i] = col_prefix(p.col0 + n0 + (i & (tn - 1)),
+                              p.sample0 + r0 + (i >> sh), p.g.noise_seed);
+        __syncthreads();               // currents, noise prefixes in
+        // sigma (.) eps_r of every cell and sample: a thread takes one
+        // cell (k, n), its 16 currents in registers, and a run of the
+        // chunk's samples, kEpsGroup side by side (samples past the run
+        // mix zero selections and are not stored); the cells times the
+        // runs fill the block once
+        const int cells = kChunk * tn;
+        const int runs = min((rc + kEpsGroup - 1) / kEpsGroup,
+                             nthreads / cells);
+        const int per_run = (rc + runs - 1) / runs;
+        if (tid < cells * runs) {
+          const int cn = tid & (tn - 1), k = (tid >> sh) & (kChunk - 1);
+          const int s_lo = (tid / cells) * per_run;
+          const int s_hi = min(s_lo + per_run, rc);
+          float cj[kDevices];
 #pragma unroll
           for (int j = 0; j < kDevices; ++j)
-            raw = __fadd_rn(raw, __fmul_rn(sels[r][j], cur[j]));
-          if (noisy)
-            raw = __fadd_rn(raw, repro_torch::read_noise(
-                                     row, col, sample0 + r0 + r, p));
-          const float eps = __fmul_rn(__fsub_rn(raw, p.sum_mean), p.inv_std);
-          se[r][kk][nn] = __fmul_rn(s, eps);
+            cj[j] = cur[(k * kDevices + j) * tn + cn];
+          const float s = sgs[k * tn + cn];
+          with_flag(p.g.read_sigma != 0.f, [&](auto noisy) {
+            for (int s0 = s_lo; s0 < s_hi; s0 += kEpsGroup) {
+              float raw[kEpsGroup];
+#pragma unroll
+              for (int u = 0; u < kEpsGroup; ++u) raw[u] = 0.f;
+#pragma unroll
+              for (int j4 = 0; j4 < kDevices; j4 += 4) {
+#pragma unroll
+                for (int u = 0; u < kEpsGroup; ++u) {
+                  const float4 sv = *reinterpret_cast<const float4*>(
+                      sels + (r0 + s0 + u) * kDevices + j4);
+                  raw[u] = __fadd_rn(raw[u], __fmul_rn(sv.x, cj[j4]));
+                  raw[u] = __fadd_rn(raw[u], __fmul_rn(sv.y, cj[j4 + 1]));
+                  raw[u] = __fadd_rn(raw[u], __fmul_rn(sv.z, cj[j4 + 2]));
+                  raw[u] = __fadd_rn(raw[u], __fmul_rn(sv.w, cj[j4 + 3]));
+                }
+              }
+#pragma unroll
+              for (int u = 0; u < kEpsGroup; ++u) {
+                const int sr = s0 + u;
+                float r = raw[u];
+                if constexpr (decltype(noisy)::value)
+                  r = __fadd_rn(r, __fmul_rn(p.g.read_sigma,
+                                             gauss_bytes(row_hash(
+                                                 row_c + k,
+                                                 h2n[min(sr, rc - 1) * tn +
+                                                     cn]))));
+                const float se = __fmul_rn(
+                    s, __fmul_rn(__fsub_rn(r, p.g.sum_mean), p.g.inv_std));
+                if (sr < s_hi) w[k * L.ws + sr * tn + cn] = se;
+              }
+            }
+          });
+        }
+        if (q == 0)                    // the mu columns
+          for (int i = tid; i < kChunk * tn; i += nthreads)
+            w[(i >> sh) * L.ws + ns * tn + (i & (tn - 1))] = mus[i];
+      } else {                         // the mu and sigma columns
+        for (int i = tid; i < kChunk * 2 * tn; i += nthreads) {
+          const int k = i / (2 * tn), cc = i % (2 * tn);
+          w[k * L.ws + kDevices * tn + cc] =
+              cc < tn ? mus[k * tn + cc] : sgs[k * tn + cc - tn];
         }
       }
-      for (; r < RC; ++r) se[r][kk][nn] = 0.f;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float xv = xs[ty][kk];
-      ps_mu = fmaf(xv, mus[kk][tx], ps_mu);
-#pragma unroll
-      for (int r = 0; r < RC; ++r) ps[r] = fmaf(xv, se[r][kk][tx], ps[r]);
-    }
-    __syncthreads();
-    const bool chunk_end = (k0 + kTileK) % kChunk == 0 || k0 + kTileK >= K;
-    if (levels > 0 && chunk_end) {
-      acc_mu = __fadd_rn(acc_mu, adc(ps_mu, lsb_mu, lo, hi));
-      ps_mu = 0.f;
-#pragma unroll
-      for (int r = 0; r < RC; ++r) {
-        acc[r] = __fadd_rn(acc[r], adc(ps[r], lsb_se, lo, hi));
-        ps[r] = 0.f;
+      __syncthreads();                 // the weight tile is in
+      if constexpr (kSplit) {
+        if (q == 0) cluster_wait();    // every block has started
       }
+      // the micro-tiles, then (rank16 on a noisy die) the (x^2).(sigma^2)
+      // chains of the tile's (row, n), one item a thread per pass
+      const bool xq = !kPaper && p.g.read_sigma != 0.f;
+      for (int t = tid; t < tiles + (xq ? tb * tn : 0); t += nthreads) {
+        if (t >= tiles) {
+          const int row = (t - tiles) >> sh, n = (t - tiles) & (tn - 1);
+          const float* xr = xs + row * kXStride;
+          float a = 0.f;
+          for (int k = 0; k < kChunk; ++k) {
+            const float sv = sgs[k * tn + n];
+            a = fmaf(__fmul_rn(xr[k], xr[k]), __fmul_rn(sv, sv), a);
+          }
+          put<kSplit>(acc, c, sums,
+                      row * L.acols + n * kRank16Sums + kDevices + 2, a);
+          continue;
+        }
+        const int row = t % tb, c4 = 4 * (t / tb);
+        float ps[4];
+        tile_sums(xs + row * kXStride, w, L.ws, c4, ps);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = c4 + j;
+          int acol;
+          float v = ps[j];
+          if constexpr (kPaper) {
+            const bool mu_col = col >= ns * tn;
+            if (mu_col ? (q != 0 || col >= (ns + 1) * tn)
+                       : (col >> sh) >= rc)
+              continue;
+            acol = mu_col ? col - ns * tn : (1 + r0 + (col >> sh)) * tn +
+                                                (col & (tn - 1));
+            if (p.levels > 0) v = adc(v, mu_col ? lsb_mu : lsb_se, lo, hi);
+          } else {
+            if (col >= (kDevices + 2) * tn) continue;
+            acol = (col & (tn - 1)) * kRank16Sums + (col >> sh);
+          }
+          put<kSplit>(acc, c, sums, row * L.acols + acol, v);
+        }
+      }
+      __syncthreads();                 // the weight tile and stage are free
     }
   }
-
-  const int b = b0 + ty, n = n0 + tx;
-  if (b >= B || n >= N) return;
-  if (levels == 0) {
-    acc_mu = ps_mu;
-#pragma unroll
-    for (int r = 0; r < RC; ++r) acc[r] = ps[r];
+  if constexpr (kSplit) {
+    cg::this_cluster().sync();         // every chunk's sums are in
+    if (rank != 0) return;             // only rank 0's are read
+    fold_chunks(acc, p.split, sums);
   }
+
+  // the samples: item (r, row * tile_n + n)
+  with_flag(p.g.read_sigma != 0.f, [&](auto noisy) {
+    constexpr bool kNoisy = decltype(noisy)::value;
+    uint32_t* h2e = h2n;               // rank16: noise prefixes of (row, n)
+    if constexpr (!kPaper) {
+      // once per (row, n): sum_mean * x.sigma in sigma's place, the read
+      // noise's scale read_sigma * sqrt((x^2).(sigma^2)) in sigma^2's,
+      // and the noise hash's prefix over (row, column)
+      for (int t = tid; t < tb * tn; t += nthreads) {
+        float* a = acc + (t >> sh) * L.acols + (t & (tn - 1)) * kRank16Sums;
+        a[kDevices + 1] = __fmul_rn(p.g.sum_mean, a[kDevices + 1]);
+        if constexpr (kNoisy) {
+          a[kDevices + 2] = __fmul_rn(p.g.read_sigma,
+                                      sqrtf(fmaxf(a[kDevices + 2], 0.f)));
+          h2e[t] = col_prefix(b0 + (t >> sh), p.col0 + n0 + (t & (tn - 1)),
+                              p.g.noise_seed);
+        }
+      }
+      __syncthreads();
+    }
+    for_each2(p.R, tb * tn, [&](int r, int rn) {
+      const int row = rn >> sh, n = rn & (tn - 1);
+      const int b = b0 + row, gn = n0 + n;
+      if (b >= p.B || gn >= p.N) return;
+      float y;
+      if constexpr (kPaper) {
+        const float* a = acc + row * L.acols + n;
+        y = __fadd_rn(a[0], a[(1 + r) * tn]);
+      } else {
+        const float* a = acc + row * L.acols + n * kRank16Sums;
+        const float4* s4 =
+            reinterpret_cast<const float4*>(sels + r * kDevices);
+        const float4* m4 = reinterpret_cast<const float4*>(a);
+        float mixed = 0.f;
 #pragma unroll
-  for (int r = 0; r < RC; ++r)
-    if (r < rc)
-      out[(static_cast<size_t>(r0 + r) * B + b) * N + n] =
-          __fadd_rn(acc_mu, acc[r]);
+        for (int j4 = 0; j4 < 4; ++j4) {
+          const float4 s = s4[j4], m = m4[j4];
+          mixed = __fadd_rn(mixed, __fmul_rn(s.x, m.x));
+          mixed = __fadd_rn(mixed, __fmul_rn(s.y, m.y));
+          mixed = __fadd_rn(mixed, __fmul_rn(s.z, m.z));
+          mixed = __fadd_rn(mixed, __fmul_rn(s.w, m.w));
+        }
+        float num = __fsub_rn(mixed, a[kDevices + 1]);
+        if constexpr (kNoisy)
+          num = __fadd_rn(num, __fmul_rn(gauss_bytes(row_hash(
+                                             p.sample0 + r, h2e[rn])),
+                                         a[kDevices + 2]));
+        y = __fadd_rn(a[kDevices], __fmul_rn(num, p.g.inv_std));
+      }
+      p.out[(static_cast<size_t>(r) * p.B + b) * p.N + gn] = y;
+    });
+  });
 }
 
-// The samples a paper-mode block carries: the least RC >= R, or 32 (and
-// R split over grid z).
-int paper_rc(int R) {
-  static const int kRcs[] = {4, 8, 16, 24};
-  for (int rc : kRcs) if (R <= rc) return rc;
-  return 32;
-}
-
-template <typename TX, typename TW>
-int launch_paper(const void* x, const void* mu, const void* sigma,
-                 const float* sel, const float* fs, float* out, int B, int K,
-                 int N, int R, uint32_t row0, uint32_t col0, uint32_t sample0,
-                 int levels, const GrngParams& p, cudaStream_t stream) {
-  const int rc = paper_rc(R);
-  const dim3 grid((N + kTileN - 1) / kTileN, (B + kTileB - 1) / kTileB,
-                  (R + rc - 1) / rc);
-  if (grid.y > 65535u || grid.z > 65535u) return cudaErrorInvalidValue;
-  const auto* xx = static_cast<const TX*>(x);
-  const auto* mm = static_cast<const TW*>(mu);
-  const auto* ss = static_cast<const TW*>(sigma);
-#define REPRO_PAPER(RCV)                                                   \
-  bayes_paper_kernel<TX, TW, RCV><<<grid, kThreads, 0, stream>>>(          \
-      xx, mm, ss, sel, fs, out, B, K, N, R, row0, col0, sample0, levels, p)
-  switch (rc) {
-    case 4: REPRO_PAPER(4); break;
-    case 8: REPRO_PAPER(8); break;
-    case 16: REPRO_PAPER(16); break;
-    case 24: REPRO_PAPER(24); break;
-    default: REPRO_PAPER(32); break;
+template <bool kPaper, typename TX, typename TW, bool kSplit>
+int launch_kernel(const Params& p, dim3 grid, int threads, int smem,
+                  cudaStream_t stream) {
+  auto kernel = head_kernel<kPaper, TX, TW, kSplit>;
+  static bool opted_in = false;     // once per instance: allow kMaxSmem
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
   }
-#undef REPRO_PAPER
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (!kSplit) {
+    kernel<<<grid, threads, smem, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
-template <typename TX, typename TW>
-int launch_rank16(const void* x, const void* mu, const void* sigma,
-                  const float* sel, float* out, int B, int K, int N, int R,
-                  uint32_t row0, uint32_t col0, uint32_t sample0,
-                  const GrngParams& p, cudaStream_t stream) {
-  const dim3 grid((N + kTileN - 1) / kTileN, (B + kTileB - 1) / kTileB);
-  if (grid.y > 65535u) return cudaErrorInvalidValue;
-  bayes_rank16_kernel<TX, TW><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(mu),
-      static_cast<const TW*>(sigma), sel, out, B, K, N, R, row0, col0,
-      sample0, p);
-  return static_cast<int>(cudaGetLastError());
+template <bool kPaper, typename TX, typename TW>
+int launch_typed(const Params& p, dim3 grid, int threads, int smem,
+                 cudaStream_t stream) {
+  return p.split > 1
+             ? launch_kernel<kPaper, TX, TW, true>(p, grid, threads, smem,
+                                                   stream)
+             : launch_kernel<kPaper, TX, TW, false>(p, grid, threads, smem,
+                                                    stream);
 }
 
-bool bad_shape(int B, int K, int N, int R, const GrngParams* p) {
-  return B < 1 || K < 1 || N < 1 || R < 1 || p == nullptr;
+template <bool kPaper>
+int launch(const Params& p, int x_bf16, int w_bf16, int threads, int smem,
+           cudaStream_t stream) {
+  const int chunks = (p.K + kChunk - 1) / kChunk;
+  const bool tiles_ok = p.tile_n >= 1 && (p.tile_n & (p.tile_n - 1)) == 0 &&
+                        p.tile_b >= 4 && p.tile_b <= kMaxTileB &&
+                        p.tile_b % 4 == 0;
+  const bool split_ok = p.split == 1 || (p.split == chunks &&
+                                         p.split <= kMaxCluster);
+  const bool samples_ok = !kPaper || (p.samples >= 1 && p.samples <= p.R);
+  if (!tiles_ok || !split_ok || !samples_ok) return cudaErrorInvalidValue;
+  const Layout L = layout(kPaper, p.tile_n, p.tile_b, p.split, p.samples,
+                          p.R, chunks);
+  const int need = static_cast<int>(sizeof(float)) * L.total;
+  // a thread keeps one generated column; paper's cells fill the block once
+  if (threads < 128 || threads > kMaxThreads || threads % 128 != 0 ||
+      kDevices * p.tile_n > threads ||
+      (kPaper && kChunk * p.tile_n > threads) || smem != need ||
+      smem > kMaxSmem)
+    return cudaErrorInvalidValue;
+  const unsigned tiles_n = (p.N + p.tile_n - 1) / p.tile_n;
+  const unsigned tiles_b = (p.B + p.tile_b - 1) / p.tile_b;
+  if (tiles_b > 65535u) return cudaErrorInvalidValue;
+  const dim3 grid(tiles_n * p.split, tiles_b);
+  using BF = __nv_bfloat16;
+  if (x_bf16 && w_bf16)
+    return launch_typed<kPaper, BF, BF>(p, grid, threads, smem, stream);
+  if (x_bf16)
+    return launch_typed<kPaper, BF, float>(p, grid, threads, smem, stream);
+  if (w_bf16)
+    return launch_typed<kPaper, float, BF>(p, grid, threads, smem, stream);
+  return launch_typed<kPaper, float, float>(p, grid, threads, smem, stream);
 }
 
 }  // namespace
 
-// Launch entry points: one head product on ``stream`` without
-// synchronising; ``p`` is a host pointer, copied into the launch.
+// Launches one head product on ``stream`` without synchronising, under
+// the plan (tile_n, tile_b, split, samples, threads: 128, 256 or 512,
+// smem_bytes) picked by kernels/bayes.py.  ``paper``: 0 = rank16, 1 = paper; ``levels``: paper's
+// ADC, 0 for none, else its largest code (31 at 6 bits), with ``fs`` [2]
+// on the device holding the mu and sigma-eps full scales.
 // ``x_bf16``/``w_bf16`` select bfloat16 for x and for mu/sigma (else
-// float32).  Each returns the launch's cudaError_t (0 = cudaSuccess); the
-// Python wrapper raises on anything else.  The wrapper has checked
-// devices, types, shapes and contiguity.
-extern "C" int bayes_rank16_launch(const void* x, const void* mu,
-                                   const void* sigma, const float* sel,
-                                   float* out, int B, int K, int N, int R,
-                                   unsigned int row0, unsigned int col0,
-                                   unsigned int sample0, int x_bf16,
-                                   int w_bf16, const GrngParams* p,
-                                   void* stream) {
-  if (bad_shape(B, K, N, R, p)) return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  using BF = __nv_bfloat16;
-  if (x_bf16 && w_bf16)
-    return launch_rank16<BF, BF>(x, mu, sigma, sel, out, B, K, N, R, row0,
-                                 col0, sample0, *p, st);
-  if (x_bf16)
-    return launch_rank16<BF, float>(x, mu, sigma, sel, out, B, K, N, R, row0,
-                                    col0, sample0, *p, st);
-  if (w_bf16)
-    return launch_rank16<float, BF>(x, mu, sigma, sel, out, B, K, N, R, row0,
-                                    col0, sample0, *p, st);
-  return launch_rank16<float, float>(x, mu, sigma, sel, out, B, K, N, R,
-                                     row0, col0, sample0, *p, st);
-}
-
-// ``levels``: 0 for no ADC, else the ADC's largest code (31 at 6 bits);
-// ``fs`` [2] on the device then holds the mu and sigma-eps full scales.
-extern "C" int bayes_paper_launch(const void* x, const void* mu,
-                                  const void* sigma, const float* sel,
-                                  const float* fs, float* out, int B, int K,
-                                  int N, int R, unsigned int row0,
-                                  unsigned int col0, unsigned int sample0,
-                                  int levels, int x_bf16, int w_bf16,
-                                  const GrngParams* p, void* stream) {
-  if (bad_shape(B, K, N, R, p) || levels < 0 || (levels > 0 && !fs))
+// float32).  ``g`` is a host pointer, copied into the launch.  Returns the
+// launch's cudaError_t (0 = cudaSuccess); cudaErrorInvalidValue for a
+// shape or plan the kernels do not take, or shared memory that differs
+// from what the plan's tiles need here.  The wrapper has checked
+// devices, types, shapes and contiguity, and that sel is 16-byte aligned.
+extern "C" int bayes_head_launch(int paper, const void* x, const void* mu,
+                                 const void* sigma, const float* sel,
+                                 const float* fs, float* out, int B, int K,
+                                 int N, int R, unsigned int row0,
+                                 unsigned int col0, unsigned int sample0,
+                                 int levels, int x_bf16, int w_bf16,
+                                 int tile_n, int tile_b, int split,
+                                 int samples, int threads, int smem_bytes,
+                                 const GrngParams* g, void* stream) {
+  if (B < 1 || K < 1 || N < 1 || R < 1 || g == nullptr || levels < 0 ||
+      (levels > 0 && (!paper || fs == nullptr)) ||
+      reinterpret_cast<uintptr_t>(sel) % 16 != 0)
     return cudaErrorInvalidValue;
+  int shift = 0;
+  while (shift < 30 && (1 << shift) < tile_n) ++shift;
+  const int vec_x = !x_bf16 && K % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const Params p{x, mu, sigma, sel, fs, out, B, K, N, R, row0, col0,
+                 sample0, levels, tile_n, tile_b, split,
+                 paper ? samples : 0, shift, vec_x, *g};
   auto st = static_cast<cudaStream_t>(stream);
-  using BF = __nv_bfloat16;
-  if (x_bf16 && w_bf16)
-    return launch_paper<BF, BF>(x, mu, sigma, sel, fs, out, B, K, N, R, row0,
-                                col0, sample0, levels, *p, st);
-  if (x_bf16)
-    return launch_paper<BF, float>(x, mu, sigma, sel, fs, out, B, K, N, R,
-                                   row0, col0, sample0, levels, *p, st);
-  if (w_bf16)
-    return launch_paper<float, BF>(x, mu, sigma, sel, fs, out, B, K, N, R,
-                                   row0, col0, sample0, levels, *p, st);
-  return launch_paper<float, float>(x, mu, sigma, sel, fs, out, B, K, N, R,
-                                    row0, col0, sample0, levels, *p, st);
+  return paper ? launch<true>(p, x_bf16, w_bf16, threads, smem_bytes, st)
+               : launch<false>(p, x_bf16, w_bf16, threads, smem_bytes, st);
 }

@@ -22,7 +22,13 @@ takes gives the bits of the one ``launch_plan`` picks.
 GRNG ε kernel: atol 1e-5 (tests/test_kernels.py:26); it rounds every
 step as the plain version does, so the elements are expected equal.
 Head kernels (rank16, paper, paper with the ADC): rtol/atol 1e-4, as
-tests/test_kernels.py; they sum over K in their own order.
+tests/test_kernels.py; they sum over K in their own order (an ADC code
+flipped by that order is counted and held to one LSB).  Every plan
+``kernels/bayes.py`` ``head_plans`` lists gives the bits of the plan
+``head_plan`` picks: each computes a chunk's partial sums as the same
+chains and folds them in chunk order.
+``ops.decision_update`` over R > 64 (two launches a round): rtol/atol
+1e-5 against one unsplit plain call.
 """
 
 import pytest
@@ -36,7 +42,8 @@ from repro_torch.kernels import bayes, cim, grng
 from repro_torch.kernels.cim import cim_mvm, cim_mvm_plain
 from repro_torch.kernels.decision import (decision_stats,
                                           decision_stats_plain)
-from repro_torch.kernels.ops import bayes_head_mvm, measured_full_scale
+from repro_torch.kernels.ops import (bayes_head_mvm, decision_update,
+                                     measured_full_scale)
 from repro_torch.serving import adaptive
 
 pytestmark = pytest.mark.cuda
@@ -340,3 +347,69 @@ def test_head_and_grng_wrappers_refuse_what_the_kernels_do_not_take(hopper):
         grng.grng_eps(sel.t().contiguous(), cfg, 8, 8)
     with pytest.raises(TypeError, match="float32"):
         grng.grng_eps(sel.double(), cfg, 8, 8)
+
+
+@pytest.mark.parametrize("r", [65, 100])
+@pytest.mark.parametrize("read_sigma", [0.0, 0.4])
+def test_decision_update_above_the_kernel_cap(hopper, r, read_sigma):
+    """A round of R > 64 samples: ⌈R/64⌉ launches whose deltas add up to
+    the plain version of the whole round."""
+    args = _case(hopper, 12, 2, r, read_sigma, seed=5)
+    stats = adaptive.init_stats(12, 2, device=hopper)
+    before = decision_stats.launches
+    got = decision_update(stats, {k: args[k] for k in
+                                  ("y_mu", "x_sigma", "m", "x_sigsq")
+                                  if args[k] is not None},
+                          args["sel"], args["cfg"],
+                          sample_idx=args["sample_idx"], mask=args["mask"])
+    want = decision_stats_plain(**args)
+    torch.cuda.synchronize()
+    assert decision_stats.launches == before + 2
+    for key in KEYS:
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5,
+                                   atol=1e-5, msg=key)
+    assert bool((got["n"] == args["mask"].to(got["n"].dtype) * r).all())
+
+
+def _plain_head(mode, x, mu, sigma, sel, fs, cfg, **kw):
+    if mode == "rank16":
+        return bayes.bayes_rank16_plain(x, mu, sigma, sel, cfg, **kw)
+    return bayes.bayes_paper_plain(x, mu, sigma, sel, fs, cfg,
+                                   QCFG if mode == "paper_adc" else None,
+                                   **kw)
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 2, 20), (8, 512, 2048, 20),
+                                   (3, 130, 70, 100), (9, 200, 33, 20),
+                                   (70, 64, 5, 4)])
+@pytest.mark.parametrize("mode", ["rank16", "paper", "paper_adc"])
+def test_head_every_plan_gives_the_chosen_bits(hopper, shape, mode):
+    """Every plan of ``head_plans`` (tile widths, split and walked K,
+    the samples a paper block carries) gives the bits of ``head_plan``'s
+    plan, which agrees with the plain version, with read noise and
+    offsets; B = 70 takes two row tiles, R = 100 two sample chunks."""
+    b, k, n, r = shape
+    cfg = GRNGConfig(read_sigma=0.4)
+    x, mu, sigma = _head_case(hopper, b, k, n, seed=4)
+    sel = selections(cfg, r, 7, device=hopper)
+    fs = torch.stack([adc_full_scale(_rms(x), _rms(w), QCFG)
+                      for w in (mu, sigma)])
+    kind = "rank16" if mode == "rank16" else "paper"
+    levels = 31 if mode == "paper_adc" else 0
+    args = (kind, x, mu, sigma, sel, fs, cfg, levels, 3, 5, 7)
+    chosen = bayes.head_plan(kind, b, k, n, r)
+    want = bayes._launch(*args, plan=chosen)
+    plans = bayes.head_plans(kind, b, k, n, r)
+    assert chosen in plans
+    for plan in plans:
+        got = bayes._launch(*args, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan
+    plain = _plain_head(mode, x, mu, sigma, sel, fs, cfg, row0=3, col0=5,
+                        sample0=7)
+    err = (want - plain).abs()
+    flips = err > 1e-4 + 1e-4 * plain.abs() if levels else err < 0
+    assert int(flips.sum()) <= 1e-4 * want.numel()
+    assert bool((err[flips] <= float(fs.max()) / 31 * (1 + 1e-4)).all())
+    torch.testing.assert_close(want[~flips], plain[~flips], rtol=1e-4,
+                               atol=1e-4)

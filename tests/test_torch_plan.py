@@ -1,7 +1,8 @@
-"""The launch plans of the port's two main-path kernels, checked on the
-CPU: ``kernels/cim.py`` ``launch_plan`` (tiles and chunk split of
-``csrc/cim_mvm.cu``) and ``kernels/decision.py`` ``decision_plan`` (the
-decision kernel's variant).
+"""The launch plans of the port's kernels, checked on the CPU:
+``kernels/cim.py`` ``launch_plan`` (tiles and chunk split of
+``csrc/cim_mvm.cu``), ``kernels/decision.py`` ``decision_plan`` (the
+decision kernel's variant) and ``kernels/bayes.py`` ``head_plan`` (tile,
+chunk split and samples a block carries of ``csrc/bayes_mvm.cu``).
 
 The CIM plan is replayed here with the kernel's own index arithmetic
 (block → tile and cluster rank, thread → column and four rows, rank 0's
@@ -9,12 +10,16 @@ fold over the tile): every output of every chunk must be summed
 exactly once, and every output stored exactly once, after its chunks
 are folded in order 0…C−1.  The decision plan must put each (sample,
 class) pair of a round on exactly one thread, a sample's classes on
-neighbouring lanes of one warp.
+neighbouring lanes of one warp.  The head plans are replayed the same
+way: every sum of a block's tile is put exactly once per chunk, every
+σε column a product thread reads was mixed in that sample chunk, and
+every output is stored exactly once.
 """
 
 import numpy as np
 import pytest
 
+from repro_torch.kernels import bayes
 from repro_torch.kernels.cim import (CHUNK, H100_SMS, SMEM_LIMIT, CimPlan,
                                      launch_plan, make_plan)
 from repro_torch.kernels.decision import (MAX_SAMPLES, SMALL_N_MAX,
@@ -164,3 +169,187 @@ def test_decision_plan_small_n_covers_each_pair_once(n, r):
 def test_decision_plan_routes_wide_n_to_streaming(n):
     plan = decision_plan(n, 4)
     assert (plan.variant, plan.np, plan.threads) == ("streaming", 0, 128)
+
+
+# The head kernels' shapes: the UQ path's (Fig. 16's batch of 64 through
+# the 64 -> 2 head), kernel_bench's head at its sample counts, and the
+# card tests' ragged ones (K = 130 and 200 are not multiples of 64;
+# B = 70 takes two row tiles).
+HEAD_PATH = (64, 64, 2, 20)
+HEAD_BENCH = [(8, 512, 2048, r) for r in (4, 16, 20, 64)]
+HEAD_RAGGED = [(3, 130, 70, 100), (9, 200, 33, 20), (70, 64, 5, 4),
+               (8, 256, 192, 5), (4, 40, 10, 6), (1, 1, 1, 1)]
+HEAD_SHAPES = [HEAD_PATH] + HEAD_BENCH + HEAD_RAGGED
+
+
+def _quad(n):
+    return -(-n // 4) * 4
+
+
+def _head_tile_cols(kind, tn, samples):
+    return _quad((samples + 1) * tn if kind == "paper" else 18 * tn)
+
+
+def _head_layout_bytes(kind, tn, tb, split, samples, r, chunks):
+    """The shared memory of ``layout`` in ``csrc/bayes_mvm.cu``, region
+    by region, each rounded up to 4 floats."""
+    paper = kind == "paper"
+    stages = 2 if split == 1 and chunks > 1 else 1
+    regions = [(_quad(r) + 4) * 16,                  # selections
+               stages * tb * 68,                     # x rows
+               stages * 64 * tn, stages * 64 * tn,   # µ, σ
+               16 * tn, 16 * tn,                     # hash prefixes
+               samples * tn if paper else tb * tn,   # noise prefixes
+               64 * 16 * tn if paper else 0,         # currents
+               64 * _head_tile_cols(kind, tn, samples),  # weight tile
+               split * tb * ((r + 1) * tn if paper else 20 * tn)]
+    return 4 * sum(_quad(f) for f in regions)
+
+
+def _head_replay(kind, plan, b, k, n, r):
+    """Replays one block's products (micro-tiles of one row and 4
+    columns, per sample chunk) and every block's epilogue under
+    ``plan``: (puts[row, sum column], reads of unmixed columns,
+    stored[r, b, n])."""
+    tn, tb, ns = plan.tile_n, plan.tile_b, plan.samples
+    sh = tn.bit_length() - 1
+    paper = kind == "paper"
+    cols = _head_tile_cols(kind, tn, ns)
+    acols = (r + 1) * tn if paper else 20 * tn
+    tiles = tb * cols // 4
+    puts = np.zeros((tb, acols), np.int64)
+    unmixed = 0
+    for q in range(-(-r // ns) if paper else 1):
+        r0 = q * ns
+        rc = min(ns, r - r0) if paper else 0
+        mixed = set(range(18 * tn))                  # rank16: all of W
+        if paper:
+            groups = -(-rc // 4)
+            mixed = {(gc >> sh) * 4 * tn + u * tn + (gc & (tn - 1))
+                     for gc in range(groups * tn) for u in range(4)
+                     if (gc >> sh) * 4 + u < rc}
+            if q == 0:
+                mixed |= {ns * tn + c for c in range(tn)}
+        for t in range(tiles):
+            row, c4 = t % tb, 4 * (t // tb)
+            for col in range(c4, c4 + 4):
+                if paper:
+                    mu_col = col >= ns * tn
+                    if (mu_col and (q != 0 or col >= (ns + 1) * tn)) or (
+                            not mu_col and (col >> sh) >= rc):
+                        continue
+                    acol = (col - ns * tn if mu_col else
+                            (1 + r0 + (col >> sh)) * tn + (col & (tn - 1)))
+                else:
+                    if col >= 18 * tn:
+                        continue
+                    acol = (col & (tn - 1)) * 20 + (col >> sh)
+                unmixed += col not in mixed
+                puts[row, acol] += 1
+        if not paper:                                # (x²)·(σ²)
+            for t in range(tb * tn):
+                puts[t >> sh, (t & (tn - 1)) * 20 + 18] += 1
+    # the epilogue walks every sample r of each (row, column) item alike
+    stored = np.zeros((b, n), np.int64)
+    rn = np.arange(tb * tn)
+    row, nn = rn >> sh, rn & (tn - 1)
+    bt, nt = np.meshgrid(np.arange(-(-b // tb)), np.arange(-(-n // tn)),
+                         indexing="ij")
+    bb = (bt.reshape(-1, 1) * tb + row).ravel()
+    gn = (nt.reshape(-1, 1) * tn + nn).ravel()
+    live = (bb < b) & (gn < n)
+    np.add.at(stored, (bb[live], gn[live]), 1)
+    return puts, unmixed, stored
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+@pytest.mark.parametrize("kind", ["rank16", "paper"])
+def test_head_plans_cover_each_sum_and_output_once(shape, kind):
+    """Every plan the head kernel takes, the chosen one among them."""
+    b, k, n, r = shape
+    plans = bayes.head_plans(kind, b, k, n, r)
+    assert bayes.head_plan(kind, b, k, n, r) in plans
+    # the threads only stride the same items: one plan per tiling
+    tilings = {p[:4]: p for p in plans}
+    for plan in tilings.values():
+        puts, unmixed, stored = _head_replay(kind, plan, b, k, n, r)
+        if kind == "rank16":              # sum 19 of a column is unused
+            puts[:, 19::20] += 1
+        assert (puts == 1).all(), plan    # each sum once per chunk
+        assert unmixed == 0, plan         # products read mixed columns
+        assert (stored == 1).all(), plan  # each output once
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+@pytest.mark.parametrize("kind", ["rank16", "paper"])
+def test_head_plans_fit_the_kernel(shape, kind):
+    b, k, n, r = shape
+    chunks = -(-k // CHUNK)
+    for plan in bayes.head_plans(kind, b, k, n, r):
+        assert plan.tile_b == min(64, -(-b // 4) * 4)
+        assert plan.tile_n & (plan.tile_n - 1) == 0  # shifts in the kernel
+        assert plan.threads in bayes.THREADS
+        assert 16 * plan.tile_n <= plan.threads      # a generated column each
+        if kind == "paper":
+            assert 64 * plan.tile_n <= plan.threads  # a chunk's cell each
+        assert plan.smem_bytes == _head_layout_bytes(
+            kind, plan.tile_n, plan.tile_b, plan.split, plan.samples, r,
+            chunks)
+        assert plan.smem_bytes <= bayes.SMEM_LIMIT
+        assert plan.split == 1 or plan.split == chunks <= 8
+        assert plan.blocks == (-(-n // plan.tile_n) * -(-b // plan.tile_b)
+                               * plan.split)
+        if kind == "paper":
+            assert 1 <= plan.samples <= r
+        else:
+            assert plan.samples == 0
+
+
+def test_head_plan_at_the_uq_path_shape():
+    """B=64 K=64 N=2 R=20: one chunk, walked by the block; all 64 rows in
+    one tile; one-column tiles, so two blocks; paper carries all 20
+    samples; 512 threads (the fastest plans of the sweep, PERF.md)."""
+    assert bayes.head_plan("rank16", *HEAD_PATH)[:5] == (1, 64, 1, 0, 512)
+    assert bayes.head_plan("paper", *HEAD_PATH)[:5] == (1, 64, 1, 20, 512)
+    assert bayes.head_plan("paper", *HEAD_PATH).blocks == 2
+
+
+@pytest.mark.parametrize("shape", HEAD_BENCH)
+def test_head_plan_at_kernel_bench_shape(shape):
+    """B=8 K=512 N=2048: the eight chunks walked (tiles give every SM a
+    block), eight columns a tile, 256 blocks of 512 threads; paper
+    carries every sample at once, up to R = 64."""
+    r = shape[3]
+    assert bayes.head_plan("rank16", *shape)[:5] == (8, 8, 1, 0, 512)
+    assert bayes.head_plan("paper", *shape)[:5] == (8, 8, 1, r, 512)
+    assert bayes.head_plan("paper", *shape).blocks == 256 >= H100_SMS
+
+
+def test_head_plan_splits_a_narrow_deep_head():
+    """kernel_bench's depth cut to 64 columns: one-column tiles would give
+    64 blocks, so the 8 chunks run at once in clusters, tiles of 2
+    columns, blocks of 256 (rank16) and 128 (paper) threads."""
+    assert bayes.head_plan("rank16", 8, 512, 64, 20)[:5] == (2, 8, 8, 0, 256)
+    assert bayes.head_plan("paper", 8, 512, 64, 20)[:5] == (2, 8, 8, 20, 128)
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 2048, 100), (3, 130, 70, 100)])
+def test_head_plan_loops_samples_above_a_block(shape):
+    """R = 100 does not fit a paper block at once: it carries 64 samples
+    and loops over two sample chunks."""
+    plan = bayes.head_plan("paper", *shape)
+    assert plan.samples == 64 < shape[3]
+    assert -(-shape[3] // plan.samples) == 2
+
+
+@pytest.mark.parametrize("shape,chunks", [((3, 130, 70, 4), 3),
+                                          ((9, 200, 33, 20), 4),
+                                          ((4, 40, 10, 6), 1)])
+@pytest.mark.parametrize("kind", ["rank16", "paper"])
+def test_head_plan_k_not_a_multiple_of_64(shape, chunks, kind):
+    """A last chunk of fewer than 64 rows (zero-padded in the kernel)
+    still counts as a chunk: two or more are split over a cluster where
+    one-column tiles leave SMs without a block."""
+    plan = bayes.head_plan(kind, *shape)
+    assert plan.split == (chunks if chunks > 1 else 1)
+    assert plan.tile_n == 1
