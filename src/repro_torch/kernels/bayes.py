@@ -141,8 +141,9 @@ def _smem_bytes(kind: str, tile_n: int, tile_b: int, split: int,
     each region on 16 bytes: the selections (4 zero rows after R), x rows
     and µ/σ columns (two stages where a block walks several chunks),
     hash prefixes (the read noise's: paper a sample and column's, rank16
-    a row and column's), (paper: the chunk's currents), the weight tile
-    and the sums (every chunk's in a split; rank16 20 a column)."""
+    a row and column's), (paper: the chunk's currents in rows of
+    16 tile_n + 1), the weight tile (paper by column, in padded rows) and
+    the sums (every chunk's in a split; rank16 20 a column)."""
     paper = kind == "paper"
     stages = 2 if split == 1 and chunks > 1 else 1
     sums = (r + 1) * tile_n if paper else 20 * tile_n
@@ -150,8 +151,9 @@ def _smem_bytes(kind: str, tile_n: int, tile_b: int, split: int,
                stages * CHUNK * tile_n, stages * CHUNK * tile_n,
                16 * tile_n, 16 * tile_n,
                samples * tile_n if paper else tile_b * tile_n,
-               CHUNK * 16 * tile_n if paper else 0,
-               CHUNK * _tile_cols(kind, tile_n, samples),
+               CHUNK * (16 * tile_n + 1) if paper else 0,
+               _tile_cols(kind, tile_n, samples)
+               * (_X_STRIDE if paper else CHUNK),
                split * tile_b * sums]
     return 4 * sum(_quad(f) for f in regions)
 
@@ -207,8 +209,8 @@ def head_plan(kind: str, b: int, k: int, n: int, r: int,
       tiles leave SMs without a block (the cut head), else walked;
     * paper carries all R samples at once where they fit, else the most
       of ``SAMPLES`` that fit;
-    * the widest tile that still gives every SM a block, else the
-      narrowest;
+    * the widest tile that still gives every SM a block and lets two
+      blocks share an SM's shared memory, else the narrowest;
     * a walking block has 512 threads, a split one 256 (rank16) or 128
       (paper)."""
     chunks = -(-k // CHUNK)
@@ -222,6 +224,7 @@ def head_plan(kind: str, b: int, k: int, n: int, r: int,
                          f"R={r}")
     most = max(p.samples for p in plans)
     plans = [p for p in plans if p.samples == most]
+    plans = [p for p in plans if 2 * p.smem_bytes <= SMEM_LIMIT] or plans
     return next((p for p in reversed(plans) if p.blocks >= sms), plans[0])
 
 

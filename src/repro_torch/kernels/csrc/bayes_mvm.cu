@@ -176,8 +176,11 @@ __host__ __device__ inline Layout layout(bool paper, int tn, int tb,
   l.h2c = at;  at += quad(kDevices * tn);           // hash prefixes: currents
   l.h2i = at;  at += quad(kDevices * tn);           //   imprint
   l.h2n = at;  at += quad(paper ? samples * tn : tb * tn);  //   read noise
-  l.cur = at;  at += paper ? kChunk * kDevices * tn : 0;  // currents [k][j][n]
-  l.w = at;    at += kChunk * l.ws;                 // weight tile [k][col]
+  // currents [k][j*tn + n], rows of 16 tn + 1 (odd: a warp of rows
+  // reads them without bank conflicts)
+  l.cur = at;  at += paper ? quad(kChunk * (kDevices * tn + 1)) : 0;
+  // the weight tile: rank16 [k][col], paper [col][k] in padded rows
+  l.w = at;    at += paper ? l.ws * kXStride : kChunk * l.ws;
   l.acc = at;  at += quad(split * tb * l.acols);    // sums [chunk][b][col]
   l.total = at;
   return l;
@@ -269,36 +272,6 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// Items (r, c) of [rows) x [cols), c fastest, the thread's every
-// blockDim.x-th, kBatch at a time: each thread computes its batch's
-// values (loads, hashes) without a branch, on a clamped row, before it
-// stores any, so that their latencies overlap.  No division in the loop.
-template <typename Value, typename Store>
-__device__ __forceinline__ void walk2(int rows, int cols, Value value,
-                                      Store store) {
-  const int step_r = blockDim.x / cols, step_c = blockDim.x % cols;
-  int r = threadIdx.x / cols, c = threadIdx.x % cols;
-  while (r < rows) {
-    int rr[kBatch], cc[kBatch];
-    float v[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      rr[u] = r;
-      cc[u] = c;
-      v[u] = value(min(r, rows - 1), c);
-      c += step_c;
-      r += step_r;
-      if (c >= cols) {
-        c -= cols;
-        ++r;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      if (rr[u] < rows) store(rr[u], cc[u], v[u]);
-  }
-}
-
 // f(r, c) for the items of [rows) x [cols), c fastest, the thread's
 // every blockDim.x-th, one at a time.  No division in the loop.
 template <typename F>
@@ -363,14 +336,12 @@ __device__ void load_chunk(const Params& p, int c, int b0, int n0,
     }
   } else {
     const TX* x = static_cast<const TX*>(p.x);
-    walk2(p.tile_b, kChunk,
-          [&](int row, int k) {
-            return (b0 + row < p.B && k0 + k < p.K)
-                       ? to_f32(x[static_cast<size_t>(b0 + row) * p.K + k0 +
-                                  k])
-                       : 0.f;
-          },
-          [&](int row, int k, float v) { xs[row * kXStride + k] = v; });
+    for_each2(p.tile_b, kChunk, [&](int row, int k) {
+      xs[row * kXStride + k] =
+          (b0 + row < p.B && k0 + k < p.K)
+              ? to_f32(x[static_cast<size_t>(b0 + row) * p.K + k0 + k])
+              : 0.f;
+    });
   }
   auto weights = [&](const TW* src, float* dst) {
     if constexpr (std::is_same_v<TW, float>) {
@@ -382,14 +353,12 @@ __device__ void load_chunk(const Params& p, int c, int b0, int n0,
                   in ? 4 : 0);
       }
     } else {
-      walk2(kChunk, tn,
-            [&](int k, int n) {
-              return (k0 + k < p.K && n0 + n < p.N)
-                         ? to_f32(src[static_cast<size_t>(k0 + k) * p.N + n0 +
-                                      n])
-                         : 0.f;
-            },
-            [&](int k, int n, float v) { dst[k * tn + n] = v; });
+      for_each2(kChunk, tn, [&](int k, int n) {
+        dst[k * tn + n] =
+            (k0 + k < p.K && n0 + n < p.N)
+                ? to_f32(src[static_cast<size_t>(k0 + k) * p.N + n0 + n])
+                : 0.f;
+      });
     }
   };
   weights(static_cast<const TW*>(p.mu), mus);
@@ -397,26 +366,33 @@ __device__ void load_chunk(const Params& p, int c, int b0, int n0,
 }
 
 // A micro-tile's 64-term partial sums: x row xr against weight columns
-// c4 .. c4+3, each one fmaf chain in order k = 0..63.
+// c4 .. c4+3, each one fmaf chain in order k = 0..63.  kByCol: the tile
+// is stored [col][k] in padded rows (paper), else [k][col] with ws
+// columns (rank16).
+template <bool kByCol>
 __device__ __forceinline__ void tile_sums(const float* xr, const float* w,
                                           int ws, int c4, float (&ps)[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) ps[j] = 0.f;
-  const float* wc = w + c4;
 #pragma unroll 4
   for (int k = 0; k < kChunk; k += 4) {
     const float4 xv = *reinterpret_cast<const float4*>(xr + k);
-    float4 wv[4];
+    float wv[4][4];                    // [k + u][column j]
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-      wv[u] = *reinterpret_cast<const float4*>(wc + (k + u) * ws);
+    for (int q = 0; q < 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          kByCol ? w + (c4 + q) * kXStride + k : w + (k + q) * ws + c4);
+      if constexpr (kByCol) {
+        wv[0][q] = v.x; wv[1][q] = v.y; wv[2][q] = v.z; wv[3][q] = v.w;
+      } else {
+        wv[q][0] = v.x; wv[q][1] = v.y; wv[q][2] = v.z; wv[q][3] = v.w;
+      }
+    }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const float xk = u == 0 ? xv.x : u == 1 ? xv.y : u == 2 ? xv.z : xv.w;
-      ps[0] = fmaf(xk, wv[u].x, ps[0]);
-      ps[1] = fmaf(xk, wv[u].y, ps[1]);
-      ps[2] = fmaf(xk, wv[u].z, ps[2]);
-      ps[3] = fmaf(xk, wv[u].w, ps[3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ps[j] = fmaf(xk, wv[u][j], ps[j]);
     }
   }
 }
@@ -523,7 +499,7 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
             const int ku = k + u * dk;
             if (ku < kChunk) {
               if constexpr (kPaper)
-                cur[ku * gen + cc] = v[u];
+                cur[ku * (gen + 1) + cc] = v[u];
               else
                 w[ku * L.ws + cc] = v[u];
             }
@@ -555,7 +531,7 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
           float cj[kDevices];
 #pragma unroll
           for (int j = 0; j < kDevices; ++j)
-            cj[j] = cur[(k * kDevices + j) * tn + cn];
+            cj[j] = cur[k * (kDevices * tn + 1) + j * tn + cn];
           const float s = sgs[k * tn + cn];
           with_flag(p.g.read_sigma != 0.f, [&](auto noisy) {
             for (int s0 = s_lo; s0 < s_hi; s0 += kEpsGroup) {
@@ -586,14 +562,14 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
                                                      cn]))));
                 const float se = __fmul_rn(
                     s, __fmul_rn(__fsub_rn(r, p.g.sum_mean), p.g.inv_std));
-                if (sr < s_hi) w[k * L.ws + sr * tn + cn] = se;
+                if (sr < s_hi) w[(sr * tn + cn) * kXStride + k] = se;
               }
             }
           });
         }
         if (q == 0)                    // the mu columns
           for (int i = tid; i < kChunk * tn; i += nthreads)
-            w[(i >> sh) * L.ws + ns * tn + (i & (tn - 1))] = mus[i];
+            w[(ns * tn + (i & (tn - 1))) * kXStride + (i >> sh)] = mus[i];
       } else {                         // the mu and sigma columns
         for (int i = tid; i < kChunk * 2 * tn; i += nthreads) {
           const int k = i / (2 * tn), cc = i % (2 * tn);
@@ -613,9 +589,15 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
           const int row = (t - tiles) >> sh, n = (t - tiles) & (tn - 1);
           const float* xr = xs + row * kXStride;
           float a = 0.f;
-          for (int k = 0; k < kChunk; ++k) {
-            const float sv = sgs[k * tn + n];
-            a = fmaf(__fmul_rn(xr[k], xr[k]), __fmul_rn(sv, sv), a);
+#pragma unroll 4
+          for (int k = 0; k < kChunk; k += 4) {
+            const float4 xv = *reinterpret_cast<const float4*>(xr + k);
+            const float x4[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float sv = sgs[(k + u) * tn + n];
+              a = fmaf(__fmul_rn(x4[u], x4[u]), __fmul_rn(sv, sv), a);
+            }
           }
           put<kSplit>(acc, c, sums,
                       row * L.acols + n * kRank16Sums + kDevices + 2, a);
@@ -623,7 +605,7 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
         }
         const int row = t % tb, c4 = 4 * (t / tb);
         float ps[4];
-        tile_sums(xs + row * kXStride, w, L.ws, c4, ps);
+        tile_sums<kPaper>(xs + row * kXStride, w, L.ws, c4, ps);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = c4 + j;

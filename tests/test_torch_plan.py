@@ -200,8 +200,8 @@ def _head_layout_bytes(kind, tn, tb, split, samples, r, chunks):
                stages * 64 * tn, stages * 64 * tn,   # µ, σ
                16 * tn, 16 * tn,                     # hash prefixes
                samples * tn if paper else tb * tn,   # noise prefixes
-               64 * 16 * tn if paper else 0,         # currents
-               64 * _head_tile_cols(kind, tn, samples),  # weight tile
+               64 * (16 * tn + 1) if paper else 0,   # currents
+               _head_tile_cols(kind, tn, samples) * (68 if paper else 64),
                split * tb * ((r + 1) * tn if paper else 20 * tn)]
     return 4 * sum(_quad(f) for f in regions)
 
@@ -317,12 +317,18 @@ def test_head_plan_at_the_uq_path_shape():
 @pytest.mark.parametrize("shape", HEAD_BENCH)
 def test_head_plan_at_kernel_bench_shape(shape):
     """B=8 K=512 N=2048: the eight chunks walked (tiles give every SM a
-    block), eight columns a tile, 256 blocks of 512 threads; paper
-    carries every sample at once, up to R = 64."""
+    block), blocks of 512 threads; paper carries every sample at once,
+    up to R = 64; eight columns a tile, but at R = 64 paper's 8-column
+    block would fill an SM's shared memory alone, so it takes 4."""
     r = shape[3]
     assert bayes.head_plan("rank16", *shape)[:5] == (8, 8, 1, 0, 512)
-    assert bayes.head_plan("paper", *shape)[:5] == (8, 8, 1, r, 512)
-    assert bayes.head_plan("paper", *shape).blocks == 256 >= H100_SMS
+    paper = bayes.head_plan("paper", *shape)
+    width = 4 if r == 64 else 8
+    assert paper[:5] == (width, 8, 1, r, 512)
+    assert paper.blocks == 2048 // width >= H100_SMS
+    assert 2 * paper.smem_bytes <= bayes.SMEM_LIMIT
+    assert 2 * bayes.make_head_plan("paper", *shape, 8, 1, r, 512) \
+        .smem_bytes > bayes.SMEM_LIMIT or r != 64
 
 
 def test_head_plan_splits_a_narrow_deep_head():
