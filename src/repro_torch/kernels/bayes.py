@@ -138,7 +138,8 @@ def _tile_cols(kind: str, tile_n: int, samples: int) -> int:
 def _smem_bytes(kind: str, tile_n: int, tile_b: int, split: int,
                 samples: int, r: int, chunks: int) -> int:
     """The kernel's shared memory (``layout`` in ``csrc/bayes_mvm.cu``),
-    each region on 16 bytes: the selections (4 zero rows after R), x rows
+    each region on 16 bytes: the ADC's steps, the selections (4 zero rows
+    after R), x rows
     and µ/σ columns (two stages where a block walks several chunks),
     hash prefixes (the read noise's: paper a sample and column's, rank16
     a row and column's), (paper: the chunk's currents in rows of
@@ -147,7 +148,7 @@ def _smem_bytes(kind: str, tile_n: int, tile_b: int, split: int,
     paper = kind == "paper"
     stages = 2 if split == 1 and chunks > 1 else 1
     sums = (r + 1) * tile_n if paper else 20 * tile_n
-    regions = [(_quad(r) + 4) * 16, stages * tile_b * _X_STRIDE,
+    regions = [4, (_quad(r) + 4) * 16, stages * tile_b * _X_STRIDE,
                stages * CHUNK * tile_n, stages * CHUNK * tile_n,
                16 * tile_n, 16 * tile_n,
                samples * tile_n if paper else tile_b * tile_n,
@@ -238,7 +239,7 @@ def _launcher():
     from repro_torch.kernels.build import load
     fn = load("bayes_mvm").bayes_head_launch
     fn.argtypes = ([ctypes.c_int] + [_P] * 6 + [ctypes.c_int] * 4
-                   + [_U32] * 3 + [ctypes.c_int] * 9
+                   + [_U32] * 3 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(GrngParams), _P])
     fn.restype = ctypes.c_int
     return fn
@@ -281,8 +282,10 @@ def _launch(kind: str, x, mu, sigma, sel, fs, cfg: g.GRNGConfig,
             levels: int = 0, row0: int = 0, col0: int = 0, sample0: int = 0,
             plan: HeadPlan | None = None) -> torch.Tensor:
     """Launches the head kernel of ``kind`` under ``head_plan``'s plan, or
-    under ``plan`` where one is given (a plan sweep)."""
+    under ``plan`` where one is given (a plan sweep).  bfloat16 operands
+    are widened to float32 first, exactly, as the kernel reads them."""
     b, kdim, n, r = _check(x, mu, sigma, sel)
+    x, mu, sigma = _f32(x, mu, sigma)
     if plan is None:
         plan = head_plan(kind, b, kdim, n, r, _sm_count(x.device.index))
     out = torch.empty((r, b, n), dtype=torch.float32, device=x.device)
@@ -293,9 +296,8 @@ def _launch(kind: str, x, mu, sigma, sel, fs, cfg: g.GRNGConfig,
             int(kind == "paper"), x.data_ptr(), mu.data_ptr(),
             sigma.data_ptr(), sel.data_ptr(),
             fs.data_ptr() if levels else None, out.data_ptr(), b, kdim, n,
-            r, _u32(row0), _u32(col0), _u32(sample0), levels,
-            int(x.dtype == torch.bfloat16), int(mu.dtype == torch.bfloat16),
-            plan.tile_n, plan.tile_b, plan.split, plan.samples, plan.threads,
+            r, _u32(row0), _u32(col0), _u32(sample0), levels, plan.tile_n,
+            plan.tile_b, plan.split, plan.samples, plan.threads,
             plan.smem_bytes, ctypes.byref(params), stream)
     if err != 0:
         raise RuntimeError(f"{kind} head kernel launch failed: cudaError "

@@ -9,8 +9,8 @@
 //   bayes_rank16  mode 'rank16', body _rank16_kernel :58 (call :226)
 //   bayes_paper   mode 'paper',  body _paper_kernel  :130 (call :248)
 //
-// What they compute (all float32; x [B,K], mu/sigma [K,N] float32 or
-// bfloat16, loaded as float32; sel [R,16]; out [R,B,N]):
+// What they compute (all float32; x [B,K], mu/sigma [K,N]; sel [R,16];
+// out [R,B,N]):
 //   rank16  y = x.mu, xs = x.sigma, m_j = x.(sigma (.) I_j) for the 16
 //           devices, xq = (x^2).(sigma^2); then
 //           out[r] = y + (sum_j sel[r,j] m_j - sum_mean xs
@@ -48,9 +48,9 @@
 //            tile (no path of the port has one), which hashes the tile's
 //            currents again.
 //   loads    a chunk's x rows and mu/sigma columns, and all R selections
-//            once, arrive by cp.async (float32; bfloat16 through
-//            registers); a block that walks several chunks copies the
-//            next chunk while it works on this one.  A global round trip
+//            once, arrive by cp.async (float32: the wrapper widens
+//            bfloat16 operands first); a block that walks several chunks
+//            copies the next chunk while it works on this one.  A global round trip
 //            costs ~900 cycles on the H100, so none is left in a loop.
 //   hashing  every current of the tile is hashed once, by the whole
 //            block, one current a thread per pass: a thread keeps one of
@@ -90,7 +90,6 @@
 // series, grid over B (each B tile hashing again) and, in paper mode,
 // over sample chunks (each hashing again).  Times of both: PERF.md.
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -118,9 +117,9 @@ constexpr int kMaxThreads = 512;      // 128 registers a thread
 constexpr int kMaxSmem = 227 * 1024;  // a block's opt-in shared memory
 
 struct Params {
-  const void* x;         // [B, K]
-  const void* mu;        // [K, N]
-  const void* sigma;     // [K, N]
+  const float* x;        // [B, K]
+  const float* mu;       // [K, N]
+  const float* sigma;    // [K, N]
   const float* sel;      // [R, 16]
   const float* fs;       // [2] ADC full scales (paper with the ADC)
   float* out;            // [R, B, N]
@@ -156,7 +155,7 @@ __host__ __device__ inline int micro_tiles(bool paper, int tn, int tb,
 // kernels/bayes.py (_smem_bytes) computes the same total.  A block that
 // walks several chunks double-buffers a chunk's x rows and mu/sigma.
 struct Layout {
-  int sels, xs, mus, sgs, h2c, h2i, h2n, cur, w, acc, total;
+  int lsb, sels, xs, mus, sgs, h2c, h2i, h2n, cur, w, acc, total;
   int stages, ws, acols;
 };
 
@@ -168,6 +167,7 @@ __host__ __device__ inline Layout layout(bool paper, int tn, int tb,
   l.stages = split == 1 && chunks > 1 ? 2 : 1;
   l.ws = tile_cols(paper, tn, samples);
   l.acols = sum_cols(paper, tn, R);
+  l.lsb = at;  at += 4;                             // the ADC's two steps
   // selections [r][j], zero rows after R for paper's last group of 4
   l.sels = at; at += (quad(R) + kEpsGroup) * kDevices;
   l.xs = at;   at += l.stages * tb * kXStride;      // x rows [b][k]
@@ -184,11 +184,6 @@ __host__ __device__ inline Layout layout(bool paper, int tn, int tb,
   l.acc = at;  at += quad(split * tb * l.acols);    // sums [chunk][b][col]
   l.total = at;
   return l;
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
 }
 
 // gauss_of (hash.cuh) with each byte turned into a float by its bit
@@ -308,61 +303,36 @@ __device__ void stage_selections(const Params& p, float* sels) {
                i < p.R * 4 ? 16 : 0);
 }
 
-// Chunk c's x rows [b][k] and mu/sigma [k][n], zero outside [B, K] and
-// [K, N]: asynchronous copies for float32 (wait with cp_async_wait_all),
-// converted loads for bfloat16.
-template <typename TX, typename TW>
+// Chunk c's x rows [b][k] and mu/sigma [k][n] by asynchronous copies
+// (wait with cp_async_wait_all), zero outside [B, K] and [K, N].
 __device__ void load_chunk(const Params& p, int c, int b0, int n0,
                            float* xs, float* mus, float* sgs) {
   const int k0 = c * kChunk, tn = p.tile_n;
-  if constexpr (std::is_same_v<TX, float>) {
-    const float* x = static_cast<const float*>(p.x);
-    if (p.vec_x) {                     // a quad of k is all in or all out
-      for (int i = threadIdx.x; i < p.tile_b * (kChunk / 4); i += blockDim.x) {
-        const int row = i / (kChunk / 4), k = 4 * (i % (kChunk / 4));
-        const bool in = b0 + row < p.B && k0 + k < p.K;
-        cp_async16(xs + row * kXStride + k,
-                   in ? x + static_cast<size_t>(b0 + row) * p.K + k0 + k : x,
-                   in ? 16 : 0);
-      }
-    } else {
-      for (int i = threadIdx.x; i < p.tile_b * kChunk; i += blockDim.x) {
-        const int row = i / kChunk, k = i % kChunk;
-        const bool in = b0 + row < p.B && k0 + k < p.K;
-        cp_async4(xs + row * kXStride + k,
-                  in ? x + static_cast<size_t>(b0 + row) * p.K + k0 + k : x,
-                  in ? 4 : 0);
-      }
+  if (p.vec_x) {                       // a quad of k is all in or all out
+    for (int i = threadIdx.x; i < p.tile_b * (kChunk / 4); i += blockDim.x) {
+      const int row = i / (kChunk / 4), k = 4 * (i % (kChunk / 4));
+      const bool in = b0 + row < p.B && k0 + k < p.K;
+      cp_async16(xs + row * kXStride + k,
+                 in ? p.x + static_cast<size_t>(b0 + row) * p.K + k0 + k
+                    : p.x,
+                 in ? 16 : 0);
     }
   } else {
-    const TX* x = static_cast<const TX*>(p.x);
-    for_each2(p.tile_b, kChunk, [&](int row, int k) {
-      xs[row * kXStride + k] =
-          (b0 + row < p.B && k0 + k < p.K)
-              ? to_f32(x[static_cast<size_t>(b0 + row) * p.K + k0 + k])
-              : 0.f;
-    });
-  }
-  auto weights = [&](const TW* src, float* dst) {
-    if constexpr (std::is_same_v<TW, float>) {
-      for (int i = threadIdx.x; i < kChunk * tn; i += blockDim.x) {
-        const int k = i >> p.tn_shift, n = i & (tn - 1);
-        const bool in = k0 + k < p.K && n0 + n < p.N;
-        cp_async4(dst + i,
-                  in ? src + static_cast<size_t>(k0 + k) * p.N + n0 + n : src,
-                  in ? 4 : 0);
-      }
-    } else {
-      for_each2(kChunk, tn, [&](int k, int n) {
-        dst[k * tn + n] =
-            (k0 + k < p.K && n0 + n < p.N)
-                ? to_f32(src[static_cast<size_t>(k0 + k) * p.N + n0 + n])
-                : 0.f;
-      });
+    for (int i = threadIdx.x; i < p.tile_b * kChunk; i += blockDim.x) {
+      const int row = i / kChunk, k = i % kChunk;
+      const bool in = b0 + row < p.B && k0 + k < p.K;
+      cp_async4(xs + row * kXStride + k,
+                in ? p.x + static_cast<size_t>(b0 + row) * p.K + k0 + k : p.x,
+                in ? 4 : 0);
     }
-  };
-  weights(static_cast<const TW*>(p.mu), mus);
-  weights(static_cast<const TW*>(p.sigma), sgs);
+  }
+  for (int i = threadIdx.x; i < kChunk * tn; i += blockDim.x) {
+    const int k = i >> p.tn_shift, n = i & (tn - 1);
+    const bool in = k0 + k < p.K && n0 + n < p.N;
+    const size_t at = static_cast<size_t>(k0 + k) * p.N + n0 + n;
+    cp_async4(mus + i, in ? p.mu + at : p.mu, in ? 4 : 0);
+    cp_async4(sgs + i, in ? p.sigma + at : p.sigma, in ? 4 : 0);
+  }
 }
 
 // A micro-tile's 64-term partial sums: x row xr against weight columns
@@ -377,22 +347,28 @@ __device__ __forceinline__ void tile_sums(const float* xr, const float* w,
 #pragma unroll 4
   for (int k = 0; k < kChunk; k += 4) {
     const float4 xv = *reinterpret_cast<const float4*>(xr + k);
-    float wv[4][4];                    // [k + u][column j]
+    if constexpr (kByCol) {            // a column's 4 rows k.. at a time
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 v = *reinterpret_cast<const float4*>(
-          kByCol ? w + (c4 + q) * kXStride + k : w + (k + q) * ws + c4);
-      if constexpr (kByCol) {
-        wv[0][q] = v.x; wv[1][q] = v.y; wv[2][q] = v.z; wv[3][q] = v.w;
-      } else {
-        wv[q][0] = v.x; wv[q][1] = v.y; wv[q][2] = v.z; wv[q][3] = v.w;
+      for (int j = 0; j < 4; ++j) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(w + (c4 + j) * kXStride + k);
+        ps[j] = fmaf(xv.x, v.x, ps[j]);
+        ps[j] = fmaf(xv.y, v.y, ps[j]);
+        ps[j] = fmaf(xv.z, v.z, ps[j]);
+        ps[j] = fmaf(xv.w, v.w, ps[j]);
       }
-    }
+    } else {                           // a row k's 4 columns at a time
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float xk = u == 0 ? xv.x : u == 1 ? xv.y : u == 2 ? xv.z : xv.w;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps[j] = fmaf(xk, wv[u][j], ps[j]);
+      for (int u = 0; u < 4; ++u) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(w + (k + u) * ws + c4);
+        const float xk = u == 0 ? xv.x : u == 1 ? xv.y : u == 2 ? xv.z
+                                                                : xv.w;
+        ps[0] = fmaf(xk, v.x, ps[0]);
+        ps[1] = fmaf(xk, v.y, ps[1]);
+        ps[2] = fmaf(xk, v.z, ps[2]);
+        ps[3] = fmaf(xk, v.w, ps[3]);
+      }
     }
   }
 }
@@ -425,7 +401,7 @@ __device__ void fold_chunks(float* acc, int split, int sums) {
 // one block walks every chunk; kSplit = true: grid (split * tiles_n,
 // tiles_b) in clusters of ``split`` blocks along x, the block of rank c
 // taking chunk c.
-template <bool kPaper, typename TX, typename TW, bool kSplit>
+template <bool kPaper, bool kSplit>
 __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   const int tn = p.tile_n, tb = p.tile_b, sh = p.tn_shift;
@@ -450,17 +426,13 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
   const int tiles = micro_tiles(kPaper, tn, tb, ns);
   if constexpr (kSplit) cluster_arrive_relaxed();
   stage_selections(p, sels);
-  load_chunk<TX, TW>(p, c_first, b0, n0, smem + L.xs, smem + L.mus,
+  load_chunk(p, c_first, b0, n0, smem + L.xs, smem + L.mus,
                      smem + L.sgs);
   cp_async_commit();
   col_prefixes(p, n0, h2c, h2i);
-  float lsb_mu = 0.f, lsb_se = 0.f;
-  const float lo = static_cast<float>(-p.levels - 1);
-  const float hi = static_cast<float>(p.levels);
-  if (kPaper && p.levels > 0) {
-    lsb_mu = __fdiv_rn(p.fs[0], static_cast<float>(p.levels));
-    lsb_se = __fdiv_rn(p.fs[1], static_cast<float>(p.levels));
-  }
+  float* lsb = smem + L.lsb;          // the ADC's steps: mu, sigma-eps
+  if (kPaper && p.levels > 0 && tid < 2)
+    lsb[tid] = __fdiv_rn(p.fs[tid], static_cast<float>(p.levels));
 
   for (int c = c_first; c < c_end; ++c) {
     const int st = L.stages > 1 ? c & 1 : 0;
@@ -471,7 +443,7 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
     __syncthreads();                   // chunk c (and the selections) in
     if (L.stages > 1 && c + 1 < c_end) {   // prefetch the next chunk
       const int nx = (c + 1) & 1;
-      load_chunk<TX, TW>(p, c + 1, b0, n0, smem + L.xs + nx * tb * kXStride,
+      load_chunk(p, c + 1, b0, n0, smem + L.xs + nx * tb * kXStride,
                          smem + L.mus + nx * kChunk * tn,
                          smem + L.sgs + nx * kChunk * tn);
       cp_async_commit();
@@ -618,7 +590,10 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
               continue;
             acol = mu_col ? col - ns * tn : (1 + r0 + (col >> sh)) * tn +
                                                 (col & (tn - 1));
-            if (p.levels > 0) v = adc(v, mu_col ? lsb_mu : lsb_se, lo, hi);
+            if (p.levels > 0)
+              v = adc(v, lsb[mu_col ? 0 : 1],
+                      static_cast<float>(-p.levels - 1),
+                      static_cast<float>(p.levels));
           } else {
             if (col >= (kDevices + 2) * tn) continue;
             acol = (col & (tn - 1)) * kRank16Sums + (col >> sh);
@@ -689,10 +664,10 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
   });
 }
 
-template <bool kPaper, typename TX, typename TW, bool kSplit>
+template <bool kPaper, bool kSplit>
 int launch_kernel(const Params& p, dim3 grid, int threads, int smem,
                   cudaStream_t stream) {
-  auto kernel = head_kernel<kPaper, TX, TW, kSplit>;
+  auto kernel = head_kernel<kPaper, kSplit>;
   static bool opted_in = false;     // once per instance: allow kMaxSmem
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -722,19 +697,8 @@ int launch_kernel(const Params& p, dim3 grid, int threads, int smem,
   }
 }
 
-template <bool kPaper, typename TX, typename TW>
-int launch_typed(const Params& p, dim3 grid, int threads, int smem,
-                 cudaStream_t stream) {
-  return p.split > 1
-             ? launch_kernel<kPaper, TX, TW, true>(p, grid, threads, smem,
-                                                   stream)
-             : launch_kernel<kPaper, TX, TW, false>(p, grid, threads, smem,
-                                                    stream);
-}
-
 template <bool kPaper>
-int launch(const Params& p, int x_bf16, int w_bf16, int threads, int smem,
-           cudaStream_t stream) {
+int launch(const Params& p, int threads, int smem, cudaStream_t stream) {
   const int chunks = (p.K + kChunk - 1) / kChunk;
   const bool tiles_ok = p.tile_n >= 1 && (p.tile_n & (p.tile_n - 1)) == 0 &&
                         p.tile_b >= 4 && p.tile_b <= kMaxTileB &&
@@ -756,50 +720,43 @@ int launch(const Params& p, int x_bf16, int w_bf16, int threads, int smem,
   const unsigned tiles_b = (p.B + p.tile_b - 1) / p.tile_b;
   if (tiles_b > 65535u) return cudaErrorInvalidValue;
   const dim3 grid(tiles_n * p.split, tiles_b);
-  using BF = __nv_bfloat16;
-  if (x_bf16 && w_bf16)
-    return launch_typed<kPaper, BF, BF>(p, grid, threads, smem, stream);
-  if (x_bf16)
-    return launch_typed<kPaper, BF, float>(p, grid, threads, smem, stream);
-  if (w_bf16)
-    return launch_typed<kPaper, float, BF>(p, grid, threads, smem, stream);
-  return launch_typed<kPaper, float, float>(p, grid, threads, smem, stream);
+  return p.split > 1
+             ? launch_kernel<kPaper, true>(p, grid, threads, smem, stream)
+             : launch_kernel<kPaper, false>(p, grid, threads, smem, stream);
 }
 
 }  // namespace
 
 // Launches one head product on ``stream`` without synchronising, under
 // the plan (tile_n, tile_b, split, samples, threads: 128, 256 or 512,
-// smem_bytes) picked by kernels/bayes.py.  ``paper``: 0 = rank16, 1 = paper; ``levels``: paper's
-// ADC, 0 for none, else its largest code (31 at 6 bits), with ``fs`` [2]
-// on the device holding the mu and sigma-eps full scales.
-// ``x_bf16``/``w_bf16`` select bfloat16 for x and for mu/sigma (else
-// float32).  ``g`` is a host pointer, copied into the launch.  Returns the
-// launch's cudaError_t (0 = cudaSuccess); cudaErrorInvalidValue for a
-// shape or plan the kernels do not take, or shared memory that differs
-// from what the plan's tiles need here.  The wrapper has checked
-// devices, types, shapes and contiguity, and that sel is 16-byte aligned.
-extern "C" int bayes_head_launch(int paper, const void* x, const void* mu,
-                                 const void* sigma, const float* sel,
+// smem_bytes) picked by kernels/bayes.py.  ``paper``: 0 = rank16, 1 =
+// paper; ``levels``: paper's ADC, 0 for none, else its largest code (31
+// at 6 bits), with ``fs`` [2] on the device holding the mu and sigma-eps
+// full scales.  ``g`` is a host pointer, copied into the launch.  Returns
+// the launch's cudaError_t (0 = cudaSuccess); cudaErrorInvalidValue for
+// a shape or plan the kernels do not take, or shared memory that differs
+// from what the plan's tiles need here.  The wrapper has checked devices,
+// types (float32), shapes and contiguity, and that sel is 16-byte aligned.
+extern "C" int bayes_head_launch(int paper, const float* x, const float* mu,
+                                 const float* sigma, const float* sel,
                                  const float* fs, float* out, int B, int K,
                                  int N, int R, unsigned int row0,
                                  unsigned int col0, unsigned int sample0,
-                                 int levels, int x_bf16, int w_bf16,
-                                 int tile_n, int tile_b, int split,
-                                 int samples, int threads, int smem_bytes,
-                                 const GrngParams* g, void* stream) {
+                                 int levels, int tile_n, int tile_b,
+                                 int split, int samples, int threads,
+                                 int smem_bytes, const GrngParams* g,
+                                 void* stream) {
   if (B < 1 || K < 1 || N < 1 || R < 1 || g == nullptr || levels < 0 ||
       (levels > 0 && (!paper || fs == nullptr)) ||
       reinterpret_cast<uintptr_t>(sel) % 16 != 0)
     return cudaErrorInvalidValue;
   int shift = 0;
   while (shift < 30 && (1 << shift) < tile_n) ++shift;
-  const int vec_x = !x_bf16 && K % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vec_x = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const Params p{x, mu, sigma, sel, fs, out, B, K, N, R, row0, col0,
                  sample0, levels, tile_n, tile_b, split,
                  paper ? samples : 0, shift, vec_x, *g};
   auto st = static_cast<cudaStream_t>(stream);
-  return paper ? launch<true>(p, x_bf16, w_bf16, threads, smem_bytes, st)
-               : launch<false>(p, x_bf16, w_bf16, threads, smem_bytes, st);
+  return paper ? launch<true>(p, threads, smem_bytes, st)
+               : launch<false>(p, threads, smem_bytes, st);
 }

@@ -195,7 +195,8 @@ def _head_layout_bytes(kind, tn, tb, split, samples, r, chunks):
     by region, each rounded up to 4 floats."""
     paper = kind == "paper"
     stages = 2 if split == 1 and chunks > 1 else 1
-    regions = [(_quad(r) + 4) * 16,                  # selections
+    regions = [4,                                    # ADC steps
+               (_quad(r) + 4) * 16,                  # selections
                stages * tb * 68,                     # x rows
                stages * 64 * tn, stages * 64 * tn,   # µ, σ
                16 * tn, 16 * tn,                     # hash prefixes
