@@ -50,8 +50,9 @@
 //   loads    a chunk's x rows and mu/sigma columns, and all R selections
 //            once, arrive by cp.async (float32: the wrapper widens
 //            bfloat16 operands first); a block that walks several chunks
-//            copies the next chunk while it works on this one.  A global round trip
-//            costs ~900 cycles on the H100, so none is left in a loop.
+//            copies the next chunk while it works on this one.  A global
+//            round trip costs hundreds of cycles, so none is left in a
+//            loop.
 //   hashing  every current of the tile is hashed once, by the whole
 //            block, one current a thread per pass: a thread keeps one of
 //            the 16 tile_n (device, column) pairs and steps over rows.
