@@ -210,10 +210,12 @@ def head_plan(kind: str, b: int, k: int, n: int, r: int,
       tiles leave SMs without a block (the cut head), else walked;
     * paper carries all R samples at once where they fit, else the most
       of ``SAMPLES`` that fit;
-    * the widest tile that still gives every SM a block and lets two
-      blocks share an SM's shared memory, else the narrowest;
-    * a walking block has 512 threads, a split one 256 (rank16) or 128
-      (paper)."""
+    * a walking block has the widest tile that still gives every SM a
+      block and lets two blocks share an SM's shared memory, else the
+      narrowest, and 512 threads (256 for rank16 where its tiles give
+      every SM a block);
+    * a split block (one chunk) has a tile of up to 4 columns and 256
+      threads for rank16, 1 column and 128 threads for paper."""
     chunks = -(-k // CHUNK)
     narrow = n * -(-b // MAX_TILE_B)
     split = chunks if 2 <= chunks <= MAX_SPLIT and narrow < sms else 1
@@ -225,8 +227,15 @@ def head_plan(kind: str, b: int, k: int, n: int, r: int,
                          f"R={r}")
     most = max(p.samples for p in plans)
     plans = [p for p in plans if p.samples == most]
+    if split > 1:
+        width = 4 if kind == "rank16" else 1
+        return max((p for p in plans if p.tile_n <= width),
+                   key=lambda p: p.tile_n)
     plans = [p for p in plans if 2 * p.smem_bytes <= SMEM_LIMIT] or plans
-    return next((p for p in reversed(plans) if p.blocks >= sms), plans[0])
+    plan = next((p for p in reversed(plans) if p.blocks >= sms), plans[0])
+    if kind == "rank16" and plan.blocks >= sms:
+        plan = plan._replace(threads=256)
+    return plan
 
 
 @functools.lru_cache(maxsize=None)

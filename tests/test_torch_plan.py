@@ -318,11 +318,12 @@ def test_head_plan_at_the_uq_path_shape():
 @pytest.mark.parametrize("shape", HEAD_BENCH)
 def test_head_plan_at_kernel_bench_shape(shape):
     """B=8 K=512 N=2048: the eight chunks walked (tiles give every SM a
-    block), blocks of 512 threads; paper carries every sample at once,
-    up to R = 64; eight columns a tile, but at R = 64 paper's 8-column
-    block would fill an SM's shared memory alone, so it takes 4."""
+    block), blocks of 256 threads (rank16) and 512 (paper); paper
+    carries every sample at once, up to R = 64; eight columns a tile,
+    but at R = 64 paper's 8-column block would fill an SM's shared
+    memory alone, so it takes 4."""
     r = shape[3]
-    assert bayes.head_plan("rank16", *shape)[:5] == (8, 8, 1, 0, 512)
+    assert bayes.head_plan("rank16", *shape)[:5] == (8, 8, 1, 0, 256)
     paper = bayes.head_plan("paper", *shape)
     width = 4 if r == 64 else 8
     assert paper[:5] == (width, 8, 1, r, 512)
@@ -334,10 +335,11 @@ def test_head_plan_at_kernel_bench_shape(shape):
 
 def test_head_plan_splits_a_narrow_deep_head():
     """kernel_bench's depth cut to 64 columns: one-column tiles would give
-    64 blocks, so the 8 chunks run at once in clusters, tiles of 2
-    columns, blocks of 256 (rank16) and 128 (paper) threads."""
-    assert bayes.head_plan("rank16", 8, 512, 64, 20)[:5] == (2, 8, 8, 0, 256)
-    assert bayes.head_plan("paper", 8, 512, 64, 20)[:5] == (2, 8, 8, 20, 128)
+    64 blocks, so the 8 chunks run at once in clusters; a split block
+    takes 4 columns and 256 threads (rank16) or 1 column and 128
+    threads (paper), the fastest such plans of the sweep."""
+    assert bayes.head_plan("rank16", 8, 512, 64, 20)[:5] == (4, 8, 8, 0, 256)
+    assert bayes.head_plan("paper", 8, 512, 64, 20)[:5] == (1, 8, 8, 20, 128)
 
 
 @pytest.mark.parametrize("shape", [(8, 512, 2048, 100), (3, 130, 70, 100)])
@@ -359,4 +361,5 @@ def test_head_plan_k_not_a_multiple_of_64(shape, chunks, kind):
     one-column tiles leave SMs without a block."""
     plan = bayes.head_plan(kind, *shape)
     assert plan.split == (chunks if chunks > 1 else 1)
-    assert plan.tile_n == 1
+    split_width = 4 if kind == "rank16" else 1
+    assert plan.tile_n == (split_width if chunks > 1 else 1)
