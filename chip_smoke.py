@@ -78,9 +78,8 @@ JSON line):
      shapes for 32 slots and for a UQ batch of 64 images, each giving
      the chosen plan's bits (line ``cim_plans``); every plan the head
      kernels take, timed at the UQ path's shape and at kernel_bench's
-     (R=20: rank16, paper and paper with the ADC; paper also at R=64)
-     and at kernel_bench's depth cut to 64 columns, each giving the
-     chosen plan's bits (line ``head_plans``).  The launch floor: a
+     (R=20: rank16, paper and paper with the ADC; paper also at R=64),
+     each giving the chosen plan's bits (line ``head_plans``).  The launch floor: a
      kernel that does no work, by the same replay (line
      ``launch_floor_ms``).  The previous design's times at the same
      shapes, constants from PERF.md and not timed here, stand on a line
@@ -120,8 +119,6 @@ CIM_CPU_ATOL = 1e-3
 BENCH_HEAD = dict(b=8, k=512, n=2048)
 BENCH_R = (4, 16, 20, 64)
 SAR_HEAD = dict(b=64, k=64, n=2)
-# kernel_bench's head cut to 64 columns: few column tiles, K in 8 chunks
-NARROW_HEAD = dict(b=8, k=512, n=64)
 UQ_R = 20
 UQ_BATCHES = 16                      # Fig. 16: 16 batches of 64 images
 FIG9 = dict(n_rows=256, n_cols=256, num_samples=8)
@@ -136,9 +133,8 @@ DESIGN = {"decision_stats": "small-N variant: a thread per (sample, class) "
                      "cluster, folded in order",
           "bayes_head": "tile to the shape; each current hashed once per "
                         "tile by the whole block into a generated weight "
-                        "tile; K chunks split over a cluster or walked, "
-                        "folded in order; paper loops its sample chunks "
-                        "over the kept currents"}
+                        "tile; K chunks walked and folded in order; paper "
+                        "loops its sample chunks over the kept currents"}
 PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PREV_DECISION_MS = {"main_r4": 0.00399, "main_r20": 0.0104}
 PREV_CIM_MS = {"trunk0": 0.00707, "trunk1": 0.0118, "trunk2": 0.0186}
@@ -1228,10 +1224,8 @@ def head_plan_sweep() -> list:
     graph replay, with read noise, for rank16, paper and paper with the
     ADC: at the UQ path's shape and at kernel_bench's (R=20), paper also
     at kernel_bench's R=64 (samples a block carries against its shared
-    memory), and at kernel_bench's depth cut to 64 columns (NARROW_HEAD,
-    where one-column tiles leave SMs without a block: the split branch
-    of ``head_plan``).  Each plan must give the bits of the plan
-    ``head_plan`` picks."""
+    memory).  Each plan must give the bits of the plan ``head_plan``
+    picks."""
     import torch
     from repro_torch.kernels import bayes
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1240,8 +1234,7 @@ def head_plan_sweep() -> list:
             ("path", SAR_HEAD, UQ_R, ("rank16", "paper", "paper_adc")),
             ("kernel_bench", BENCH_HEAD, UQ_R,
              ("rank16", "paper", "paper_adc")),
-            ("kernel_bench", BENCH_HEAD, 64, ("paper",)),
-            ("narrow", NARROW_HEAD, UQ_R, ("rank16", "paper"))):
+            ("kernel_bench", BENCH_HEAD, 64, ("paper",))):
         c = head_inputs(**shape, read_sigma=0.4, r=r, seed=2)
         c["fs"] = head_full_scale(c)
         dims = (shape["b"], shape["k"], shape["n"], r)
@@ -1263,12 +1256,12 @@ def head_plan_sweep() -> list:
                       f"({case} at the {shape_name} shape, R={r})")
                 sweep.append({**plan._asdict(),
                               "ms": device_ms(call, replay_iters(call))})
-            ms = {tuple(p[k] for k in ("tile_n", "split", "samples",
-                                       "threads")): p["ms"] for p in sweep}
+            ms = {tuple(p[k] for k in ("tile_n", "samples", "threads")):
+                  p["ms"] for p in sweep}
             rows.append({"case": case, "shape": shape_name, **shape,
                          "R": r, "chosen": chosen._asdict(),
-                         "chosen_ms": ms[chosen.tile_n, chosen.split,
-                                         chosen.samples, chosen.threads],
+                         "chosen_ms": ms[chosen.tile_n, chosen.samples,
+                                         chosen.threads],
                          "fastest": min(sweep, key=lambda p: p["ms"]),
                          "sweep": sweep})
     emit({"head_plans": rows, "same_bits": True,

@@ -24,7 +24,7 @@ and ``cim.cim_mvm_plain``'s chunked ADC with it — the oracles
 ``repro/kernels/ref.py``); CUDA tensors launch ``csrc/bayes_mvm.cu`` or
 raise.  There is no fallback.  ``bayes_rank16.launches`` and
 ``bayes_paper.launches`` count kernel launches.  ``head_plan`` picks the
-kernel's tile, K split and samples a block carries from the shape.
+kernel's tile, threads and samples a block carries from the shape.
 """
 
 from __future__ import annotations
@@ -50,7 +50,6 @@ TILE_N = (1, 2, 4, 8, 16, 32)   # output columns a block may own
 SAMPLES = (4, 8, 16, 32, 64)    # samples a paper block may carry at once
 THREADS = (128, 256, 512)       # a block's threads
 MAX_TILE_B = 64           # output rows a block owns (B > 64: more tiles)
-MAX_SPLIT = 8             # blocks of a portable thread-block cluster
 SMEM_LIMIT = 227 * 1024   # a block's opt-in shared memory on the H100
 _X_STRIDE = CHUNK + 4     # a padded x row in shared memory (floats)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -109,15 +108,12 @@ def bayes_paper_plain(x, mu, sigma, sel, fs, cfg: g.GRNGConfig,
 class HeadPlan(NamedTuple):
     """How ``csrc/bayes_mvm.cu`` covers one head product: a grid of
     output tiles of ``tile_n`` columns × ``tile_b`` rows (B rounded up to
-    4, at most 64); ``split`` > 1 runs the K/64 chunks of a tile at once
-    in a cluster of ``split`` blocks (one chunk each, folded in chunk
-    order), ``split`` = 1 has one block walk them in order; a paper block
-    carries ``samples`` samples at once and loops over the rest (0 for
-    rank16).  The launcher refuses ``threads`` and ``smem_bytes`` that
-    differ from what the tiles need."""
+    4, at most 64), one block a tile walking the K/64 chunks in order; a
+    paper block carries ``samples`` samples at once and loops over the
+    rest (0 for rank16).  The launcher refuses ``threads`` and
+    ``smem_bytes`` that differ from what the tiles need."""
     tile_n: int
     tile_b: int
-    split: int
     samples: int
     threads: int
     blocks: int
@@ -135,18 +131,17 @@ def _tile_cols(kind: str, tile_n: int, samples: int) -> int:
     return _quad((samples + 1) * tile_n if kind == "paper" else 18 * tile_n)
 
 
-def _smem_bytes(kind: str, tile_n: int, tile_b: int, split: int,
-                samples: int, r: int, chunks: int) -> int:
+def _smem_bytes(kind: str, tile_n: int, tile_b: int, samples: int, r: int,
+                chunks: int) -> int:
     """The kernel's shared memory (``layout`` in ``csrc/bayes_mvm.cu``),
     each region on 16 bytes: the ADC's steps, the selections (4 zero rows
-    after R), x rows
-    and µ/σ columns (two stages where a block walks several chunks),
-    hash prefixes (the read noise's: paper a sample and column's, rank16
-    a row and column's), (paper: the chunk's currents in rows of
-    16 tile_n + 1), the weight tile (paper by column, in padded rows) and
-    the sums (every chunk's in a split; rank16 20 a column)."""
+    after R), x rows and µ/σ columns (two stages where there are several
+    chunks), hash prefixes (the read noise's: paper a sample and
+    column's, rank16 a row and column's), (paper: the chunk's currents in
+    rows of 16 tile_n + 1), the weight tile (paper by column, in padded
+    rows) and the sums (rank16 20 a column)."""
     paper = kind == "paper"
-    stages = 2 if split == 1 and chunks > 1 else 1
+    stages = 2 if chunks > 1 else 1
     sums = (r + 1) * tile_n if paper else 20 * tile_n
     regions = [4, (_quad(r) + 4) * 16, stages * tile_b * _X_STRIDE,
                stages * CHUNK * tile_n, stages * CHUNK * tile_n,
@@ -155,22 +150,22 @@ def _smem_bytes(kind: str, tile_n: int, tile_b: int, split: int,
                CHUNK * (16 * tile_n + 1) if paper else 0,
                _tile_cols(kind, tile_n, samples)
                * (_X_STRIDE if paper else CHUNK),
-               split * tile_b * sums]
+               tile_b * sums]
     return 4 * sum(_quad(f) for f in regions)
 
 
 def make_head_plan(kind: str, b: int, k: int, n: int, r: int, tile_n: int,
-                   split: int, samples: int, threads: int) -> HeadPlan:
-    """The plan of the given tile width, split, samples (paper; 0 for
-    rank16) and block threads for a product of x [b, k] and [k, n]
-    weights into r samples."""
+                   samples: int, threads: int) -> HeadPlan:
+    """The plan of the given tile width, samples (paper; 0 for rank16)
+    and block threads for a product of x [b, k] and [k, n] weights into
+    r samples."""
     if kind not in ("rank16", "paper"):
         raise ValueError(f"no head kernel of kind {kind!r}")
     tile_b = min(MAX_TILE_B, _quad(b))
     samples = samples if kind == "paper" else 0
-    blocks = -(-n // tile_n) * -(-b // tile_b) * split
-    return HeadPlan(tile_n, tile_b, split, samples, threads, blocks,
-                    _smem_bytes(kind, tile_n, tile_b, split, samples, r,
+    blocks = -(-n // tile_n) * -(-b // tile_b)
+    return HeadPlan(tile_n, tile_b, samples, threads, blocks,
+                    _smem_bytes(kind, tile_n, tile_b, samples, r,
                                 -(-k // CHUNK)))
 
 
@@ -184,15 +179,13 @@ def _fits(kind: str, plan: HeadPlan) -> bool:
 
 def head_plans(kind: str, b: int, k: int, n: int, r: int) -> list[HeadPlan]:
     """Every plan the kernel takes for this product: each tile width up
-    to N's power of two, walked and (2..8 chunks) split, and for paper
-    each sample count of ``SAMPLES`` below R, and R itself up to 64."""
-    chunks = -(-k // CHUNK)
-    splits = (1, chunks) if 2 <= chunks <= MAX_SPLIT else (1,)
+    to N's power of two and each thread count, and for paper each sample
+    count of ``SAMPLES`` below R, and R itself up to 64."""
     widest = 1 << (n - 1).bit_length()
     counts = ((0,) if kind == "rank16" else sorted(
         {s for s in SAMPLES if s < r} | ({r} if r <= SAMPLES[-1] else set())))
-    plans = [make_head_plan(kind, b, k, n, r, t, sp, s, th)
-             for t in TILE_N if t <= widest for sp in splits for s in counts
+    plans = [make_head_plan(kind, b, k, n, r, t, s, th)
+             for t in TILE_N if t <= widest for s in counts
              for th in THREADS]
     return [p for p in plans if _fits(kind, p)]
 
@@ -202,40 +195,22 @@ def head_plan(kind: str, b: int, k: int, n: int, r: int,
               sms: int = H100_SMS) -> HeadPlan:
     """The head kernel's launch plan for ``kind`` ('rank16' or 'paper')
     on a card of ``sms`` SMs, fitted to ``chip_smoke.py``'s head plan
-    sweep (PERF.md), where it is the fastest plan at the UQ path's shape,
-    at kernel_bench's (R = 20, and paper at R = 64) and at kernel_bench's
-    depth cut to 64 columns:
+    sweep (PERF.md) at the UQ path's shape and at kernel_bench's (R = 20,
+    and paper at R = 64):
 
-    * K's 2..8 chunks are split over a cluster only where one-column
-      tiles leave SMs without a block (the cut head), else walked;
+    * 512 threads;
     * paper carries all R samples at once where they fit, else the most
       of ``SAMPLES`` that fit;
-    * a walking block has the widest tile that still gives every SM a
-      block and lets two blocks share an SM's shared memory, else the
-      narrowest, and 512 threads (256 for rank16 where its tiles give
-      every SM a block);
-    * a split block (one chunk) has a tile of up to 4 columns and 256
-      threads for rank16, 1 column and 128 threads for paper."""
-    chunks = -(-k // CHUNK)
-    narrow = n * -(-b // MAX_TILE_B)
-    split = chunks if 2 <= chunks <= MAX_SPLIT and narrow < sms else 1
-    threads = 512 if split == 1 else 256 if kind == "rank16" else 128
-    plans = [p for p in head_plans(kind, b, k, n, r)
-             if p.split == split and p.threads == threads]
+    * the widest tile that still gives every SM a block and lets two
+      blocks share an SM's shared memory, else the narrowest."""
+    plans = [p for p in head_plans(kind, b, k, n, r) if p.threads == 512]
     if not plans:
         raise ValueError(f"no {kind} head plan fits B={b} K={k} N={n} "
                          f"R={r}")
     most = max(p.samples for p in plans)
     plans = [p for p in plans if p.samples == most]
-    if split > 1:
-        width = 4 if kind == "rank16" else 1
-        return max((p for p in plans if p.tile_n <= width),
-                   key=lambda p: p.tile_n)
     plans = [p for p in plans if 2 * p.smem_bytes <= SMEM_LIMIT] or plans
-    plan = next((p for p in reversed(plans) if p.blocks >= sms), plans[0])
-    if kind == "rank16" and plan.blocks >= sms:
-        plan = plan._replace(threads=256)
-    return plan
+    return next((p for p in reversed(plans) if p.blocks >= sms), plans[0])
 
 
 @functools.lru_cache(maxsize=None)
@@ -248,7 +223,7 @@ def _launcher():
     from repro_torch.kernels.build import load
     fn = load("bayes_mvm").bayes_head_launch
     fn.argtypes = ([ctypes.c_int] + [_P] * 6 + [ctypes.c_int] * 4
-                   + [_U32] * 3 + [ctypes.c_int] * 7
+                   + [_U32] * 3 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(GrngParams), _P])
     fn.restype = ctypes.c_int
     return fn
@@ -306,7 +281,7 @@ def _launch(kind: str, x, mu, sigma, sel, fs, cfg: g.GRNGConfig,
             sigma.data_ptr(), sel.data_ptr(),
             fs.data_ptr() if levels else None, out.data_ptr(), b, kdim, n,
             r, _u32(row0), _u32(col0), _u32(sample0), levels, plan.tile_n,
-            plan.tile_b, plan.split, plan.samples, plan.threads,
+            plan.tile_b, plan.samples, plan.threads,
             plan.smem_bytes, ctypes.byref(params), stream)
     if err != 0:
         raise RuntimeError(f"{kind} head kernel launch failed: cudaError "

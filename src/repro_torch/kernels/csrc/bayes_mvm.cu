@@ -38,8 +38,8 @@
 // (B=64, K=64, N=2, R=20) the whole call is a few thousand currents and
 // ~0.17 M multiply-adds: latency and the launch bound it.
 //
-// The design.  The launch plan (output tile, K split, samples a block
-// carries, threads, shared memory) is picked from the shape in Python
+// The design.  The launch plan (output tile, samples a block carries,
+// threads, shared memory) is picked from the shape in Python
 // (kernels/bayes.py: head_plan, fitted to chip_smoke.py's plan sweep) and
 // checked here:
 //   tile     a block owns tile_n (a power of two) output columns and
@@ -49,8 +49,8 @@
 //            currents again.
 //   loads    a chunk's x rows and mu/sigma columns, and all R selections
 //            once, arrive by cp.async (float32: the wrapper widens
-//            bfloat16 operands first); a block that walks several chunks
-//            copies the next chunk while it works on this one.  A global
+//            bfloat16 operands first); a block copies the next chunk
+//            while it works on this one.  A global
 //            round trip costs hundreds of cycles, so none is left in a
 //            loop.
 //   hashing  every current of the tile is hashed once, by the whole
@@ -69,13 +69,12 @@
 //   product  a micro-tile is one x row against 4 W columns: 4 in-order
 //            fmaf chains over a chunk's 64 rows, x and W read as float4.
 //            rank16's (x^2).(sigma^2) is one chain per (row, column).
-//   K split  K is cut at the ADC's 64-row chunks.  split > 1 runs the
-//            chunks of a tile at once in a thread-block cluster, one
-//            chunk a block; each block stores its partial sums (or ADC
-//            codes) into rank 0's shared memory, and after one cluster
-//            barrier rank 0 folds them in chunk order c = 0, 1, ... from
-//            0, no atomics (cim_mvm.cu's scheme).  split = 1 walks the
-//            chunks in order and folds the same way.
+//   K walk   K is cut at the ADC's 64-row chunks, and a block walks its
+//            tile's chunks in order, folding each chunk's partial sums
+//            (or ADC codes) into its sums in chunk order c = 0, 1, ...
+//            from 0.  (Splitting the chunks over a thread-block cluster,
+//            cim_mvm.cu's scheme, was slower at kernel_bench's head, the
+//            only deep head measured: PERF.md.)
 //   samples  rank16 hoists its per-(row, column) terms (sum_mean * x.sigma,
 //            the read noise's scale and hash prefix) before the R samples.
 // So every plan computes each chunk's partial sum as the same chain and
@@ -90,7 +89,6 @@
 // walked 16 rows a step, one thread hashing a cell's 16 currents in
 // series, grid over B (each B tile hashing again) and, in paper mode,
 // over sample chunks (each hashing again).  Times of both: PERF.md.
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -98,8 +96,6 @@
 #include <type_traits>
 
 #include "hash.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -113,7 +109,6 @@ constexpr int kEpsGroup = 4;          // samples mixed side by side
 constexpr int kRank16Sums = 20;       // rank16 sums a tile column
 constexpr int kBatch = 4;             // items a thread computes before storing
 constexpr int kMaxTileB = 64;
-constexpr int kMaxCluster = 8;        // portable cluster size
 constexpr int kMaxThreads = 512;      // 128 registers a thread
 constexpr int kMaxSmem = 227 * 1024;  // a block's opt-in shared memory
 
@@ -127,7 +122,7 @@ struct Params {
   int B, K, N, R;
   uint32_t row0, col0, sample0;
   int levels;            // 0: no ADC, else the largest code (31)
-  int tile_n, tile_b, split, samples;
+  int tile_n, tile_b, samples;
   int tn_shift;          // log2(tile_n): tile widths are powers of two
   int vec_x;             // x rows start on 16 bytes: 16-byte copies
   GrngParams g;
@@ -161,11 +156,10 @@ struct Layout {
 };
 
 __host__ __device__ inline Layout layout(bool paper, int tn, int tb,
-                                         int split, int samples, int R,
-                                         int chunks) {
+                                         int samples, int R, int chunks) {
   Layout l;
   int at = 0;
-  l.stages = split == 1 && chunks > 1 ? 2 : 1;
+  l.stages = chunks > 1 ? 2 : 1;
   l.ws = tile_cols(paper, tn, samples);
   l.acols = sum_cols(paper, tn, R);
   l.lsb = at;  at += 4;                             // the ADC's two steps
@@ -182,7 +176,7 @@ __host__ __device__ inline Layout layout(bool paper, int tn, int tb,
   l.cur = at;  at += paper ? quad(kChunk * (kDevices * tn + 1)) : 0;
   // the weight tile: rank16 [k][col], paper [col][k] in padded rows
   l.w = at;    at += paper ? l.ws * kXStride : kChunk * l.ws;
-  l.acc = at;  at += quad(split * tb * l.acols);    // sums [chunk][b][col]
+  l.acc = at;  at += quad(tb * l.acols);            // sums [b][col]
   l.total = at;
   return l;
 }
@@ -257,15 +251,6 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// The cluster barrier in two halves (cim_mvm.cu): arrive at entry, wait
-// before the first store into another block's shared memory.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // f(r, c) for the items of [rows) x [cols), c fastest, the thread's
@@ -374,41 +359,21 @@ __device__ __forceinline__ void tile_sums(const float* xr, const float* w,
   }
 }
 
-// One chunk's value of sum (row, acol): folded into the block's sums
-// (walk), or stored as chunk c's into rank 0's (split; chunk c = the
-// block's rank).
-template <bool kSplit>
-__device__ __forceinline__ void put(float* acc, int c, int sums, int at,
-                                    float v) {
-  if constexpr (kSplit) {
-    cg::this_cluster().map_shared_rank(acc, 0)[c * sums + at] = v;
-  } else {
-    acc[at] = __fadd_rn(c == 0 ? 0.f : acc[at], v);
-  }
+// Chunk c's value of sum ``at``, folded into the block's sums in chunk
+// order.
+__device__ __forceinline__ void put(float* acc, int c, int at, float v) {
+  acc[at] = __fadd_rn(c == 0 ? 0.f : acc[at], v);
 }
 
-// Rank 0 of a split: fold the ``split`` chunks' values of each sum in
-// chunk order, from 0, into the first chunk's place.
-__device__ void fold_chunks(float* acc, int split, int sums) {
-  for (int o = threadIdx.x; o < sums; o += blockDim.x) {
-    float a = 0.f;
-    for (int c = 0; c < split; ++c) a = __fadd_rn(a, acc[c * sums + o]);
-    acc[o] = a;
-  }
-  __syncthreads();
-}
-
-// One kernel for both modes.  kSplit = false: grid (tiles_n, tiles_b),
-// one block walks every chunk; kSplit = true: grid (split * tiles_n,
-// tiles_b) in clusters of ``split`` blocks along x, the block of rank c
-// taking chunk c.
-template <bool kPaper, bool kSplit>
+// One kernel for both modes, on a grid (tiles_n, tiles_b): a block owns
+// one output tile and walks every chunk of K.
+template <bool kPaper>
 __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   const int tn = p.tile_n, tb = p.tile_b, sh = p.tn_shift;
   const int ns = kPaper ? p.samples : 0;
   const int chunks = (p.K + kChunk - 1) / kChunk;
-  const Layout L = layout(kPaper, tn, tb, p.split, ns, p.R, chunks);
+  const Layout L = layout(kPaper, tn, tb, ns, p.R, chunks);
   float* sels = smem + L.sels;
   uint32_t* h2c = reinterpret_cast<uint32_t*>(smem + L.h2c);
   uint32_t* h2i = reinterpret_cast<uint32_t*>(smem + L.h2i);
@@ -417,36 +382,28 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
   float* w = smem + L.w;
   float* acc = smem + L.acc;
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int rank =
-      kSplit ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
-  const int n0 = (kSplit ? static_cast<int>(blockIdx.x) / p.split
-                         : static_cast<int>(blockIdx.x)) * tn;
-  const int b0 = blockIdx.y * tb;
-  const int c_first = kSplit ? rank : 0, c_end = kSplit ? rank + 1 : chunks;
-  const int sums = tb * L.acols;
+  const int n0 = blockIdx.x * tn, b0 = blockIdx.y * tb;
   const int tiles = micro_tiles(kPaper, tn, tb, ns);
-  if constexpr (kSplit) cluster_arrive_relaxed();
   stage_selections(p, sels);
-  load_chunk(p, c_first, b0, n0, smem + L.xs, smem + L.mus,
-                     smem + L.sgs);
+  load_chunk(p, 0, b0, n0, smem + L.xs, smem + L.mus, smem + L.sgs);
   cp_async_commit();
   col_prefixes(p, n0, h2c, h2i);
   float* lsb = smem + L.lsb;          // the ADC's steps: mu, sigma-eps
   if (kPaper && p.levels > 0 && tid < 2)
     lsb[tid] = __fdiv_rn(p.fs[tid], static_cast<float>(p.levels));
 
-  for (int c = c_first; c < c_end; ++c) {
+  for (int c = 0; c < chunks; ++c) {
     const int st = L.stages > 1 ? c & 1 : 0;
     const float* xs = smem + L.xs + st * tb * kXStride;
     const float* mus = smem + L.mus + st * kChunk * tn;
     const float* sgs = smem + L.sgs + st * kChunk * tn;
     cp_async_wait_all();
     __syncthreads();                   // chunk c (and the selections) in
-    if (L.stages > 1 && c + 1 < c_end) {   // prefetch the next chunk
+    if (c + 1 < chunks) {              // prefetch the next chunk
       const int nx = (c + 1) & 1;
       load_chunk(p, c + 1, b0, n0, smem + L.xs + nx * tb * kXStride,
-                         smem + L.mus + nx * kChunk * tn,
-                         smem + L.sgs + nx * kChunk * tn);
+                 smem + L.mus + nx * kChunk * tn,
+                 smem + L.sgs + nx * kChunk * tn);
       cp_async_commit();
     }
     const uint32_t row_c = p.row0 + c * kChunk;
@@ -551,9 +508,6 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
         }
       }
       __syncthreads();                 // the weight tile is in
-      if constexpr (kSplit) {
-        if (q == 0) cluster_wait();    // every block has started
-      }
       // the micro-tiles, then (rank16 on a noisy die) the (x^2).(sigma^2)
       // chains of the tile's (row, n), one item a thread per pass
       const bool xq = !kPaper && p.g.read_sigma != 0.f;
@@ -572,8 +526,7 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
               a = fmaf(__fmul_rn(x4[u], x4[u]), __fmul_rn(sv, sv), a);
             }
           }
-          put<kSplit>(acc, c, sums,
-                      row * L.acols + n * kRank16Sums + kDevices + 2, a);
+          put(acc, c, row * L.acols + n * kRank16Sums + kDevices + 2, a);
           continue;
         }
         const int row = t % tb, c4 = 4 * (t / tb);
@@ -599,18 +552,12 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
             if (col >= (kDevices + 2) * tn) continue;
             acol = (col & (tn - 1)) * kRank16Sums + (col >> sh);
           }
-          put<kSplit>(acc, c, sums, row * L.acols + acol, v);
+          put(acc, c, row * L.acols + acol, v);
         }
       }
       __syncthreads();                 // the weight tile and stage are free
     }
   }
-  if constexpr (kSplit) {
-    cg::this_cluster().sync();         // every chunk's sums are in
-    if (rank != 0) return;             // only rank 0's are read
-    fold_chunks(acc, p.split, sums);
-  }
-
   // the samples: item (r, row * tile_n + n)
   with_flag(p.g.read_sigma != 0.f, [&](auto noisy) {
     constexpr bool kNoisy = decltype(noisy)::value;
@@ -665,51 +612,16 @@ __global__ void __launch_bounds__(kMaxThreads) head_kernel(Params p) {
   });
 }
 
-template <bool kPaper, bool kSplit>
-int launch_kernel(const Params& p, dim3 grid, int threads, int smem,
-                  cudaStream_t stream) {
-  auto kernel = head_kernel<kPaper, kSplit>;
-  static bool opted_in = false;     // once per instance: allow kMaxSmem
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
-  }
-  if constexpr (!kSplit) {
-    kernel<<<grid, threads, smem, stream>>>(p);
-    return static_cast<int>(cudaGetLastError());
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = p.split;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
-  }
-}
-
 template <bool kPaper>
 int launch(const Params& p, int threads, int smem, cudaStream_t stream) {
   const int chunks = (p.K + kChunk - 1) / kChunk;
   const bool tiles_ok = p.tile_n >= 1 && (p.tile_n & (p.tile_n - 1)) == 0 &&
                         p.tile_b >= 4 && p.tile_b <= kMaxTileB &&
                         p.tile_b % 4 == 0;
-  const bool split_ok = p.split == 1 || (p.split == chunks &&
-                                         p.split <= kMaxCluster);
   const bool samples_ok = !kPaper || (p.samples >= 1 && p.samples <= p.R);
-  if (!tiles_ok || !split_ok || !samples_ok) return cudaErrorInvalidValue;
-  const Layout L = layout(kPaper, p.tile_n, p.tile_b, p.split, p.samples,
-                          p.R, chunks);
+  if (!tiles_ok || !samples_ok) return cudaErrorInvalidValue;
+  const Layout L = layout(kPaper, p.tile_n, p.tile_b, p.samples, p.R,
+                          chunks);
   const int need = static_cast<int>(sizeof(float)) * L.total;
   // a thread keeps one generated column; paper's cells fill the block once
   if (threads < 128 || threads > kMaxThreads || threads % 128 != 0 ||
@@ -720,16 +632,22 @@ int launch(const Params& p, int threads, int smem, cudaStream_t stream) {
   const unsigned tiles_n = (p.N + p.tile_n - 1) / p.tile_n;
   const unsigned tiles_b = (p.B + p.tile_b - 1) / p.tile_b;
   if (tiles_b > 65535u) return cudaErrorInvalidValue;
-  const dim3 grid(tiles_n * p.split, tiles_b);
-  return p.split > 1
-             ? launch_kernel<kPaper, true>(p, grid, threads, smem, stream)
-             : launch_kernel<kPaper, false>(p, grid, threads, smem, stream);
+  auto kernel = head_kernel<kPaper>;
+  static bool opted_in = false;     // once per instance: allow kMaxSmem
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  kernel<<<dim3(tiles_n, tiles_b), threads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches one head product on ``stream`` without synchronising, under
-// the plan (tile_n, tile_b, split, samples, threads: 128, 256 or 512,
+// the plan (tile_n, tile_b, samples, threads: 128, 256 or 512,
 // smem_bytes) picked by kernels/bayes.py.  ``paper``: 0 = rank16, 1 =
 // paper; ``levels``: paper's ADC, 0 for none, else its largest code (31
 // at 6 bits), with ``fs`` [2] on the device holding the mu and sigma-eps
@@ -744,7 +662,7 @@ extern "C" int bayes_head_launch(int paper, const float* x, const float* mu,
                                  int N, int R, unsigned int row0,
                                  unsigned int col0, unsigned int sample0,
                                  int levels, int tile_n, int tile_b,
-                                 int split, int samples, int threads,
+                                 int samples, int threads,
                                  int smem_bytes, const GrngParams* g,
                                  void* stream) {
   if (B < 1 || K < 1 || N < 1 || R < 1 || g == nullptr || levels < 0 ||
@@ -755,8 +673,8 @@ extern "C" int bayes_head_launch(int paper, const float* x, const float* mu,
   while (shift < 30 && (1 << shift) < tile_n) ++shift;
   const int vec_x = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const Params p{x, mu, sigma, sel, fs, out, B, K, N, R, row0, col0,
-                 sample0, levels, tile_n, tile_b, split,
-                 paper ? samples : 0, shift, vec_x, *g};
+                 sample0, levels, tile_n, tile_b, paper ? samples : 0,
+                 shift, vec_x, *g};
   auto st = static_cast<cudaStream_t>(stream);
   return paper ? launch<true>(p, threads, smem_bytes, st)
                : launch<false>(p, threads, smem_bytes, st);

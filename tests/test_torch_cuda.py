@@ -384,8 +384,8 @@ def _plain_head(mode, x, mu, sigma, sel, fs, cfg, **kw):
                                    (70, 64, 5, 4)])
 @pytest.mark.parametrize("mode", ["rank16", "paper", "paper_adc"])
 def test_head_every_plan_gives_the_chosen_bits(hopper, shape, mode):
-    """Every plan of ``head_plans`` (tile widths, split and walked K,
-    the samples a paper block carries) gives the bits of ``head_plan``'s
+    """Every plan of ``head_plans`` (tile widths, threads, the samples
+    a paper block carries) gives the bits of ``head_plan``'s
     plan, which agrees with the plain version, with read noise and
     offsets; B = 70 takes two row tiles, R = 100 two sample chunks."""
     b, k, n, r = shape

@@ -2,7 +2,7 @@
 ``kernels/cim.py`` ``launch_plan`` (tiles and chunk split of
 ``csrc/cim_mvm.cu``), ``kernels/decision.py`` ``decision_plan`` (the
 decision kernel's variant) and ``kernels/bayes.py`` ``head_plan`` (tile,
-chunk split and samples a block carries of ``csrc/bayes_mvm.cu``).
+threads and samples a block carries of ``csrc/bayes_mvm.cu``).
 
 The CIM plan is replayed here with the kernel's own index arithmetic
 (block → tile and cluster rank, thread → column and four rows, rank 0's
@@ -190,11 +190,11 @@ def _head_tile_cols(kind, tn, samples):
     return _quad((samples + 1) * tn if kind == "paper" else 18 * tn)
 
 
-def _head_layout_bytes(kind, tn, tb, split, samples, r, chunks):
+def _head_layout_bytes(kind, tn, tb, samples, r, chunks):
     """The shared memory of ``layout`` in ``csrc/bayes_mvm.cu``, region
     by region, each rounded up to 4 floats."""
     paper = kind == "paper"
-    stages = 2 if split == 1 and chunks > 1 else 1
+    stages = 2 if chunks > 1 else 1
     regions = [4,                                    # ADC steps
                (_quad(r) + 4) * 16,                  # selections
                stages * tb * 68,                     # x rows
@@ -203,7 +203,7 @@ def _head_layout_bytes(kind, tn, tb, split, samples, r, chunks):
                samples * tn if paper else tb * tn,   # noise prefixes
                64 * (16 * tn + 1) if paper else 0,   # currents
                _head_tile_cols(kind, tn, samples) * (68 if paper else 64),
-               split * tb * ((r + 1) * tn if paper else 20 * tn)]
+               tb * ((r + 1) * tn if paper else 20 * tn)]
     return 4 * sum(_quad(f) for f in regions)
 
 
@@ -271,7 +271,7 @@ def test_head_plans_cover_each_sum_and_output_once(shape, kind):
     plans = bayes.head_plans(kind, b, k, n, r)
     assert bayes.head_plan(kind, b, k, n, r) in plans
     # the threads only stride the same items: one plan per tiling
-    tilings = {p[:4]: p for p in plans}
+    tilings = {p[:3]: p for p in plans}
     for plan in tilings.values():
         puts, unmixed, stored = _head_replay(kind, plan, b, k, n, r)
         if kind == "rank16":              # sum 19 of a column is unused
@@ -294,12 +294,9 @@ def test_head_plans_fit_the_kernel(shape, kind):
         if kind == "paper":
             assert 64 * plan.tile_n <= plan.threads  # a chunk's cell each
         assert plan.smem_bytes == _head_layout_bytes(
-            kind, plan.tile_n, plan.tile_b, plan.split, plan.samples, r,
-            chunks)
+            kind, plan.tile_n, plan.tile_b, plan.samples, r, chunks)
         assert plan.smem_bytes <= bayes.SMEM_LIMIT
-        assert plan.split == 1 or plan.split == chunks <= 8
-        assert plan.blocks == (-(-n // plan.tile_n) * -(-b // plan.tile_b)
-                               * plan.split)
+        assert plan.blocks == -(-n // plan.tile_n) * -(-b // plan.tile_b)
         if kind == "paper":
             assert 1 <= plan.samples <= r
         else:
@@ -307,39 +304,39 @@ def test_head_plans_fit_the_kernel(shape, kind):
 
 
 def test_head_plan_at_the_uq_path_shape():
-    """B=64 K=64 N=2 R=20: one chunk, walked by the block; all 64 rows in
-    one tile; one-column tiles, so two blocks; paper carries all 20
-    samples; 512 threads (the fastest plans of the sweep, PERF.md)."""
-    assert bayes.head_plan("rank16", *HEAD_PATH)[:5] == (1, 64, 1, 0, 512)
-    assert bayes.head_plan("paper", *HEAD_PATH)[:5] == (1, 64, 1, 20, 512)
+    """B=64 K=64 N=2 R=20: one chunk; all 64 rows in one tile;
+    one-column tiles, so two blocks; paper carries all 20 samples; 512
+    threads (the fastest plans of the sweep, PERF.md)."""
+    assert bayes.head_plan("rank16", *HEAD_PATH)[:4] == (1, 64, 0, 512)
+    assert bayes.head_plan("paper", *HEAD_PATH)[:4] == (1, 64, 20, 512)
     assert bayes.head_plan("paper", *HEAD_PATH).blocks == 2
 
 
 @pytest.mark.parametrize("shape", HEAD_BENCH)
 def test_head_plan_at_kernel_bench_shape(shape):
-    """B=8 K=512 N=2048: the eight chunks walked (tiles give every SM a
-    block), blocks of 256 threads (rank16) and 512 (paper); paper
-    carries every sample at once, up to R = 64; eight columns a tile,
-    but at R = 64 paper's 8-column block would fill an SM's shared
-    memory alone, so it takes 4."""
+    """B=8 K=512 N=2048: blocks of 512 threads walk the eight chunks;
+    paper carries every sample at once, up to R = 64; eight columns a
+    tile (tiles give every SM a block), but at R = 64 paper's 8-column
+    block would fill an SM's shared memory alone, so it takes 4."""
     r = shape[3]
-    assert bayes.head_plan("rank16", *shape)[:5] == (8, 8, 1, 0, 256)
+    assert bayes.head_plan("rank16", *shape)[:4] == (8, 8, 0, 512)
     paper = bayes.head_plan("paper", *shape)
     width = 4 if r == 64 else 8
-    assert paper[:5] == (width, 8, 1, r, 512)
+    assert paper[:4] == (width, 8, r, 512)
     assert paper.blocks == 2048 // width >= H100_SMS
     assert 2 * paper.smem_bytes <= bayes.SMEM_LIMIT
-    assert 2 * bayes.make_head_plan("paper", *shape, 8, 1, r, 512) \
+    assert 2 * bayes.make_head_plan("paper", *shape, 8, r, 512) \
         .smem_bytes > bayes.SMEM_LIMIT or r != 64
 
 
-def test_head_plan_splits_a_narrow_deep_head():
-    """kernel_bench's depth cut to 64 columns: one-column tiles would give
-    64 blocks, so the 8 chunks run at once in clusters; a split block
-    takes 4 columns and 256 threads (rank16) or 1 column and 128
-    threads (paper), the fastest such plans of the sweep."""
-    assert bayes.head_plan("rank16", 8, 512, 64, 20)[:5] == (4, 8, 8, 0, 256)
-    assert bayes.head_plan("paper", 8, 512, 64, 20)[:5] == (1, 8, 8, 20, 128)
+def test_head_plan_walks_a_narrow_deep_head():
+    """kernel_bench's depth cut to 64 columns: no tile width gives every
+    SM a block, so the narrowest (one column, 64 blocks), whose blocks
+    walk the 8 chunks."""
+    rank16 = bayes.head_plan("rank16", 8, 512, 64, 20)
+    assert rank16[:5] == (1, 8, 0, 512, 64)
+    assert bayes.head_plan("paper", 8, 512, 64, 20)[:5] == (1, 8, 20, 512, 64)
+    assert rank16.smem_bytes == _head_layout_bytes("rank16", 1, 8, 0, 20, 8)
 
 
 @pytest.mark.parametrize("shape", [(8, 512, 2048, 100), (3, 130, 70, 100)])
@@ -357,9 +354,9 @@ def test_head_plan_loops_samples_above_a_block(shape):
 @pytest.mark.parametrize("kind", ["rank16", "paper"])
 def test_head_plan_k_not_a_multiple_of_64(shape, chunks, kind):
     """A last chunk of fewer than 64 rows (zero-padded in the kernel)
-    still counts as a chunk: two or more are split over a cluster where
-    one-column tiles leave SMs without a block."""
+    still counts as a chunk: a block walking two or more double-buffers
+    them.  One-column tiles leave SMs without a block here."""
     plan = bayes.head_plan(kind, *shape)
-    assert plan.split == (chunks if chunks > 1 else 1)
-    split_width = 4 if kind == "rank16" else 1
-    assert plan.tile_n == (split_width if chunks > 1 else 1)
+    assert plan.tile_n == 1 and plan.threads == 512
+    assert plan.smem_bytes == _head_layout_bytes(
+        kind, 1, plan.tile_b, plan.samples, shape[3], chunks)
