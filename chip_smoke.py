@@ -11,7 +11,7 @@ JSON line):
      versions; TF32 is switched off for matmuls and convolutions;
   2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all started together; ptxas must report no
-     spill in any kernel of ``cim_mvm``, ``decision`` and ``bayes_mvm``;
+     spill in any kernel;
   3. every kernel against its plain PyTorch version on the card:
      the decision kernel at the main path's shapes and at ragged /
      read-noise / shared-selection shapes (rtol 1e-5, atol 1e-5, as
@@ -32,23 +32,29 @@ JSON line):
   5. the chip-instance main path: the same 192 requests served on the
      gate die ``sample_instances(11, 1, VariationSpec().scaled(2.0))``,
      calibrated: the conv trunk through the CIM kernel (3 launches per
-     admission), the head on the die's degraded GRNG (the decision
-     kernel's read-noise branch, one launch per round); counts zeroed
-     just before and read just after.  ``fused=False`` must give the
-     same decisions, the uncalibrated die must serve every request, and
-     CPU runs of 64 requests must decide as the card does, under the
-     main policy and under the escalating one (whose decisions differ
-     in kind and depth); confidence and MI agree to 1e-5 unless the
-     trunk flipped an ADC code between card and CPU on the batches the
-     card admitted (counted), then to 1e-3;
+     admission), the head deployed and calibrated on the card, on the
+     die's degraded GRNG (the decision kernel's read-noise branch, one
+     launch per round); counts zeroed just before and read just after.
+     ``fused=False`` must give the same decisions, the uncalibrated die
+     must serve every request, and CPU runs of 64 requests (the head
+     deployed on the CPU) must decide as the card does, under the main
+     policy and under the escalating one (whose decisions differ in kind
+     and depth); confidence and MI agree to 1e-5 unless the trunk
+     flipped an ADC code between card and CPU on the batches the card
+     admitted (counted), then to 1e-3.  A line before them gives the
+     deployed heads' difference: the measured constants (and their
+     distance in float32 steps), the arrays, and the 8-bit µ' / 4-bit σ
+     codes that differ when the deployment quantizes;
   5b. fixed-R serving on the gate die at r_max = 100, above one decision
      launch's 64 samples: 64 requests, every round cut into two decision
      launches (counts zeroed just before, read just after), the same
      decisions as a CPU run (confidence/MI as in 5);
   6. the head kernels against their plain versions on the card: the
-     GRNG ε kernel at Fig. 9's block (256×256, R=8) and at a ragged die
-     block with offsets (atol 1e-5, unequal elements counted: expected
-     0); the rank16 and paper head kernels at the SAR head's shape
+     GRNG ε kernel bit for bit (``torch.equal``) at Fig. 9's block
+     (256×256, R=8; ideal and the gate die), kernel_bench's 512×2048,
+     R=20, an aged die with offsets, offsets up to and past the 2^32
+     wrap, R = 1 and 130, and selection rows other than 0/1; the rank16
+     and paper head kernels at the SAR head's shape
      (B=64, K=64, N=2, R=20) and at kernel_bench's (B=8, K=512, N=2048),
      ideal, with read noise and (paper) with the 6-bit ADC (rtol/atol
      1e-4; an ADC code flipped by the K order is counted and held to one
@@ -60,17 +66,20 @@ JSON line):
      (``batch_at(SardConfig(image_size=32, seed=7), 10000+i, 64)``),
      clean and fog severity 1.0, then ``uq_report``; again on the gate
      die (the trunk through the CIM kernel, the head deployed by
-     ``prepare_instance_head``, read noise on); launch counts zeroed
-     before and read after (one head launch per batch per mode, three
-     CIM launches per die batch); card against CPU on 2 batches (equal
-     predictions, confidence within 1e-5, or 1e-3 where the trunk
-     flipped an ADC code, counted); the Fig. 9 path (``ops.grng_eps`` at
+     ``prepare_instance_head`` on the card, read noise on); launch
+     counts zeroed before and read after (one head launch per batch per
+     mode, three CIM launches per die batch); card against CPU on 2
+     batches, each deploying its own head (equal predictions,
+     confidence within 1e-5, or 1e-3 where the trunk flipped an ADC
+     code, counted; the deployed heads' difference on a line before);
+     the Fig. 9 path (``ops.grng_eps`` at
      256×256×8, one ε launch; ``calibrate``; ``distribution_sample``'s
      mean and SD);
   8. kernel timing: device time from CUDA graph replays and per-call
      time of eager calls (CUDA events), beside the plain version's and
      the card's byte/flop bound: decision and CIM at the serving path's
-     shapes, ε at Fig. 9's block, the head kernels at kernel_bench's
+     shapes, ε at Fig. 9's block (ideal and the gate die) and at
+     kernel_bench's 512×2048, R=20, the head kernels at kernel_bench's
      shape for R = 4, 16, 20, 64 (paper with the ADC at R = 20) and at
      the UQ path's shape (B=64, K=64, N=2, R=20; the head entries'
      ``path``).  The entries name their design and the launch plan each
@@ -122,8 +131,8 @@ SAR_HEAD = dict(b=64, k=64, n=2)
 UQ_R = 20
 UQ_BATCHES = 16                      # Fig. 16: 16 batches of 64 images
 FIG9 = dict(n_rows=256, n_cols=256, num_samples=8)
-# The two main-path kernels were redesigned for Hopper.  The previous
-# design's times at the same shapes (PERF.md §6: chip_smoke.py,
+# The kernels were redesigned for Hopper.  The previous design's times
+# at the same shapes (PERF.md §6: chip_smoke.py,
 # CUDA-graph replay, on the card named here), printed as constants on
 # the ``previous_design`` line, apart from this run's measurements; the
 # old kernels are not timed here.
@@ -131,6 +140,13 @@ DESIGN = {"decision_stats": "small-N variant: a thread per (sample, class) "
                             "pair; streaming passes for N > 32",
           "cim_mvm": "tiles to the shape; chunks split over a thread-block "
                      "cluster, folded in order",
+          "grng_eps": "two cells a thread (rows k, k + 8), 32 columns by 16 "
+                      "rows a block; column prefixes from a per-block table "
+                      "and currents, imprint and read-noise terms from "
+                      "per-block tables by (top bit, byte sum): one mix32, "
+                      "a dp4a and a shared load a current; 0/1 selection "
+                      "stages as fused multiply-adds; predicated streaming "
+                      "stores",
           "bayes_head": "tile to the shape; each current hashed once per "
                         "tile by the whole block into a generated weight "
                         "tile; K chunks walked and folded in order; paper "
@@ -145,7 +161,7 @@ PREV_HEAD_MS = {
                      "path_r20": 0.0255},
     "bayes_paper": {"r4": 0.0895, "r16": 0.154, "r20": 0.234, "r64": 0.289,
                     "adc_r20": 0.245, "path_r20": 0.0323}}
-NO_SPILL = ("cim_mvm", "decision", "bayes_mvm")
+NO_SPILL = ("cim_mvm", "decision", "bayes_mvm", "grng_eps")
 # fixed-R serving above one decision launch's samples (MAX_SAMPLES = 64)
 FIXED_R = 100
 
@@ -469,6 +485,25 @@ def run_main_path() -> dict:
     return {"launches": launches}
 
 
+def sar_params(device: str, seed: int = 3 + STREAM["seed"]):
+    """The config and random params ``serve_sar`` makes (seed 3 + the
+    stream's seed), on ``device``."""
+    import torch
+    from repro_torch.models import sar_cnn
+    cfg = sar_cnn.SarCnnConfig()
+    return cfg, sar_cnn.init_sar_cnn(torch.Generator().manual_seed(seed), cfg,
+                                     device=device)
+
+
+def serving_head_cfg():
+    """The head config ``make_sar_engine`` deploys a die's head with."""
+    import torch
+    from repro_torch.core.sampling import BayesHeadConfig
+    return BayesHeadConfig(num_samples=POLICY["r_max"], mode="rank16",
+                           grng=sar_params("cpu")[0].grng,
+                           compute_dtype=torch.float32, hoist_basis=True)
+
+
 def run_chip_path() -> dict:
     """The chip-instance main path on the card, and its cross-checks."""
     from repro_torch.kernels.cim import cim_mvm
@@ -522,6 +557,10 @@ def run_chip_path() -> dict:
                       **dict(kw, calibrated=False))
     check(uncal["requests"] == 192 and not uncal["calibrated"],
           "the uncalibrated die did not serve every request")
+    emit({"deploy_card_vs_cpu": "the gate die's serving head (rank16, "
+                                "hoisted basis), card against CPU",
+          **deploy_gap(sar_params("cpu")[1]["head"], serving_head_cfg(),
+                       die)})
     card_vs_cpu = {"main": chip_card_vs_cpu(kw, die),
                    "escalating": chip_card_vs_cpu(esc, die)}
     kinds = card_vs_cpu["escalating"]["decision_kinds"]
@@ -570,9 +609,7 @@ def trunk_code_flips(batches: list, die) -> tuple[int, int]:
     import torch
     from repro_torch.models import sar_cnn
     from repro_torch.serving.engine import _to_device
-    cfg = sar_cnn.SarCnnConfig()
-    params = sar_cnn.init_sar_cnn(
-        torch.Generator().manual_seed(3 + STREAM["seed"]), cfg)
+    cfg, params = sar_params("cpu")
     trunks = {"cpu": sar_cnn.program_trunk(params, cfg, die),
               "cuda": sar_cnn.program_trunk(_to_device(params, "cuda"),
                                             cfg, die)}
@@ -690,40 +727,76 @@ def head_call(kind: str, c: dict, plain: bool = False):
               qcfg, **kw)
 
 
-def run_grng_checks() -> dict:
+def eps_case(k, n, r, *, die=False, grng=None, row0=0, col0=0, sample0=0,
+             mixed_sel=False):
+    """Arguments of one ε block on the card under ``GRNGConfig(**grng)``
+    (or the gate die's view of ``GRNGConfig()`` when ``die``): the
+    selections of samples ``sample0 % 4096`` ... (the LFSR is walked from
+    its start, so samples past 2^32 take earlier selections; the read
+    noise is keyed on ``sample0`` itself); ``mixed_sel`` overwrites two
+    rows with values other than 0 and 1, which take the kernel's product
+    chain."""
     import torch
     from repro_torch.core.clt_grng import GRNGConfig, selections
+    cfg = GRNGConfig(**(grng or {}))
+    if die:
+        cfg = gate_die().grng(cfg)
+    sel = selections(cfg, r, sample0 % 4096, device="cuda")
+    if mixed_sel:
+        gen = torch.Generator().manual_seed(9)
+        sel[1] = torch.rand(16, generator=gen).to(sel.device)
+        sel[r - 1] = torch.where(sel[r - 1] > 0, 0.5, -0.25)
+    return dict(sel=sel, cfg=cfg, n_rows=k, n_cols=n, row0=row0, col0=col0,
+                sample0=sample0)
+
+
+WRAP = 2**32
+# The ε kernel against its plain version: the three timed shapes, offsets
+# up to and past the 2^32 wrap, R = 1, R past one stage of 64 samples, an
+# aged die (imprint) and selection rows other than 0/1.
+EPS_CASES = {
+    "fig9_256x256_r8": dict(k=256, n=256, r=8),
+    "fig9_gate_die_256x256_r8": dict(k=256, n=256, r=8, die=True),
+    "bench_512x2048_r20": dict(k=512, n=2048, r=20),
+    "aged_200x130_r8_offsets": dict(
+        k=200, n=130, r=8, row0=16, col0=40, sample0=5,
+        grng=dict(read_sigma=0.5, imprint=0.37)),
+    "wrap_70x33_r64": dict(
+        k=70, n=33, r=64, row0=WRAP - 20, col0=WRAP - 7, sample0=WRAP - 30,
+        grng=dict(read_sigma=0.5, imprint=0.37)),
+    "past_wrap_37x45_r1": dict(k=37, n=45, r=1, row0=WRAP + 5,
+                               col0=2 * WRAP - 3, sample0=WRAP + 2,
+                               die=True),
+    "stages_20x40_r130": dict(k=20, n=40, r=130, sample0=3, die=True),
+    "mixed_sel_40x70_r12": dict(k=40, n=70, r=12, die=True, mixed_sel=True),
+}
+EPS_TIMED = ("fig9_256x256_r8", "fig9_gate_die_256x256_r8",
+             "bench_512x2048_r20")
+
+
+def run_grng_checks() -> None:
+    """The ε kernel against its plain version on every case of
+    EPS_CASES: equal bits (``torch.equal``), and two launches equal."""
+    import torch
     from repro_torch.kernels import grng
-    cases = {
-        "fig9_256x256_r8": dict(cfg=GRNGConfig(), k=256, n=256, r=8,
-                                row0=0, col0=0, sample0=0),
-        "die_200x130_r8_offsets": dict(
-            cfg=GRNGConfig(read_sigma=0.5, imprint=0.37), k=200, n=130, r=8,
-            row0=16, col0=40, sample0=5),
-    }
-    worst, unequal, inputs = 0.0, 0, {}
-    for name, c in cases.items():
-        sel = selections(c["cfg"], c["r"], c["sample0"], device="cuda")
-        kw = dict(row0=c["row0"], col0=c["col0"], sample0=c["sample0"])
-        got = grng.grng_eps(sel, c["cfg"], c["k"], c["n"], **kw)
-        want = grng.grng_eps_plain(sel, c["cfg"], c["k"], c["n"], **kw)
-        again = grng.grng_eps(sel, c["cfg"], c["k"], c["n"], **kw)
+    for name, spec in EPS_CASES.items():
+        c = eps_case(**spec)
+        got = grng.grng_eps(**c)
+        want = grng.grng_eps_plain(**c)
+        again = grng.grng_eps(**c)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
         n_unequal = int((got != want).sum())
-        check(torch.allclose(got, want, rtol=0, atol=1e-5),
-              f"GRNG ε kernel != plain version: {name} ({err})")
+        check(torch.equal(got, want), f"GRNG ε kernel != plain version: "
+              f"{name} ({n_unequal} elements differ, largest by "
+              f"{float((got - want).abs().max())})")
         identical = torch.equal(got, again)
         check(identical, f"two ε launches differ: {name}")
-        worst, unequal = max(worst, err), unequal + n_unequal
-        inputs[name] = dict(sel=sel, cfg=c["cfg"], n_rows=c["k"],
-                            n_cols=c["n"], **kw)
-        emit({"kernel_check": "grng_eps", "case": name, "K": c["k"],
-              "N": c["n"], "R": c["r"], "max_abs_err": err,
-              "unequal_elements": n_unequal, "elements": got.numel(),
-              "atol": 1e-5, "bit_identical_relaunch": identical})
-    return {"max_abs_err": worst, "unequal_elements": unequal,
-            "inputs": inputs}
+        emit({"kernel_check": "grng_eps", "case": name, "K": c["n_rows"],
+              "N": c["n_cols"], "R": c["sel"].shape[0],
+              "offsets": [c["row0"], c["col0"], c["sample0"]],
+              "read_sigma": c["cfg"].read_sigma, "imprint": c["cfg"].imprint,
+              "equal": True, "elements": got.numel(),
+              "bit_identical_relaunch": identical})
 
 
 def run_head_checks() -> dict:
@@ -807,27 +880,73 @@ def uq_batches(device: str, n: int = UQ_BATCHES) -> dict:
 
 
 def uq_params(device: str):
-    import torch
-    from repro_torch.models import sar_cnn
-    cfg = sar_cnn.SarCnnConfig()
-    return cfg, sar_cnn.init_sar_cnn(torch.Generator().manual_seed(3), cfg,
-                                     device=device)
+    return sar_params(device, seed=3)
 
 
 def die_head(params, cfg, mode: str, die):
-    """The gate die's calibrated head, deployed on the host (as the
-    serving engine deploys it) and moved to the params' device."""
+    """The gate die's calibrated head, deployed on the params' device (as
+    the serving engine deploys it on its own)."""
     import torch
     from repro_torch.core.bayes_layer import sigma_of
     from repro_torch.core.sampling import BayesHeadConfig
     from repro_torch.hw import prepare_instance_head
-    host = {k: v.cpu() for k, v in params["head"].items()}
     hcfg = BayesHeadConfig(num_samples=UQ_R, mode=mode, grng=cfg.grng,
                            compute_dtype=torch.float32)
-    head, scfg = prepare_instance_head(host["mu"], sigma_of(host), hcfg,
-                                       die, calibrated=True)
-    dev = params["head"]["mu"].device
-    return {k: v.to(dev) for k, v in head.items()}, scfg
+    return prepare_instance_head(params["head"]["mu"],
+                                 sigma_of(params["head"]), hcfg, die,
+                                 calibrated=True)
+
+
+def float_ulps(a: float, b: float) -> int:
+    """How many float32 values apart two float32 numbers of one sign
+    are."""
+    import struct
+
+    def bits(x):
+        return struct.unpack("<i", struct.pack("<f", x))[0]
+    return abs(bits(a) - bits(b))
+
+
+def deploy_gap(head: dict, hcfg, die) -> dict:
+    """The die's calibrated head deployed by ``prepare_instance_head`` on
+    the card and on the CPU from the same host params ``head``: the
+    measured constants of each and their distance in float32 steps, the
+    largest difference of each deployed array, and, deployed again with
+    the 8-bit µ' / 4-bit σ quantization, the codes that differ (by more
+    than half a column's step, not a last bit)."""
+    import dataclasses
+    from repro_torch.core.bayes_layer import sigma_of
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.hw import prepare_instance_head
+    mu, sigma = head["mu"].cpu(), sigma_of(head).cpu()
+
+    def deployed(qcfg):
+        cfg = dataclasses.replace(hcfg, quant=qcfg)
+        (card, card_cfg), (cpu, cpu_cfg) = (
+            prepare_instance_head(mu.to(d), sigma.to(d), cfg, die,
+                                  calibrated=True) for d in ("cuda", "cpu"))
+        check(all(v.device.type == "cuda" for v in card.values()),
+              "the card's deployment left the card")
+        gap = {k: float((card[k].cpu() - v).abs().max())
+               for k, v in cpu.items()}
+        return card, cpu, card_cfg.grng, cpu_cfg.grng, gap
+
+    _, _, g_card, g_cpu, gap = deployed(QuantConfig(enabled=False))
+    qcfg = QuantConfig(enabled=True)
+    card, cpu, _, _, qgap = deployed(qcfg)
+    flips = 0
+    for key, levels in (("mu_prime", 2 ** (qcfg.mu_bits - 1) - 1),
+                        ("sigma", 2 ** qcfg.sigma_bits - 1)):
+        step = cpu[key].abs().amax(dim=0, keepdim=True) / levels
+        flips += int(((card[key].cpu() - cpu[key]).abs() > 0.5 * step).sum())
+    return {"sum_mean": [g_card.sum_mean, g_cpu.sum_mean],
+            "sum_std": [g_card.sum_std, g_cpu.sum_std],
+            "constants_ulps": [float_ulps(g_card.sum_mean, g_cpu.sum_mean),
+                               float_ulps(g_card.sum_std, g_cpu.sum_std)],
+            "max_abs_diff": gap,
+            "quantized": {"max_abs_diff": qgap, "code_flips": flips,
+                          "codes": cpu["mu_prime"].numel()
+                          + cpu["sigma"].numel()}}
 
 
 def sample_uq(params, cfg, batches: dict, die=None) -> dict:
@@ -934,10 +1053,16 @@ def uq_card_vs_cpu(results: dict, die) -> dict:
     samples of them: equal predictions, confidence within 1e-5 (1e-3
     on the die if its trunk flipped an ADC code between the two)."""
     import torch
+    from repro_torch.core.sampling import BayesHeadConfig
     from repro_torch.core.uncertainty import predictive_stats
     from repro_torch.models import sar_cnn
     cfg, params = uq_params("cpu")
     batches = uq_batches("cpu", n=1)
+    emit({"deploy_card_vs_cpu": "the gate die's UQ heads, card against CPU",
+          **{m: deploy_gap(params["head"], BayesHeadConfig(
+              num_samples=UQ_R, mode=m, grng=cfg.grng,
+              compute_dtype=torch.float32), die)
+             for m in ("rank16", "paper")}})
     out = {}
     for name, chip in (("ideal", None), ("gate_die", die)):
         cpu = sample_uq(params, cfg, batches, die=chip)
@@ -1353,29 +1478,54 @@ def head_bound(kind: str, b: int, k: int, n: int, r: int, cfg,
     return bound_line(nbytes, ops, hashes)
 
 
-def head_timing(uq_launches: dict, fig9: dict, grng_checks: dict,
+def eps_timing() -> list[dict]:
+    """Device and eager times of the ε kernel and of its plain version at
+    the shapes of EPS_TIMED, each beside its bound."""
+    from repro_torch.kernels import grng
+    shapes = []
+    for name in EPS_TIMED:
+        c = eps_case(**EPS_CASES[name])
+        t = timed(lambda: grng.grng_eps(**c),
+                  lambda: grng.grng_eps_plain(**c))
+        k, n, r = c["n_rows"], c["n_cols"], c["sel"].shape[0]
+        shapes.append({"case": name, "K": k, "N": n, "R": r,
+                       "read_sigma": c["cfg"].read_sigma,
+                       "imprint": c["cfg"].imprint, **t,
+                       **grng_bound(k, n, r, c["cfg"])})
+        emit({"timing": "grng_eps", **shapes[-1]})
+    return shapes
+
+
+def head_timing(uq_launches: dict, fig9: dict,
                 head_checks: dict) -> list[dict]:
-    """The kernels-line entries of the ε and head kernels: ε at Fig. 9's
-    block, the head kernels at kernel_bench's shape for every R (paper
-    also with the ADC at R=20); the R=20 entry is the headline."""
+    """The kernels-line entries of the ε and head kernels: ε at its three
+    timed shapes (Fig. 9's block the headline), the head kernels at
+    kernel_bench's shape for every R (paper also with the ADC at R=20);
+    the R=20 entry is the headline."""
     import torch
-    from repro_torch.kernels import bayes, grng
-    g9 = grng_checks["inputs"]["fig9_256x256_r8"]
-    t = timed(lambda: grng.grng_eps(**g9), lambda: grng.grng_eps_plain(**g9))
+    from repro_torch.kernels import bayes
+    shapes = eps_timing()
+    first = shapes[0]
     eps_line = {
         "name": "grng_eps", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/grng_eps.cu",
         "replaces": "src/repro/kernels/clt_grng_kernel.py:103",
+        "design": DESIGN["grng_eps"],
         "launches": fig9["launches"],
         "launches_on": "the Fig. 9 path (ops.grng_eps at 256x256x8)",
-        "max_abs_err": grng_checks["max_abs_err"],
-        "unequal_elements": grng_checks["unequal_elements"],
-        "shape": "K=256 N=256 R=8 (Fig. 9's block)",
-        **t, "kernel_ms": t["ms"],
-        **grng_bound(256, 256, 8, g9["cfg"]), "library_ms": None,
+        "max_abs_err": 0.0, "bit_equal": True,
+        "shape": "K=256 N=256 R=8 (Fig. 9's block), ideal die; the gate "
+                 "die's view and kernel_bench's 512x2048 R=20 under "
+                 "'shapes'",
+        **{k: first[k] for k in ("ms", "plain_ms", "call_ms",
+                                 "replayed_calls", "plain_timing",
+                                 "bound_ms", "bound_by", "bound_bytes",
+                                 "bound_ops", "hash3_evals")},
+        "kernel_ms": first["ms"], "library_ms": None,
         "library_note": "no single PyTorch call hashes the device currents",
         "timing": "ms and plain_ms: device time per call from CUDA graph "
-                  "replays; call_ms: eager calls, host included"}
+                  "replays; call_ms: eager calls, host included",
+        "shapes": shapes}
     launches = {k: uq_launches["ideal"][k] + uq_launches["gate_die"][k]
                 for k in ("bayes_rank16", "bayes_paper")}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1540,7 +1690,7 @@ def main() -> int:
 
     worst, inputs = run_kernel_checks()
     cim_summary, cim_inputs = run_cim_checks()
-    grng_checks = run_grng_checks()
+    run_grng_checks()
     head_checks = run_head_checks()
     main_path = run_main_path()
     chip_path = run_chip_path()
@@ -1551,8 +1701,7 @@ def main() -> int:
     head_plan_sweep()
     run_timing(inputs, main_path["launches"], worst,
                cim_timing(cim_inputs, chip_path["launches"], cim_summary),
-               head_timing(uq_path["launches"], fig9, grng_checks,
-                           head_checks))
+               head_timing(uq_path["launches"], fig9, head_checks))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -21,6 +21,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import clt_grng as g
 from repro_torch.core import quant as q
 from repro_torch.core.offset import compensate_mu
@@ -35,11 +36,13 @@ _CALIB_CELLS = 2048
 _CALIB_SAMPLES = 64
 
 
-def measured_grng(icfg: g.GRNGConfig) -> g.GRNGConfig:
+def measured_grng(icfg: g.GRNGConfig, device=None) -> g.GRNGConfig:
     """The calibrated serving view: physical params + measured
     constants (mean and population SD, ddof 0, of the raw sums of
-    ``_CALIB_SAMPLES`` reads of ``_CALIB_CELLS`` cells)."""
-    raw = g.raw_sums(icfg, _CALIB_CELLS, 1, _CALIB_SAMPLES)
+    ``_CALIB_SAMPLES`` reads of ``_CALIB_CELLS`` cells), drawn on
+    ``device`` (None = the card, "cpu" on the CPU)."""
+    raw = g.raw_sums(icfg, _CALIB_CELLS, 1, _CALIB_SAMPLES,
+                     device=resolve_device(device))
     return dataclasses.replace(icfg, sum_mean=float(raw.mean()),
                                sum_std=float(raw.std(correction=0)))
 
@@ -57,12 +60,13 @@ def prepare_instance_head(mu: torch.Tensor, sigma: torch.Tensor,
     (measured constants when ``calibrated``).  ``cfg.mode`` may be
     'rank16' or 'paper'; the σ⊙I_j basis is hoisted (``hoist_basis``)
     for rank16 only.  ``instance=None`` is ``prepare_serving_head``.
+    Every step runs on µ's device, the measurement included.
     """
     if instance is None:
         return prepare_serving_head(mu, sigma, cfg), cfg
     icfg = instance.grng(cfg.grng)
     if calibrated:
-        scfg = measured_grng(icfg)
+        scfg = measured_grng(icfg, device=mu.device)
         mu_p = compensate_mu(mu, sigma, scfg, exact=False,
                              n_est=_CALIB_SAMPLES)
     else:

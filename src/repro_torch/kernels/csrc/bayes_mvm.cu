@@ -99,8 +99,11 @@
 
 namespace {
 
+using repro_torch::col_prefix;
+using repro_torch::current;
+using repro_torch::gauss_bytes;
 using repro_torch::GrngParams;
-using repro_torch::mix32;
+using repro_torch::row_hash;
 
 constexpr int kChunk = 64;            // ADC accumulation depth, K step
 constexpr int kXStride = kChunk + 4;  // padded x row: 16-byte aligned
@@ -179,44 +182,6 @@ __host__ __device__ inline Layout layout(bool paper, int tn, int tb,
   l.acc = at;  at += quad(tb * l.acols);            // sums [b][col]
   l.total = at;
   return l;
-}
-
-// gauss_of (hash.cuh) with each byte turned into a float by its bit
-// pattern: 0x4B0000bb is 2^23 + bb exactly, so b0 + b1 = f0 + (f1 - 2^24)
-// and the sum b0 + b1 + b2 - 382.5 are exact, as in gauss_of, and one
-// rounding (times the scale) follows: the same bits, without int->float
-// conversions.
-__device__ __forceinline__ float gauss_bytes(uint32_t h) {
-  const float f0 = __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7440));
-  const float f1 = __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7441));
-  const float f2 = __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7442));
-  const float b01 = __fadd_rn(f0, __fadd_rn(f1, -16777216.f));
-  const float sum = __fadd_rn(b01, __fadd_rn(f2, -8388608.f));
-  return __fmul_rn(__fadd_rn(sum, -382.5f), 0x1.00038p-7f);
-}
-
-// hash3(k, n, j, seed) = mix32(k*0x9E3779B9 + prefix(n, j, seed)): the
-// prefix depends on the column and the device (or sample) only.
-__device__ __forceinline__ uint32_t col_prefix(uint32_t n, uint32_t j,
-                                               uint32_t seed) {
-  return mix32(n * 0x85EBCA6Bu + mix32(j * 0xC2B2AE35u + seed));
-}
-__device__ __forceinline__ uint32_t row_hash(uint32_t k, uint32_t prefix) {
-  return mix32(k * 0x9E3779B9u + prefix);
-}
-
-// device_current (hash.cuh) of row ``row`` from its column's prefixes;
-// kImprint: the die has an imprint term (p.imprint != 0).
-template <bool kImprint>
-__device__ __forceinline__ float current(uint32_t row, uint32_t pc,
-                                         uint32_t pi, const GrngParams& p) {
-  const uint32_t h = row_hash(row, pc);
-  float out = __fadd_rn(__fadd_rn(p.i_lo, (h >> 31) ? p.delta_i : 0.f),
-                        __fmul_rn(p.gamma, gauss_bytes(h)));
-  if constexpr (kImprint)
-    out = __fadd_rn(out, __fmul_rn(p.imprint,
-                                   gauss_bytes(row_hash(row, pi))));
-  return out;
 }
 
 // Runs f(std::true_type) or f(std::false_type) as ``on`` says, so that a

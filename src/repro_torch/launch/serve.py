@@ -81,10 +81,9 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
     ``chip_instance``: a ``hw.ChipInstance`` (or an int seed: one die
     from the default ``VariationSpec``).  The engine then serves fully
     on that die: the conv trunk on its nonideal CIM arrays, the head
-    deployed by ``prepare_instance_head`` (``calibrated`` selects the
-    per-chip recalibration over the golden factory transform; the
-    deployment is computed on the CPU, once, so every device serves the
-    same head).  The summary gains the die's metadata.
+    deployed by ``prepare_instance_head`` on ``device``, calibration
+    included (``calibrated`` selects the per-chip recalibration over the
+    golden factory transform).  The summary gains the die's metadata.
     """
     from repro_torch.models.sar_cnn import SarCnnConfig, init_sar_cnn
     cfg = cfg or SarCnnConfig()
@@ -104,9 +103,9 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
         base_hcfg = BayesHeadConfig(
             num_samples=policy.r_max, mode="rank16", grng=cfg.grng,
             compute_dtype=torch.float32, hoist_basis=True)
-        host_head = {k: v.cpu() for k, v in params["head"].items()}
+        dev_head = {k: v.to(device) for k, v in params["head"].items()}
         head, hcfg = prepare_instance_head(
-            host_head["mu"], sigma_of(host_head), base_hcfg,
+            dev_head["mu"], sigma_of(dev_head), base_hcfg,
             chip_instance, calibrated=calibrated)
         extra = {"chip_id": chip_instance.chip_id,
                  "chip_device_seed": chip_instance.device_seed,

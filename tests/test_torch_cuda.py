@@ -19,8 +19,12 @@ outputs.  The shapes cover every branch of ``kernels/cim.py``
 (one chunk, and several), N of 16, 32, 48, 64, 70 and 257, ragged M, K
 of 64 to 640, and x not 16-byte aligned; and every plan the kernel
 takes gives the bits of the one ``launch_plan`` picks.
-GRNG ε kernel: atol 1e-5 (tests/test_kernels.py:26); it rounds every
-step as the plain version does, so the elements are expected equal.
+GRNG ε kernel: equal bits (``torch.equal``): it rounds every step as
+the plain version does, and a 0/1 selection row's fused multiply-adds
+round as its product chain does (tests/test_torch_grng.py).
+The gate die's head deployed on the card (calibration included): the
+constants and arrays within 1e-6 of the CPU's deployment, no
+quantization code different.
 Head kernels (rank16, paper, paper with the ADC): rtol/atol 1e-4, as
 tests/test_kernels.py; they sum over K in their own order (an ADC code
 flipped by that order is counted and held to one LSB).  Every plan
@@ -239,14 +243,23 @@ def test_cim_wrapper_refuses_what_the_kernel_does_not_take(hopper):
                 QCFG)
 
 
-@pytest.mark.parametrize("case", [(256, 256, 8, 0, 0, 0), (200, 130, 8, 16, 40, 5),
-                                  (1, 1, 3, 3, 9, 11), (300, 70, 64, 0, 0, 100)])
+WRAP = 2**32
+
+
+@pytest.mark.parametrize("case", [
+    (256, 256, 8, 0, 0, 0), (200, 130, 8, 16, 40, 5), (1, 1, 3, 3, 9, 11),
+    (300, 70, 64, 0, 0, 100), (512, 2048, 20, 0, 0, 0), (37, 45, 1, 7, 3, 2),
+    (70, 33, 64, WRAP - 20, WRAP - 7, WRAP - 30),
+    (41, 90, 5, WRAP + 5, 2 * WRAP - 3, WRAP + 2), (20, 40, 130, 0, 0, 3)])
 @pytest.mark.parametrize("die", [False, True])
 def test_grng_eps_kernel_matches_plain(hopper, case, die):
+    """Bit for bit: Fig. 9's block, kernel_bench's ε block, ragged K and
+    N, R = 1 and R = 130 (three stages of samples), and offsets up to
+    and past the 2^32 wrap, on an ideal and an aged, noisy die."""
     k, n, r, row0, col0, sample0 = case
     cfg = (GRNGConfig(read_sigma=0.5, imprint=0.37) if die
            else GRNGConfig())
-    sel = selections(cfg, r, sample0, device=hopper)
+    sel = selections(cfg, r, sample0 % 4096, device=hopper)
     kw = dict(row0=row0, col0=col0, sample0=sample0)
     before = grng.grng_eps.launches
     got = grng.grng_eps(sel, cfg, k, n, **kw)
@@ -255,7 +268,65 @@ def test_grng_eps_kernel_matches_plain(hopper, case, die):
     torch.cuda.synchronize()
     assert grng.grng_eps.launches == before + 2
     assert torch.equal(got, again)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("die", [False, True])
+def test_grng_eps_kernel_product_chain(hopper, die):
+    """Selection rows holding values other than 0 and 1 (the kernel's
+    product chain), among 0/1 rows (its fused sums): bit for bit."""
+    cfg = (GRNGConfig(read_sigma=0.5, imprint=0.37) if die
+           else GRNGConfig())
+    gen = torch.Generator().manual_seed(4)
+    sel = selections(cfg, 12, 0, device=hopper)
+    sel[1] = torch.rand(16, generator=gen).to(hopper)
+    sel[5] = torch.where(sel[5] > 0, 0.5, -0.25)
+    sel[11] = -sel[11]
+    got = grng.grng_eps(sel, cfg, 40, 70, row0=3, col0=8, sample0=2)
+    want = grng.grng_eps_plain(sel, cfg, 40, 70, row0=3, col0=8, sample0=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_die_head_deployed_on_the_card(hopper, quant):
+    """The gate die's calibrated head deployed on the card against the
+    CPU's deployment: the measured constants to rtol 1e-6 and the arrays
+    to 1e-6, as tests/test_torch_hw.py holds the port to the reference
+    (a mean and an SD over 131,072 sums, reduced in another order); with
+    the 8-bit µ' / 4-bit σ quantization no code differs."""
+    import dataclasses
+
+    from repro_torch.core.bayes_layer import sigma_of
+    from repro_torch.hw import (VariationSpec, prepare_instance_head,
+                                sample_instances)
+    from repro_torch.models.sar_cnn import SarCnnConfig, init_sar_cnn
+    die = sample_instances(11, 1, VariationSpec().scaled(2.0))[0]
+    cfg = SarCnnConfig()
+    head = init_sar_cnn(torch.Generator().manual_seed(3), cfg)["head"]
+    hcfg = BayesHeadConfig(num_samples=20, mode="rank16", grng=cfg.grng,
+                           compute_dtype=torch.float32, hoist_basis=True,
+                           quant=QuantConfig(enabled=quant))
+    mu, sigma = head["mu"], sigma_of(head)
+    card, card_cfg = prepare_instance_head(mu.to(hopper), sigma.to(hopper),
+                                           hcfg, die)
+    cpu, cpu_cfg = prepare_instance_head(mu, sigma, hcfg, die)
+    assert dataclasses.replace(card_cfg.grng, sum_mean=0., sum_std=0.) == \
+        dataclasses.replace(cpu_cfg.grng, sum_mean=0., sum_std=0.)
+    torch.testing.assert_close(card_cfg.grng.sum_mean, cpu_cfg.grng.sum_mean,
+                               rtol=1e-6, atol=0)
+    torch.testing.assert_close(card_cfg.grng.sum_std, cpu_cfg.grng.sum_std,
+                               rtol=1e-6, atol=0)
+    assert set(card) == set(cpu)
+    for key, value in cpu.items():
+        assert card[key].device.type == "cuda", key
+        torch.testing.assert_close(card[key].cpu(), value, rtol=1e-6,
+                                   atol=1e-6, msg=key)
+    if quant:
+        for key, levels in (("mu_prime", 127), ("sigma", 15)):
+            step = cpu[key].abs().amax(dim=0, keepdim=True) / levels
+            flips = (card[key].cpu() - cpu[key]).abs() > 0.5 * step
+            assert int(flips.sum()) == 0, f"{key}: codes differ"
 
 
 def _rms(t):

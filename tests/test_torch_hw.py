@@ -137,7 +137,7 @@ def test_sums_eps_and_offset_estimate_match(seed):
 def test_measured_grng_constants(seed):
     jc = _degraded(seed)
     want = j_measured(jc, n_samples=64)
-    got = measured_grng(_port_grng(jc))
+    got = measured_grng(_port_grng(jc), device="cpu")
     np.testing.assert_allclose(got.sum_mean, want.sum_mean, rtol=1e-6)
     np.testing.assert_allclose(got.sum_std, want.sum_std, rtol=1e-6)
     assert dataclasses.replace(got, sum_mean=0.0, sum_std=0.0) == \
@@ -184,7 +184,7 @@ def _codes_j(mu, sigma, grng_j, calibrated, qcfg):
 
 def _codes_t(mu, sigma, grng_t, calibrated, qcfg):
     if calibrated:
-        scfg = measured_grng(grng_t)
+        scfg = measured_grng(grng_t, device=mu.device)
         mu_p = compensate_mu(mu, sigma, scfg, exact=False, n_est=64)
     else:
         mu_p = compensate_mu(mu, sigma, tg.GRNGConfig(), exact=True)
