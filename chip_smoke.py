@@ -8,7 +8,8 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 Phases (any failure ends the run with a non-zero exit; each prints a
 JSON line):
   1. the card (name and power limit from nvidia-smi), torch and CUDA
-     versions; TF32 is switched off for matmuls and convolutions;
+     versions; TF32 is switched off for matmuls and convolutions (a belt:
+     the port pins its convolutions and products to float32 itself);
   2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
      one process per source, all started together; ptxas must report no
      spill in any kernel;
@@ -59,9 +60,9 @@ JSON line):
      ideal, with read noise and (paper) with the 6-bit ADC (rtol/atol
      1e-4; an ADC code flipped by the K order is counted and held to one
      LSB); run-to-run bit identity; wrapper refusals;
-  7. the SAR UQ path (Fig. 16's batches and R, on the float trunk: the
-     reference's this-work row runs the ``cim_execution`` trunk, not
-     ported yet): ``logit_samples_serve`` at
+  7. the SAR UQ path (Fig. 16's batches and R, untrained params, on the
+     float trunk; the trained detector's Fig. 16 rows, this work on the
+     ``cim_execution`` trunk, are 7d): ``logit_samples_serve`` at
      R=20 in rank16 and in paper mode over 16 batches of 64 SARD images
      (``batch_at(SardConfig(image_size=32, seed=7), 10000+i, 64)``),
      clean and fog severity 1.0, then ``uq_report``; again on the gate
@@ -75,11 +76,31 @@ JSON line):
      the Fig. 9 path (``ops.grng_eps`` at
      256×256×8, one ε launch; ``calibrate``; ``distribution_sample``'s
      mean and SD);
+  7b. training (``mission.detector.trained_detector``, into a temporary
+     directory; nothing is written in the repository): N_SHORT steps on
+     the card and on the CPU from one seed (per-step ce within
+     TRAIN_CE_ATOL, params within TRAIN_PARAM_ATOL, ε launches equal to
+     the steps); PROFILE_STEPS steps under ``torch.profiler`` (wall per
+     step, device idle share); no host sync a step (counted by
+     ``torch.cuda.set_sync_debug_mode``); the reference's default run
+     (1600 steps, batch 64, snow, severity ≤ 0.5) timed, its ce/acc,
+     1600 ε launches, and its cache restored bit for bit;
+  7c. the trained detector served (``serve_sar(params=trained)``) on the
+     ideal die and the gate die under (0.7, 0.05) and (0.55, 0.05):
+     samples per decision (mean and histogram), flag fraction,
+     decisions/s; card and CPU decide alike request for request; under
+     (0.7, 0.05) some requests are ACCEPTed and some go past r_min;
+  7d. Fig. 16's three rows for the trained detector, 16 clean and 16
+     snow batches (severity 1.0), R = 20: CNN (the µ head, R = 1),
+     BNN-ideal (``logit_samples_ideal``), this work (the
+     ``cim_execution`` trunk with the rank16 and the paper head, one
+     head launch per batch and mode): accuracy, AURC, AECE, AMCE;
   8. kernel timing: device time from CUDA graph replays and per-call
      time of eager calls (CUDA events), beside the plain version's and
      the card's byte/flop bound: decision and CIM at the serving path's
      shapes, ε at Fig. 9's block (ideal and the gate die) and at
-     kernel_bench's 512×2048, R=20, the head kernels at kernel_bench's
+     kernel_bench's 512×2048, R=20 and at the training draw's 64×2,
+     R=1, the head kernels at kernel_bench's
      shape for R = 4, 16, 20, 64 (paper with the ADC at R = 20) and at
      the UQ path's shape (B=64, K=64, N=2, R=20; the head entries'
      ``path``).  The entries name their design and the launch plan each
@@ -92,7 +113,8 @@ JSON line):
      kernel that does no work, by the same replay (line
      ``launch_floor_ms``).  The previous design's times at the same
      shapes, constants from PERF.md and not timed here, stand on a line
-     of their own (``previous_design``);
+     of their own (``previous_design``).  The ε entry counts its launches
+     on the training path (one a step);
   9. last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the reference package.
 """
@@ -100,6 +122,7 @@ It imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -164,6 +187,18 @@ PREV_HEAD_MS = {
 NO_SPILL = ("cim_mvm", "decision", "bayes_mvm", "grng_eps")
 # fixed-R serving above one decision launch's samples (MAX_SAMPLES = 64)
 FIXED_R = 100
+# Training (mission/detector.trained_detector): a short run on the card
+# and on the CPU from one seed, held to TRAIN_CE_ATOL per step and to
+# TRAIN_PARAM_ATOL on the params at the end (the two devices sum the
+# convolutions in other orders; AdamW's normalized update carries a last
+# bit of a near-zero gradient component into the params at the scale of
+# lr); then the reference's default run (1600 steps) on the card.
+N_SHORT = 30
+TRAIN_CE_ATOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-3
+PROFILE_STEPS = 20
+# the escalating policy of the serving phases
+ESC_POLICY = dict(POLICY, conf_threshold=0.55)
 
 
 def kernel_spills(log: str) -> dict:
@@ -259,7 +294,8 @@ def run_kernel_checks() -> tuple[float, dict]:
         err = max(float((got[k] - want[k]).abs().max()) for k in STAT_KEYS)
         for key in STAT_KEYS:
             check(torch.allclose(got[key], want[key], **TOL),
-                  f"decision kernel != plain version: {name} {key}")
+                  f"decision kernel != plain version: {name} {key} (max "
+                  f"abs diff {float((got[key] - want[key]).abs().max())})")
         masked = ~args["mask"]
         check(bool((got["sum_p"][masked] == 0).all()),
               f"masked slots advanced: {name}")
@@ -546,7 +582,7 @@ def run_chip_path() -> dict:
     plain = serve_sar(n_requests=192, device="cuda", fused=False, **kw)
     check(decision_stats.launches == 0, "fused=False launched the kernel")
     same_decisions(out, plain, "chip: fused vs fused=False on the card")
-    esc = dict(kw, policy=TriagePolicy(**dict(POLICY, conf_threshold=0.55)))
+    esc = dict(kw, policy=TriagePolicy(**ESC_POLICY))
     esc_f = serve_sar(n_requests=192, device="cuda", **esc)
     esc_p = serve_sar(n_requests=192, device="cuda", fused=False, **esc)
     same_decisions(esc_f, esc_p,
@@ -599,17 +635,19 @@ def card_run_with_batches(n_requests: int, kw: dict) -> tuple[dict, list]:
     return out, batches
 
 
-def trunk_code_flips(batches: list, die) -> tuple[int, int]:
+def trunk_code_flips(batches: list, die, params=None) -> tuple[int, int]:
     """(outputs off by an ADC code, outputs) between the card's and the
     CPU's conv trunk on the gate die over ``batches``: each device runs
-    the trunk on its own activations, as its engine does, from the
-    params ``serve_sar`` makes.  Float order moves an output by ~1e-6, a
-    flipped code by one LSB (more than CIM_TOL's atol); a flip also
-    moves the outputs downstream of it, which count too."""
+    the trunk on its own activations, as its engine does, from
+    ``params`` (default: the params ``serve_sar`` makes).  Float order
+    moves an output by ~1e-6, a flipped code by one LSB (more than
+    CIM_TOL's atol); a flip also moves the outputs downstream of it,
+    which count too."""
     import torch
     from repro_torch.models import sar_cnn
     from repro_torch.serving.engine import _to_device
-    cfg, params = sar_params("cpu")
+    cfg, params = sar_params("cpu") if params is None else (
+        sar_params("cpu")[0], _to_device(params, "cpu"))
     trunks = {"cpu": sar_cnn.program_trunk(params, cfg, die),
               "cuda": sar_cnn.program_trunk(_to_device(params, "cuda"),
                                             cfg, die)}
@@ -631,7 +669,7 @@ def chip_card_vs_cpu(kw: dict, die) -> dict:
     from repro_torch.launch.serve import serve_sar
     card, batches = card_run_with_batches(64, kw)
     cpu = serve_sar(n_requests=64, device="cpu", **kw)
-    flips, outputs = trunk_code_flips(batches, die)
+    flips, outputs = trunk_code_flips(batches, die, kw.get("params"))
     atol = CIM_CPU_ATOL if flips else TOL["atol"]
     same_decisions(card, cpu, f"chip: card vs CPU ({flips} trunk "
                    f"outputs off by an ADC code)", atol=atol)
@@ -728,20 +766,26 @@ def head_call(kind: str, c: dict, plain: bool = False):
 
 
 def eps_case(k, n, r, *, die=False, grng=None, row0=0, col0=0, sample0=0,
-             mixed_sel=False):
+             mixed_sel=False, indexed=False):
     """Arguments of one ε block on the card under ``GRNGConfig(**grng)``
     (or the gate die's view of ``GRNGConfig()`` when ``die``): the
     selections of samples ``sample0 % 4096`` ... (the LFSR is walked from
     its start, so samples past 2^32 take earlier selections; the read
-    noise is keyed on ``sample0`` itself); ``mixed_sel`` overwrites two
-    rows with values other than 0 and 1, which take the kernel's product
-    chain."""
+    noise is keyed on ``sample0`` itself), or with ``indexed`` the
+    training draw's one selection ``lfsr.indexed_selections(lfsr_seed,
+    sample0)``; ``mixed_sel`` overwrites two rows with values other than
+    0 and 1, which take the kernel's product chain."""
     import torch
+    from repro_torch.core import lfsr
     from repro_torch.core.clt_grng import GRNGConfig, selections
     cfg = GRNGConfig(**(grng or {}))
     if die:
         cfg = gate_die().grng(cfg)
-    sel = selections(cfg, r, sample0 % 4096, device="cuda")
+    if indexed:
+        sel = lfsr.indexed_selections(cfg.lfsr_seed, torch.full(
+            (r,), sample0, dtype=torch.int64, device="cuda"))
+    else:
+        sel = selections(cfg, r, sample0 % 4096, device="cuda")
     if mixed_sel:
         gen = torch.Generator().manual_seed(9)
         sel[1] = torch.rand(16, generator=gen).to(sel.device)
@@ -769,9 +813,11 @@ EPS_CASES = {
                                die=True),
     "stages_20x40_r130": dict(k=20, n=40, r=130, sample0=3, die=True),
     "mixed_sel_40x70_r12": dict(k=40, n=70, r=12, die=True, mixed_sel=True),
+    # the training draw: the SAR head's block at one step's selection
+    "train_64x2_r1": dict(k=64, n=2, r=1, sample0=799, indexed=True),
 }
 EPS_TIMED = ("fig9_256x256_r8", "fig9_gate_die_256x256_r8",
-             "bench_512x2048_r20")
+             "bench_512x2048_r20", "train_64x2_r1")
 
 
 def run_grng_checks() -> None:
@@ -865,15 +911,17 @@ def run_head_checks() -> dict:
 # ----------------------------------------------------------------------
 # the SAR UQ path (Fig. 16) and the Fig. 9 path
 # ----------------------------------------------------------------------
-def uq_batches(device: str, n: int = UQ_BATCHES) -> dict:
-    """Fig. 16's test batches: {condition: [(images, labels), ...]}."""
+def uq_batches(device: str, n: int = UQ_BATCHES,
+               corruption: str = "fog") -> dict:
+    """Fig. 16's test batches: {condition: [(images, labels), ...]},
+    clean and corrupted at severity 1.0."""
     from repro_torch.data.sard import SardConfig, batch_at, corrupted_batch
     dcfg = SardConfig(image_size=32, seed=7)
-    out = {"clean": [], "fog": []}
+    out = {"clean": [], corruption: []}
     for i in range(n):
         clean = batch_at(dcfg, 10_000 + i, 64)
-        fog = corrupted_batch(dcfg, 10_000 + i, 64, "fog", 1.0)
-        for cond, data in (("clean", clean), ("fog", fog)):
+        dirty = corrupted_batch(dcfg, 10_000 + i, 64, corruption, 1.0)
+        for cond, data in (("clean", clean), (corruption, dirty)):
             out[cond].append((data["images"].to(device),
                               data["labels"].to(device)))
     return out
@@ -1125,6 +1173,309 @@ def run_fig9_path() -> dict:
     emit({"fig9_path": "ops.grng_eps + calibrate + distribution_sample",
           **out})
     return out
+
+
+# ----------------------------------------------------------------------
+# training (mission/detector) and the trained detector
+# ----------------------------------------------------------------------
+def run_train_path() -> dict:
+    """``trained_detector`` on the card: N_SHORT steps on the card and on
+    the CPU from one seed (per-step ce and the params compared, one ε
+    launch a step), a profile of PROFILE_STEPS steps, then the
+    reference's default run (1600 steps, batch 64, snow, severity ≤ 0.5)
+    timed, restored from its cache and compared bit for bit.  Everything
+    is written under a temporary directory."""
+    import tempfile
+    import torch
+    from repro_torch.ckpt import restore
+    from repro_torch.kernels import grng
+    from repro_torch.mission import detector
+    from repro_torch.utils.trees import leaves
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            torch.cuda.synchronize()
+            grng.grng_eps.launches = 0
+            t0 = time.perf_counter()
+            params, _ = detector.trained_detector(
+                steps=N_SHORT, ckpt_dir=tmp / f"short_{dev}", device=dev)
+            torch.cuda.synchronize()
+            runs[dev] = {"params": params, "wall_s": time.perf_counter() - t0,
+                         "launches": grng.grng_eps.launches,
+                         "history": restore(tmp / f"short_{dev}")[0][
+                             "history"]}
+        check(runs["cuda"]["launches"] == N_SHORT,
+              f"short run: {runs['cuda']['launches']} ε launches for "
+              f"{N_SHORT} steps")
+        check(runs["cpu"]["launches"] == 0, "the CPU run launched ε")
+        check(all(p.device.type == "cuda"
+                  for p in leaves(runs["cuda"]["params"])),
+              "the card's trained params left the card")
+        ce = {d: [float(x) for x in r["history"]["ce"]]
+              for d, r in runs.items()}
+        ce_gap = max(abs(a - b) for a, b in zip(ce["cuda"], ce["cpu"]))
+        param_gap = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            leaves(runs["cuda"]["params"]), leaves(runs["cpu"]["params"])))
+        check(ce_gap <= TRAIN_CE_ATOL, f"short run: ce gap {ce_gap}")
+        check(param_gap <= TRAIN_PARAM_ATOL,
+              f"short run: param gap {param_gap}")
+        emit({"train_short": "trained_detector(steps=N_SHORT), card and CPU",
+              "steps": N_SHORT, "eps_launches": runs["cuda"]["launches"],
+              "ce_card": ce["cuda"], "ce_cpu": ce["cpu"],
+              "max_ce_gap": ce_gap, "ce_atol": TRAIN_CE_ATOL,
+              "max_param_gap": param_gap, "param_atol": TRAIN_PARAM_ATOL,
+              "wall_s_card": runs["cuda"]["wall_s"],
+              "wall_s_cpu": runs["cpu"]["wall_s"]})
+        out["profile"] = train_profile()
+        out["syncs"] = train_host_syncs()
+
+        grng.grng_eps.launches = 0
+        steps = detector.TRAIN_STEPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, cfg = detector.trained_detector(ckpt_dir=tmp / "full")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = grng.grng_eps.launches
+        check(launches == steps, f"full run: {launches} ε launches for "
+              f"{steps} steps")
+        tree, step = restore(tmp / "full")
+        again, _ = detector.trained_detector(ckpt_dir=tmp / "full")
+        check(grng.grng_eps.launches == steps, "the restore retrained")
+        check(step == steps and all(
+            a.device.type == "cuda" and a.dtype == b.dtype
+            and torch.equal(a, b) for a, b in zip(leaves(params),
+                                                  leaves(again))),
+              "the restored params differ from the trained ones")
+        hist = {k: [float(x) for x in v] for k, v in tree["history"].items()}
+        check(all(math.isfinite(x) for x in hist["ce"]),
+              "non-finite training ce")
+        tail = slice(steps - 100, steps)
+        last_ce = sum(hist["ce"][tail]) / 100
+        last_acc = sum(hist["acc"][tail]) / 100
+        check(last_ce < hist["ce"][0], f"training did not lower ce: "
+              f"{hist['ce'][0]} -> {last_ce}")
+        emit({"train_full": "trained_detector() on the card (1600 steps, "
+                            "batch 64, snow, severity <= 0.5)",
+              "steps": steps, "eps_launches": launches, "wall_s": wall,
+              "ms_per_step_wall": wall / steps * 1e3,
+              "ce_first": hist["ce"][0], "acc_first": hist["acc"][0],
+              "ce_final": hist["ce"][-1], "acc_final": hist["acc"][-1],
+              "ce_last100_mean": last_ce, "acc_last100_mean": last_acc,
+              "kl_final": hist["kl"][-1],
+              "ce_every_400": hist["ce"][::400],
+              "acc_every_400": hist["acc"][::400],
+              "restored_bit_equal": True})
+    out.update(params=params, cfg=cfg, short_launches=N_SHORT,
+               full_launches=launches, full_wall_s=wall)
+    return out
+
+
+def train_profile() -> dict:
+    """PROFILE_STEPS training steps of ``train_detector`` on the card
+    under ``torch.profiler`` (host data making included, as the loop
+    runs it): wall per step, device busy and idle share, kernels per
+    step, the ε kernel's device time a launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_serve import _union_us
+    from repro_torch.mission import detector
+    from repro_torch.models.sar_cnn import SarCnnConfig
+    cfg = SarCnnConfig()
+    detector.train_detector(cfg, steps=3, device="cuda")          # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        detector.train_detector(cfg, steps=PROFILE_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(kernels, "the profiler recorded no device kernels")
+    busy = _union_us((e.time_range.start, e.time_range.end)
+                     for e in kernels)
+    eps = [e.time_range.elapsed_us() for e in kernels
+           if "grng_eps" in e.name]
+    check(len(eps) == PROFILE_STEPS,
+          f"profile: {len(eps)} ε kernels in {PROFILE_STEPS} steps")
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"steps": PROFILE_STEPS, "wall_ms_per_step": wall_us / 1e3
+           / PROFILE_STEPS, "device_busy_ms_per_step": busy / 1e3
+           / PROFILE_STEPS, "device_idle_share": 1 - busy / wall_us,
+           "kernels_per_step": len(kernels) / PROFILE_STEPS,
+           "eps_kernel_us_per_launch": sum(eps) / len(eps),
+           "top_kernels_us": {k[:60]: v for k, v in top}}
+    emit({"train_profile": "train_detector under torch.profiler "
+                           "(includes init and host batch making)", **out})
+    return out
+
+
+def train_host_syncs() -> dict:
+    """The training loop's host syncs: ``train_detector`` for 5 and for
+    10 steps under ``torch.cuda.set_sync_debug_mode("warn")``, counting
+    the synchronizing calls it reports (after a warm-up run, whose first
+    calls sync once more).  Both runs make their params and log (step 0)
+    alike, so the difference over the 5 extra steps is the syncs a step
+    makes, which must not be above 0.  The lines that synced are
+    listed."""
+    import warnings
+    import torch
+    from repro_torch.mission import detector
+    from repro_torch.models.sar_cnn import SarCnnConfig
+    detector.train_detector(SarCnnConfig(), steps=2, device="cuda")
+    counts, where = {}, set()
+    for steps in (5, 10):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                detector.train_detector(SarCnnConfig(), steps=steps,
+                                        device="cuda")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        synced = [w for w in caught if "synchroniz" in str(w.message)]
+        counts[steps] = len(synced)
+        where |= {f"{Path(w.filename).name}:{w.lineno}" for w in synced}
+    per_step = (counts[10] - counts[5]) / 5
+    out = {"syncs_5_steps": counts[5], "syncs_10_steps": counts[10],
+           "syncs_per_step": per_step, "synced_at": sorted(where)}
+    emit({"train_host_syncs": "torch.cuda.set_sync_debug_mode('warn') "
+                              "over train_detector", **out})
+    check(per_step <= 0, f"the training loop syncs {per_step} times a "
+          f"step ({counts})")
+    return out
+
+
+def samples_histogram(out: dict) -> dict:
+    hist: dict = {}
+    for v in out["verdicts"]:
+        hist[v["n_samples"]] = hist.get(v["n_samples"], 0) + 1
+    return {str(k): hist[k] for k in sorted(hist)}
+
+
+def run_trained_serving(params) -> dict:
+    """``serve_sar(params=trained)`` on the ideal die and on the gate
+    die under POLICY and under ESC_POLICY: 192 requests on the card
+    (counts zeroed before, read after), 64 on the card against 64 on the
+    CPU from the same trained params (the same decisions request for
+    request).  Under POLICY, over the two dies, some requests must be
+    ACCEPTed and some must go past r_min samples."""
+    from repro_torch.kernels.cim import cim_mvm
+    from repro_torch.kernels.decision import decision_stats
+    from repro_torch.launch.serve import serve_sar
+    from repro_torch.serving import TriagePolicy
+    from repro_torch.serving.triage import ACCEPT
+    die = gate_die()
+    out = {}
+    for die_name, chip in (("ideal", None), ("gate_die", die)):
+        for pol_name, pol in (("main", POLICY), ("escalating", ESC_POLICY)):
+            kw = dict(STREAM, policy=TriagePolicy(**pol), params=params,
+                      chip_instance=chip)
+            serve_sar(n_requests=32, device="cuda", **kw)        # warm-up
+            decision_stats.launches = cim_mvm.launches = 0
+            run = serve_sar(n_requests=192, device="cuda", **kw)
+            launches = decision_stats.launches
+            check(run["decisions"] == 192 and launches
+                  == run["rounds_launched"] > 0,
+                  f"trained {die_name}/{pol_name}: {run['decisions']} "
+                  f"decisions, {launches} decision launches")
+            check(cim_mvm.launches == (3 * run["admissions"] if chip
+                                       else 0),
+                  f"trained {die_name}: CIM launches {cim_mvm.launches}")
+            if chip is None:
+                card = serve_sar(n_requests=64, device="cuda", **kw)
+                cpu = serve_sar(n_requests=64, device="cpu", **kw)
+                same_decisions(card, cpu, f"trained {die_name}/{pol_name}: "
+                               "card vs CPU")
+                vs_cpu = {"requests": 64, "atol": TOL["atol"]}
+            else:
+                vs_cpu = chip_card_vs_cpu(kw, die)
+            accepted = sum(v["verdict"] == ACCEPT for v in run["verdicts"])
+            deep = sum(v["n_samples"] > pol["r_min"] for v in run["verdicts"])
+            out[(die_name, pol_name)] = (accepted, deep)
+            emit({"trained_serving": die_name, "policy": pol,
+                  "requests": run["requests"], "wall_s": run["wall_s"],
+                  "decisions_per_s_wall": run["decisions"] / run["wall_s"],
+                  "mean_samples_per_decision":
+                      run["mean_samples_per_decision"],
+                  "samples_histogram": samples_histogram(run),
+                  "flag_fraction": run["flag_fraction"],
+                  "accepted": accepted, "past_r_min": deep,
+                  "host_syncs_per_decision": run["host_syncs_per_decision"],
+                  "decision_kernel_launches": launches,
+                  "cim_kernel_launches": cim_mvm.launches,
+                  "card_vs_cpu": vs_cpu})
+    accepted = sum(out[(d, "main")][0] for d in ("ideal", "gate_die"))
+    deep = sum(out[(d, "main")][1] for d in ("ideal", "gate_die"))
+    check(accepted > 0 and deep > 0,
+          f"trained detector under {POLICY}: {accepted} accepted and "
+          f"{deep} past r_min over both dies (the untrained regime)")
+    return out
+
+
+def run_trained_uq(params) -> dict:
+    """Fig. 16's three rows for the trained detector over 16 clean and
+    16 snow batches (severity 1.0), R = 20: CNN (the µ head, R = 1),
+    BNN-ideal (``logit_samples_ideal``) and this work (the
+    ``cim_execution`` trunk, rank16 and paper heads: one head launch per
+    batch and mode); accuracy, AURC, AECE, AMCE."""
+    import dataclasses
+    import torch
+    from repro_torch.core.uncertainty import uq_report
+    from repro_torch.kernels import bayes
+    from repro_torch.models import sar_cnn
+    cfg = sar_cnn.SarCnnConfig()
+    batches = uq_batches("cuda", corruption="snow")
+    cnn_params = {"convs": params["convs"],
+                  "head": {"w": params["head"]["mu"],
+                           "b": torch.zeros_like(params["head"]["mu"][0])}}
+    cnn_cfg = dataclasses.replace(cfg, bayesian_head=False)
+    clt_cfg = dataclasses.replace(cfg, cim_execution=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = {"cnn": lambda im: sar_cnn.logit_samples_serve(
+                cnn_params, im, cnn_cfg, 1),
+            "bnn_ideal": lambda im: sar_cnn.logit_samples_ideal(
+                params, im, cfg, UQ_R, gen),
+            "this_rank16": lambda im: sar_cnn.logit_samples_serve(
+                params, im, clt_cfg, UQ_R, mode="rank16"),
+            "this_paper": lambda im: sar_cnn.logit_samples_serve(
+                params, im, clt_cfg, UQ_R, mode="paper")}
+    n_batches = sum(len(v) for v in batches.values())
+    torch.cuda.synchronize()
+    bayes.bayes_rank16.launches = bayes.bayes_paper.launches = 0
+    t0 = time.perf_counter()
+    reports = {}
+    for row, fn in rows.items():
+        reports[row] = {}
+        for cond, items in batches.items():
+            s = torch.cat([fn(images) for images, _ in items], dim=1)
+            r = 1 if row == "cnn" else UQ_R
+            check(tuple(s.shape) == (r, 64 * UQ_BATCHES, 2)
+                  and bool(torch.isfinite(s).all()),
+                  f"trained UQ {row} {cond}: samples {tuple(s.shape)}")
+            labels = torch.cat([lab for _, lab in items])
+            reports[row][cond] = {k: float(v) for k, v in
+                                  uq_report(s, labels).items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"bayes_rank16": bayes.bayes_rank16.launches,
+              "bayes_paper": bayes.bayes_paper.launches}
+    check(counts["bayes_rank16"] == counts["bayes_paper"] == n_batches,
+          f"trained UQ: head launches {counts} != {n_batches} a mode")
+    check(reports["cnn"]["clean"]["accuracy"] > 0.7,
+          f"trained CNN row at chance on clean batches: "
+          f"{reports['cnn']['clean']}")
+    emit({"trained_uq": "Fig. 16 rows of the trained detector",
+          "images": 64 * UQ_BATCHES, "conditions": list(batches),
+          "R": UQ_R, "wall_s": wall, "launches": counts,
+          "rows": reports})
+    return {"launches": counts, "reports": reports}
 
 
 # ----------------------------------------------------------------------
@@ -1496,27 +1847,37 @@ def eps_timing() -> list[dict]:
     return shapes
 
 
-def head_timing(uq_launches: dict, fig9: dict,
-                head_checks: dict) -> list[dict]:
-    """The kernels-line entries of the ε and head kernels: ε at its three
-    timed shapes (Fig. 9's block the headline), the head kernels at
+def head_timing(uq_launches: dict, fig9: dict, head_checks: dict,
+                train: dict, trained_uq: dict) -> list[dict]:
+    """The kernels-line entries of the ε and head kernels: ε at its four
+    timed shapes (Fig. 9's block the headline; the training draw's
+    (64, 2, R = 1) under ``train_shape``), the head kernels at
     kernel_bench's shape for every R (paper also with the ADC at R=20);
     the R=20 entry is the headline."""
     import torch
     from repro_torch.kernels import bayes
     shapes = eps_timing()
     first = shapes[0]
+    train_shape = next(t for t in shapes if t["case"] == "train_64x2_r1")
     eps_line = {
         "name": "grng_eps", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/grng_eps.cu",
         "replaces": "src/repro/kernels/clt_grng_kernel.py:103",
         "design": DESIGN["grng_eps"],
-        "launches": fig9["launches"],
-        "launches_on": "the Fig. 9 path (ops.grng_eps at 256x256x8)",
+        "launches": train["full_launches"],
+        "launches_on": "the training path: trained_detector() on the card, "
+                       "1600 steps, one launch a step",
+        "launches_by_path": {"train_full": train["full_launches"],
+                             "train_short": train["short_launches"],
+                             "fig9": fig9["launches"]},
         "max_abs_err": 0.0, "bit_equal": True,
-        "shape": "K=256 N=256 R=8 (Fig. 9's block), ideal die; the gate "
-                 "die's view and kernel_bench's 512x2048 R=20 under "
+        "shape": "K=256 N=256 R=8 (Fig. 9's block), ideal die; the "
+                 "training draw's K=64 N=2 R=1 under 'train_shape'; the "
+                 "gate die's view and kernel_bench's 512x2048 R=20 under "
                  "'shapes'",
+        "train_shape": {k: train_shape[k] for k in (
+            "K", "N", "R", "ms", "plain_ms", "call_ms", "bound_ms",
+            "bound_by", "bound_bytes", "bound_ops")},
         **{k: first[k] for k in ("ms", "plain_ms", "call_ms",
                                  "replayed_calls", "plain_timing",
                                  "bound_ms", "bound_by", "bound_bytes",
@@ -1528,6 +1889,7 @@ def head_timing(uq_launches: dict, fig9: dict,
         "shapes": shapes}
     launches = {k: uq_launches["ideal"][k] + uq_launches["gate_die"][k]
                 for k in ("bayes_rank16", "bayes_paper")}
+    trained = trained_uq["launches"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lines = {}
     for kind in ("rank16", "paper"):
@@ -1558,6 +1920,7 @@ def head_timing(uq_launches: dict, fig9: dict,
             "launches": launches[f"bayes_{kind}"],
             "launches_on": "the SAR UQ path, ideal die and gate die, at "
                            "B=64 K=64 N=2 R=20",
+            "launches_trained_uq": trained[f"bayes_{kind}"],
             "max_abs_err": head_checks["worst"][kind],
             "shape": f"B=8 K=512 N=2048 R={UQ_R} (kernel_bench's head); "
                      "the UQ path's B=64 K=64 N=2 R=20 under 'path'; "
@@ -1697,11 +2060,15 @@ def main() -> int:
     run_fixed_path()
     uq_path = run_uq_path()
     fig9 = run_fig9_path()
+    train = run_train_path()
+    run_trained_serving(train["params"])
+    trained_uq = run_trained_uq(train["params"])
     cim_plan_sweep(cim_inputs)
     head_plan_sweep()
     run_timing(inputs, main_path["launches"], worst,
                cim_timing(cim_inputs, chip_path["launches"], cim_summary),
-               head_timing(uq_path["launches"], fig9, head_checks))
+               head_timing(uq_path["launches"], fig9, head_checks, train,
+                           trained_uq))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -18,13 +18,41 @@ head and its UQ report (``models.sar_cnn.logit_samples_serve``,
 head kernels in rank16 and paper mode (``kernels/bayes.py``), and the
 GRNG ε block (``kernels/grng.py``).
 
+Training: ``mission.detector.trained_detector`` trains the SAR
+detector by Bayes-by-backprop (``models.sar_cnn.train_loss``,
+``optim.adamw``), each step's head draw through the ε kernel, and
+caches it (``ckpt``).
+
 Entry points run on the card unless the caller asks for the CPU
-(``device="cpu"``): ``resolve_device(None)`` is ``"cuda"``.
+(``device="cpu"``): ``resolve_device(None)`` is ``"cuda"``.  Float32
+convolutions and matrix products run in float32 on the card
+(``float32_math``), not in the TF32 PyTorch gives cuDNN by default.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+
+@contextlib.contextmanager
+def float32_math(deterministic: bool = False):
+    """Float32 convolutions and matrix products in full float32 for the
+    duration of the block: cuDNN and cuBLAS without TF32 (PyTorch lets
+    cuDNN take TF32, a 10-bit mantissa, for float32 convolutions by
+    default).  ``deterministic`` also makes cuDNN choose deterministic
+    algorithms (no atomics in the backward convolutions).  The
+    process's settings are restored on exit; none is changed at import.
+    """
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic)
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    cudnn.deterministic = deterministic or saved[2]
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = saved
 
 
 def resolve_device(device=None) -> torch.device:

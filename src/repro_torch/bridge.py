@@ -6,7 +6,8 @@ is the conv weights: the reference keeps HWIO ``(k, k, cin, cout)``,
 the port OIHW ``(cout, cin, k, k)``; biases and the Bayesian head's
 ``mu``/``rho`` pass through.  A chip instance crosses as the dict of
 numpy arrays its ``to_tree`` gives, a deployed serving head as its
-arrays.
+arrays, an AdamW state as its two moment trees (laid out like the
+params) and its int32 count.
 """
 
 from __future__ import annotations
@@ -34,6 +35,22 @@ def params_to_jax(params: dict) -> dict:
                    "b": to_numpy(c["b"])} for c in params["convs"]],
         "head": to_numpy(params["head"]),
     }
+
+
+def opt_state_from_jax(state: dict, device="cpu") -> dict:
+    """The reference's ``init_opt_state``/``adamw_update`` state (numpy)
+    of SAR CNN params -> the port's (``optim.adamw``)."""
+    return {"mu": params_from_jax(state["mu"], device),
+            "nu": params_from_jax(state["nu"], device),
+            "count": torch.tensor(np.asarray(state["count"]),
+                                  dtype=torch.int32, device=device)}
+
+
+def opt_state_to_jax(state: dict) -> dict:
+    """Inverse of ``opt_state_from_jax``."""
+    return {"mu": params_to_jax(state["mu"]),
+            "nu": params_to_jax(state["nu"]),
+            "count": np.asarray(to_numpy(state["count"]), np.int32)}
 
 
 def instance_from_tree(tree: dict):

@@ -5,8 +5,11 @@ Layout (mirrors ``repro/core``):
   lfsr.py         16-bit LFSR + swapper selection network
   clt_grng.py     virtual device currents, selections, read noise
   offset.py       static offset compensation (exact)
-  quant.py        8b µ / 4b σ quantizers reached by the serving head
-  bayes_layer.py  variational head parameters -> serving head
+  quant.py        8b µ / 4b σ quantizers, 6-bit ADC, straight-through
+                  estimator
+  cim.py          chunked-ADC CIM matmul (the cim_execution trunk)
+  bayes_layer.py  variational head: training draw (ε kernel), KL,
+                  -> serving head
   sampling.py     rank16 activation basis and sample mixing; paper and
                   rank16 logit samples
   uncertainty.py  predictive statistics, AURC, AECE/AMCE, UQ reports

@@ -52,8 +52,10 @@ def swapper_select(state) -> torch.Tensor:
     bits = torch.arange(8, dtype=torch.int64, device=state.device)
     c1 = ((state[..., None] >> bits) & 1).to(torch.float32)        # [*S, 8]
     c2 = ((state[..., None] >> (8 + bits)) & 1).to(torch.float32)  # [*S, 8]
-    v = torch.tensor(FIXED_INPUT, dtype=torch.float32,
-                     device=state.device).expand(shape + (16,))
+    # FIXED_INPUT made on the state's device (a tensor from a Python list
+    # would be a host-to-device copy, which waits for the card)
+    v = (torch.arange(16, device=state.device) % 2 == 0).to(
+        torch.float32).expand(shape + (16,))
     # Layer 1: swap within adjacent pairs (2n, 2n+1).
     pairs = v.reshape(shape + (8, 2))
     a, b = pairs[..., 0], pairs[..., 1]

@@ -3,9 +3,9 @@
 The paper's split-precision tile stores signed 8-bit µ and unsigned
 4-bit σ; inputs enter through 8-bit IDACs, and every 64-deep analog
 partial sum is digitized by a 6-bit SAR ADC before digital
-accumulation.  The straight-through (QAT) flavours wait for the
-training slice.  ``torch.round`` rounds half to even, as ``jnp.round``
-does.
+accumulation.  The straight-through flavour (``fake_quant_ste``) is
+for quantization-aware training.  ``torch.round`` rounds half to even,
+as ``jnp.round`` does.
 """
 
 from __future__ import annotations
@@ -52,6 +52,30 @@ def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int,
 def fake_quant(x: torch.Tensor, scale: torch.Tensor, bits: int,
                signed: bool = True) -> torch.Tensor:
     return quantize(x, scale, bits, signed) * scale
+
+
+class _Ste(torch.autograd.Function):
+    """Forward ``x + (xq − x)``, the reference's arithmetic (so the value
+    has its bits, which may differ from ``xq`` in the last one); backward
+    the identity to ``x`` and nothing to ``xq``."""
+
+    @staticmethod
+    def forward(ctx, x, xq):
+        return x + (xq - x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def ste(x: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: forward xq, backward identity."""
+    return _Ste.apply(x, xq.detach())
+
+
+def fake_quant_ste(x: torch.Tensor, scale: torch.Tensor, bits: int,
+                   signed: bool = True) -> torch.Tensor:
+    return ste(x, fake_quant(x, scale, bits, signed))
 
 
 def quantize_mu(mu: torch.Tensor, cfg: QuantConfig,

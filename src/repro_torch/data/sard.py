@@ -11,7 +11,15 @@ The reference draws with ``jax.random`` and resizes with
 ``jax.image.resize``; this port draws from ``torch.Generator``s and
 ``F.interpolate``, so its images match the reference in distribution,
 not in bits.  Tests that need the reference's exact images bridge them.
-Only the fog corruption is ported; frost, motion and snow wait.
+
+Corr partitions (paper Fig. 17): fog, frost, motion and snow.  Fog and
+motion are deterministic and give the reference's bits; frost's mask
+and snow's specks are drawn from generators keyed by a tuple of integer
+words (the port's stand-in for a JAX key: ``_generator(*key)`` for the
+batch, ``_generator(*key, i)`` for image i), so they match the
+reference's given the same mask, and in distribution otherwise.
+``corrupt`` takes one severity for the batch or one per image (the
+reference's severity-field API).
 """
 
 from __future__ import annotations
@@ -96,20 +104,102 @@ def batch_at(cfg: SardConfig, step: int, batch: int) -> dict:
     return make_batch(cfg, _generator(cfg.seed, step), batch)
 
 
-def corrupt_fog(images: torch.Tensor, severity: float = 1.0):
+# ----------------------------------------------------------------------
+# Corr partitions (paper Fig. 17).  Each takes images [B, n, n, 1], a
+# severity (a Python number, or a [B, 1, 1, 1] float32 tensor: one per
+# image) and a key (a tuple of integer words).
+# ----------------------------------------------------------------------
+def corrupt_fog(images: torch.Tensor, severity=1.0, key=()):
     """Haze: blend toward a bright constant."""
     haze = 0.7 * severity
     return images * (1 - haze) + haze * 1.2
 
 
-CORRUPTIONS = {"fog": corrupt_fog}
+def frost_masks(key: tuple, n: int, count: int | None = None):
+    """Frost's smooth-noise masks: one [1, n, n, 1] from ``key``, or
+    ``count`` [count, n, n, 1], image i's from ``key + (i,)``."""
+    if count is None:
+        return _smooth_noise(_generator(*key), n, octaves=2)[None, ..., None]
+    return torch.stack([_smooth_noise(_generator(*key, i), n, octaves=2)
+                        for i in range(count)])[..., None]
+
+
+def frost_with_mask(images: torch.Tensor, mask: torch.Tensor, severity):
+    """Frost's deterministic part: where the mask passes 0.7, dim the
+    image and add a bright ice layer."""
+    frost = (mask > 0.7).to(images.dtype)
+    return images * (1 - 0.8 * severity * frost) + 1.5 * severity * frost
+
+
+def corrupt_frost(images: torch.Tensor, severity=1.0, key=()):
+    per_image = torch.is_tensor(severity)
+    mask = frost_masks(key, images.shape[1],
+                       images.shape[0] if per_image else None)
+    return frost_with_mask(images, mask.to(images.device), severity)
+
+
+MOTION_TAPS_CAP = 17
+
+
+def corrupt_motion(images: torch.Tensor, severity=1.0, key=()):
+    """Directional box blur (horizontal camera motion) of
+    int(2 + 3·severity) taps; per image the count is taken in float32
+    and capped at MOTION_TAPS_CAP (= one severity of 5), as the
+    reference's per-image twin does."""
+    if not torch.is_tensor(severity):
+        taps = int(2 + 3 * severity)
+        out = torch.zeros_like(images)
+        for i in range(taps):
+            out = out + torch.roll(images, i - taps // 2, dims=2)
+        return out / taps
+    taps = torch.floor(2 + 3 * severity.reshape(-1)).to(torch.int32).clamp(
+        2, MOTION_TAPS_CAP).to(images.device)                  # [B]
+    w = images.shape[2]
+    cols = torch.arange(w, device=images.device)
+    out = torch.zeros_like(images)
+    for i in range(MOTION_TAPS_CAP):
+        src = (cols[None, :] - (i - taps // 2)[:, None]) % w    # [B, W]
+        rolled = torch.gather(images, 2, src[:, None, :, None].expand(
+            images.shape))
+        keep = (i < taps)[:, None, None, None]
+        out = out + torch.where(keep, rolled, 0.0)
+    return out / taps[:, None, None, None].to(images.dtype)
+
+
+def corrupt_snow(images: torch.Tensor, severity=1.0, key=()):
+    """Bright specks, each pixel with probability 0.04·severity: uniform
+    draws from one generator for the batch, or one per image."""
+    shape = tuple(images.shape)
+    if torch.is_tensor(severity):
+        u = torch.stack([torch.rand(shape[1:], generator=_generator(*key, i))
+                         for i in range(shape[0])])
+    else:
+        u = torch.rand(shape, generator=_generator(*key))
+    specks = u.to(images.device) < 0.04 * severity
+    return torch.where(specks, 2.0, images)
+
+
+CORRUPTIONS = {"fog": corrupt_fog, "frost": corrupt_frost,
+               "motion": corrupt_motion, "snow": corrupt_snow}
+
+
+def corrupt(images: torch.Tensor, key: tuple, severity,
+            corruption: str = "fog") -> torch.Tensor:
+    """Corrupt a batch at one severity (a Python number) or at one per
+    image (a [B] sequence or tensor, taken as float32), keyed by ``key``
+    (a tuple of integer words)."""
+    if corruption not in CORRUPTIONS:
+        raise ValueError(f"unknown corruption {corruption!r}")
+    if not (torch.is_tensor(severity) or hasattr(severity, "__len__")):
+        return CORRUPTIONS[corruption](images, float(severity), tuple(key))
+    sev = torch.as_tensor(severity, dtype=torch.float32,
+                          device=images.device).reshape(-1, 1, 1, 1)
+    return CORRUPTIONS[corruption](images, sev, tuple(key))
 
 
 def corrupted_batch(cfg: SardConfig, step: int, batch: int,
-                    corruption: str = "fog", severity: float = 1.0) -> dict:
-    if corruption not in CORRUPTIONS:
-        raise NotImplementedError(
-            f"corruption {corruption!r} is not ported yet (fog only)")
+                    corruption: str = "fog", severity=1.0) -> dict:
     data = batch_at(cfg, step, batch)
-    return {"images": CORRUPTIONS[corruption](data["images"], severity),
+    return {"images": corrupt(data["images"], (cfg.seed ^ 0xC0DE, step),
+                              severity, corruption),
             "labels": data["labels"]}

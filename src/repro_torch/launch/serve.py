@@ -176,7 +176,8 @@ def main(argv=None) -> None:
     ap.add_argument("--r-min", type=int, default=4)
     ap.add_argument("--r-max", type=int, default=20)
     ap.add_argument("--corrupt-frac", type=float, default=0.0)
-    ap.add_argument("--corruption", default="fog", choices=("fog",))
+    ap.add_argument("--corruption", default="fog",
+                    choices=("fog", "frost", "motion", "snow"))
     ap.add_argument("--chip-instance", type=int, default=None,
                     help="serve on a sampled FeFET chip instance drawn "
                          "with this seed")

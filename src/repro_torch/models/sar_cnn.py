@@ -17,11 +17,20 @@ die's per-column ADC gain and offset (``kernels/ops.
 cim_matmul_nonideal``).  ``program_trunk`` writes the weight matrices
 once; ``features(trunk=...)`` reuses them, so a serving engine pays only
 the input quantization, the full scale and the kernel per admission.
-The pure-tensor ``cim_execution`` trunk (``repro/core/cim.py``) is not
-ported yet.
+``cfg.cim_execution`` runs the trunk through the pure-tensor CIM path
+(``core/cim.cim_matmul``: the ADC full scale from the whole batch's
+partial-sum RMS), the quantized trunk of Fig. 16's "this work" row.
+The float trunk runs in float32 on the card (``float32_math``: no
+TF32).
+
+Training (Bayes-by-backprop, paper Eq. 1): ``logits_train`` runs the
+float trunk and one head draw w = µ + σ·ε(step), ε from the ε kernel;
+``train_loss`` is the cross-entropy plus kl_weight·KL/B.
 
 ``logit_samples_serve`` draws R logit samples of a batch through the
 head kernels (rank16 or paper mode): the Fig. 16 uncertainty path.
+``logit_samples_ideal`` draws them with ideal Gaussian weights (the
+paper's "BNN" rows).
 
 Port params: {"convs": [{"w": [Cout, Cin, k, k], "b": [Cout]}, ...],
 "head": {"mu": [C, n_classes], "rho": [C, n_classes]}} (a deterministic
@@ -37,9 +46,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import float32_math
 from repro_torch.core import bayes_layer
 from repro_torch.core import quant as q
 from repro_torch.core.bayes_layer import BayesDenseConfig
+from repro_torch.core.cim import cim_matmul
 from repro_torch.core.clt_grng import GRNGConfig
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops
@@ -55,7 +66,7 @@ class SarCnnConfig:
     sigma_init: float = 0.05
     prior_sigma: float = 0.1
     kl_weight: float = 1e-4
-    cim_execution: bool = False          # pure-tensor CIM trunk: not ported
+    cim_execution: bool = False          # run convs through the CIM path
     quant: QuantConfig = dataclasses.field(
         default_factory=lambda: QuantConfig(enabled=True))
     grng: GRNGConfig = dataclasses.field(default_factory=GRNGConfig)
@@ -163,13 +174,63 @@ def features(params: dict, images: torch.Tensor, cfg: SarCnnConfig,
             h = _cim_conv(h, layer, cfg)
         return h.mean(dim=(1, 2))                       # GAP -> [B, C]
     if cfg.cim_execution:
-        raise NotImplementedError("the cim_execution trunk is not ported "
-                                  "yet")
+        h = images
+        for layer in params["convs"]:
+            h = _cim_exec_conv(h, layer, cfg)
+        return h.mean(dim=(1, 2))                       # GAP -> [B, C]
     h = images.permute(0, 3, 1, 2)                      # NHWC -> NCHW
-    for layer in params["convs"]:
-        y = F.conv2d(h, layer["w"], stride=2)           # VALID
-        h = F.relu(y + layer["b"][None, :, None, None])
+    with float32_math():
+        for layer in params["convs"]:
+            y = F.conv2d(h, layer["w"], stride=2)       # VALID
+            h = F.relu(y + layer["b"][None, :, None, None])
     return h.mean(dim=(2, 3))                           # GAP -> [B, C]
+
+
+def _cim_exec_conv(x: torch.Tensor, layer: dict, cfg: SarCnnConfig,
+                   stride: int = 2) -> torch.Tensor:
+    """One conv through ``core/cim.cim_matmul``: NHWC in, NHWC out (ReLU
+    applied); im2col in the reference's (dy, dx, c) order, K padded to
+    the 64-deep tile."""
+    w = layer["w"]                                      # OIHW
+    cout, k = w.shape[0], w.shape[-1]
+    cols = _im2col(x, k, stride)                        # [B, Ho, Wo, k²C]
+    bsz, ho, wo, d = cols.shape
+    pad = (-d) % cfg.quant.chunk
+    cols = F.pad(cols.reshape(-1, d), (0, pad))
+    wmat = F.pad(w.permute(2, 3, 1, 0).reshape(-1, cout), (0, 0, 0, pad))
+    y = cim_matmul(cols, wmat, cfg.quant)
+    return F.relu(y.reshape(bsz, ho, wo, -1) + layer["b"])
+
+
+def logits_train(params: dict, images: torch.Tensor, cfg: SarCnnConfig,
+                 step: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training forward -> (logits [B, n_classes], KL): the trunk, then
+    one head draw at stream offset ``step`` (``sample_weights_at``: ε
+    through the ε kernel on the card), or the deterministic head."""
+    feats = features(params, images, cfg)
+    head = params["head"]
+    with float32_math():
+        if cfg.bayesian_head:
+            w = bayes_layer.sample_weights_at(head, cfg.head_cfg(), step)
+            kl = bayes_layer.kl_divergence(head, cfg.head_cfg())
+            return feats @ w, kl
+        return feats @ head["w"] + head["b"], feats.new_zeros(())
+
+
+def train_loss(params: dict, batch: dict, cfg: SarCnnConfig,
+               step: int) -> tuple[torch.Tensor, dict]:
+    """(loss, metrics): cross-entropy + kl_weight·KL/B; metrics ``ce``,
+    ``kl`` and ``acc`` as 0-dim tensors (never pulled to the host).  The
+    log-softmax is the reference's: logits less their (constant) max,
+    less the log of the summed exponentials."""
+    logits, kl = logits_train(params, batch["images"], cfg, step)
+    labels = batch["labels"].long()
+    shifted = logits - logits.amax(dim=-1, keepdim=True).detach()
+    logp = shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+    ce = -logp.gather(1, labels[:, None]).mean()
+    acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+    loss = ce + cfg.kl_weight * kl / batch["images"].shape[0]
+    return loss, {"ce": ce.detach(), "kl": kl.detach(), "acc": acc}
 
 
 def logit_samples_serve(params: dict, images: torch.Tensor,
@@ -189,8 +250,24 @@ def logit_samples_serve(params: dict, images: torch.Tensor,
     from repro_torch.core.sampling import BayesHeadConfig, logit_samples
     feats = features(params, images, cfg, chip=chip)
     if not cfg.bayesian_head:
-        return (feats @ params["head"]["w"] + params["head"]["b"])[None]
+        with float32_math():
+            return (feats @ params["head"]["w"] + params["head"]["b"])[None]
     hcfg = BayesHeadConfig(num_samples=num_samples, mode=mode, grng=cfg.grng,
                            compute_dtype=torch.float32)
     head = bayes_layer.to_serving(params["head"], hcfg)
     return logit_samples(head, feats, hcfg, sample0=sample0)
+
+
+def logit_samples_ideal(params: dict, images: torch.Tensor,
+                        cfg: SarCnnConfig, num_samples: int,
+                        generator: torch.Generator) -> torch.Tensor:
+    """Ideal-Gaussian ablation (the paper's 'BNN' rows): w = µ + σ·N(0,1)
+    with the normals drawn from ``generator`` (on its device), R weight
+    draws [R, B, C] on the params' device."""
+    feats = features(params, images, cfg)
+    mu, sigma = params["head"]["mu"], bayes_layer.sigma_of(params["head"])
+    eps = torch.randn((num_samples,) + tuple(mu.shape), generator=generator,
+                      device=generator.device).to(mu.device)
+    w = mu[None] + sigma[None] * eps
+    with float32_math():
+        return torch.einsum("bd,rdc->rbc", feats, w)

@@ -33,8 +33,13 @@ flipped by that order is counted and held to one LSB).  Every plan
 chains and folds them in chunk order.
 ``ops.decision_update`` over R > 64 (two launches a round): rtol/atol
 1e-5 against one unsplit plain call.
+Training: the float trunk in float32 on the card even where cuDNN's
+TF32 switch is on (its default), within 1e-5 of the CPU; the ε kernel
+bit for bit at the training draw's shape (64, 2, R = 1); ten training
+steps on the card against the CPU (tolerance stated in the test).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -484,3 +489,84 @@ def test_head_every_plan_gives_the_chosen_bits(hopper, shape, mode):
     assert bool((err[flips] <= float(fs.max()) / 31 * (1 + 1e-4)).all())
     torch.testing.assert_close(want[~flips], plain[~flips], rtol=1e-4,
                                atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# the training slice on the card
+# ----------------------------------------------------------------------
+def test_float_trunk_is_float32_on_the_card(hopper):
+    """The card's ``features`` of the published ``SarCnnConfig()``
+    against the CPU's within 1e-5, with cuDNN's TF32 switch forced back
+    to PyTorch's default (True) around the call: the trunk must pin its
+    convolutions to float32 itself (a TF32 convolution keeps a 10-bit
+    mantissa and misses by ~1e-3)."""
+    from repro_torch.data.sard import SardConfig, batch_at
+    from repro_torch.models import sar_cnn
+    cfg = sar_cnn.SarCnnConfig()
+    params = sar_cnn.init_sar_cnn(torch.Generator().manual_seed(3), cfg)
+    images = batch_at(SardConfig(seed=7), 10_000, 64)["images"]
+    dev_params = {"convs": [{k: v.to(hopper) for k, v in c.items()}
+                            for c in params["convs"]],
+                  "head": {k: v.to(hopper) for k, v in params["head"].items()}}
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card = sar_cnn.features(dev_params, images.to(hopper), cfg)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert torch.backends.cudnn.allow_tf32 == saved
+    cpu = sar_cnn.features(params, images, cfg)
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sample0", [0, 1, 799, 1599, 2**32 - 1])
+def test_grng_eps_at_the_training_shape(hopper, sample0):
+    """The training draw's ε block, (64, 2, R = 1) at the step's indexed
+    selection, bit for bit against the plain version."""
+    from repro_torch.core import lfsr
+    cfg = GRNGConfig()
+    idx = torch.full((1,), sample0, dtype=torch.int64, device=hopper)
+    sel = lfsr.indexed_selections(cfg.lfsr_seed, idx)
+    got = grng.grng_eps(sel, cfg, 64, 2, sample0=sample0)
+    want = grng.grng_eps_plain(sel, cfg, 64, 2, sample0=sample0)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 64, 2) and torch.equal(got, want)
+
+
+TRAJECTORY_ATOL = 1e-4
+
+
+def test_training_trajectory_card_against_cpu(hopper):
+    """Ten training steps of the published ``SarCnnConfig()`` on the
+    snow-augmented batches of ``trained_detector``, from the same init,
+    on the card and on the CPU: one ε launch a step on the card, the
+    per-step ce within 1e-5 and the params within TRAJECTORY_ATOL.  The
+    two devices sum the convolutions and reductions in other orders
+    (float32 both, cuDNN deterministic), and AdamW's normalized update
+    carries a last-bit difference of a gradient into the params at the
+    scale of lr where a gradient component is near zero."""
+    from repro_torch.data.sard import SardConfig
+    from repro_torch.mission import detector
+    from repro_torch.models import sar_cnn
+    from repro_torch.optim import init_opt_state
+    from repro_torch.utils.trees import leaves
+    cfg = sar_cnn.SarCnnConfig()
+    dcfg = SardConfig(seed=detector.DATA_SEED)
+    state = {}
+    for dev in ("cpu", hopper):
+        params = sar_cnn.init_sar_cnn(torch.Generator().manual_seed(3), cfg,
+                                      device=dev)
+        state[str(dev)] = [params, init_opt_state(params), []]
+    grng.grng_eps.launches = 0
+    for s in range(10):
+        batch = detector.training_batch(dcfg, s, "snow", 0.5)
+        for dev, st in state.items():
+            b = {k: v.to(dev) for k, v in batch.items()}
+            st[0], st[1], m = detector.train_step(st[0], st[1], b, cfg, s)
+            st[2].append(float(m["ce"]))
+    assert grng.grng_eps.launches == 10
+    cpu, card = state["cpu"], state[str(hopper)]
+    np.testing.assert_allclose(card[2], cpu[2], rtol=0, atol=1e-5)
+    for a, b in zip(leaves(card[0]), leaves(cpu[0])):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=TRAJECTORY_ATOL)

@@ -5,10 +5,16 @@ The reference draws with ``jax.random``, the port with
 bits.  Over 8 batches of 32 (128 images per label) the stated band is:
 per-label pixel mean within 0.1, pixel standard deviation and mean
 per-image peak within 10 % of the reference's (the two differ by
-≤ 0.04, ≤ 2 % and ≤ 4 % at this size).  The fog corruption is a
-deterministic blend and must match exactly.
+≤ 0.04, ≤ 2 % and ≤ 4 % at this size).
+
+Corruptions: fog and motion are deterministic and must match exactly,
+at one severity for the batch and at one per image (motion's per-image
+tap count in float32, capped at 17 taps); frost must match exactly on
+the reference's own mask; snow's speck rate must sit within a 4σ
+binomial band of 0.04·severity.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,5 +78,95 @@ def test_stream_meta_and_corrupted_head():
     assert [r.rid for r in reqs] == list(range(40))
     assert sum(r.meta["corrupted"] for r in reqs) == 8 + 8
     assert reqs[0].payload.shape == (32, 32, 1)
-    with pytest.raises(NotImplementedError, match="frost"):
-        make_sar_stream(4, corrupt_frac=0.5, corruption="frost")
+    frost = make_sar_stream(40, corrupt_frac=0.25, corruption="frost")
+    assert [r.meta for r in frost] == [r.meta for r in reqs]
+    for f, r in zip(frost, reqs):     # only the corrupted head differs
+        assert np.array_equal(f.payload, r.payload) != r.meta["corrupted"]
+    with pytest.raises(ValueError, match="haze"):
+        make_sar_stream(4, corrupt_frac=0.5, corruption="haze")
+
+
+def _images(seed=0, b=6):
+    return np.random.default_rng(seed).standard_normal(
+        (b, 32, 32, 1)).astype(np.float32)
+
+
+SEVERITIES = np.array([0.0, 0.3, 1.0, 1.7, 4.9, 7.5], np.float32)
+
+
+@pytest.mark.parametrize("corruption", ["fog", "motion"])
+@pytest.mark.parametrize("severity", [0.4, 1.0, 2.5, "per_image"])
+def test_deterministic_corruptions_exact(corruption, severity):
+    x = _images(1)
+    sev = SEVERITIES if severity == "per_image" else severity
+    key = jax.random.PRNGKey(0)
+    want = np.asarray(jsard.corrupt(jnp.asarray(x), key, sev, corruption))
+    got = tsard.corrupt(torch.as_tensor(x), (0,), sev, corruption).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("severity", [0.6, "per_image"])
+def test_frost_exact_on_the_reference_mask(severity):
+    """The reference's masks (its ``_smooth_noise`` of the batch key, or
+    of each image's split key) through the port's deterministic part."""
+    x = _images(2)
+    key = jax.random.PRNGKey(5)
+    if severity == "per_image":
+        sev = SEVERITIES
+        keys = jax.random.split(key, len(x))
+        mask = np.stack([np.asarray(jsard._smooth_noise(k, 32, octaves=2))
+                         for k in keys])[..., None]
+        tsev = torch.as_tensor(sev).reshape(-1, 1, 1, 1)
+    else:
+        sev = tsev = severity
+        mask = np.asarray(jsard._smooth_noise(key, 32, octaves=2))[
+            None, ..., None]
+    want = np.asarray(jsard.corrupt(jnp.asarray(x), key, sev, "frost"))
+    got = tsard.frost_with_mask(torch.as_tensor(x), torch.as_tensor(mask),
+                                tsev).numpy()
+    np.testing.assert_array_equal(got, want)
+    # the port's own masks: the same share of frosted pixels in law
+    ours = tsard.frost_masks((5,), 32, 256)
+    theirs = mask if severity == "per_image" else np.stack(
+        [np.asarray(jsard._smooth_noise(k, 32, octaves=2))
+         for k in jax.random.split(key, 6)])
+    assert abs(float((ours > 0.7).float().mean())
+               - float((theirs > 0.7).mean())) < 0.1
+
+
+@pytest.mark.parametrize("severity", [0.5, 1.0, "per_image"])
+def test_snow_speck_rate_in_binomial_band(severity):
+    """Per image, specks (pixels set to 2.0 where the image was not)
+    counted over 64 images of 1024 pixels: the rate lies within 4σ of
+    0.04·severity, σ the binomial SD of that count."""
+    x = torch.as_tensor(_images(3, 64)) * 0.1          # never 2.0
+    sev = (np.linspace(0.0, 1.0, 64).astype(np.float32)
+           if severity == "per_image" else np.full(64, severity, np.float32))
+    arg = sev if severity == "per_image" else float(severity)
+    y = tsard.corrupt(x, (9, 1), arg, "snow")
+    specks = (y == 2.0) & (x != 2.0)
+    assert torch.equal(torch.where(specks, x, y), x)   # only specks change
+    n = 32 * 32
+    if severity == "per_image":
+        counts = specks.reshape(64, -1).sum(1).numpy()
+        p = 0.04 * sev
+        assert (np.abs(counts - n * p) <= 4 * np.sqrt(n * p * (1 - p))).all()
+        assert counts[0] == 0
+        assert tsard.corrupt(x, (9, 1), arg, "snow").equal(y)
+        assert not tsard.corrupt(x, (9, 2), arg, "snow").equal(y)
+    total, p = 64 * n, 0.04 * float(severity if severity != "per_image"
+                                     else sev.mean())
+    assert abs(int(specks.sum()) - total * p) <= 4 * np.sqrt(
+        total * p * (1 - p))
+
+
+@pytest.mark.parametrize("corruption", ["fog", "frost", "motion", "snow"])
+def test_corrupted_batches_are_pure_functions_of_the_step(corruption):
+    cfg = tsard.SardConfig(seed=7)
+    a = tsard.corrupted_batch(cfg, 10_000, 8, corruption, 1.0)
+    b = tsard.corrupted_batch(cfg, 10_000, 8, corruption, 1.0)
+    clean = tsard.batch_at(cfg, 10_000, 8)
+    assert torch.equal(a["images"], b["images"])
+    assert torch.equal(a["labels"], clean["labels"])
+    assert a["images"].dtype == torch.float32
+    assert not torch.equal(a["images"], clean["images"])
