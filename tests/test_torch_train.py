@@ -41,7 +41,7 @@ from repro.models import sar_cnn as js
 from repro.optim import adamw as ja
 from repro.optim import schedules as jsch
 from repro_torch.bridge import (opt_state_from_jax, opt_state_to_jax,
-                                params_from_jax, params_to_jax, to_numpy)
+                                params_from_jax, params_to_jax)
 from repro_torch.core import bayes_layer as tb
 from repro_torch.core import cim as tcim
 from repro_torch.core import quant as tq
@@ -216,7 +216,7 @@ def test_train_loss_and_gradients_match_reference(bayesian):
     tp = _grad_tree(params_from_jax(jp))
     loss_t, m_t = ts.train_loss(tp, {k: torch.as_tensor(v)
                                      for k, v in batch.items()}, tcfg, 11)
-    assert float(loss_t) == pytest.approx(float(loss_j), rel=1e-6)
+    assert float(loss_t.detach()) == pytest.approx(float(loss_j), rel=1e-6)
     for k in ("ce", "kl", "acc"):
         assert float(m_t[k]) == pytest.approx(float(m_j[k]), rel=1e-6,
                                               abs=1e-7)
