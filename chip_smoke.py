@@ -22,7 +22,10 @@ JSON line):
      atol 1e-4, as tests/test_kernels.py; an output off by more is an
      ADC code flipped by the order of the 64-term sum, counted and held
      to one LSB and to at most 1e-4 of the outputs); run-to-run bit
-     identity for both, zero-variation CIM = ideal CIM bit for bit;
+     identity for both, zero-variation CIM = ideal CIM bit for bit; the
+     decision kernel's shared_sel_r64 case relaunched 300 times, each
+     launch bit for bit the first and within tolerance of the plain
+     version (itself repeated and held to its first bits);
   4. the ideal-die main path: ``serve_sar`` on the card, 192 fog-mixed
      requests in 32 slots under TriagePolicy(0.7, 0.05, r_min=4,
      r_max=20), random full-width params from a seed; the kernel launch
@@ -95,6 +98,23 @@ JSON line):
      BNN-ideal (``logit_samples_ideal``), this work (the
      ``cim_execution`` trunk with the rank16 and the paper head, one
      head launch per batch and mode): accuracy, AURC, AECE, AMCE;
+  7e. the closed-loop mission (``mission.fly_mission``) on the trained
+     detector: at the reference's test size (6×6, 3 victims, 2 drones,
+     120 µJ, 18 steps) in bayes_adaptive mode on the ideal die and on
+     the seed-11 severity-2.5 die, on the card and on the CPU, the same
+     logs lane for lane (confidence within 1e-5, or 1e-3 where the two
+     trunks differ by an ADC code, counted), one host sync, the launch
+     counts of the path, and the same episode with its step loop under
+     ``torch.cuda.set_sync_debug_mode("error")`` (line
+     ``mission_card_vs_cpu``); at mission_bench's default scale (14×14,
+     10 victims, 4 drones, 2 episodes, 70 steps, 320 µJ) the three modes
+     on both dies: mission metrics, energy split, host syncs, wall time,
+     decision and CIM launches (zeroed before, read after, asserted:
+     steps × rounds a step; on the die 3 × (trunk sweeps + the
+     calibration's one)) (lines ``mission_matrix``), the bench's
+     comparison, reported (``mission_comparison``), the always-run
+     orbit's cost (``mission_orbit_cost``) and a profiled mission on
+     each die (``mission_profile``);
   8. kernel timing: device time from CUDA graph replays and per-call
      time of eager calls (CUDA events), beside the plain version's and
      the card's byte/flop bound: decision and CIM at the serving path's
@@ -109,7 +129,9 @@ JSON line):
      the chosen plan's bits (line ``cim_plans``); every plan the head
      kernels take, timed at the UQ path's shape and at kernel_bench's
      (R=20: rank16, paper and paper with the ADC; paper also at R=64),
-     each giving the chosen plan's bits (line ``head_plans``).  The launch floor: a
+     each giving the chosen plan's bits (line ``head_plans``).  The
+     decision and CIM entries count their launches on the serving paths
+     and the mission matrix (``launches_by_path``).  The launch floor: a
      kernel that does no work, by the same replay (line
      ``launch_floor_ms``).  The previous design's times at the same
      shapes, constants from PERF.md and not timed here, stand on a line
@@ -199,6 +221,23 @@ TRAIN_PARAM_ATOL = 1e-3
 PROFILE_STEPS = 20
 # the escalating policy of the serving phases
 ESC_POLICY = dict(POLICY, conf_threshold=0.55)
+# the decision kernel's shared_sel_r64 case relaunched, each launch held
+# bit for bit to the first and to the plain version's tolerance
+SHARED_SEL_REPEATS = 300
+# Missions (mission.fly_mission).  The card against the CPU at the
+# reference's test size (tests/test_mission.py:25-27); the matrix at
+# mission_bench's default scale (benchmarks/mission_bench.py:52-55):
+# three modes on the ideal die and on the seed-11 die at severity 2.5.
+MISSION_SMALL = dict(world=dict(grid=6, n_victims=3, seed=2),
+                     uav=dict(n_drones=2, battery_J=120e-6), steps=18,
+                     episodes=1)
+MISSION_BENCH = dict(world=dict(grid=14, n_victims=10, seed=0),
+                     uav=dict(n_drones=4, battery_J=320e-6), steps=70,
+                     episodes=2)
+MISSION_DIE = dict(seed=11, severity=2.5)
+MISSION_MODES = ("deterministic", "bayes_fixed", "bayes_adaptive")
+MISSION_INT_LOGS = ("cell", "active", "verdict", "prediction", "spent",
+                    "orbited", "verify", "found", "false_verify", "truth")
 
 
 def kernel_spills(log: str) -> dict:
@@ -308,6 +347,7 @@ def run_kernel_checks() -> tuple[float, dict]:
         emit({"kernel_check": "decision_stats", "case": name, **spec,
               "max_abs_err": err, "rtol": TOL["rtol"], "atol": TOL["atol"],
               "bit_identical_relaunch": identical})
+    emit(shared_sel_repeat(inputs["shared_sel_r64"]))
     too_many = decision_case(b=4, n=2, r=65)
     try:
         decision_stats(**too_many)
@@ -316,6 +356,39 @@ def run_kernel_checks() -> tuple[float, dict]:
     else:
         raise AssertionError("R=65 should be refused by the wrapper")
     return worst, inputs
+
+
+def shared_sel_repeat(args: dict) -> dict:
+    """The shared_sel_r64 case (streaming variant, read noise, one
+    selection row shared by the slots) relaunched SHARED_SEL_REPEATS
+    times: every launch bit for bit equal to the first, and within TOL
+    of the plain version, itself run as often and held to its first
+    bits (its product is cuBLAS's)."""
+    import torch
+    from repro_torch.kernels.decision import (decision_stats,
+                                              decision_stats_plain)
+    kernel = [decision_stats(**args) for _ in range(SHARED_SEL_REPEATS)]
+    plain = [decision_stats_plain(**args) for _ in range(SHARED_SEL_REPEATS)]
+    torch.cuda.synchronize()
+    differ = sum(not all(torch.equal(k[key], kernel[0][key])
+                         for key in STAT_KEYS) for k in kernel)
+    plain_differ = sum(not all(torch.equal(q[key], plain[0][key])
+                               for key in STAT_KEYS) for q in plain)
+    outside = sum(not all(torch.allclose(k[key], plain[0][key], **TOL)
+                          for key in STAT_KEYS) for k in kernel)
+    worst = max(float((k[key] - plain[0][key]).abs().max())
+                for k in kernel for key in STAT_KEYS)
+    check(differ == 0, f"shared_sel_r64: {differ} of {SHARED_SEL_REPEATS} "
+          f"kernel launches differ from the first")
+    check(plain_differ == 0, f"shared_sel_r64: {plain_differ} plain runs "
+          f"differ from the first")
+    check(outside == 0, f"shared_sel_r64: {outside} launches outside the "
+          f"tolerance of the plain version (max abs diff {worst})")
+    return {"kernel_check": "decision_stats repeated", "case":
+            "shared_sel_r64", "launches": SHARED_SEL_REPEATS,
+            "differ_from_first": differ, "plain_differ_from_first":
+            plain_differ, "outside_tolerance": outside,
+            "max_abs_err": worst, "rtol": TOL["rtol"], "atol": TOL["atol"]}
 
 
 def gate_die():
@@ -1479,6 +1552,357 @@ def run_trained_uq(params) -> dict:
 
 
 # ----------------------------------------------------------------------
+# the closed-loop mission
+# ----------------------------------------------------------------------
+def mission_configs(spec: dict):
+    from repro_torch.mission import UavConfig, WorldConfig
+    return WorldConfig(**spec["world"]), UavConfig(**spec["uav"])
+
+
+def mission_die():
+    """The die of mission_bench's severity-2.5 arm."""
+    from repro_torch.hw import VariationSpec, sample_instances
+    return sample_instances(MISSION_DIE["seed"], 1, VariationSpec().scaled(
+        MISSION_DIE["severity"]))[0]
+
+
+def mission_step_counts(pol) -> tuple[int, int]:
+    """(decision launches, trunk sweeps) a mission step makes: the
+    schedule's rounds (⌈R/64⌉ launches each) and, with the orbit, two
+    more looks at one fixed-R round each; deterministic mode decides on
+    the µ head alone."""
+    from repro_torch.kernels.decision import MAX_SAMPLES
+    from repro_torch.serving import escalation_schedule
+    if not pol.bayesian:
+        return 0, 1
+    tri = pol.triage
+    sched = (escalation_schedule(tri) if pol.mode == "bayes_adaptive"
+             else (tri.r_max,))
+    launches = sum(-(-r // MAX_SAMPLES) for r in sched)
+    if pol.flag_action == "orbit":
+        return launches + 2 * -(-tri.r_max // MAX_SAMPLES), 3
+    return launches, 1
+
+
+def unsynced_episode(params, pol, spec: dict, chip) -> dict:
+    """``fly_mission``'s path for one die group, on the card, with its
+    step loop under ``torch.cuda.set_sync_debug_mode("error")``: any
+    synchronizing call inside the loop raises.  The deployment and the
+    operating-point calibration before it, and the one pull after it,
+    run outside.  -> the pulled {fleet, maps, logs}."""
+    import torch
+    from repro_torch.mission import rollout, uav, world
+    from repro_torch.models.sar_cnn import SarCnnConfig
+    wcfg, ucfg = mission_configs(spec)
+    cfg, dev, e = SarCnnConfig(), torch.device("cuda"), spec["episodes"]
+    fn, head, bias = rollout.group_episode(
+        wcfg, ucfg, pol, params, cfg, chip, True,
+        rollout.sar_mission_cost(cfg), True, spec["steps"])
+    state = (world.stack_worlds(wcfg, e, device=dev),
+             uav.init_fleet(ucfg, wcfg.grid, e, device=dev),
+             {k: torch.as_tensor(v, device=dev) for k, v in
+              rollout.init_maps(wcfg, e, cfg.n_classes).items()},
+             uav.fleet_bindings(ucfg, wcfg.grid, e, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(params, head, bias, *state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return rollout._pull(dict(zip(("fleet", "maps", "logs"), out)))
+
+
+def mission_trunk_flips(params, die, spec: dict, cells) -> tuple[int, int]:
+    """(trunk outputs off by an ADC code, outputs) between the card and
+    the CPU over the batches a mission on ``die`` featurized: at step t
+    the looks 3t, 3t+1 and 3t+2 of the cells ``cells[t]`` (each device
+    renders its own images and runs its own trunk, as its mission
+    does)."""
+    import torch
+    from repro_torch.mission import world
+    from repro_torch.models import sar_cnn
+    from repro_torch.serving.engine import _to_device
+    wcfg, _ = mission_configs(spec)
+    cfg = sar_cnn.SarCnnConfig()
+    devs = ("cuda", "cpu")
+    trunks = {d: sar_cnn.program_trunk(_to_device(params, d), cfg, die)
+              for d in devs}
+    worlds = {d: world.stack_worlds(wcfg, spec["episodes"], device=d)
+              for d in devs}
+    d_per_ep = len(cells[0]) // spec["episodes"]
+    wid = torch.arange(spec["episodes"]).repeat_interleave(d_per_ep)
+    flips = outputs = 0
+    for t, row in enumerate(cells):
+        for j in range(3):
+            h = {d: world.observe_cells(wcfg, worlds[d], wid.to(d),
+                                        torch.as_tensor(row, device=d),
+                                        3 * t + j) for d in devs}
+            for i in range(len(trunks["cpu"])):
+                h = {d: sar_cnn._cim_conv(h[d], trunks[d][i], cfg)
+                     for d in devs}
+                gap = (h["cuda"].cpu() - h["cpu"]).abs()
+                flips += int((gap > CIM_TOL["atol"]).sum())
+                outputs += gap.numel()
+    return flips, outputs
+
+
+def same_mission_logs(a: dict, b: dict, what: str, atol: float) -> float:
+    """Logs equal lane for lane (confidence within ``atol``, the ledger
+    within rtol 1e-5); returns the largest confidence gap."""
+    import numpy as np
+    for k in MISSION_INT_LOGS:
+        check(np.array_equal(a[k], b[k]), f"{what}: log {k} differs: "
+              f"{np.argwhere(a[k] != b[k])[:5].tolist()}")
+    gap = float(np.abs(a["confidence"] - b["confidence"]).max())
+    check(gap <= atol, f"{what}: confidence differs by {gap} > {atol}")
+    for k in ("energy_J", "time_s", "e_decision_J"):
+        check(np.allclose(a[k], b[k], rtol=1e-5, atol=0),
+              f"{what}: log {k} differs")
+    return gap
+
+
+def run_mission_card_vs_cpu(params) -> dict:
+    """MISSION_SMALL (the reference's test size) in bayes_adaptive mode
+    on the ideal die and on the mission die, on the card and on the CPU
+    from the same trained params: the same logs lane for lane
+    (confidence within TOL's atol, or CIM_CPU_ATOL where the trunk
+    flipped an ADC code between the two, counted), one host sync per
+    die group, the launch counts of the path (zeroed before, read
+    after), and the step loop under the sync debug mode."""
+    import torch
+    from repro_torch.kernels.cim import cim_mvm
+    from repro_torch.kernels.decision import decision_stats
+    from repro_torch.mission import MissionPolicy, fly_mission
+    from repro_torch.serving.engine import _to_device
+    wcfg, ucfg = mission_configs(MISSION_SMALL)
+    pol = MissionPolicy()
+    kw = dict(n_steps=MISSION_SMALL["steps"],
+              n_episodes=MISSION_SMALL["episodes"])
+    cpu_params = _to_device(params, "cpu")
+    out = {}
+    for die_name, chip in (("ideal", None), ("die", mission_die())):
+        torch.cuda.synchronize()
+        decision_stats.launches = cim_mvm.launches = 0
+        card = fly_mission(wcfg, ucfg, pol, params=params, chips=chip,
+                           device="cuda", **kw)
+        launches = (decision_stats.launches, cim_mvm.launches)
+        cpu = fly_mission(wcfg, ucfg, pol, params=cpu_params, chips=chip,
+                          device="cpu", **kw)
+        check(card.host_syncs == cpu.host_syncs == 1,
+              f"mission {die_name}: host syncs {card.host_syncs} / "
+              f"{cpu.host_syncs}, expected 1 (one die group)")
+        per_step, sweeps = mission_step_counts(pol)
+        steps = MISSION_SMALL["steps"]
+        check(launches[0] == per_step * steps,
+              f"mission {die_name}: {launches[0]} decision launches, "
+              f"expected {per_step} x {steps}")
+        want_cim = 0 if chip is None else 3 * (sweeps * steps + 1)
+        check(launches[1] == want_cim, f"mission {die_name}: "
+              f"{launches[1]} CIM launches, expected {want_cim}")
+        flips = outputs = 0
+        if chip is not None:
+            flips, outputs = mission_trunk_flips(
+                params, chip, MISSION_SMALL, card.logs["cell"])
+        atol = CIM_CPU_ATOL if flips else TOL["atol"]
+        gap = same_mission_logs(card.logs, cpu.logs,
+                                f"mission {die_name}: card vs CPU "
+                                f"({flips} trunk outputs off by an ADC "
+                                f"code)", atol)
+        unsynced = unsynced_episode(params, pol, MISSION_SMALL, chip)
+        same_mission_logs(unsynced["logs"], card.logs,
+                          f"mission {die_name}: the sync-checked loop vs "
+                          f"fly_mission", TOL["atol"])
+        logs = card.logs
+        out[die_name] = {
+            "decision_kernel_launches": launches[0],
+            "cim_kernel_launches": launches[1],
+            "host_syncs": card.host_syncs, "trunk_outputs": outputs,
+            "trunk_code_flips": flips, "atol": atol,
+            "max_confidence_gap": gap,
+            "lane_steps": int(logs["active"].size),
+            "inactive_lane_steps": int((~logs["active"]).sum()),
+            "detections": int((logs["active"]
+                               & (logs["prediction"] == 1)).sum()),
+            "orbits": int(logs["orbited"].sum()),
+            "verifications": int(logs["verify"].sum()),
+            "summary_card": card.summary}
+    emit({"mission_card_vs_cpu": "fly_mission(bayes_adaptive) at the "
+                                 "reference's test size, card and CPU",
+          "world": MISSION_SMALL["world"], "uav": MISSION_SMALL["uav"],
+          "steps": MISSION_SMALL["steps"], "die": MISSION_DIE,
+          "step_loop_sync_debug_mode": "error (no sync raised)", **out})
+    return out
+
+
+def run_mission_matrix(params) -> dict:
+    """mission_bench's default scale (MISSION_BENCH) in its three modes
+    on the ideal die and on the mission die, on the card: each run's
+    mission metrics, energy split, host syncs, wall time and launch
+    counts (zeroed before, read after; asserted against the steps, the
+    rounds a step and, on the die, the trunk sweeps a step plus the
+    operating-point calibration's one), then the bench's comparison per
+    die (reported, not asserted: the detector and the worlds are the
+    port's own draws)."""
+    import torch
+    from repro_torch.kernels.cim import cim_mvm
+    from repro_torch.kernels.decision import decision_stats
+    from repro_torch.mission import MissionPolicy, fly_mission
+    wcfg, ucfg = mission_configs(MISSION_BENCH)
+    steps, episodes = MISSION_BENCH["steps"], MISSION_BENCH["episodes"]
+    results, launches = {}, {"decision": 0, "cim": 0}
+    for die_name, chip in (("ideal", None), ("die", mission_die())):
+        fly_mission(wcfg, ucfg, MissionPolicy(), params=params, chips=chip,
+                    n_steps=2, n_episodes=episodes, device="cuda")  # warm
+        for mode in MISSION_MODES:
+            pol = MissionPolicy(mode=mode)
+            torch.cuda.synchronize()
+            decision_stats.launches = cim_mvm.launches = 0
+            t0 = time.perf_counter()
+            res = fly_mission(wcfg, ucfg, pol, params=params, chips=chip,
+                              n_steps=steps, n_episodes=episodes,
+                              device="cuda")
+            wall = time.perf_counter() - t0
+            n_dec, n_cim = decision_stats.launches, cim_mvm.launches
+            per_step, sweeps = mission_step_counts(pol)
+            check(res.host_syncs == 1, f"mission {die_name}/{mode}: "
+                  f"{res.host_syncs} host syncs for one die group")
+            check(n_dec == per_step * steps, f"mission {die_name}/{mode}: "
+                  f"{n_dec} decision launches, expected {per_step} x "
+                  f"{steps}")
+            want_cim = 0 if chip is None else 3 * (sweeps * steps + 1)
+            check(n_cim == want_cim, f"mission {die_name}/{mode}: {n_cim} "
+                  f"CIM launches, expected {want_cim}")
+            launches["decision"] += n_dec
+            launches["cim"] += n_cim
+            s = res.summary
+            check(all(math.isfinite(v) for v in s.values()
+                      if isinstance(v, float)),
+                  f"mission {die_name}/{mode}: non-finite summary")
+            results[(die_name, mode)] = s
+            emit({"mission_matrix": f"{die_name}/{mode}",
+                  "rescued_of_victims": f"{s['rescued']}/{s['victims']}",
+                  **{k: s[k] for k in (
+                      "rescued", "victims", "rescue_delay_s",
+                      "time_to_first_detection_s", "time_to_first_rescue_s",
+                      "coverage", "false_verification_rate",
+                      "missed_victim_rate", "mean_samples_per_decision",
+                      "decisions", "detections", "verifications",
+                      "false_verifications", "orbits", "energy_total_J",
+                      "energy_decision_J", "energy_verify_J",
+                      "energy_orbit_J", "energy_flight_J")},
+                  "host_syncs": res.host_syncs, "wall_s": wall,
+                  "wall_ms_per_step": wall / steps * 1e3,
+                  "decision_kernel_launches": n_dec,
+                  "cim_kernel_launches": n_cim})
+    claims = {}
+    for die_name in ("ideal", "die"):
+        det = results[(die_name, "deterministic")]
+        ada = results[(die_name, "bayes_adaptive")]
+        fix = results[(die_name, "bayes_fixed")]
+        claims[die_name] = {
+            "fvr_deterministic": det["false_verification_rate"],
+            "fvr_adaptive": ada["false_verification_rate"],
+            "fvr_strictly_lower": ada["false_verification_rate"]
+            < det["false_verification_rate"],
+            "rescue_delay_deterministic_s": det["rescue_delay_s"],
+            "rescue_delay_adaptive_s": ada["rescue_delay_s"],
+            "rescue_delay_no_worse": ada["rescue_delay_s"]
+            <= det["rescue_delay_s"],
+            "samples_saving_vs_fixed": fix["mean_samples_per_decision"]
+            / max(ada["mean_samples_per_decision"], 1e-9)}
+    emit({"mission_comparison": "mission_bench's claims, reported, not "
+                                "asserted", "world": MISSION_BENCH["world"],
+          "uav": MISSION_BENCH["uav"], "steps": steps,
+          "episodes": episodes, "die": MISSION_DIE, **claims})
+    return {"launches": launches, "results": results}
+
+
+def mission_orbit_cost(params) -> dict:
+    """What running the orbit every step costs (the reference skips it
+    under ``lax.cond`` when nothing is flagged; here its two looks and
+    two decision rounds always run): wall a step of bayes_adaptive at
+    MISSION_BENCH's scale with flag_action 'orbit' against 'skip', in
+    turns (orbit, skip, skip, orbit) on each die.  Every op of a step
+    runs whatever the data, so the difference is the orbit's."""
+    import torch
+    from repro_torch.mission import MissionPolicy, fly_mission
+    wcfg, ucfg = mission_configs(MISSION_BENCH)
+    steps, episodes = MISSION_BENCH["steps"], MISSION_BENCH["episodes"]
+    out = {}
+    for die_name, chip in (("ideal", None), ("die", mission_die())):
+        walls = {"orbit": [], "skip": []}
+        for action in ("orbit", "skip", "skip", "orbit"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fly_mission(wcfg, ucfg, MissionPolicy(flag_action=action),
+                        params=params, chips=chip, n_steps=steps,
+                        n_episodes=episodes, device="cuda")
+            walls[action].append((time.perf_counter() - t0) / steps * 1e3)
+        out[die_name] = {
+            "wall_ms_per_step_orbit": walls["orbit"],
+            "wall_ms_per_step_skip": walls["skip"],
+            "orbit_ms_per_step": (sum(walls["orbit"]) - sum(walls["skip"]))
+            / 2}
+    emit({"mission_orbit_cost": "bayes_adaptive, flag_action orbit vs "
+                                "skip, in turns (deployment included)",
+          **out})
+    return out
+
+
+def mission_profile(params) -> dict:
+    """One bayes_adaptive mission at MISSION_BENCH's scale under
+    ``torch.profiler`` on each die, device activity only (the host's
+    ~2,000 ops a step would cost minutes to post-process): wall per
+    step, device busy and idle share, kernels per step, each
+    hand-written kernel's µs a launch and the busiest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_serve import _union_us
+    from repro_torch.mission import MissionPolicy, fly_mission
+    wcfg, ucfg = mission_configs(MISSION_BENCH)
+    steps, episodes = MISSION_BENCH["steps"], MISSION_BENCH["episodes"]
+    out = {}
+    for die_name, chip in (("ideal", None), ("die", mission_die())):
+        fly_mission(wcfg, ucfg, MissionPolicy(), params=params, chips=chip,
+                    n_steps=2, n_episodes=episodes, device="cuda")  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fly_mission(wcfg, ucfg, MissionPolicy(), params=params,
+                        chips=chip, n_steps=steps, n_episodes=episodes,
+                        device="cuda")
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        check(kernels, "the profiler recorded no device kernels")
+        busy = _union_us((e.time_range.start, e.time_range.end)
+                         for e in kernels)
+        by_name: dict = {}
+        for e in kernels:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        ours = {}
+        for tag in ("decision_stats", "cim_mvm"):
+            us = [u for n, v in by_name.items() if tag in n for u in v]
+            ours[tag] = {"launches": len(us),
+                         "us_per_launch": sum(us) / len(us) if us else None,
+                         "share_of_busy": sum(us) / busy}
+        top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+        out[die_name] = {
+            "steps": steps, "wall_ms_per_step": wall_us / 1e3 / steps,
+            "device_busy_ms_per_step": busy / 1e3 / steps,
+            "device_idle_share": 1 - busy / wall_us,
+            "kernels_per_step": len(kernels) / steps,
+            "kernels": ours,
+            "top_kernels_us": {k[:60]: sum(v) for k, v in top}}
+    emit({"mission_profile": "fly_mission(bayes_adaptive) at "
+                             "mission_bench's scale under torch.profiler "
+                             "(deployment and calibration included)",
+          **out})
+    return out
+
+
+# ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
 def call_ms(fn, iters: int, warmup: int = 50) -> float:
@@ -1577,9 +2001,10 @@ def cim_bound_ms(c: dict) -> tuple[float, str, int, int]:
             else "operations", nbytes, ops)
 
 
-def cim_timing(cases: dict, launches: int, summary: dict) -> dict:
+def cim_timing(cases: dict, launches: dict, summary: dict) -> dict:
     """The CIM kernel's line: device and eager times at the three trunk
-    shapes, with the die's front end, as the main path calls it."""
+    shapes, with the die's front end, as the main path calls it;
+    ``launches``: its count on each path that was read."""
     import torch
     from repro_torch.core.quant import QuantConfig
     from repro_torch.kernels.cim import cim_mvm, cim_mvm_plain, launch_plan
@@ -1614,7 +2039,8 @@ def cim_timing(cases: dict, launches: int, summary: dict) -> dict:
         "source": "src/repro_torch/kernels/csrc/cim_mvm.cu",
         "replaces": "src/repro/kernels/cim_mvm.py:72",
         "design": DESIGN["cim_mvm"],
-        "launches": launches,
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": summary["max_abs_err"],
         "max_abs_err_no_flip": summary["max_abs_err_no_flip"],
         "adc_code_flips": summary["adc_code_flips"],
@@ -1944,7 +2370,7 @@ def head_timing(uq_launches: dict, fig9: dict, head_checks: dict,
     return [eps_line, lines["rank16"], lines["paper"]]
 
 
-def run_timing(inputs: dict, launches: int, worst: float,
+def run_timing(inputs: dict, launches: dict, worst: float,
                cim_line: dict, head_lines: list) -> None:
     from repro_torch.kernels.decision import (decision_plan, decision_stats,
                                               decision_stats_plain)
@@ -1988,7 +2414,8 @@ def run_timing(inputs: dict, launches: int, worst: float,
         "design": DESIGN["decision_stats"],
         "plan": plans["main_r4"],
         "plan_r20": plans["main_r20"],
-        "launches": launches,
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": worst,
         "shape": "B=32 N=2 R=4, half the slots masked",
         "ms": r4["ms"],
@@ -2063,10 +2490,18 @@ def main() -> int:
     train = run_train_path()
     run_trained_serving(train["params"])
     trained_uq = run_trained_uq(train["params"])
+    run_mission_card_vs_cpu(train["params"])
+    mission = run_mission_matrix(train["params"])["launches"]
+    mission_orbit_cost(train["params"])
+    mission_profile(train["params"])
     cim_plan_sweep(cim_inputs)
     head_plan_sweep()
-    run_timing(inputs, main_path["launches"], worst,
-               cim_timing(cim_inputs, chip_path["launches"], cim_summary),
+    run_timing(inputs, {"serve_sar": main_path["launches"],
+                        "mission_matrix": mission["decision"]}, worst,
+               cim_timing(cim_inputs,
+                          {"serve_sar(chip_instance=gate die)":
+                           chip_path["launches"],
+                           "mission_matrix": mission["cim"]}, cim_summary),
                head_timing(uq_path["launches"], fig9, head_checks, train,
                            trained_uq))
     emit({"ok": True, "device": {"platform": "gpu",

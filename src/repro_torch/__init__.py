@@ -23,6 +23,12 @@ detector by Bayes-by-backprop (``models.sar_cnn.train_loss``,
 ``optim.adamw``), each step's head draw through the ε kernel, and
 caches it (``ckpt``).
 
+The closed-loop mission: ``mission.fly_mission`` (and
+``launch.mission``) flies a fleet over grid worlds rendered on the
+device, deciding every step through ``serving.engine.token_decision``
+(the decision kernel) and, on a die, the CIM trunk, with one host pull
+per die group.
+
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``): ``resolve_device(None)`` is ``"cuda"``.  Float32
 convolutions and matrix products run in float32 on the card

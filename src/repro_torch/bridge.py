@@ -7,7 +7,8 @@ the port OIHW ``(cout, cin, k, k)``; biases and the Bayesian head's
 ``mu``/``rho`` pass through.  A chip instance crosses as the dict of
 numpy arrays its ``to_tree`` gives, a deployed serving head as its
 arrays, an AdamW state as its two moment trees (laid out like the
-params) and its int32 count.
+params) and its int32 count, mission worlds as their arrays and,
+optionally, the reference's rendered exposures.
 """
 
 from __future__ import annotations
@@ -65,6 +66,21 @@ def head_from_jax(head: dict) -> dict:
     ``sigma``, ``sigma_basis``…; numpy) -> CPU tensors (the engine
     moves them to its device)."""
     return {k: torch.tensor(np.asarray(v)) for k, v in head.items()}
+
+
+def worlds_from_jax(worlds: dict, exposures=None) -> dict:
+    """The reference's stacked mission worlds (numpy ``victims``,
+    ``severity``, ``seed`` [E, ...]) -> the port's, on the host.
+    ``exposures``: the reference's rendered images [E, n_cells, n_looks,
+    H, W, 1] (its ``observe_cells`` at every cell and look), which the
+    port's ``observe_cells`` then reads instead of rendering."""
+    out = {"victims": torch.tensor(np.asarray(worlds["victims"], bool)),
+           "severity": torch.tensor(np.asarray(worlds["severity"],
+                                               np.float32)),
+           "seed": torch.tensor(np.asarray(worlds["seed"], np.int64))}
+    if exposures is not None:
+        out["exposures"] = torch.tensor(np.asarray(exposures, np.float32))
+    return out
 
 
 def to_numpy(tree):

@@ -1,0 +1,126 @@
+"""Mission driver: fly the closed-loop SAR simulator from the CLI (port
+of ``repro/launch/mission.py``).
+
+Builds the world and fleet from flags, trains (or restores) the
+weather-augmented detector, optionally binds every drone to a sampled
+FeFET chip instance, flies the mission with one host pull per die group
+and prints two summary lines.  It runs on the card unless ``--device
+cpu`` is given.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.mission \\
+      --grid 14 --victims 10 --drones 4 --steps 70 --episodes 2
+  PYTHONPATH=src python -m repro_torch.launch.mission --policy deterministic
+  PYTHONPATH=src python -m repro_torch.launch.mission \\
+      --chip-instance 11 --chip-severity 2.5 [--uncalibrated]
+  PYTHONPATH=src python -m repro_torch.launch.mission --device cpu \\
+      --train-steps 3 --steps 10        # a quick run on the CPU
+
+``--policy``: bayes_adaptive (default) | bayes_fixed | deterministic.
+The reference's aging, telemetry, trace, metrics and profile flags wait
+for later slices (ROADMAP A9, A11).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--grid", type=int, default=14)
+    ap.add_argument("--victims", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="world seed (episode e uses seed+e)")
+    ap.add_argument("--corruption", default="snow",
+                    choices=("fog", "frost", "motion", "snow"))
+    ap.add_argument("--severity-hi", type=float, default=0.5,
+                    help="worst-weather corner of the severity field")
+    ap.add_argument("--drones", type=int, default=4)
+    ap.add_argument("--battery-uJ", type=float, default=320.0,
+                    help="per-sortie energy budget in microjoules")
+    ap.add_argument("--steps", type=int, default=70)
+    ap.add_argument("--episodes", type=int, default=1)
+    ap.add_argument("--policy", default="bayes_adaptive",
+                    choices=("bayes_adaptive", "bayes_fixed",
+                             "deterministic"))
+    ap.add_argument("--planner", default="lawnmower",
+                    choices=("lawnmower", "infogain"))
+    ap.add_argument("--flag-action", default="orbit",
+                    choices=("orbit", "skip"))
+    ap.add_argument("--conf-threshold", type=float, default=0.8)
+    ap.add_argument("--mi-threshold", type=float, default=0.5)
+    ap.add_argument("--r-min", type=int, default=4)
+    ap.add_argument("--r-max", type=int, default=20)
+    ap.add_argument("--chip-instance", type=int, default=None,
+                    help="bind the fleet to a FeFET die sampled with "
+                         "this seed (hw/ digital twin)")
+    ap.add_argument("--chip-severity", type=float, default=1.0)
+    ap.add_argument("--uncalibrated", action="store_true",
+                    help="skip per-die head recalibration AND the "
+                         "mission operating-point transfer")
+    ap.add_argument("--no-fused", dest="fused", action="store_false",
+                    default=True)
+    ap.add_argument("--train-steps", type=int, default=None,
+                    help="detector training steps (default: the shared "
+                         "1600-step detector)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.mission import (MissionPolicy, UavConfig, WorldConfig,
+                                     fly_mission, trained_detector)
+    from repro_torch.serving import TriagePolicy
+
+    wcfg = WorldConfig(grid=args.grid, n_victims=args.victims,
+                       seed=args.seed, corruption=args.corruption,
+                       severity_hi=args.severity_hi)
+    ucfg = UavConfig(n_drones=args.drones,
+                     battery_J=args.battery_uJ * 1e-6)
+    pol = MissionPolicy(
+        mode=args.policy, planner=args.planner,
+        flag_action=args.flag_action,
+        triage=TriagePolicy(conf_threshold=args.conf_threshold,
+                            mi_threshold=args.mi_threshold,
+                            r_min=args.r_min, r_max=args.r_max))
+    chips = None
+    chip_note = ""
+    if args.chip_instance is not None:
+        from repro_torch.hw import VariationSpec, sample_instances
+        chips = sample_instances(
+            args.chip_instance, 1,
+            VariationSpec().scaled(args.chip_severity))[0]
+        chip_note = (f" [chip seed={args.chip_instance} "
+                     f"sev={args.chip_severity} "
+                     f"{'UNCAL' if args.uncalibrated else 'cal'}]")
+    det_kw = {} if args.train_steps is None else {"steps": args.train_steps}
+    params, cfg = trained_detector(corruption=args.corruption,
+                                   severity_hi=args.severity_hi,
+                                   device=args.device, **det_kw)
+    res = fly_mission(wcfg, ucfg, pol, params=params, cfg=cfg, chips=chips,
+                      calibrated=not args.uncalibrated, n_steps=args.steps,
+                      n_episodes=args.episodes, fused=args.fused,
+                      device=args.device)
+    s = res.summary
+    print(f"[{args.policy}/{args.planner}] "
+          f"{s['episodes']}x{s['n_drones']} drones on "
+          f"{s['grid']}x{s['grid']}{chip_note}: "
+          f"rescued {s['rescued']}/{s['victims']}, "
+          f"rescue delay {s['rescue_delay_s']:.0f}s, "
+          f"coverage {100 * s['coverage']:.0f}%, "
+          f"false-verification rate "
+          f"{100 * s['false_verification_rate']:.1f}% "
+          f"({s['false_verifications']}/{s['verifications']})")
+    print(f"{s['decisions']} decisions, "
+          f"{s['mean_samples_per_decision']:.1f} samples/decision, "
+          f"{s['orbits']} orbits; energy "
+          f"{1e6 * s['energy_total_J']:.0f} uJ "
+          f"(decisions {1e6 * s['energy_decision_J']:.2f}, verify "
+          f"{1e6 * s['energy_verify_J']:.0f}, flight "
+          f"{1e6 * s['energy_flight_J']:.0f}); "
+          f"host syncs {res.host_syncs}")
+    return s
+
+
+if __name__ == "__main__":
+    main()

@@ -42,6 +42,11 @@ admission pays the input quantization, the ADC full scale and one CIM
 kernel launch per conv layer.  The head deployed on the same die
 (``hw.calib.prepare_instance_head``) comes in through ``head``/``hcfg``.
 
+``featurize`` (trunk + basis) and ``token_decision`` (one whole
+escalation schedule with no host sync, the reference's
+``_lm_token_fn``) are the engine's building blocks as functions; the
+mission rollout (``mission/rollout.py``) runs on them.
+
 Telemetry, tracing, profiling, SLO tracking, slot sharding and head
 hot-swap wait for later slices.
 """
@@ -86,6 +91,72 @@ class _Slot:
     admit_s: float = 0.0              # perf_counter stamp at admission
     n_samples: int = 0                # accumulated over the request
     n_decisions: int = 0              # 1 once decided
+
+
+def featurize(params, head: dict, images: torch.Tensor, cfg,
+              hcfg: BayesHeadConfig, trunk: list | None = None) -> dict:
+    """Images [B, H, W, 1] -> activation-basis rows (port of
+    ``_sar_featurize_fn``): the conv trunk (``trunk``: a die's arrays
+    from ``program_trunk``; None: the float trunk), then the head's
+    rank-16 basis."""
+    feats = features(params, images, cfg, trunk=trunk)
+    return activation_basis(head, feats, hcfg)
+
+
+def token_decision(abasis: dict, base: torch.Tensor, active: torch.Tensor,
+                   *, hcfg: BayesHeadConfig, policy: TriagePolicy,
+                   adaptive_mode: bool, schedule: tuple,
+                   fused: bool = True) -> tuple:
+    """One whole decision per slot with no host sync (port of
+    ``_lm_token_fn``'s ``token_decision``) -> (verdict, fin, spent).
+
+    Zeroed statistics, then one round per entry of ``schedule``
+    (``adaptive.escalation_schedule(policy)``, or ``(r_max,)`` for fixed
+    R); a round draws for the slots that are ``active`` and still
+    undecided, folds the samples in (the decision kernel, or
+    ``mix_samples`` + ``update_stats`` with ``fused=False``), finalizes
+    and decides (``triage.decide``, or ``fixed_r_decide``).  ``base``
+    [B]: each slot's selection-stream base (uint32 in int64).
+
+    The reference skips a round under ``lax.cond`` once no slot is
+    undecided.  Here every round runs, and its verdict is taken only
+    where the device predicate ``any(undecided)`` holds: a skipped
+    round's mask is all False, so the statistics, ``spent`` and the
+    undecided set already stand still, and re-deciding on unchanged
+    statistics would give the same ``fin`` but not the same verdict
+    (a decision with no lane active keeps ESCALATE, as the reference's).
+    """
+    b, n = abasis["y_mu"].shape
+    dev = abasis["y_mu"].device
+    if fused:      # the kernel takes contiguous rows
+        abasis = {k: v.contiguous() for k, v in abasis.items()}
+    grng = hcfg.grng
+    stats = adaptive.init_stats(b, n, device=dev)
+    fin = adaptive.finalize(stats)
+    verdict = torch.full((b,), ESCALATE, dtype=torch.int32, device=dev)
+    spent = torch.zeros((b,), dtype=torch.int32, device=dev)
+    undecided = active
+    for r in schedule:
+        ran = undecided.any()
+        upd = active & undecided
+        idx = adaptive.stream_indices(base, stats["n"], r)
+        sel = indexed_selections(grng.lfsr_seed, idx)
+        if fused:
+            decision_update(stats, abasis, sel, grng, sample_idx=idx,
+                            mask=upd)
+        else:
+            samples = mix_samples(abasis, sel, hcfg, sample_idx=idx)
+            stats = adaptive.update_stats(stats, samples, mask=upd)
+        fin = adaptive.finalize(stats)
+        if adaptive_mode:
+            decided = triage.decide(fin, policy,
+                                    final=fin["n"] >= policy.r_max)
+        else:
+            decided = triage.fixed_r_decide(fin, policy)
+        verdict = torch.where(ran, decided, verdict)
+        spent = spent + torch.where(upd, r, 0).to(torch.int32)
+        undecided = undecided & (decided == ESCALATE)
+    return verdict, fin, spent
 
 
 def _to_device(tree, device):
@@ -179,8 +250,8 @@ class SarServingEngine:
         """Images [B, H, W, 1] -> activation-basis rows on the device."""
         x = torch.as_tensor(np.asarray(images), dtype=torch.float32,
                             device=self.device)
-        feats = features(self._params, x, self.cfg, trunk=self._trunk)
-        return activation_basis(self._head, feats, self.hcfg)
+        return featurize(self._params, self._head, x, self.cfg, self.hcfg,
+                         self._trunk)
 
     def ensure_pool(self, like: dict) -> None:
         """Allocate the (pool, stats) device state shaped like ``like``

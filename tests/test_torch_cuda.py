@@ -37,6 +37,9 @@ Training: the float trunk in float32 on the card even where cuDNN's
 TF32 switch is on (its default), within 1e-5 of the CPU; the ε kernel
 bit for bit at the training draw's shape (64, 2, R = 1); ten training
 steps on the card against the CPU (tolerance stated in the test).
+Mission: a short mission on the card against the CPU in each mode (the
+same logs, confidence within 1e-5, decision launches = steps × rounds
+a step), and a die's step loop under ``set_sync_debug_mode("error")``.
 """
 
 import numpy as np
@@ -570,3 +573,80 @@ def test_training_trajectory_card_against_cpu(hopper):
     for a, b in zip(leaves(card[0]), leaves(cpu[0])):
         assert a.device.type == "cuda"
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=TRAJECTORY_ATOL)
+
+
+MISSION_INT_LOGS = ("cell", "active", "verdict", "prediction", "spent",
+                    "orbited", "verify", "found", "false_verify", "truth")
+
+
+def _short_mission(device, chip=None, mode="bayes_adaptive"):
+    from repro_torch.mission import (MissionPolicy, UavConfig, WorldConfig,
+                                     fly_mission)
+    from repro_torch.models import sar_cnn
+    cfg = sar_cnn.SarCnnConfig()
+    params = sar_cnn.init_sar_cnn(torch.Generator().manual_seed(3), cfg,
+                                  device=device)
+    return fly_mission(WorldConfig(grid=6, n_victims=3, seed=2),
+                       UavConfig(n_drones=2, battery_J=120e-6),
+                       MissionPolicy(mode=mode), params=params, chips=chip,
+                       n_steps=8, device=device)
+
+
+@pytest.mark.parametrize("mode", ["bayes_adaptive", "bayes_fixed",
+                                  "deterministic"])
+def test_mission_card_against_cpu(hopper, mode):
+    """A short mission (the reference's test world, 8 steps, random
+    params seeded 3) on the card and on the CPU: the same logs lane for
+    lane, confidence within 1e-5 (the float trunk and the decision
+    kernel sum in their own orders), one host sync each, and the
+    decision kernel launched steps × rounds a step (3 + 2 adaptive,
+    1 + 2 fixed, 0 deterministic)."""
+    from repro_torch.kernels.decision import decision_stats
+    decision_stats.launches = 0
+    card = _short_mission(hopper, mode=mode)
+    launches = decision_stats.launches
+    cpu = _short_mission("cpu", mode=mode)
+    assert card.host_syncs == cpu.host_syncs == 1
+    assert launches == 8 * {"bayes_adaptive": 5, "bayes_fixed": 3,
+                            "deterministic": 0}[mode]
+    for k in MISSION_INT_LOGS:
+        np.testing.assert_array_equal(card.logs[k], cpu.logs[k], err_msg=k)
+    np.testing.assert_allclose(card.logs["confidence"],
+                               cpu.logs["confidence"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(card.logs["energy_J"], cpu.logs["energy_J"],
+                               rtol=1e-6)
+
+
+def test_mission_step_loop_does_not_sync(hopper):
+    """The episode's step loop on a die (CIM trunk, read-noise decision
+    rounds, the orbit) under ``set_sync_debug_mode("error")``: no call
+    inside it waits for the card."""
+    from repro_torch.hw import VariationSpec, sample_instances
+    from repro_torch.kernels.cim import cim_mvm
+    from repro_torch.mission import (MissionPolicy, UavConfig, WorldConfig,
+                                     rollout, uav, world)
+    from repro_torch.models import sar_cnn
+    cfg = sar_cnn.SarCnnConfig()
+    params = sar_cnn.init_sar_cnn(torch.Generator().manual_seed(3), cfg,
+                                  device=hopper)
+    chip = sample_instances(11, 1, VariationSpec().scaled(2.5))[0]
+    wcfg = WorldConfig(grid=6, n_victims=3, seed=2)
+    ucfg = UavConfig(n_drones=2, battery_J=120e-6)
+    fn, head, bias = rollout.group_episode(
+        wcfg, ucfg, MissionPolicy(), params, cfg, chip, True,
+        rollout.sar_mission_cost(cfg), True, 6)
+    state = (world.stack_worlds(wcfg, 1, device=hopper),
+             uav.init_fleet(ucfg, wcfg.grid, 1, device=hopper),
+             {k: torch.as_tensor(v, device=hopper)
+              for k, v in rollout.init_maps(wcfg, 1, 2).items()},
+             uav.fleet_bindings(ucfg, wcfg.grid, 1, device=hopper))
+    torch.cuda.synchronize()
+    cim_mvm.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, logs = fn(params, head, bias, *state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cim_mvm.launches == 3 * 3 * 6
+    assert logs["verdict"].shape == (6, 2)
+    assert bool(torch.isfinite(logs["confidence"]).all())
