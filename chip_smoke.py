@@ -308,10 +308,36 @@ def decision_case(b, n, r, *, read_sigma=0.0, shared_sel=False,
                 mask=mask, rows=rows)
 
 
-def run_kernel_checks() -> tuple[float, dict]:
+def decision_check(name: str, args: dict, spec: dict) -> float:
+    """The decision kernel against its plain version on ``args``: every
+    statistic within TOL, masked slots untouched, a second launch bit
+    for bit equal to the first.  Emits the case; -> its max abs error."""
     import torch
     from repro_torch.kernels.decision import (decision_stats,
                                               decision_stats_plain)
+    got = decision_stats(**args)
+    want = decision_stats_plain(**args)
+    torch.cuda.synchronize()
+    err = max(float((got[k] - want[k]).abs().max()) for k in STAT_KEYS)
+    for key in STAT_KEYS:
+        check(torch.allclose(got[key], want[key], **TOL),
+              f"decision kernel != plain version: {name} {key} (max "
+              f"abs diff {float((got[key] - want[key]).abs().max())})")
+    masked = ~args["mask"]
+    check(bool((got["sum_p"][masked] == 0).all()),
+          f"masked slots advanced: {name}")
+    again = decision_stats(**args)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(got[k], again[k]) for k in STAT_KEYS)
+    check(identical, f"two launches differ: {name}")
+    emit({"kernel_check": "decision_stats", "case": name, **spec,
+          "max_abs_err": err, "rtol": TOL["rtol"], "atol": TOL["atol"],
+          "bit_identical_relaunch": identical})
+    return err
+
+
+def run_kernel_checks() -> tuple[float, dict]:
+    from repro_torch.kernels.decision import decision_stats
     cases = {
         "main_r4": dict(b=32, n=2, r=4),
         "main_r20": dict(b=32, n=2, r=20),
@@ -327,26 +353,8 @@ def run_kernel_checks() -> tuple[float, dict]:
     inputs = {}
     for i, (name, spec) in enumerate(cases.items()):
         args = decision_case(seed=i, **spec)
-        got = decision_stats(**args)
-        want = decision_stats_plain(**args)
-        torch.cuda.synchronize()
-        err = max(float((got[k] - want[k]).abs().max()) for k in STAT_KEYS)
-        for key in STAT_KEYS:
-            check(torch.allclose(got[key], want[key], **TOL),
-                  f"decision kernel != plain version: {name} {key} (max "
-                  f"abs diff {float((got[key] - want[key]).abs().max())})")
-        masked = ~args["mask"]
-        check(bool((got["sum_p"][masked] == 0).all()),
-              f"masked slots advanced: {name}")
-        again = decision_stats(**args)
-        torch.cuda.synchronize()
-        identical = all(torch.equal(got[k], again[k]) for k in STAT_KEYS)
-        check(identical, f"two launches differ: {name}")
-        worst = max(worst, err)
+        worst = max(worst, decision_check(name, args, spec))
         inputs[name] = args
-        emit({"kernel_check": "decision_stats", "case": name, **spec,
-              "max_abs_err": err, "rtol": TOL["rtol"], "atol": TOL["atol"],
-              "bit_identical_relaunch": identical})
     emit(shared_sel_repeat(inputs["shared_sel_r64"]))
     too_many = decision_case(b=4, n=2, r=65)
     try:
@@ -403,9 +411,6 @@ def trunk_cases(n_images: int, die) -> dict:
     images and trunk arrays; K padded to 64), by layer: ``trunk<i>``."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
-    from repro_torch.core import quant as q
-    from repro_torch.kernels.ops import measured_full_scale
     from repro_torch.launch.serve import make_sar_stream
     from repro_torch.models import sar_cnn
     cfg = sar_cnn.SarCnnConfig()
@@ -417,16 +422,27 @@ def trunk_cases(n_images: int, die) -> dict:
         device="cuda")
     cases = {}
     for i, layer in enumerate(trunk):
-        cols = sar_cnn._im2col(h, layer["k"], 2)
-        d = cols.shape[-1]
-        xq, _ = q.quantize_input(cols.reshape(-1, d), cfg.quant)
-        xq = F.pad(xq, (0, layer["w"].shape[0] - d)).contiguous()
-        cases[f"trunk{i}"] = dict(
-            x=xq, w=layer["w"], fs=measured_full_scale(
-                xq, layer["w"], cfg.quant).reshape(1),
-            gain=layer["gain"], offset=layer["offset"])
+        cases[f"trunk{i}"] = trunk_operands(h, layer, cfg)
         h = sar_cnn._cim_conv(h, layer, cfg)
     return cases
+
+
+def trunk_operands(h, layer: dict, cfg) -> dict:
+    """What ``models.sar_cnn._cim_conv`` gives the CIM kernel for the
+    activations ``h`` and a programmed ``layer``: the quantized im2col
+    (K padded to the array depth), the weights, the measured ADC full
+    scale and the die's column front end."""
+    import torch.nn.functional as F
+    from repro_torch.core import quant as q
+    from repro_torch.kernels.ops import measured_full_scale
+    from repro_torch.models import sar_cnn
+    cols = sar_cnn._im2col(h, layer["k"], 2)
+    d = cols.shape[-1]
+    xq, _ = q.quantize_input(cols.reshape(-1, d), cfg.quant)
+    xq = F.pad(xq, (0, layer["w"].shape[0] - d)).contiguous()
+    return dict(x=xq, w=layer["w"], fs=measured_full_scale(
+        xq, layer["w"], cfg.quant).reshape(1), gain=layer["gain"],
+        offset=layer["offset"])
 
 
 def cim_cases() -> dict:
@@ -452,57 +468,68 @@ def cim_cases() -> dict:
     return cases
 
 
-def run_cim_checks() -> tuple[dict, dict]:
+def cim_check(name: str, c: dict, qcfg, summary: dict) -> None:
+    """The CIM kernel against its plain version on the operands ``c``,
+    with the ideal ADC and with ``c``'s column front end: at most 1e-4
+    of the outputs off by more than CIM_TOL's atol, none by more than
+    one LSB, the rest within CIM_TOL, a second launch bit for bit equal
+    to the first, and a zero-variation front end equal to the ideal ADC.
+    Emits each front and adds it to ``summary``."""
     import torch
-    from repro_torch.core.quant import QuantConfig
     from repro_torch.kernels.cim import cim_mvm, cim_mvm_plain
+    m, k = c["x"].shape
+    n = c["w"].shape[1]
+    lsb = float(c["fs"]) / 31
+    for front in ("ideal", "die"):
+        gain, off = ((None, None) if front == "ideal"
+                     else (c["gain"], c["offset"]))
+        got = cim_mvm(c["x"], c["w"], c["fs"], qcfg, gain, off)
+        want = cim_mvm_plain(c["x"], c["w"], c["fs"], qcfg, gain, off)
+        again = cim_mvm(c["x"], c["w"], c["fs"], qcfg, gain, off)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        flips = err > CIM_TOL["atol"]
+        n_flips = int(flips.sum())
+        check(n_flips <= 1e-4 * got.numel(),
+              f"CIM {name} {front}: {n_flips} outputs off by more "
+              f"than 1e-4")
+        check(bool((err[flips] <= lsb * (1 + 1e-4)).all()),
+              f"CIM {name} {front}: an output off by more than one "
+              f"LSB ({lsb})")
+        check(torch.allclose(got[~flips], want[~flips], **CIM_TOL),
+              f"CIM kernel != plain version: {name} {front}")
+        identical = torch.equal(got, again)
+        check(identical, f"two CIM launches differ: {name} {front}")
+        rest = float(err[~flips].max()) if n_flips < err.numel() else 0.
+        summary["max_abs_err"] = max(summary["max_abs_err"],
+                                     float(err.max()))
+        summary["max_abs_err_no_flip"] = max(
+            summary["max_abs_err_no_flip"], rest)
+        summary["adc_code_flips"] += n_flips
+        summary["outputs"] += got.numel()
+        emit({"kernel_check": "cim_mvm", "case": name, "front": front,
+              "M": m, "K": k, "N": n, "max_abs_err": float(err.max()),
+              "adc_code_flips": n_flips, "lsb": lsb,
+              "rtol": CIM_TOL["rtol"], "atol": CIM_TOL["atol"],
+              "bit_identical_relaunch": identical})
+    ideal = cim_mvm(c["x"], c["w"], c["fs"], qcfg)
+    zero = cim_mvm(c["x"], c["w"], c["fs"], qcfg,
+                   torch.ones_like(c["gain"]),
+                   torch.zeros_like(c["offset"]))
+    torch.cuda.synchronize()
+    check(torch.equal(ideal, zero),
+          f"CIM {name}: zero-variation front end != ideal ADC")
+
+
+def run_cim_checks() -> tuple[dict, dict]:
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels.cim import cim_mvm
     qcfg = QuantConfig(enabled=True)
     cases = cim_cases()
     summary = {"max_abs_err": 0.0, "max_abs_err_no_flip": 0.0,
                "adc_code_flips": 0, "outputs": 0}
     for name, c in cases.items():
-        m, k = c["x"].shape
-        n = c["w"].shape[1]
-        lsb = float(c["fs"]) / 31
-        for front in ("ideal", "die"):
-            gain, off = ((None, None) if front == "ideal"
-                         else (c["gain"], c["offset"]))
-            got = cim_mvm(c["x"], c["w"], c["fs"], qcfg, gain, off)
-            want = cim_mvm_plain(c["x"], c["w"], c["fs"], qcfg, gain, off)
-            again = cim_mvm(c["x"], c["w"], c["fs"], qcfg, gain, off)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            flips = err > CIM_TOL["atol"]
-            n_flips = int(flips.sum())
-            check(n_flips <= 1e-4 * got.numel(),
-                  f"CIM {name} {front}: {n_flips} outputs off by more "
-                  f"than 1e-4")
-            check(bool((err[flips] <= lsb * (1 + 1e-4)).all()),
-                  f"CIM {name} {front}: an output off by more than one "
-                  f"LSB ({lsb})")
-            check(torch.allclose(got[~flips], want[~flips], **CIM_TOL),
-                  f"CIM kernel != plain version: {name} {front}")
-            identical = torch.equal(got, again)
-            check(identical, f"two CIM launches differ: {name} {front}")
-            rest = float(err[~flips].max()) if n_flips < err.numel() else 0.
-            summary["max_abs_err"] = max(summary["max_abs_err"],
-                                         float(err.max()))
-            summary["max_abs_err_no_flip"] = max(
-                summary["max_abs_err_no_flip"], rest)
-            summary["adc_code_flips"] += n_flips
-            summary["outputs"] += got.numel()
-            emit({"kernel_check": "cim_mvm", "case": name, "front": front,
-                  "M": m, "K": k, "N": n, "max_abs_err": float(err.max()),
-                  "adc_code_flips": n_flips, "lsb": lsb,
-                  "rtol": CIM_TOL["rtol"], "atol": CIM_TOL["atol"],
-                  "bit_identical_relaunch": identical})
-        ideal = cim_mvm(c["x"], c["w"], c["fs"], qcfg)
-        zero = cim_mvm(c["x"], c["w"], c["fs"], qcfg,
-                       torch.ones_like(c["gain"]),
-                       torch.zeros_like(c["offset"]))
-        torch.cuda.synchronize()
-        check(torch.equal(ideal, zero),
-              f"CIM {name}: zero-variation front end != ideal ADC")
+        cim_check(name, c, qcfg, summary)
     c = cases["ragged_8x192x70"]
     for what, args in (
             ("K % 64", (c["x"][:, :100].contiguous(), c["w"][:100])),
@@ -708,14 +735,18 @@ def card_run_with_batches(n_requests: int, kw: dict) -> tuple[dict, list]:
     return out, batches
 
 
-def trunk_code_flips(batches: list, die, params=None) -> tuple[int, int]:
-    """(outputs off by an ADC code, outputs) between the card's and the
-    CPU's conv trunk on the gate die over ``batches``: each device runs
-    the trunk on its own activations, as its engine does, from
-    ``params`` (default: the params ``serve_sar`` makes).  Float order
-    moves an output by ~1e-6, a flipped code by one LSB (more than
-    CIM_TOL's atol); a flip also moves the outputs downstream of it,
-    which count too."""
+def trunk_code_flips(batches: list, die, params=None) -> tuple[int, ...]:
+    """(outputs off by an ADC code, outputs, outputs off by an ADC code
+    from the same input) between the card's and the CPU's conv trunk on
+    ``die`` over ``batches``: each device runs the trunk on its own
+    activations, as its engine does, from ``params``
+    (default: the params ``serve_sar`` makes).  A batch is one array
+    both devices take, or {device: images} where each renders its own.
+    Float order moves an output by ~1e-6, a flipped code by one LSB
+    (more than CIM_TOL's atol); a flip also moves the outputs downstream
+    of it, which count too.  Each layer is also run on the card from the
+    CPU's own input: there, as in run_cim_checks, at most 1e-4 of the
+    outputs may flip, and none by more than one LSB of its layer."""
     import torch
     from repro_torch.models import sar_cnn
     from repro_torch.serving.engine import _to_device
@@ -724,15 +755,29 @@ def trunk_code_flips(batches: list, die, params=None) -> tuple[int, int]:
     trunks = {"cpu": sar_cnn.program_trunk(params, cfg, die),
               "cuda": sar_cnn.program_trunk(_to_device(params, "cuda"),
                                             cfg, die)}
-    flips = outputs = 0
+    flips = outputs = same_input_flips = 0
     for images in batches:
-        h = {d: torch.as_tensor(images, device=d) for d in trunks}
+        h = {d: torch.as_tensor(images[d] if isinstance(images, dict)
+                                else images, device=d) for d in trunks}
         for i in range(len(trunks["cpu"])):
+            lsb = float(trunk_operands(h["cpu"], trunks["cpu"][i],
+                                       cfg)["fs"]) / 31
+            same = sar_cnn._cim_conv(h["cpu"].cuda(), trunks["cuda"][i],
+                                     cfg).cpu()
             h = {d: sar_cnn._cim_conv(h[d], trunks[d][i], cfg) for d in h}
             gap = (h["cuda"].cpu() - h["cpu"]).abs()
             flips += int((gap > CIM_TOL["atol"]).sum())
             outputs += gap.numel()
-    return flips, outputs
+            gap = (same - h["cpu"]).abs()
+            same_input_flips += int((gap > CIM_TOL["atol"]).sum())
+            check(float(gap.max()) <= lsb * (1 + 1e-4),
+                  f"trunk layer {i}, card vs CPU on the same input: an "
+                  f"output off by {float(gap.max())}, more than one LSB "
+                  f"({lsb})")
+    check(same_input_flips <= 1e-4 * outputs,
+          f"trunk, card vs CPU on the same input: {same_input_flips} of "
+          f"{outputs} outputs off by an ADC code")
+    return flips, outputs, same_input_flips
 
 
 def chip_card_vs_cpu(kw: dict, die) -> dict:
@@ -742,7 +787,8 @@ def chip_card_vs_cpu(kw: dict, die) -> dict:
     from repro_torch.launch.serve import serve_sar
     card, batches = card_run_with_batches(64, kw)
     cpu = serve_sar(n_requests=64, device="cpu", **kw)
-    flips, outputs = trunk_code_flips(batches, die, kw.get("params"))
+    flips, outputs, same_input = trunk_code_flips(batches, die,
+                                                  kw.get("params"))
     atol = CIM_CPU_ATOL if flips else TOL["atol"]
     same_decisions(card, cpu, f"chip: card vs CPU ({flips} trunk "
                    f"outputs off by an ADC code)", atol=atol)
@@ -754,6 +800,7 @@ def chip_card_vs_cpu(kw: dict, die) -> dict:
             "rounds_launched": card["rounds_launched"],
             "depths": sorted({v["n_samples"] for v in card["verdicts"]}),
             "trunk_outputs": outputs, "trunk_code_flips": flips,
+            "trunk_code_flips_same_input": same_input,
             "atol": atol, "max_confidence_mi_gap": gap,
             "flag_fraction": card["flag_fraction"],
             "decision_kinds": len({(v["verdict"], v["prediction"],
@@ -1612,38 +1659,118 @@ def unsynced_episode(params, pol, spec: dict, chip) -> dict:
     return rollout._pull(dict(zip(("fleet", "maps", "logs"), out)))
 
 
-def mission_trunk_flips(params, die, spec: dict, cells) -> tuple[int, int]:
-    """(trunk outputs off by an ADC code, outputs) between the card and
-    the CPU over the batches a mission on ``die`` featurized: at step t
-    the looks 3t, 3t+1 and 3t+2 of the cells ``cells[t]`` (each device
-    renders its own images and runs its own trunk, as its mission
-    does)."""
+def mission_looks(spec: dict, cells) -> tuple[list, float]:
+    """The looks a mission featurized, rendered by each device: at step
+    t, looks 3t, 3t+1 and 3t+2 of the cells ``cells[t]`` (the orbit's
+    looks are featurized on every lane).  -> ([{device: images}], the
+    largest gap between the card's and the CPU's pixels)."""
     import torch
     from repro_torch.mission import world
-    from repro_torch.models import sar_cnn
-    from repro_torch.serving.engine import _to_device
     wcfg, _ = mission_configs(spec)
-    cfg = sar_cnn.SarCnnConfig()
     devs = ("cuda", "cpu")
-    trunks = {d: sar_cnn.program_trunk(_to_device(params, d), cfg, die)
-              for d in devs}
     worlds = {d: world.stack_worlds(wcfg, spec["episodes"], device=d)
               for d in devs}
     d_per_ep = len(cells[0]) // spec["episodes"]
     wid = torch.arange(spec["episodes"]).repeat_interleave(d_per_ep)
-    flips = outputs = 0
+    batches, gap = [], 0.0
     for t, row in enumerate(cells):
         for j in range(3):
-            h = {d: world.observe_cells(wcfg, worlds[d], wid.to(d),
-                                        torch.as_tensor(row, device=d),
-                                        3 * t + j) for d in devs}
-            for i in range(len(trunks["cpu"])):
-                h = {d: sar_cnn._cim_conv(h[d], trunks[d][i], cfg)
-                     for d in devs}
-                gap = (h["cuda"].cpu() - h["cpu"]).abs()
-                flips += int((gap > CIM_TOL["atol"]).sum())
-                outputs += gap.numel()
-    return flips, outputs
+            looks = {d: world.observe_cells(
+                wcfg, worlds[d], wid.to(d), torch.as_tensor(row, device=d),
+                3 * t + j) for d in devs}
+            gap = max(gap, float((looks["cuda"].cpu() - looks["cpu"])
+                                 .abs().max()))
+            batches.append(looks)
+    return batches, gap
+
+
+def mission_operands(params, chip) -> dict:
+    """The decision and CIM kernels' operands on one step of
+    ``fly_mission`` (bayes_adaptive with the orbit) at MISSION_BENCH's
+    scale on ``chip``, on the card: each wrapper call, as
+    ``kernels.ops`` makes it, recorded (cloned) and passed on.  One
+    rendered batch of E·D lanes: the schedule's rounds (R = 4, 8, 8)
+    and the orbit's two full-R rounds, with their activation basis,
+    selections, stream indices and masks; on a die, each trunk layer's
+    quantized im2col for the operating-point calibration's 256 patches,
+    then for the step's three looks.
+    -> {"decision": [args], "cim": [operands]}."""
+    from repro_torch.kernels import ops
+    from repro_torch.mission import MissionPolicy, fly_mission
+    wcfg, ucfg = mission_configs(MISSION_BENCH)
+    calls = {"decision": [], "cim": []}
+    real = {"decision": ops.decision_stats, "cim": ops.cim_mvm}
+
+    def cloned(v):
+        return v.clone() if hasattr(v, "clone") else v
+
+    def recorder(kind, names):
+        def call(*args, **kw):
+            calls[kind].append({**{k: cloned(v) for k, v in
+                                   zip(names, args)},
+                                **{k: cloned(v) for k, v in kw.items()}})
+            return real[kind](*args, **kw)
+        return call
+
+    ops.decision_stats = recorder("decision",
+                                  ("y_mu", "x_sigma", "m", "sel", "cfg"))
+    ops.cim_mvm = recorder("cim", ("x", "w", "fs", "qcfg", "col_gain",
+                                   "col_offset"))
+    try:
+        fly_mission(wcfg, ucfg, MissionPolicy(), params=params, chips=chip,
+                    n_steps=1, n_episodes=MISSION_BENCH["episodes"],
+                    device="cuda")
+    finally:
+        ops.decision_stats, ops.cim_mvm = real["decision"], real["cim"]
+    calls["cim"] = [dict(x=c["x"], w=c["w"], fs=c["fs"], qcfg=c["qcfg"],
+                         gain=c["col_gain"], offset=c["col_offset"])
+                    for c in calls["cim"]]
+    return calls
+
+
+def run_mission_kernel_checks(params) -> dict:
+    """Each kernel against its plain version on the mission's own
+    operands (``mission_operands``) on the ideal die and on the mission
+    die: every decision round as the step made it, and again with every
+    lane active; on the die, every trunk layer of the calibration pass
+    and of the step's first look, with run_cim_checks' bounds.  ->
+    {"decision_max_abs_err", "cim": summary}."""
+    import torch
+    out = {"decision_max_abs_err": 0.0,
+           "cim": {"max_abs_err": 0.0, "max_abs_err_no_flip": 0.0,
+                   "adc_code_flips": 0, "outputs": 0}}
+    rounds = {}
+    for die_name, chip in (("ideal", None), ("die", mission_die())):
+        calls = mission_operands(params, chip)
+        rs = [int(a["sel"].shape[0]) for a in calls["decision"]]
+        check(rs == [4, 8, 8, 20, 20], f"mission {die_name}: decision "
+              f"rounds {rs}, expected the schedule's 4, 8, 8 and the "
+              f"orbit's 20, 20")
+        rounds[die_name] = rs
+        for i, args in enumerate(calls["decision"]):
+            b, n = args["y_mu"].shape
+            for lanes, mask in (("step", args["mask"]),
+                                ("all", torch.ones_like(args["mask"]))):
+                spec = dict(b=b, n=n, r=rs[i],
+                            read_sigma=args["cfg"].read_sigma,
+                            lanes=lanes, active=int(mask.sum()))
+                err = decision_check(f"mission_{die_name}_round{i}_r{rs[i]}",
+                                     dict(args, mask=mask), spec)
+                out["decision_max_abs_err"] = max(
+                    out["decision_max_abs_err"], err)
+        want = 0 if chip is None else 12
+        check(len(calls["cim"]) == want, f"mission {die_name}: "
+              f"{len(calls['cim'])} CIM calls in one step, expected {want}")
+        for i, c in enumerate(calls["cim"][:6]):
+            what = "calibration" if i < 3 else "look0"
+            cim_check(f"mission_{die_name}_{what}_trunk{i % 3}", c,
+                      c["qcfg"], out["cim"])
+    emit({"mission_kernel_checks": "the decision and CIM kernels on one "
+                                   "mission step's operands (MISSION_BENCH "
+                                   "scale), against their plain versions",
+          "rounds": rounds, "decision_max_abs_err":
+              out["decision_max_abs_err"], "cim": out["cim"]})
+    return out
 
 
 def same_mission_logs(a: dict, b: dict, what: str, atol: float) -> float:
@@ -1699,10 +1826,13 @@ def run_mission_card_vs_cpu(params) -> dict:
         want_cim = 0 if chip is None else 3 * (sweeps * steps + 1)
         check(launches[1] == want_cim, f"mission {die_name}: "
               f"{launches[1]} CIM launches, expected {want_cim}")
-        flips = outputs = 0
+        looks, render_gap = mission_looks(MISSION_SMALL, card.logs["cell"])
+        check(render_gap <= TOL["atol"], f"mission {die_name}: the card's "
+              f"and the CPU's renders differ by {render_gap}")
+        flips = outputs = same_input = 0
         if chip is not None:
-            flips, outputs = mission_trunk_flips(
-                params, chip, MISSION_SMALL, card.logs["cell"])
+            flips, outputs, same_input = trunk_code_flips(looks, chip,
+                                                          params)
         atol = CIM_CPU_ATOL if flips else TOL["atol"]
         gap = same_mission_logs(card.logs, cpu.logs,
                                 f"mission {die_name}: card vs CPU "
@@ -1716,8 +1846,10 @@ def run_mission_card_vs_cpu(params) -> dict:
         out[die_name] = {
             "decision_kernel_launches": launches[0],
             "cim_kernel_launches": launches[1],
-            "host_syncs": card.host_syncs, "trunk_outputs": outputs,
-            "trunk_code_flips": flips, "atol": atol,
+            "host_syncs": card.host_syncs, "render_max_abs_gap":
+                render_gap, "trunk_outputs": outputs,
+            "trunk_code_flips": flips,
+            "trunk_code_flips_same_input": same_input, "atol": atol,
             "max_confidence_gap": gap,
             "lane_steps": int(logs["active"].size),
             "inactive_lane_steps": int((~logs["active"]).sum()),
@@ -2490,6 +2622,12 @@ def main() -> int:
     train = run_train_path()
     run_trained_serving(train["params"])
     trained_uq = run_trained_uq(train["params"])
+    mission_checks = run_mission_kernel_checks(train["params"])
+    worst = max(worst, mission_checks["decision_max_abs_err"])
+    for key, v in mission_checks["cim"].items():
+        cim_summary[key] = (cim_summary[key] + v if key in
+                            ("adc_code_flips", "outputs")
+                            else max(cim_summary[key], v))
     run_mission_card_vs_cpu(train["params"])
     mission = run_mission_matrix(train["params"])["launches"]
     mission_orbit_cost(train["params"])

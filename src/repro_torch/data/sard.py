@@ -74,11 +74,9 @@ def _blob(n: int, cy, cx, sy, sx, theta) -> torch.Tensor:
     return torch.exp(-0.5 * ((u / sy) ** 2 + (v / sx) ** 2))
 
 
-def make_image(cfg: SardConfig, gen: torch.Generator, has_victim: float,
-               noise_gen: torch.Generator | None = None) -> torch.Tensor:
-    """One patch [n, n, 1], drawn from ``gen``: the scene, then the
-    sensor noise, unless ``noise_gen`` draws the noise (a second look at
-    the same scene, as the reference's ``noise_key``)."""
+def make_image(cfg: SardConfig, gen: torch.Generator,
+               has_victim: float) -> torch.Tensor:
+    """One patch [n, n, 1], drawn from ``gen`` (scene, then noise)."""
     n = cfg.image_size
     img = cfg.clutter * _smooth_noise(gen, n)
     altitude = float(_uniform(gen, (), *cfg.altitude_range))
@@ -90,8 +88,7 @@ def make_image(cfg: SardConfig, gen: torch.Generator, has_victim: float,
     victim = cfg.victim_intensity * _blob(
         n, float(vc[0]), float(vc[1]), 2.5 / altitude, 1.0 / altitude, theta)
     img = img + has_victim * victim
-    noise_gen = gen if noise_gen is None else noise_gen
-    img = img + 0.1 * torch.randn((n, n), generator=noise_gen)  # sensor
+    img = img + 0.1 * torch.randn((n, n), generator=gen)   # sensor noise
     return img[..., None]
 
 

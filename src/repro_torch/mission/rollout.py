@@ -403,7 +403,7 @@ def fly_mission(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
         raise ValueError(f"chips: expected {d} per-drone entries, "
                          f"got {len(chips)}")
     cost = sar_mission_cost(cfg)
-    host_worlds = mworld.stack_worlds(wcfg, e)
+    host_worlds = mworld.stack_worlds(wcfg, e, device="cpu")
     dev_worlds = _to_device(host_worlds, dev)
     fleet0 = muav.init_fleet(ucfg, wcfg.grid, e, device=dev)
     bind = muav.fleet_bindings(ucfg, wcfg.grid, e, device=dev)

@@ -21,6 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class UavConfig:
@@ -67,7 +69,9 @@ def init_fleet(ucfg: UavConfig, grid: int, n_episodes: int = 1,
                device=None) -> dict:
     """Fresh fleet state for ``n_episodes`` stacked worlds, flattened to
     one batch of B = n_episodes · n_drones drones (the decision kernel's
-    batch), on ``device``.  Each drone starts at its sector's origin."""
+    batch), on ``device`` (None: the card).  Each drone starts at its
+    sector's origin."""
+    device = resolve_device(device)
     start = sector_rows(grid, ucfg.n_drones)[:, 0] * grid
     b = n_episodes * ucfg.n_drones
     return {
@@ -81,7 +85,9 @@ def init_fleet(ucfg: UavConfig, grid: int, n_episodes: int = 1,
 def fleet_bindings(ucfg: UavConfig, grid: int, n_episodes: int = 1,
                    device=None) -> dict:
     """Static per-drone tensors of the flattened fleet: world id ``wid``
-    [B], sector (row0, n_rows) [B, 2], sector mask [B, grid²]."""
+    [B], sector (row0, n_rows) [B, 2], sector mask [B, grid²], on
+    ``device`` (None: the card)."""
+    device = resolve_device(device)
     d = ucfg.n_drones
     return {
         "wid": torch.arange(n_episodes, dtype=torch.int32,

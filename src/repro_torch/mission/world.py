@@ -40,6 +40,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.core.hashing import hash2, hash3
 from repro_torch.data.sard import (CORRUPTIONS, SardConfig, _generator,
                                    _smooth_noise, frost_with_mask)
@@ -75,7 +76,8 @@ class WorldConfig:
 
 def make_world(cfg: WorldConfig, seed: int | None = None,
                device=None) -> dict:
-    """One mission map on ``device`` (None: the CPU, where it is drawn):
+    """One mission map, drawn on the host and moved to ``device`` (None:
+    the card; ``"cpu"`` on purpose):
 
       victims   [n_cells] bool
       severity  [n_cells] float32, the cell's corruption severity
@@ -83,6 +85,7 @@ def make_world(cfg: WorldConfig, seed: int | None = None,
 
     ``seed`` overrides ``cfg.seed`` (``stack_worlds`` draws world i from
     seed + i)."""
+    dev = resolve_device(device)
     s = cfg.seed if seed is None else seed
     gen = _generator(_SEED_LAYOUT, s)
     placed = torch.randperm(cfg.n_cells, generator=gen)[:cfg.n_victims]
@@ -92,14 +95,14 @@ def make_world(cfg: WorldConfig, seed: int | None = None,
     lo, hi = field.min(), field.max()
     field = (field - lo) / torch.clamp(hi - lo, min=1e-9)
     severity = cfg.severity_lo + (cfg.severity_hi - cfg.severity_lo) * field
-    return {"victims": victims.to(device),
-            "severity": severity.reshape(-1).to(torch.float32).to(device),
-            "seed": torch.tensor(s, dtype=torch.int64, device=device)}
+    return {"victims": victims.to(dev),
+            "severity": severity.reshape(-1).to(torch.float32).to(dev),
+            "seed": torch.tensor(s, dtype=torch.int64, device=dev)}
 
 
 def stack_worlds(cfg: WorldConfig, n_episodes: int, device=None) -> dict:
     """``n_episodes`` independent maps (seeds cfg.seed … cfg.seed+E-1)
-    stacked on a leading episode axis."""
+    stacked on a leading episode axis, on ``device`` (None: the card)."""
     worlds = [make_world(cfg, cfg.seed + e, device) for e in range(n_episodes)]
     return {k: torch.stack([w[k] for w in worlds]) for k in worlds[0]}
 

@@ -650,3 +650,16 @@ def test_mission_step_loop_does_not_sync(hopper):
     assert cim_mvm.launches == 3 * 3 * 6
     assert logs["verdict"].shape == (6, 2)
     assert bool(torch.isfinite(logs["confidence"]).all())
+
+
+def test_mission_state_defaults_to_the_card(hopper):
+    """The worlds and the fleet, built with no device, are on the card
+    (the world is drawn on the host and moved there)."""
+    from repro_torch.mission import UavConfig, WorldConfig, uav, world
+    wcfg, ucfg = WorldConfig(grid=6, n_victims=3, seed=2), UavConfig(2)
+    for state in (world.make_world(wcfg), world.stack_worlds(wcfg, 2),
+                  uav.init_fleet(ucfg, wcfg.grid, 2),
+                  uav.fleet_bindings(ucfg, wcfg.grid, 2)):
+        assert all(v.device.type == "cuda" for v in state.values())
+    assert torch.equal(world.make_world(wcfg)["severity"].cpu(),
+                       world.make_world(wcfg, device="cpu")["severity"])

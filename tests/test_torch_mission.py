@@ -57,7 +57,6 @@ from repro.models import sar_cnn as jsar
 from repro.serving import triage as jtri
 from repro_torch.bridge import (instance_from_tree, params_from_jax,
                                 worlds_from_jax)
-from repro_torch.data import sard as tsard
 from repro_torch.mission import policy as tpolicy
 from repro_torch.mission import rollout as troll
 from repro_torch.mission import uav as tuav
@@ -140,9 +139,9 @@ def _port_episode(port_params, pol, worlds, chip=None, bias=BIAS,
     fn = troll._episode_fn(T_W, T_U, pol, cfg, hcfg, trunk,
                            troll.sar_mission_cost(cfg), fused, N_STEPS)
     out = fn(port_params, head, torch.as_tensor(bias), worlds,
-             tuav.init_fleet(T_U, GRID, 1),
+             tuav.init_fleet(T_U, GRID, 1, device="cpu"),
              {k: torch.as_tensor(v) for k, v in _maps0().items()},
-             tuav.fleet_bindings(T_U, GRID, 1))
+             tuav.fleet_bindings(T_U, GRID, 1, device="cpu"))
     return troll._pull(dict(zip(("fleet", "maps", "logs"), out)))
 
 
@@ -193,9 +192,9 @@ def test_sectors_and_fleet_match(grid, d):
     np.testing.assert_array_equal(masks.sum(0), np.ones(grid * grid))
     ju, tu = juav.UavConfig(n_drones=d), tuav.UavConfig(n_drones=d)
     for want, got in ((juav.init_fleet(ju, grid, 2),
-                       tuav.init_fleet(tu, grid, 2)),
+                       tuav.init_fleet(tu, grid, 2, device="cpu")),
                       (juav.fleet_bindings(ju, grid, 2),
-                       tuav.fleet_bindings(tu, grid, 2))):
+                       tuav.fleet_bindings(tu, grid, 2, device="cpu"))):
         assert set(want) == set(got)
         for k in want:
             w, g = np.asarray(want[k]), got[k].numpy()
@@ -245,27 +244,44 @@ def test_planners_match():
 def test_make_world():
     cfg = tworld.WorldConfig(grid=9, n_victims=7, seed=4, severity_lo=0.2,
                              severity_hi=0.9)
-    w = tworld.make_world(cfg)
+    w = tworld.make_world(cfg, device="cpu")
     assert w["victims"].shape == (81,) and w["victims"].dtype == torch.bool
     assert int(w["victims"].sum()) == 7
     sev = w["severity"]
     assert sev.dtype == torch.float32 and sev.shape == (81,)
     assert float(sev.min()) == pytest.approx(0.2, abs=1e-6)
     assert float(sev.max()) == pytest.approx(0.9, abs=1e-6)
-    again = tworld.make_world(cfg)
+    again = tworld.make_world(cfg, device="cpu")
     assert all(torch.equal(w[k], again[k]) for k in w)
-    other = tworld.make_world(cfg, seed=5)
+    other = tworld.make_world(cfg, seed=5, device="cpu")
     assert not torch.equal(w["victims"], other["victims"])
-    stacked = tworld.stack_worlds(cfg, 3)
+    stacked = tworld.stack_worlds(cfg, 3, device="cpu")
     assert stacked["seed"].tolist() == [4, 5, 6]
     assert torch.equal(stacked["severity"][1], other["severity"])
     # the field is spatially correlated: neighbours closer than a shuffle
-    field = tworld.make_world(dataclasses.replace(cfg, grid=24))[
+    field = tworld.make_world(dataclasses.replace(cfg, grid=24),
+                             device="cpu")[
         "severity"].reshape(24, 24)
     near = (field[:, 1:] - field[:, :-1]).abs().mean()
     far = (field.reshape(-1) - field.reshape(-1)[torch.randperm(
         576, generator=torch.Generator().manual_seed(0))]).abs().mean()
     assert near < 0.5 * far
+
+
+def test_world_and_fleet_default_to_the_card():
+    """With no device, the worlds and the fleet go where every entry
+    point of the port runs: the card, or an error without one."""
+    cfg, ucfg = tworld.WorldConfig(grid=6, n_victims=3), tuav.UavConfig(2)
+    makers = (lambda: tworld.make_world(cfg),
+              lambda: tworld.stack_worlds(cfg, 2),
+              lambda: tuav.init_fleet(ucfg, cfg.grid, 2),
+              lambda: tuav.fleet_bindings(ucfg, cfg.grid, 2))
+    for make in makers:
+        if torch.cuda.is_available():
+            assert all(v.is_cuda for v in make().values())
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
 
 
 def _render(corruption, severity, has, looks, cells=None, seed=9):
@@ -358,18 +374,6 @@ def test_observe_cells_reads_the_exposure_table(bridged_worlds):
         T_W, {k: v for k, v in worlds.items() if k != "exposures"}, wid,
         cells, 7)
     assert drawn.shape == got.shape and not torch.equal(drawn, got)
-
-
-def test_make_image_noise_generator():
-    cfg = tsard.SardConfig()
-    a = tsard.make_image(cfg, tsard._generator(1, 2), 1.0)
-    assert torch.equal(a, tsard.make_image(cfg, tsard._generator(1, 2), 1.0))
-    b = tsard.make_image(cfg, tsard._generator(1, 2), 1.0,
-                         noise_gen=tsard._generator(3))
-    c = tsard.make_image(cfg, tsard._generator(1, 2), 1.0,
-                         noise_gen=tsard._generator(4))
-    assert abs(float((b - c).std()) - 0.1 * 2 ** 0.5) < 0.01
-    assert not torch.equal(a, b)
 
 
 # ----------------------------------------------------------------------
@@ -521,9 +525,10 @@ def test_die_episode_matches_reference(jax_params, port_params,
     deploying its own head, at the reference's bias.  Outputs of the
     trunk that differ by an ADC code (C9) are counted over the batches
     the episode featurized; with none, the logs are held as on the
-    ideal die, with some, confidence to 1e-2 (a first-layer LSB's effect
-    through the GAP, as ``test_chip_features_match``) and the flips to
-    at most 1e-3 of the trunk's outputs."""
+    ideal die, with some, confidence and entropy to 1e-3 (a flipped
+    code's effect through the GAP and the head; 393 of the 620,352
+    outputs flip here, moving confidence by at most 9.0e-4 and entropy
+    by 5.0e-4) and the flips to at most 1e-3 of the trunk's outputs."""
     chip, tchip, _, bias, deployed = die_case
     jpol, tpol = _policies()
     want = _jax_episode(jax_params, jpol, bridged_worlds[0], chip=chip,
@@ -554,7 +559,7 @@ def test_die_episode_matches_reference(jax_params, port_params,
                 flips += int((gap > 1e-3).sum())
                 outputs += gap.size
     assert flips <= 1e-3 * outputs, f"{flips} ADC code flips in {outputs}"
-    _assert_same_episode(got, want, conf_atol=1e-2 if flips else 1e-5)
+    _assert_same_episode(got, want, conf_atol=1e-3 if flips else 1e-5)
 
 
 # ----------------------------------------------------------------------
