@@ -1642,7 +1642,7 @@ def unsynced_episode(params, pol, spec: dict, chip) -> dict:
     from repro_torch.models.sar_cnn import SarCnnConfig
     wcfg, ucfg = mission_configs(spec)
     cfg, dev, e = SarCnnConfig(), torch.device("cuda"), spec["episodes"]
-    fn, head, bias = rollout.group_episode(
+    fn, head, bias, _ = rollout.group_episode(
         wcfg, ucfg, pol, params, cfg, chip, True,
         rollout.sar_mission_cost(cfg), True, spec["steps"])
     state = (world.stack_worlds(wcfg, e, device=dev),
@@ -2032,6 +2032,460 @@ def mission_profile(params) -> dict:
                              "(deployment and calibration included)",
           **out})
     return out
+
+
+# ----------------------------------------------------------------------
+# telemetry, drift and the die's lifetime
+# ----------------------------------------------------------------------
+TELEMETRY_COUNTERS = ("rounds", "dispatches", "samples", "decisions",
+                      "verdicts", "r_hist")
+TELEMETRY_HISTS = ("conf_hist", "ent_hist", "mi_hist")
+LIFETIME = dict(age_days=30.0, requests=96, epochs=4, slots=16)
+LIFETIME_SMALL = dict(requests=32, slots=8, epochs=2)
+STATIC_EVAL = dict(seed=7, step0=700, batch=96, fog=0.3, r=20)
+MISSION_AGE_DAYS = 90.0
+
+
+def device_kernels(fn) -> int:
+    """Device kernels ``fn`` launches, counted by ``torch.profiler``
+    (device activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def same_telemetry(a: dict, b: dict, what: str, rtol: float = 1e-5) -> dict:
+    """Counters and ``r_hist`` equal, the GRNG moments within ``rtol``;
+    -> the quality histograms' bins that differ (reported: a confidence
+    within a float step of a bin edge may land on either side)."""
+    for key in TELEMETRY_COUNTERS:
+        check(a[key] == b[key], f"{what}: telemetry {key} differs: "
+              f"{a[key]} vs {b[key]}")
+    for key in ("n", "sum", "sumsq"):
+        x, y = a["grng"][key], b["grng"][key]
+        check(abs(x - y) <= rtol * abs(y), f"{what}: GRNG {key} {x} vs {y}")
+    return {k: sum(abs(x - y) for x, y in zip(a[k], b[k]))
+            for k in TELEMETRY_HISTS}
+
+
+def run_telemetry_path() -> dict:
+    """The main path with telemetry on (the reference's default) on the
+    ideal die and the gate die: STREAM's 192 requests under POLICY, in
+    turns with telemetry off (on, off, off, on): the same verdicts and
+    host syncs; the snapshot card against a CPU run of the same 192
+    requests (counters and r_hist equal, GRNG moments within 1e-5); the
+    drift status; decisions/s and device kernels a dispatch, on and
+    off."""
+    import torch
+    from repro_torch.launch.serve import serve_sar
+    from repro_torch.serving import TriagePolicy
+    out = {}
+    for die_name, chip in (("ideal", None), ("gate_die", gate_die())):
+        kw = dict(STREAM, policy=TriagePolicy(**POLICY), chip_instance=chip)
+        serve_sar(n_requests=32, device="cuda", **kw)           # warm-up
+        runs = {True: [], False: []}
+        for tel in (True, False, False, True):
+            torch.cuda.synchronize()
+            runs[tel].append(serve_sar(n_requests=192, device="cuda",
+                                       telemetry=tel, **kw))
+        on, off = runs[True][0], runs[False][0]
+        same_decisions(on, off, f"{die_name}: telemetry on vs off")
+        for r in runs[True] + runs[False]:
+            check(r["host_syncs"] == off["host_syncs"],
+                  f"{die_name}: host syncs {r['host_syncs']} with "
+                  f"telemetry {'telemetry' in r} vs {off['host_syncs']}")
+        snap = on["telemetry"]
+        check(snap["decisions"] == 192 and "telemetry" not in off,
+              f"{die_name}: telemetry recorded {snap['decisions']} "
+              f"decisions")
+        check(snap["rounds"] <= on["rounds_launched"],
+              f"{die_name}: {snap['rounds']} rounds recorded, "
+              f"{on['rounds_launched']} launched")
+        cpu = serve_sar(n_requests=192, device="cpu", **kw)
+        hist_gap = same_telemetry(snap, cpu["telemetry"],
+                                  f"{die_name}: card vs CPU")
+        kernels = {tel: device_kernels(lambda t=tel: serve_sar(
+            n_requests=192, device="cuda", telemetry=t, **kw))
+            for tel in (True, False)}
+        rate = {("on" if t else "off"): [r["decisions"] / r["wall_s"]
+                                         for r in runs[t]]
+                for t in runs}
+        out[die_name] = {
+            "decisions_per_s_wall": rate,
+            "kernels_per_dispatch": {
+                "on": kernels[True] / on["host_syncs"],
+                "off": kernels[False] / off["host_syncs"]},
+            "host_syncs": on["host_syncs"], "dispatches":
+                snap["dispatches"], "rounds_recorded": snap["rounds"],
+            "rounds_launched": on["rounds_launched"],
+            "samples": snap["samples"], "r_hist": snap["r_hist"],
+            "grng_probe": snap["grng"], "drift": {
+                k: on["drift"][k] for k in ("drifted", "z_mean", "z_std")},
+            "card_vs_cpu_hist_bins_apart": hist_gap}
+        check(not on["drift"]["drifted"],
+              f"{die_name}: the deployment drifted against its own "
+              f"calibration: {on['drift']}")
+    emit({"telemetry_path": "serve_sar with telemetry on vs off, 192 "
+                            "requests (STREAM, POLICY), card vs CPU",
+          **out})
+    return out
+
+
+def recording(targets: dict):
+    """Patch module attributes to record (clone) every call's arguments
+    and pass it on.  ``targets``: {kind: (module, name, arg names)}.
+    -> (calls {kind: [args]}, restore())."""
+    calls = {kind: [] for kind in targets}
+    saved = {}
+
+    def cloned(v):
+        return v.clone() if hasattr(v, "clone") else v
+
+    for kind, (mod, name, names) in targets.items():
+        real = getattr(mod, name)
+        saved[kind] = (mod, name, real)
+
+        def call(*args, _kind=kind, _real=real, _names=names, **kw):
+            calls[_kind].append({**{k: cloned(v) for k, v in
+                                    zip(_names, args)},
+                                 **{k: cloned(v) for k, v in kw.items()}})
+            return _real(*args, **kw)
+
+        setattr(mod, name, call)
+
+    def restore():
+        for mod, name, real in saved.values():
+            setattr(mod, name, real)
+
+    return calls, restore
+
+
+def rank16_check(name: str, args: dict, summary: dict) -> None:
+    """The rank16 head kernel against its plain version on one recorded
+    ``ops.bayes_head_mvm`` call (its selections drawn as the call draws
+    them; rtol/atol 1e-4, as run_head_checks), relaunched bit for bit."""
+    import torch
+    from repro_torch.core.clt_grng import selections
+    from repro_torch.kernels import bayes
+    sample0 = args.get("sample0", 0)
+    sel = selections(args["cfg"], args["num_samples"], sample0,
+                     device=args["x"].device)
+    pos = (args["x"], args["mu_prime"], args["sigma"], sel, args["cfg"])
+    got = bayes.bayes_rank16(*pos, sample0=sample0)
+    want = bayes.bayes_rank16_plain(*pos, sample0=sample0)
+    again = bayes.bayes_rank16(*pos, sample0=sample0)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+          f"rank16 kernel != plain on {name} ({err})")
+    check(torch.equal(got, again), f"two rank16 launches differ: {name}")
+    summary["max_abs_err"] = max(summary["max_abs_err"], err)
+    summary["cases"] += 1
+
+
+def static_arms(params, die) -> dict:
+    """lifetime_bench's static arms on the card: the die aged
+    LIFETIME['age_days'] served with its birth calibration (cal0), the
+    birth calibration on the aged physics (stale) and a recalibration
+    at that age (healed), each R = 20 rank16 samples over SARD seed 7's
+    eval batch (step 700, 96 images) clean and under fog 0.3 through the
+    die's CIM trunk, accuracy and |accuracy − golden| (golden: the
+    golden die's trunk and head).  Every rank16 head launch is recorded
+    and held to its plain version."""
+    import torch
+    from repro_torch import float32_math
+    from repro_torch.core.bayes_layer import sigma_of
+    from repro_torch.core.sampling import (BayesHeadConfig, logit_samples,
+                                           prepare_serving_head)
+    from repro_torch.core.uncertainty import uq_report
+    from repro_torch.data.sard import SardConfig, batch_at, corrupted_batch
+    from repro_torch.hw import (aged_belief_view, golden_instance,
+                                prepare_instance_head, recalibrate)
+    from repro_torch.kernels import bayes, ops
+    from repro_torch.models.sar_cnn import SarCnnConfig, features
+    cfg, e = SarCnnConfig(), STATIC_EVAL
+    base = BayesHeadConfig(num_samples=e["r"], mode="rank16", grng=cfg.grng,
+                           compute_dtype=torch.float32)
+    mu, sg = params["head"]["mu"], sigma_of(params["head"])
+    dcfg = SardConfig(image_size=cfg.image_size, seed=e["seed"])
+    clean = batch_at(dcfg, e["step0"], e["batch"])
+    fog = corrupted_batch(dcfg, e["step0"], e["batch"], "fog", e["fog"])
+    sets = (("clean", clean["images"]), ("fog", fog["images"]))
+    labels = clean["labels"].cuda()
+    age_s = LIFETIME["age_days"] * 86400.0
+    aged = die.at_age(age_s)
+    cal = prepare_instance_head(mu, sg, base, die)
+    arms = {"cal0": cal,
+            "stale": aged_belief_view(*cal, aged, cfg.grng),
+            "healed": recalibrate(mu, sg, base, aged, epoch=1)}
+    bayes.bayes_rank16.launches = 0
+    calls, restore = recording({"rank16": (
+        ops, "bayes_head_mvm", ("x", "mu_prime", "sigma", "cfg",
+                                "num_samples"))})
+    try:
+        with float32_math():
+            feats = {n: features(params, x.cuda(), cfg, chip=die)
+                     for n, x in sets}
+            gold_feats = {n: features(params, x.cuda(), cfg,
+                                      chip=golden_instance())
+                          for n, x in sets}
+        gold = prepare_serving_head(mu, sg, base)
+        golden = {n: float(uq_report(logit_samples(gold, f, base),
+                                     labels)["accuracy"])
+                  for n, f in gold_feats.items()}
+        out = {"age_s": age_s, "imprint": aged.imprint, "golden": golden,
+               "arms": {}}
+        for arm, (head, scfg) in arms.items():
+            out["arms"][arm] = {}
+            for n, f in feats.items():
+                acc = float(uq_report(logit_samples(head, f, scfg),
+                                      labels)["accuracy"])
+                out["arms"][arm][n] = {"accuracy": acc,
+                                       "acc_dev": abs(acc - golden[n])}
+    finally:
+        restore()
+    launches = bayes.bayes_rank16.launches
+    check(launches == len(calls["rank16"]) == 2 + 2 * len(arms),
+          f"static arms: {launches} rank16 launches")
+    summary = {"max_abs_err": 0.0, "cases": 0}
+    for i, args in enumerate(calls["rank16"]):
+        rank16_check(f"static_arm_call{i}", args, summary)
+    check(arms["stale"][1].grng.imprint > 0
+          and arms["healed"][1].calib_epoch == 1,
+          "static arms: the stale view is not aged or the heal not new")
+    out["rank16_launches"] = launches
+    out["rank16_checks"] = summary
+    return out
+
+
+def run_lifetime_serving(params) -> dict:
+    """lifetime_bench on the card with the trained detector: the seed-11
+    severity-2.5 die, 30 days over 96 requests in 4 epochs of 16 slots,
+    arms healed (auto_recalibrate), stale (none) and fresh (1 s a
+    request): fresh raises 0 advisories, stale ≥ 1 and heals 0 times,
+    healed heals ≥ 1 time (asserted); the static arms
+    (``static_arms``); card against CPU at LIFETIME_SMALL: the same
+    advisories, heals and calib_epoch, verdicts equal unless the trunks
+    flipped an ADC code (the differing ones counted, at most 2 of 32)."""
+    import torch
+    from repro_torch.hw import LifetimeConfig
+    from repro_torch.kernels.cim import cim_mvm
+    from repro_torch.kernels.decision import decision_stats
+    from repro_torch.launch.serve import serve_sar_lifetime
+    from repro_torch.serving.engine import _to_device
+    die = mission_die()                # lifetime_bench's die too
+    age_s = LIFETIME["age_days"] * 86400.0
+    rate = age_s / LIFETIME["requests"]
+    arms = {"healed": dict(age_rate=rate, auto_recalibrate=True),
+            "stale": dict(age_rate=rate, auto_recalibrate=False),
+            "fresh": dict(age_rate=1.0, auto_recalibrate=True)}
+    out, launches = {}, {"decision": 0, "cim": 0}
+    for arm, lt in arms.items():
+        torch.cuda.synchronize()
+        decision_stats.launches = cim_mvm.launches = 0
+        res = serve_sar_lifetime(
+            lifetime=LifetimeConfig(epochs=LIFETIME["epochs"], **lt),
+            chip_instance=die, n_requests=LIFETIME["requests"],
+            n_slots=LIFETIME["slots"], params=params, device="cuda")
+        launches["decision"] += decision_stats.launches
+        launches["cim"] += cim_mvm.launches
+        check(decision_stats.launches == res["rounds_launched"]
+              and cim_mvm.launches == 3 * res["admissions"],
+              f"lifetime {arm}: launches {decision_stats.launches} / "
+              f"{cim_mvm.launches}")
+        lt_out = res["lifetime"]
+        out[arm] = {k: lt_out[k] for k in ("age_s", "advisories", "heals",
+                                           "calib_epoch", "epochs")}
+        out[arm].update(
+            events=[{k: ev[k] for k in ("age_s", "calib_epoch", "z_mean",
+                                        "z_std", "n")}
+                    for ev in lt_out["events"]],
+            final_z=[lt_out["status"]["z_mean"], lt_out["status"]["z_std"]],
+            host_syncs=res["host_syncs"], wall_s=res["wall_s"],
+            flag_fraction=res["flag_fraction"],
+            mean_samples_per_decision=res["mean_samples_per_decision"],
+            alerts=[a["kind"] for a in res.get("alerts", [])],
+            decision_kernel_launches=decision_stats.launches,
+            cim_kernel_launches=cim_mvm.launches)
+    check(out["fresh"]["advisories"] == 0 and out["fresh"]["heals"] == 0,
+          f"lifetime fresh arm raised an advisory: {out['fresh']}")
+    check(out["stale"]["advisories"] >= 1 and out["stale"]["heals"] == 0,
+          f"lifetime stale arm: {out['stale']}")
+    check(out["healed"]["heals"] >= 1 and out["healed"]["calib_epoch"] >= 1,
+          f"lifetime healed arm never healed: {out['healed']}")
+    static = static_arms(params, die)
+    small = {}
+    cpu_params = _to_device(params, "cpu")
+    for dev in ("cuda", "cpu"):
+        small[dev] = serve_sar_lifetime(
+            lifetime=LifetimeConfig(
+                age_rate=age_s / LIFETIME_SMALL["requests"],
+                epochs=LIFETIME_SMALL["epochs"], auto_recalibrate=True),
+            chip_instance=die, n_requests=LIFETIME_SMALL["requests"],
+            n_slots=LIFETIME_SMALL["slots"],
+            params=params if dev == "cuda" else cpu_params, device=dev)
+    lc, lp = small["cuda"]["lifetime"], small["cpu"]["lifetime"]
+    for key in ("advisories", "heals", "calib_epoch", "age_s"):
+        check(lc[key] == lp[key], f"lifetime card vs CPU: {key} "
+              f"{lc[key]} vs {lp[key]}")
+    differ = sum(a["verdict"] != b["verdict"] for a, b in
+                 zip(small["cuda"]["verdicts"], small["cpu"]["verdicts"]))
+    check(differ <= 2, f"lifetime card vs CPU: {differ} verdicts differ")
+    emit({"lifetime_serving": "serve_sar_lifetime, the trained detector on "
+                              "the seed-11 severity-2.5 die",
+          **LIFETIME, "arms": out, "static_arms": static,
+          "card_vs_cpu": {**LIFETIME_SMALL, "advisories": lc["advisories"],
+                          "heals": lc["heals"],
+                          "calib_epoch": lc["calib_epoch"],
+                          "verdicts_differ": differ}})
+    return {"launches": launches, "rank16_launches":
+            static["rank16_launches"], "rank16_checks":
+            static["rank16_checks"]}
+
+
+def run_mission_lifetime(params) -> dict:
+    """mission_bench's aged arms on the card: bayes_adaptive at
+    MISSION_BENCH's scale on the mission die aged MISSION_AGE_DAYS over
+    the 70 steps in 4 segments, with the birth calibration (aged_stale)
+    and healing on advisories (aged_healed): host_syncs == epochs, each
+    segment's step loop under ``set_sync_debug_mode("error")``; the
+    decision rounds of the stale arm's last segment and of the first
+    segment after a heal, recorded and held to the plain version (as
+    ``run_mission_kernel_checks``); the un-aged mission's wall a step
+    with telemetry on and off, in turns."""
+    import torch
+    from repro_torch.hw import LifetimeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cim import cim_mvm
+    from repro_torch.kernels.decision import decision_stats
+    from repro_torch.mission import MissionPolicy, fly_mission, rollout
+    wcfg, ucfg = mission_configs(MISSION_BENCH)
+    steps, episodes = MISSION_BENCH["steps"], MISSION_BENCH["episodes"]
+    die = mission_die()
+    rate = MISSION_AGE_DAYS * 86400.0 / steps
+    segment = {"step0": None}
+    real_episode = rollout._episode_fn
+
+    def checked_episode(*args, **kw):
+        fn = real_episode(*args, **kw)
+        step0 = kw.get("step0", args[10] if len(args) > 10 else 0)
+
+        def run(*a, **k):
+            segment["step0"] = step0
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    calls, restore = recording({"decision": (
+        ops, "decision_stats", ("y_mu", "x_sigma", "m", "sel", "cfg"))})
+    rounds: list = []            # the segment (step0) of each call
+    recorder = ops.decision_stats
+
+    def tagged(*a, **k):
+        rounds.append(segment["step0"])
+        return recorder(*a, **k)
+
+    ops.decision_stats = tagged
+    rollout._episode_fn = checked_episode
+    seg = -(-steps // LifetimeConfig().epochs)
+    out, launches = {}, {"decision": 0, "cim": 0}
+    try:
+        for arm, heal in (("aged_stale", False), ("aged_healed", True)):
+            calls["decision"].clear()
+            rounds.clear()
+            torch.cuda.synchronize()
+            decision_stats.launches = cim_mvm.launches = 0
+            t0 = time.perf_counter()
+            res = fly_mission(wcfg, ucfg, MissionPolicy(), params=params,
+                              chips=die, n_steps=steps, n_episodes=episodes,
+                              lifetime=LifetimeConfig(age_rate=rate,
+                                                      auto_recalibrate=heal),
+                              device="cuda")
+            wall = time.perf_counter() - t0
+            n_dec, n_cim = decision_stats.launches, cim_mvm.launches
+            launches["decision"] += n_dec
+            launches["cim"] += n_cim
+            (group, lt), = res.lifetime.items()
+            check(res.host_syncs == lt["epochs"] == 4,
+                  f"{arm}: {res.host_syncs} host syncs for {lt['epochs']} "
+                  f"epochs")
+            # every step's rounds; three trunk sweeps a step, plus one
+            # operating-point calibration at birth and after each heal
+            per_step, sweeps = mission_step_counts(MissionPolicy())
+            check(n_dec == per_step * steps and n_cim == 3 * (
+                sweeps * steps + 1 + lt["heals"]),
+                f"{arm}: {n_dec} decision and {n_cim} CIM launches")
+            if heal:
+                check(lt["heals"] >= 1, f"{arm}: never healed: {lt}")
+            else:
+                check(lt["heals"] == 0, f"{arm}: healed: {lt}")
+            # the kernel on this arm's own rounds: the stale arm's last
+            # segment, the healed arm's first segment after a heal (made
+            # after the segment that raised the advisory)
+            seg0 = (max(rounds) if not heal else
+                    round(lt["events"][0]["age_s"] / rate) + seg)
+            picked = [c for c, s in zip(calls["decision"], rounds)
+                      if s == seg0][:5]
+            check(len(picked) == 5 and all(
+                c["cfg"].imprint > 0 for c in picked),
+                f"{arm}: no aged decision rounds recorded at step {seg0}")
+            errs = []
+            for i, args in enumerate(picked):
+                b, n = args["y_mu"].shape
+                for lanes, mask in (("step", args["mask"]),
+                                    ("all", torch.ones_like(args["mask"]))):
+                    errs.append(decision_check(
+                        f"mission_{arm}_step{seg0}_round{i}",
+                        dict(args, mask=mask),
+                        dict(b=b, n=n, r=int(args["sel"].shape[0]),
+                             read_sigma=args["cfg"].read_sigma,
+                             imprint=args["cfg"].imprint, lanes=lanes)))
+            s = res.summary
+            out[arm] = {
+                "rescued_of_victims": f"{s['rescued']}/{s['victims']}",
+                **{k: s[k] for k in ("rescue_delay_s",
+                                     "false_verification_rate",
+                                     "mean_samples_per_decision", "orbits")},
+                **{k: lt[k] for k in ("age_s", "advisories", "heals",
+                                      "calib_epoch")},
+                "drift": {k: res.telemetry[group]["drift"][k]
+                          for k in ("drifted", "z_mean", "z_std")},
+                "host_syncs": res.host_syncs, "wall_s": wall,
+                "wall_ms_per_step": wall / steps * 1e3,
+                "decision_kernel_launches": n_dec,
+                "cim_kernel_launches": n_cim,
+                "checked_segment_step0": seg0,
+                "decision_max_abs_err": max(errs)}
+    finally:
+        restore()
+        rollout._episode_fn = real_episode
+    walls = {True: [], False: []}
+    for tel in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fly_mission(wcfg, ucfg, MissionPolicy(), params=params,
+                          chips=die, n_steps=steps, n_episodes=episodes,
+                          telemetry=tel, device="cuda")
+        walls[tel].append((time.perf_counter() - t0) / steps * 1e3)
+        check(res.host_syncs == 1, f"mission telemetry={tel}: "
+              f"{res.host_syncs} host syncs for one die group")
+    emit({"mission_lifetime": "fly_mission(bayes_adaptive) on the mission "
+                              "die aged over the mission, MISSION_BENCH "
+                              "scale",
+          "age_days": MISSION_AGE_DAYS, "age_rate_s_per_step": rate,
+          **out, "telemetry_wall_ms_per_step": {
+              "on": walls[True], "off": walls[False]}})
+    return {"launches": launches, "decision_max_abs_err": max(
+        out[a]["decision_max_abs_err"] for a in out)}
 
 
 # ----------------------------------------------------------------------
@@ -2632,16 +3086,31 @@ def main() -> int:
     mission = run_mission_matrix(train["params"])["launches"]
     mission_orbit_cost(train["params"])
     mission_profile(train["params"])
+    run_telemetry_path()
+    lifetime = run_lifetime_serving(train["params"])
+    aged = run_mission_lifetime(train["params"])
+    worst = max(worst, aged["decision_max_abs_err"])
     cim_plan_sweep(cim_inputs)
     head_plan_sweep()
+    heads = head_timing(uq_path["launches"], fig9, head_checks, train,
+                        trained_uq)
+    heads[1]["launches_lifetime_static_arms"] = lifetime["rank16_launches"]
+    heads[1]["max_abs_err"] = max(heads[1]["max_abs_err"],
+                                  lifetime["rank16_checks"]["max_abs_err"])
     run_timing(inputs, {"serve_sar": main_path["launches"],
-                        "mission_matrix": mission["decision"]}, worst,
+                        "mission_matrix": mission["decision"],
+                        "serve_sar_lifetime": lifetime["launches"]
+                        ["decision"],
+                        "mission_aged_arms": aged["launches"]["decision"]},
+               worst,
                cim_timing(cim_inputs,
                           {"serve_sar(chip_instance=gate die)":
                            chip_path["launches"],
-                           "mission_matrix": mission["cim"]}, cim_summary),
-               head_timing(uq_path["launches"], fig9, head_checks, train,
-                           trained_uq))
+                           "mission_matrix": mission["cim"],
+                           "serve_sar_lifetime": lifetime["launches"]["cim"],
+                           "mission_aged_arms": aged["launches"]["cim"]},
+                          cim_summary),
+               heads)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

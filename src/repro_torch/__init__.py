@@ -29,6 +29,13 @@ device, deciding every step through ``serving.engine.token_decision``
 (the decision kernel) and, on a die, the CIM trunk, with one host pull
 per die group.
 
+Observability and lifetime: device-resident telemetry (``obs.
+telemetry``, on by default in the engine, ``serve_sar`` and the
+mission), drift watch against the deployment's belief (``obs.drift``),
+dies that age in the field (``hw.aging``, ``ChipInstance.at_age``) and
+recalibrate-and-redeploy (``hw.redeploy``; ``launch.serve.
+serve_sar_lifetime``, ``fly_mission(lifetime=...)``).
+
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``): ``resolve_device(None)`` is ``"cuda"``.  Float32
 convolutions and matrix products run in float32 on the card

@@ -47,6 +47,10 @@ class BayesHeadConfig:
     # Materialize the 16 σ⊙I_j basis matrices once at deployment, so
     # serving never recomputes the device-current hashes.
     hoist_basis: bool = False
+    # Calibration epoch of the head this config serves: bumped by
+    # hw/redeploy on every recalibrate-and-swap, so two calibrations of
+    # one die never compare equal.
+    calib_epoch: int = 0
 
 
 def hoisted_sigma_basis(sigma: torch.Tensor, grng_cfg: g.GRNGConfig,

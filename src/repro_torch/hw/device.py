@@ -8,13 +8,14 @@ currents (which folds into the same three parameters), cycle-to-cycle
 read noise (``GRNGConfig.read_sigma``) and the peripheral errors: per-
 column ADC gain/offset and conductance programming error
 (``hw/instance.py``).  ``VariationSpec`` holds the population
-statistics a die is drawn from.  ``retention_decades`` waits for the
-lifetime slice.
+statistics a die is drawn from; ``retention_decades`` is the clock of
+the aging laws (``hw/aging.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 from repro_torch.core.clt_grng import GRNGConfig
 
@@ -64,6 +65,17 @@ class VariationSpec:
 def drift_factor(tc_current: float, temp_c: float) -> float:
     """Uniform current drift at ``temp_c`` relative to the 25 °C fit."""
     return 1.0 + tc_current * (temp_c - T_NOMINAL_C)
+
+
+def retention_decades(t_s: float, t0_s: float) -> float:
+    """Retention-loss clock: ln(1 + t/t0) elapsed "decades" at age t.
+
+    FeFET polarization retention is log-linear in time.  ``log1p`` pins
+    age 0 to exactly 0.0 decades, so an un-aged die is bit for bit its
+    birth state; ``t0_s`` is the knee below which a die is fresh."""
+    if t_s < 0.0:
+        raise ValueError(f"age must be >= 0, got {t_s}")
+    return math.log1p(t_s / t0_s)
 
 
 def degraded_grng(base: GRNGConfig, *, device_seed: int, noise_seed: int,

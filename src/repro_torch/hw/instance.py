@@ -9,10 +9,10 @@ everything written to it.  Dies are drawn with numpy's
 packages draw the same dies field for field, and are immutable
 afterwards.
 
-``at_age`` and ``save_instances``/``load_instances`` wait for the
-lifetime and checkpoint slices; ``to_tree``/``from_tree`` carry a die as
-a dict of numpy arrays (``bridge.instance_from_tree`` takes the
-reference's).
+``at_age`` gives the die after a time in the field (``hw/aging.py``).
+``save_instances``/``load_instances`` wait for a later slice;
+``to_tree``/``from_tree`` carry a die as a dict of numpy arrays
+(``bridge.instance_from_tree`` takes the reference's).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 from repro_torch.core.clt_grng import GRNGConfig
 from repro_torch.core.hashing import gaussianish, hash3
 from repro_torch.hw import device as dev
+from repro_torch.hw.aging import at_age as _at_age
 
 # Tags mixed into per-chip hash seeds so chip streams never collide with
 # the golden chip's (seed 0xC1A0) or each other's.
@@ -88,6 +89,12 @@ class ChipInstance:
                             device=w.device)[None, :]
         h = hash3(rows, cols, tag, self.weight_seed)
         return w * (1.0 + self.program_sigma * gaussianish(h)).to(w.dtype)
+
+    def at_age(self, t_s: float, spec=None) -> "ChipInstance":
+        """This die after ``t_s`` simulated seconds in the field
+        (``hw/aging.at_age``): only from the birth (age-0) instance, so
+        an age is always absolute."""
+        return _at_age(self, t_s, spec)
 
     def adc_columns(self, n_cols: int) -> tuple[np.ndarray, np.ndarray]:
         """(gain [n_cols], offset [n_cols]): the 64 physical column

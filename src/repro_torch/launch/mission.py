@@ -17,8 +17,12 @@ Usage:
       --train-steps 3 --steps 10        # a quick run on the CPU
 
 ``--policy``: bayes_adaptive (default) | bayes_fixed | deterministic.
-The reference's aging, telemetry, trace, metrics and profile flags wait
-for later slices (ROADMAP A9, A11).
+Telemetry is on unless ``--no-telemetry``: each die group's drift
+status is printed, and drift advisories and heal events go through the
+alert bus.  ``--age-rate`` (field seconds a step) flies the chip-bound
+group aged, in ``--age-epochs`` segments; ``--auto-recalibrate`` heals
+it in flight.  The reference's trace, metrics and profile flags wait
+for a later slice (ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -59,6 +63,20 @@ def main(argv=None) -> dict:
     ap.add_argument("--uncalibrated", action="store_true",
                     help="skip per-die head recalibration AND the "
                          "mission operating-point transfer")
+    ap.add_argument("--age-rate", type=float, default=0.0,
+                    help="simulated field seconds of FeFET aging per "
+                         "mission step (hw/aging.py); 0 disables the "
+                         "lifetime loop")
+    ap.add_argument("--age-epochs", type=int, default=4,
+                    help="age/heal segments the mission is cut into")
+    ap.add_argument("--auto-recalibrate", action="store_true",
+                    help="heal drift advisories in flight: recalibrate "
+                         "the aged die between segments and redeploy "
+                         "(hw/redeploy.py)")
+    ap.add_argument("--no-telemetry", dest="telemetry",
+                    action="store_false", default=True,
+                    help="fly without the per-die-group device telemetry "
+                         "and its drift check")
     ap.add_argument("--no-fused", dest="fused", action="store_false",
                     default=True)
     ap.add_argument("--train-steps", type=int, default=None,
@@ -97,9 +115,16 @@ def main(argv=None) -> dict:
     params, cfg = trained_detector(corruption=args.corruption,
                                    severity_hi=args.severity_hi,
                                    device=args.device, **det_kw)
+    lifetime = None
+    if args.age_rate > 0.0 or args.auto_recalibrate:
+        from repro_torch.hw.redeploy import LifetimeConfig
+        lifetime = LifetimeConfig(age_rate=args.age_rate,
+                                  epochs=args.age_epochs,
+                                  auto_recalibrate=args.auto_recalibrate)
     res = fly_mission(wcfg, ucfg, pol, params=params, cfg=cfg, chips=chips,
                       calibrated=not args.uncalibrated, n_steps=args.steps,
                       n_episodes=args.episodes, fused=args.fused,
+                      telemetry=args.telemetry, lifetime=lifetime,
                       device=args.device)
     s = res.summary
     print(f"[{args.policy}/{args.planner}] "
@@ -119,6 +144,25 @@ def main(argv=None) -> dict:
           f"{1e6 * s['energy_verify_J']:.0f}, flight "
           f"{1e6 * s['energy_flight_J']:.0f}); "
           f"host syncs {res.host_syncs}")
+    for group, lt in (res.lifetime or {}).items():
+        print(f"[lifetime {group}] age {lt['age_s']:.0f}s: "
+              f"{lt['advisories']} advisories, {lt['heals']} heals, "
+              f"calib_epoch {lt['calib_epoch']}")
+    for group, t in (res.telemetry or {}).items():
+        drift = t["drift"]
+        print(f"[telemetry {group}] {t['telemetry']['decisions']} "
+              f"decisions, {t['telemetry']['rounds']} rounds; drift "
+              f"{'ADVISORY' if drift['drifted'] else 'healthy'} "
+              f"z_mean={drift['z_mean']:.2f} z_std={drift['z_std']:.2f}")
+    # the alert bus over the finished mission: per-group drift statuses
+    # and heal events as one advisory stream
+    from repro_torch.obs.alerts import AlertBus
+    bus = AlertBus()
+    for group, t in (res.telemetry or {}).items():
+        bus.observe_drift(t.get("drift"), source=f"mission/{group}")
+    for group, lt in (res.lifetime or {}).items():
+        for ev in lt.get("events", []):
+            bus.observe_heal(ev, source=f"mission/{group}")
     return s
 
 

@@ -4,17 +4,28 @@
 The stream is synthetic SARD patches with a corrupted fraction mixed
 in, classified by the Bayesian-head CNN with per-slot escalation.  It
 runs on the card unless ``--device cpu`` is given, and prints one
-summary line.  ``--chip-instance N`` serves on a die sampled with seed
+summary line (and one for the lifetime loop when the die ages; a drift
+advisory is logged as it is raised).  ``--chip-instance N`` serves on a die sampled with seed
 N: the conv trunk on its nonideal CIM arrays, the Bayesian head on its
 degraded GRNG, recalibrated per chip unless ``--uncalibrated``.
+
+Telemetry is on by default (``--no-telemetry`` turns it off): the
+summary then carries the telemetry snapshot, the drift status against
+the deployment's belief and the alert bus's advisories.  With
+``--age-rate`` (field seconds per decision) the die ages over the
+stream, cut into ``--age-epochs`` segments; ``--auto-recalibrate``
+heals on drift advisories between them (``serve_sar_lifetime``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch sar_cnn \\
       --requests 192 --corrupt-frac 0.25 --corruption fog [--fixed] \\
       [--chip-instance 11 --chip-severity 2.0 --uncalibrated]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch sar_cnn \\
+      --chip-instance 11 --chip-severity 2.5 --age-rate 27000 \\
+      --age-epochs 4 --auto-recalibrate
 
-The LM archs, fleets, lifetime, arrival processes, SLOs and drift
-monitoring of the reference CLI wait for later slices.
+The LM archs, fleets, arrival processes, SLOs, traces and metric
+exports of the reference CLI wait for later slices.
 """
 
 from __future__ import annotations
@@ -27,8 +38,29 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.energy import LayerShape
 from repro_torch.hw import compile_network
+from repro_torch.obs.log import get_logger
+from repro_torch.obs.telemetry import TelemetryConfig
 from repro_torch.serving import (Request, SarServingEngine, ServingMetrics,
                                  TriagePolicy)
+
+log = get_logger("serve")
+
+
+def collect_alerts(out: dict, source: str):
+    """The alert bus over a finished serve summary: its drift status and
+    lifetime heal events become one typed advisory stream (logged as
+    emitted; ``out["alerts"]`` when any).  SLO and backpressure inputs
+    do not exist in the port yet."""
+    from repro_torch.obs.alerts import AlertBus
+    bus = AlertBus()
+    bus.observe_drift(out.get("drift"), source=source)
+    for ev in (out.get("lifetime") or {}).get("events", []):
+        bus.observe_heal(ev, source=source)
+    bus.observe_slo(out.get("slo"), source=source)
+    bus.observe_backpressure(out.get("slo"), source=source)
+    if bus.advisories:
+        out["alerts"] = bus.to_json()
+    return bus
 
 
 def sar_layer_shapes(cfg) -> list:
@@ -72,7 +104,8 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
                     policy: TriagePolicy | None = None, params=None,
                     cfg=None, seed: int = 0, chip_instance=None,
                     calibrated: bool = True, fused: bool = True,
-                    device=None) -> SarServingEngine:
+                    telemetry: bool | TelemetryConfig = True, head=None,
+                    hcfg=None, device=None) -> SarServingEngine:
     """The engine ``serve_sar`` drives: untrained params from
     ``init_sar_cnn`` seeded ``3 + seed`` unless ``params`` is given,
     tilemap-true energy accounting (placed blocks of the compiled layer
@@ -84,6 +117,8 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
     deployed by ``prepare_instance_head`` on ``device``, calibration
     included (``calibrated`` selects the per-chip recalibration over the
     golden factory transform).  The summary gains the die's metadata.
+    ``head``/``hcfg``: a head already deployed on that die (the lifetime
+    controller's), used as given.
     """
     from repro_torch.models.sar_cnn import SarCnnConfig, init_sar_cnn
     cfg = cfg or SarCnnConfig()
@@ -92,7 +127,6 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
         params = init_sar_cnn(torch.Generator().manual_seed(3 + seed), cfg)
     policy = policy or TriagePolicy(conf_threshold=0.7, mi_threshold=0.05)
     layers = sar_layer_shapes(cfg)
-    head = hcfg = None
     extra = {}
     if chip_instance is not None:
         from repro_torch.core.bayes_layer import sigma_of
@@ -103,10 +137,11 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
         base_hcfg = BayesHeadConfig(
             num_samples=policy.r_max, mode="rank16", grng=cfg.grng,
             compute_dtype=torch.float32, hoist_basis=True)
-        dev_head = {k: v.to(device) for k, v in params["head"].items()}
-        head, hcfg = prepare_instance_head(
-            dev_head["mu"], sigma_of(dev_head), base_hcfg,
-            chip_instance, calibrated=calibrated)
+        if head is None:
+            dev_head = {k: v.to(device) for k, v in params["head"].items()}
+            head, hcfg = prepare_instance_head(
+                dev_head["mu"], sigma_of(dev_head), base_hcfg,
+                chip_instance, calibrated=calibrated)
         extra = {"chip_id": chip_instance.chip_id,
                  "chip_device_seed": chip_instance.device_seed,
                  "chip_read_sigma": chip_instance.read_sigma,
@@ -117,32 +152,11 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
     return SarServingEngine(params, cfg, n_slots=n_slots, policy=policy,
                             adaptive_mode=adaptive, metrics=metrics,
                             head=head, hcfg=hcfg, chip=chip_instance,
-                            fused=fused, device=device)
+                            fused=fused, telemetry=telemetry, device=device)
 
 
-def serve_sar(*, n_requests: int = 128, n_slots: int = 32,
-              adaptive: bool = True, policy: TriagePolicy | None = None,
-              corrupt_frac: float = 0.0, corruption: str = "fog",
-              params=None, cfg=None, seed: int = 0, chip_instance=None,
-              calibrated: bool = True, fused: bool = True,
-              device=None) -> dict:
-    """SAR image-stream serving on ``device`` (None = the card) through
-    ``make_sar_engine`` (``chip_instance``/``calibrated``: serve on a
-    sampled die, see there).  Returns the metrics summary plus host
-    syncs, rounds launched, admissions and per-request verdicts."""
-    engine = make_sar_engine(n_slots=n_slots, adaptive=adaptive,
-                             policy=policy, params=params, cfg=cfg,
-                             seed=seed, chip_instance=chip_instance,
-                             calibrated=calibrated, fused=fused,
-                             device=device)
-    reqs = make_sar_stream(n_requests, corrupt_frac=corrupt_frac,
-                           corruption=corruption,
-                           image_size=engine.cfg.image_size)
-    t0 = time.perf_counter()
-    for r in reqs:
-        engine.submit(r)
-    out = engine.run()
-    out["wall_s"] = time.perf_counter() - t0
+def _engine_summary(out: dict, engine: SarServingEngine) -> dict:
+    """The engine's counters and per-request verdicts, added to ``out``."""
     out["device"] = str(engine.device)
     out["host_syncs"] = engine.host_syncs
     out["host_syncs_per_decision"] = (engine.host_syncs
@@ -155,6 +169,156 @@ def serve_sar(*, n_requests: int = 128, n_slots: int = 32,
          "confidence": r.confidence,
          "mutual_information": r.mutual_information,
          "n_samples": r.n_samples} for r in engine.metrics.records]
+    return out
+
+
+def serve_sar(*, n_requests: int = 128, n_slots: int = 32,
+              adaptive: bool = True, policy: TriagePolicy | None = None,
+              corrupt_frac: float = 0.0, corruption: str = "fog",
+              params=None, cfg=None, seed: int = 0, chip_instance=None,
+              calibrated: bool = True, fused: bool = True,
+              telemetry: bool | TelemetryConfig = True,
+              device=None) -> dict:
+    """SAR image-stream serving on ``device`` (None = the card) through
+    ``make_sar_engine`` (``chip_instance``/``calibrated``: serve on a
+    sampled die, see there).  Returns the metrics summary plus host
+    syncs, rounds launched, admissions and per-request verdicts; with
+    ``telemetry`` (the default) also the snapshot (``"telemetry"``), the
+    drift status against the deployment's calibration-time belief
+    (``"drift"``: the measured die config when calibrated, the factory
+    config otherwise) and the alert bus's advisories (``"alerts"``)."""
+    engine = make_sar_engine(n_slots=n_slots, adaptive=adaptive,
+                             policy=policy, params=params, cfg=cfg,
+                             seed=seed, chip_instance=chip_instance,
+                             calibrated=calibrated, fused=fused,
+                             telemetry=telemetry, device=device)
+    reqs = make_sar_stream(n_requests, corrupt_frac=corrupt_frac,
+                           corruption=corruption,
+                           image_size=engine.cfg.image_size)
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    out = engine.run()
+    out["wall_s"] = time.perf_counter() - t0
+    _engine_summary(out, engine)
+    if engine.tcfg is not None and out.get("telemetry"):
+        from repro_torch.obs.drift import drift_status, reference_for
+        ref = reference_for(engine.cfg, engine.hcfg,
+                            calibrated=(chip_instance is not None
+                                        and calibrated),
+                            probe_cells=engine.tcfg.probe_cells,
+                            device=engine.device)
+        out["drift"] = drift_status(out["telemetry"], ref).to_dict()
+        if out["drift"]["advisory"]:
+            log.warning(out["drift"]["advisory"])
+    collect_alerts(out, "serve_sar")
+    return out
+
+
+def serve_sar_lifetime(*, lifetime, chip_instance, n_requests: int = 128,
+                       n_slots: int = 32, adaptive: bool = True,
+                       policy: TriagePolicy | None = None,
+                       corrupt_frac: float = 0.0, corruption: str = "fog",
+                       params=None, cfg=None, seed: int = 0,
+                       calibrated: bool = True, fused: bool = True,
+                       telemetry: bool | TelemetryConfig = True,
+                       device=None) -> dict:
+    """SAR serving over a die's LIFETIME, on ``device`` (None: the card).
+
+    The stream is cut into ``lifetime.epochs`` segments; before each
+    segment after the first the die moves to the age its decision count
+    implies (``lifetime.age_rate`` field seconds a decision) and the
+    engine serves the stale belief on the aged physics; after each, the
+    cumulative telemetry's delta folds into the die's drift monitor and,
+    with ``lifetime.auto_recalibrate``, an advisory heals the die:
+    recalibration at its age and a hot swap
+    (``hw/redeploy.SelfHealingController`` + ``swap_head``).
+
+    With ``lifetime.active`` False this IS ``serve_sar``: one segment,
+    no controller, the same verdicts and host syncs.  Returns the serve
+    summary plus ``out["lifetime"]``: age, heal events, advisory count
+    and the final drift status.
+    """
+    if not lifetime.active:
+        out = serve_sar(n_requests=n_requests, n_slots=n_slots,
+                        adaptive=adaptive, policy=policy,
+                        corrupt_frac=corrupt_frac, corruption=corruption,
+                        params=params, cfg=cfg, seed=seed,
+                        chip_instance=chip_instance, calibrated=calibrated,
+                        fused=fused, telemetry=telemetry, device=device)
+        out["lifetime"] = {"active": False, "age_s": 0.0, "heals": 0,
+                           "advisories": 0, "epochs": 1}
+        return out
+    if chip_instance is None:
+        raise ValueError("lifetime serving ages a specific die — pass "
+                         "chip_instance (a ChipInstance or an int seed)")
+    if telemetry is False:
+        raise ValueError("lifetime serving watches drift through the "
+                         "device-resident telemetry probe — telemetry "
+                         "must stay enabled")
+    from repro_torch.core.bayes_layer import sigma_of
+    from repro_torch.core.sampling import BayesHeadConfig
+    from repro_torch.hw import sample_instances
+    from repro_torch.hw.redeploy import SelfHealingController
+    from repro_torch.models.sar_cnn import SarCnnConfig, init_sar_cnn
+    device = resolve_device(device)
+    if not hasattr(chip_instance, "grng"):
+        chip_instance = sample_instances(int(chip_instance), 1)[0]
+    cfg = cfg or SarCnnConfig()
+    if params is None:
+        params = init_sar_cnn(torch.Generator().manual_seed(3 + seed), cfg)
+    policy = policy or TriagePolicy(conf_threshold=0.7, mi_threshold=0.05)
+    base_hcfg = BayesHeadConfig(
+        num_samples=policy.r_max, mode="rank16", grng=cfg.grng,
+        compute_dtype=torch.float32, hoist_basis=True)
+    tcfg = telemetry if isinstance(telemetry, TelemetryConfig) \
+        else TelemetryConfig()
+    dev_head = {k: v.to(device) for k, v in params["head"].items()}
+    ctl = SelfHealingController(
+        chip_instance, dev_head["mu"], sigma_of(dev_head), base_hcfg,
+        calibrated=calibrated, spec=lifetime.spec, gate=lifetime.gate,
+        probe_cells=tcfg.probe_cells)
+    engine = make_sar_engine(n_slots=n_slots, adaptive=adaptive,
+                             policy=policy, params=params, cfg=cfg,
+                             seed=seed, chip_instance=chip_instance,
+                             calibrated=calibrated, fused=fused,
+                             telemetry=tcfg, head=ctl.head, hcfg=ctl.hcfg,
+                             device=device)
+    reqs = make_sar_stream(n_requests, corrupt_frac=corrupt_frac,
+                           corruption=corruption,
+                           image_size=cfg.image_size)
+    epochs = max(1, int(lifetime.epochs))
+    seg = -(-len(reqs) // epochs)
+    served, advisories = 0, 0
+    t0 = time.perf_counter()
+    for k in range(epochs):
+        chunk = reqs[k * seg:(k + 1) * seg]
+        if not chunk:
+            break
+        if k:
+            # drift arrives mid-stream: the die moves to the age its
+            # decision count implies, the belief stays
+            engine.swap_head(*ctl.advance(lifetime.age_rate * served))
+        for r in chunk:
+            engine.submit(r)
+        out = engine.run()
+        served += len(chunk)
+        status = ctl.observe_snapshot(out["telemetry"])
+        if status.drifted:
+            advisories += 1
+            log.warning(status.advisory)
+        if lifetime.auto_recalibrate and status.drifted:
+            ev = ctl.heal(status)
+            engine.swap_head(*ctl.view())
+            log.info("healed", age_s=ev.age_s, calib_epoch=ev.calib_epoch,
+                     z_mean=round(ev.z_mean, 2), z_std=round(ev.z_std, 2))
+    out["wall_s"] = time.perf_counter() - t0
+    _engine_summary(out, engine)
+    out["lifetime"] = dict(ctl.report(), active=True, epochs=epochs,
+                           advisories=advisories,
+                           age_rate=lifetime.age_rate,
+                           auto_recalibrate=lifetime.auto_recalibrate)
+    collect_alerts(out, "serve_sar_lifetime")
     return out
 
 
@@ -187,6 +351,20 @@ def main(argv=None) -> None:
     ap.add_argument("--uncalibrated", action="store_true",
                     help="skip per-instance recalibration (golden "
                          "factory transform on the degraded chip)")
+    ap.add_argument("--age-rate", type=float, default=0.0,
+                    help="simulated field seconds of FeFET aging per "
+                         "decision (hw/aging.py); 0 serves the un-aged "
+                         "path")
+    ap.add_argument("--age-epochs", type=int, default=4,
+                    help="age/heal checkpoints the stream is cut into")
+    ap.add_argument("--auto-recalibrate", action="store_true",
+                    help="act on drift advisories: recalibrate the aged "
+                         "die and swap the healed head in mid-stream "
+                         "(hw/redeploy.py)")
+    ap.add_argument("--no-telemetry", dest="telemetry",
+                    action="store_false", default=True,
+                    help="serve without the device-resident telemetry "
+                         "(obs/telemetry) and its drift check")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
@@ -198,12 +376,19 @@ def main(argv=None) -> None:
     policy = TriagePolicy(conf_threshold=args.conf_threshold,
                           mi_threshold=args.mi_threshold,
                           r_min=args.r_min, r_max=args.r_max)
-    out = serve_sar(n_requests=args.requests or 128,
-                    n_slots=args.slots or 32, adaptive=not args.fixed,
-                    policy=policy, corrupt_frac=args.corrupt_frac,
-                    corruption=args.corruption, chip_instance=chip,
-                    calibrated=not args.uncalibrated, fused=args.fused,
-                    device=args.device)
+    kw = dict(n_requests=args.requests or 128, n_slots=args.slots or 32,
+              adaptive=not args.fixed, policy=policy,
+              corrupt_frac=args.corrupt_frac, corruption=args.corruption,
+              chip_instance=chip, calibrated=not args.uncalibrated,
+              fused=args.fused, telemetry=args.telemetry,
+              device=args.device)
+    if args.age_rate > 0.0 or args.auto_recalibrate:
+        from repro_torch.hw.redeploy import LifetimeConfig
+        out = serve_sar_lifetime(lifetime=LifetimeConfig(
+            age_rate=args.age_rate, epochs=args.age_epochs,
+            auto_recalibrate=args.auto_recalibrate), **kw)
+    else:
+        out = serve_sar(**kw)
     chip_note = ""
     if chip is not None:
         chip_note = (f" [chip seed={args.chip_instance} "
@@ -220,6 +405,11 @@ def main(argv=None) -> None:
           f"{out['grng_energy_per_decision_aJ']:.0f} aJ/decision; "
           f"host syncs/decision {out['host_syncs_per_decision']:.3f}"
           + chip_note)
+    lt = out.get("lifetime")
+    if lt and lt.get("active"):
+        print(f"[lifetime] age {lt['age_s']:.0f}s over {lt['epochs']} "
+              f"epochs: {lt['advisories']} advisories, {lt['heals']} "
+              f"heals, calib_epoch {lt['calib_epoch']}")
 
 
 if __name__ == "__main__":

@@ -31,9 +31,17 @@ so no two lanes of a step write one cell.
 
 ``fly_mission`` groups drones by die: each group runs its episode and
 is read back in ONE blocking device→host transfer (``host_syncs``
-counts them), then the groups' logs and maps merge.  Telemetry, the
-lifetime loop and a device mesh wait for later slices (ROADMAP A9, A11,
-A10).
+counts them), then the groups' logs and maps merge.
+
+Telemetry (on by default, as in the reference) rides the step loop as
+device tensors updated in place and comes home in the group's one pull;
+the orbit's decisions count only on steps where something is flagged
+(the reference's ``lax.cond``).  With a ``lifetime`` (``hw/redeploy.
+LifetimeConfig``) each die group is flown in ``epochs`` segments over
+ABSOLUTE step indices, so its decisions draw the streams of the
+unsegmented mission; between segments the die ages, its drift monitor
+folds the telemetry, and an advisory may heal it: one pull a segment.
+A device mesh waits for the multi-GPU fleet (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -51,6 +59,10 @@ from repro_torch.mission import world as mworld
 from repro_torch.mission.policy import MissionPolicy
 from repro_torch.mission.uav import UavConfig
 from repro_torch.mission.world import WorldConfig
+from repro_torch.obs.drift import drift_status, reference_for
+from repro_torch.obs.telemetry import (TelemetryConfig, init_telemetry,
+                                       record_decisions)
+from repro_torch.obs.telemetry import snapshot as telemetry_snapshot
 from repro_torch.serving import adaptive
 from repro_torch.serving.engine import _to_device, featurize, token_decision
 from repro_torch.serving.metrics import DecisionCost, decision_cost
@@ -68,12 +80,18 @@ def sar_mission_cost(cfg) -> DecisionCost:
 
 def _episode_fn(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
                 cfg, hcfg, trunk, cost: DecisionCost, fused: bool,
-                n_steps: int):
-    """-> episode(params, head, logit_bias, worlds, fleet0, maps0, bind)
-    -> (fleet, maps, logs {name: [n_steps, B]}), all on the device.
+                n_steps: int, tcfg: TelemetryConfig | None = None,
+                step0: int = 0):
+    """-> episode(params, head, logit_bias, worlds, fleet0, maps0, bind,
+    telem0=None) -> (fleet, maps, logs {name: [n_steps, B]}), all on the
+    device, plus the telemetry when ``telem0`` is given.
 
     ``trunk``: the die's programmed arrays (``models.sar_cnn.
-    program_trunk``), None on the ideal die.  The inputs are not
+    program_trunk``), None on the ideal die.  ``step0``: the absolute
+    mission step of the first iteration; a segmented mission (the
+    lifetime loop) scans absolute steps, so every decision keeps the
+    stream base of the unsegmented mission.  ``tcfg``: the telemetry's
+    config; ``telem0`` is updated in place, the other inputs are not
     modified."""
     tri = pol.triage
     grid, n_cells = wcfg.grid, wcfg.n_cells
@@ -83,18 +101,23 @@ def _episode_fn(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
         schedule = (adaptive.escalation_schedule(tri) if adaptive_mode
                     else (tri.r_max,))
 
-        def decide(rows, base, active):
-            return token_decision(rows, base, active, hcfg=hcfg, policy=tri,
-                                  adaptive_mode=adaptive_mode,
-                                  schedule=schedule, fused=fused)
+        def decide(rows, base, active, telem, launched=None):
+            out = token_decision(rows, base, active, hcfg=hcfg, policy=tri,
+                                 adaptive_mode=adaptive_mode,
+                                 schedule=schedule, fused=fused,
+                                 telem=telem, tcfg=tcfg, launched=launched)
+            return out[:3]
 
         if pol.flag_action == "orbit":
-            def orbit(rows, base, active):
-                return token_decision(rows, base, active, hcfg=hcfg,
-                                      policy=tri, adaptive_mode=False,
-                                      schedule=(tri.r_max,), fused=fused)
+            def orbit(rows, base, active, telem, launched):
+                out = token_decision(rows, base, active, hcfg=hcfg,
+                                     policy=tri, adaptive_mode=False,
+                                     schedule=(tri.r_max,), fused=fused,
+                                     telem=telem, tcfg=tcfg,
+                                     launched=launched)
+                return out[:3]
 
-    def step(params, head, logit_bias, worlds, bind, fleet, maps, t):
+    def step(params, head, logit_bias, worlds, bind, fleet, maps, t, telem):
         wid, cells = bind["wid"], fleet["pos"]
         n_batch = cells.shape[0]
         lane = torch.arange(n_batch, dtype=torch.int64, device=cells.device)
@@ -130,19 +153,30 @@ def _episode_fn(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
             spent = torch.zeros((n_batch,), dtype=torch.int32,
                                 device=cells.device)
             want_verify = pred == 1           # verify every detection
+            if telem is not None:
+                # no sampled statistics here: the softmax's quality
+                # fields keep the histograms comparable across modes
+                record_decisions(telem, tcfg, {
+                    "probs": torch.exp(logp), "confidence": conf,
+                    "predictive_entropy": pred_ent,
+                    "mutual_information": torch.zeros_like(conf),
+                    "n": torch.zeros_like(verdict)}, verdict, active)
         else:
             # the detection is the µ-MVM's; the posterior gates it
             pred = detection(rows)
-            verdict, fin, spent = decide(rows, bases(0), active)
+            verdict, fin, spent = decide(rows, bases(0), active, telem)
             conf = fin["confidence"]
             pred_ent = fin["predictive_entropy"]
             want_verify = (verdict == ACCEPT) & (pred == 1)
             if orbit is not None:
                 flagged = active & (verdict == FLAG) & (pred == 1)
+                # the reference runs the orbit only when this holds
+                any_flagged = flagged.any()
                 relook = torch.zeros_like(flagged)
                 for j in (1, 2):
                     rows_j = look_at(3 * t + j)
-                    _, fin_j, spent_j = orbit(rows_j, bases(j), flagged)
+                    _, fin_j, spent_j = orbit(rows_j, bases(j), flagged,
+                                              telem, any_flagged)
                     relook = relook | (detection(rows_j) == 1)
                     conf = torch.where(flagged, fin_j["confidence"], conf)
                     pred_ent = torch.where(
@@ -211,15 +245,18 @@ def _episode_fn(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
                "energy_J": energy, "time_s": time_s}
         return fleet, maps, log
 
-    def episode(params, head, logit_bias, worlds, fleet0, maps0, bind):
+    def episode(params, head, logit_bias, worlds, fleet0, maps0, bind,
+                telem0=None):
         fleet, maps, logs = fleet0, maps0, []
         with float32_math():
-            for t in range(n_steps):
+            for t in range(step0, step0 + n_steps):
                 fleet, maps, log = step(params, head, logit_bias, worlds,
-                                        bind, fleet, maps, t)
+                                        bind, fleet, maps, t, telem0)
                 logs.append(log)
-        return fleet, maps, {k: torch.stack([lg[k] for lg in logs])
-                             for k in logs[0]}
+        logs = {k: torch.stack([lg[k] for lg in logs]) for k in logs[0]}
+        if telem0 is None:
+            return fleet, maps, logs
+        return fleet, maps, logs, telem0
 
     return episode
 
@@ -277,7 +314,14 @@ class MissionResult:
     logs: dict           # numpy [n_steps, E·D] arrays, fleet order
     maps: dict           # merged {rescued_t, cleared, visited, entropy}
     worlds: dict         # numpy {victims, severity, seed} [E, ...]
-    host_syncs: int      # blocking device→host pulls: one per die group
+    host_syncs: int      # blocking device→host pulls: one per die group,
+    #                      or one per segment of an aged group
+    # per die group: {"drones", "telemetry": snapshot, "drift": status
+    # dict}; None with telemetry off
+    telemetry: dict | None = None
+    # per AGED die group: the controller's report plus advisory and
+    # epoch counts; None when no lifetime loop ran
+    lifetime: dict | None = None
 
 
 def _group_base_hcfg(cfg, tri):
@@ -340,32 +384,98 @@ def operating_point_bias(params, cfg, head, chip, n_patches: int = 256,
     return np.asarray([0.0, tau], np.float32)
 
 
+def _group_bias(params, cfg, head, chip, calibrated: bool) -> torch.Tensor:
+    """The operating-point bias on the head's device (zeros
+    uncalibrated)."""
+    bias = operating_point_bias(params, cfg, head, chip) \
+        if calibrated else np.zeros((cfg.n_classes,), np.float32)
+    return torch.as_tensor(bias, device=head["mu_prime"].device)
+
+
 def group_episode(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
                   params, cfg, chip, calibrated: bool, cost: DecisionCost,
-                  fused: bool, n_steps: int):
+                  fused: bool, n_steps: int,
+                  tcfg: TelemetryConfig | None = None):
     """One die group's deployment, on the params' device: the head
     (``_prepare_group_head``), the operating-point bias (zeros
     uncalibrated), the die's trunk arrays, and the episode over them.
-    -> (episode, head, bias); ``episode(params, head, bias, worlds,
-    fleet0, maps0, bind)`` runs the step loop with no host sync."""
+    -> (episode, head, bias, hcfg); ``episode(params, head, bias,
+    worlds, fleet0, maps0, bind[, telem0])`` runs the step loop with no
+    host sync."""
     from repro_torch.models.sar_cnn import program_trunk
     head, hcfg = _prepare_group_head(params, cfg, pol.triage, chip,
                                      calibrated)
-    bias = operating_point_bias(params, cfg, head, chip) \
-        if calibrated else np.zeros((cfg.n_classes,), np.float32)
     trunk = None if chip is None else program_trunk(params, cfg, chip)
     episode = _episode_fn(wcfg, ucfg, pol, cfg, hcfg, trunk, cost, fused,
-                          n_steps)
-    return episode, head, torch.as_tensor(bias, device=head[
-        "mu_prime"].device)
+                          n_steps, tcfg)
+    return episode, head, _group_bias(params, cfg, head, chip,
+                                      calibrated), hcfg
+
+
+def _fly_group_lifetime(wcfg, ucfg, pol, cfg, chip, cost, fused,
+                        n_steps, tcfg, params, calibrated, worlds,
+                        fleet0_g, maps0, bind_g, lifetime):
+    """One AGED die group's mission: ``lifetime.epochs`` segments over
+    absolute steps.  Between segments the die moves to the age its step
+    count implies (the stale view keeps the bias, a µ'-only quantity),
+    the cumulative telemetry's delta folds into the drift monitor and,
+    with ``auto_recalibrate``, an advisory heals the die: recalibration
+    at its age, a new ``calib_epoch`` and a re-derived bias.  The
+    carry (fleet, maps, telemetry) stays on the device; each segment
+    makes one pull.  -> (fleet, maps, logs, telemetry snapshot,
+    controller, host syncs, advisories), on the host."""
+    from repro_torch.core.bayes_layer import sigma_of
+    from repro_torch.hw.redeploy import SelfHealingController
+    from repro_torch.models.sar_cnn import program_trunk
+    ctl = SelfHealingController(
+        chip, params["head"]["mu"], sigma_of(params["head"]),
+        _group_base_hcfg(cfg, pol.triage), calibrated=calibrated,
+        spec=lifetime.spec, gate=lifetime.gate,
+        probe_cells=tcfg.probe_cells)
+    head, hcfg = ctl.head, ctl.hcfg
+    bias = _group_bias(params, cfg, head, chip, calibrated)
+    trunk = program_trunk(params, cfg, chip)
+    epochs = max(1, int(lifetime.epochs))
+    seg = -(-n_steps // epochs)
+    fleet, maps = fleet0_g, maps0
+    telem = init_telemetry(tcfg, pol.triage.r_max, bias.device)
+    logs_parts: list[dict] = []
+    step0 = n_syncs = advisories = 0
+    while step0 < n_steps:
+        ns = min(seg, n_steps - step0)
+        if step0:
+            head, hcfg = ctl.advance(lifetime.age_rate * step0)
+        fn = _episode_fn(wcfg, ucfg, pol, cfg, hcfg, trunk, cost, fused,
+                         ns, tcfg, step0)
+        fleet, maps, logs, telem = fn(params, head, bias, worlds, fleet,
+                                      maps, bind_g, telem)
+        # the single blocking pull of this segment
+        got = _pull({"fleet": fleet, "maps": maps, "logs": logs,
+                     "telem": telem})
+        n_syncs += 1
+        logs_parts.append(got["logs"])
+        snap = telemetry_snapshot(got["telem"], tcfg)
+        status = ctl.observe_snapshot(snap)
+        if status.drifted:
+            advisories += 1
+        if lifetime.auto_recalibrate and status.drifted:
+            ctl.heal(status)
+            head, hcfg = ctl.view()
+            if calibrated:
+                bias = _group_bias(params, cfg, ctl.head, chip, True)
+        step0 += ns
+    logs_g = {k: np.concatenate([p[k] for p in logs_parts], axis=0)
+              for k in logs_parts[0]}
+    return (got["fleet"], got["maps"], logs_g, snap, ctl, n_syncs,
+            advisories)
 
 
 def fly_mission(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
                 *, params=None, cfg=None, chips=None,
                 calibrated: bool = True, n_steps: int = 96,
                 n_episodes: int = 1, fused: bool = True,
-                telemetry: bool = False, lifetime=None, mesh=None,
-                device=None) -> MissionResult:
+                telemetry: bool | TelemetryConfig = True, lifetime=None,
+                mesh=None, device=None) -> MissionResult:
     """Fly ``n_episodes`` independent missions for the whole fleet on
     ``device`` (None = the card; "cpu" on purpose).
 
@@ -376,16 +486,16 @@ def fly_mission(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
     batched into the decision kernel's slot dimension.  ``params``:
     default random params from a generator seeded 3.
 
-    ``telemetry``, ``lifetime`` and ``mesh`` are not ported yet (ROADMAP
-    A9, A11 and A10/B4) and raise when asked for.
+    ``telemetry``: each die group's device telemetry, home in the
+    group's pull; its snapshot and drift status (against the group's
+    calibration-time belief) land in ``MissionResult.telemetry``.
+    ``lifetime`` (``hw/redeploy.LifetimeConfig``): each chip-bound group
+    ages ``lifetime.age_rate`` field seconds a step, flown in
+    ``lifetime.epochs`` segments (one pull each) with drift watch and,
+    with ``auto_recalibrate``, heals in flight; ideal groups and
+    inactive lifetimes keep the one-pull path.  ``mesh`` is not ported
+    yet (ROADMAP A10/B4) and raises.
     """
-    if telemetry:
-        raise NotImplementedError(
-            "mission telemetry waits for obs/telemetry (ROADMAP A9)")
-    if lifetime is not None:
-        raise NotImplementedError(
-            "the mission's lifetime loop waits for hw/aging and "
-            "hw/redeploy (ROADMAP A11)")
     if mesh is not None:
         raise NotImplementedError(
             "a sharded mission waits for the multi-GPU fleet (ROADMAP "
@@ -415,10 +525,21 @@ def fly_mission(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
     for di, chip in enumerate(chips):
         groups.setdefault(id(chip), []).append(di)
 
+    if telemetry is True:
+        telemetry = TelemetryConfig()
+    tcfg = telemetry or None
+    lt_active = lifetime is not None and lifetime.active
+    if lt_active and tcfg is None:
+        raise ValueError("lifetime missions watch drift through the "
+                         "device-resident telemetry probe — telemetry "
+                         "must stay enabled")
+
     logs_full: dict[str, np.ndarray] = {}
     fleet_final = {k: np.zeros(tuple(v.shape), _np_dtype(v))
                    for k, v in fleet0.items()}
     host_syncs = 0
+    telemetry_out: dict | None = {} if tcfg else None
+    lifetime_out: dict | None = {} if lt_active else None
     for drone_ids in groups.values():
         chip = chips[drone_ids[0]]
         rows = np.asarray([ep * d + di for ep in range(e)
@@ -428,15 +549,46 @@ def fly_mission(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
         def sub(tree):
             return {k: v[idx] for k, v in tree.items()}
 
-        episode, head, bias = group_episode(wcfg, ucfg, pol, params, cfg,
-                                            chip, calibrated, cost, fused,
-                                            n_steps)
-        out = episode(params, head, bias, dev_worlds, sub(fleet0), maps0,
-                      sub(bind))
-        # the single blocking pull of this group's whole episode
-        got = _pull(dict(zip(("fleet", "maps", "logs"), out)))
-        fleet_g, maps_g, logs_g = got["fleet"], got["maps"], got["logs"]
-        host_syncs += 1
+        gname = ("ideal" if chip is None else
+                 f"chip{chip.chip_id}_seed{chip.device_seed}")
+        if lt_active and chip is not None:
+            (fleet_g, maps_g, logs_g, snap, ctl, n_syncs,
+             advisories) = _fly_group_lifetime(
+                wcfg, ucfg, pol, cfg, chip, cost, fused, n_steps, tcfg,
+                params, calibrated, dev_worlds, sub(fleet0), maps0,
+                sub(bind), lifetime)
+            host_syncs += n_syncs
+            # drift as the controller's monitor judges it: folded per
+            # belief epoch, so a healed group reports its post-heal state
+            telemetry_out[gname] = {
+                "drones": [int(di) for di in drone_ids], "telemetry": snap,
+                "drift": ctl.monitor.status().to_dict()}
+            lifetime_out[gname] = dict(
+                ctl.report(), advisories=advisories,
+                epochs=int(lifetime.epochs),
+                age_rate=float(lifetime.age_rate),
+                auto_recalibrate=bool(lifetime.auto_recalibrate))
+        else:
+            episode, head, bias, hcfg = group_episode(
+                wcfg, ucfg, pol, params, cfg, chip, calibrated, cost,
+                fused, n_steps, tcfg)
+            telem0 = (init_telemetry(tcfg, pol.triage.r_max, dev)
+                      if tcfg else None)
+            out = episode(params, head, bias, dev_worlds, sub(fleet0),
+                          maps0, sub(bind), telem0)
+            # the single blocking pull of this group's whole episode,
+            # the telemetry included
+            got = _pull(dict(zip(("fleet", "maps", "logs", "telem"), out)))
+            fleet_g, maps_g, logs_g = got["fleet"], got["maps"], got["logs"]
+            host_syncs += 1
+            if tcfg:
+                snap = telemetry_snapshot(got["telem"], tcfg)
+                ref = reference_for(cfg, hcfg, calibrated=calibrated,
+                                    probe_cells=tcfg.probe_cells, device=dev)
+                telemetry_out[gname] = {
+                    "drones": [int(di) for di in drone_ids],
+                    "telemetry": snap,
+                    "drift": drift_status(snap, ref).to_dict()}
         for k, v in logs_g.items():
             logs_full.setdefault(k, np.zeros((n_steps, e * d), v.dtype))
             logs_full[k][:, rows] = v
@@ -456,7 +608,8 @@ def fly_mission(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
     summary = summarize(wcfg, ucfg, pol, cost, n_steps, np_worlds,
                         maps_merged, logs_full, fleet_final)
     return MissionResult(summary=summary, logs=logs_full, maps=maps_merged,
-                         worlds=np_worlds, host_syncs=host_syncs)
+                         worlds=np_worlds, host_syncs=host_syncs,
+                         telemetry=telemetry_out, lifetime=lifetime_out)
 
 
 def mission_horizon_s(ucfg: UavConfig, cost: DecisionCost, tri,

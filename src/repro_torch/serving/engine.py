@@ -47,8 +47,17 @@ escalation schedule with no host sync, the reference's
 ``_lm_token_fn``) are the engine's building blocks as functions; the
 mission rollout (``mission/rollout.py``) runs on them.
 
-Telemetry, tracing, profiling, SLO tracking, slot sharding and head
-hot-swap wait for later slices.
+Telemetry (``obs/telemetry``, on by default as in the reference) rides
+the rounds as device tensors updated in place: each round records the
+mask it really updated (``active & looping``), so a round after the
+exit adds nothing, and the retiring decisions and the dispatch are
+recorded after the loop.  It adds no host sync; ``telemetry_snapshot``
+reads it with one pull, and ``drain`` attaches that to the summary.
+``swap_head`` replaces the deployed head between runs (the lifetime
+loop's recalibrate-and-redeploy).
+
+Tracing, profiling, SLO tracking and slot sharding wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -69,6 +78,10 @@ from repro_torch.core.sampling import (BayesHeadConfig, activation_basis,
                                        mix_samples)
 from repro_torch.kernels.ops import decision_update
 from repro_torch.models.sar_cnn import features, program_trunk
+from repro_torch.obs.telemetry import (TelemetryConfig, count_dispatch,
+                                       init_telemetry, record_decisions,
+                                       record_round)
+from repro_torch.obs.telemetry import snapshot as telemetry_snapshot
 from repro_torch.serving import adaptive, triage
 from repro_torch.serving.metrics import RequestRecord, ServingMetrics
 from repro_torch.serving.triage import ESCALATE, TriagePolicy
@@ -106,9 +119,12 @@ def featurize(params, head: dict, images: torch.Tensor, cfg,
 def token_decision(abasis: dict, base: torch.Tensor, active: torch.Tensor,
                    *, hcfg: BayesHeadConfig, policy: TriagePolicy,
                    adaptive_mode: bool, schedule: tuple,
-                   fused: bool = True) -> tuple:
+                   fused: bool = True, telem: dict | None = None,
+                   tcfg: TelemetryConfig | None = None,
+                   launched: torch.Tensor | None = None) -> tuple:
     """One whole decision per slot with no host sync (port of
-    ``_lm_token_fn``'s ``token_decision``) -> (verdict, fin, spent).
+    ``_lm_token_fn``'s ``token_decision``) -> (verdict, fin, spent), or
+    (verdict, fin, spent, telem) when ``telem`` is given.
 
     Zeroed statistics, then one round per entry of ``schedule``
     (``adaptive.escalation_schedule(policy)``, or ``(r_max,)`` for fixed
@@ -125,6 +141,12 @@ def token_decision(abasis: dict, base: torch.Tensor, active: torch.Tensor,
     undecided set already stand still, and re-deciding on unchanged
     statistics would give the same ``fin`` but not the same verdict
     (a decision with no lane active keeps ESCALATE, as the reference's).
+
+    ``telem``/``tcfg``: device telemetry, updated in place: each round
+    records its update mask (a skipped round's is empty and adds 0),
+    every active slot's verdict is recorded once at the end, and the
+    dispatch counts once, or only where the device bool ``launched``
+    holds (a decision the reference would have skipped whole).
     """
     b, n = abasis["y_mu"].shape
     dev = abasis["y_mu"].device
@@ -156,7 +178,13 @@ def token_decision(abasis: dict, base: torch.Tensor, active: torch.Tensor,
         verdict = torch.where(ran, decided, verdict)
         spent = spent + torch.where(upd, r, 0).to(torch.int32)
         undecided = undecided & (decided == ESCALATE)
-    return verdict, fin, spent
+        if telem is not None:
+            record_round(telem, tcfg, grng, sel, idx, upd)
+    if telem is None:
+        return verdict, fin, spent
+    record_decisions(telem, tcfg, fin, verdict, active)
+    count_dispatch(telem, launched)
+    return verdict, fin, spent, telem
 
 
 def _to_device(tree, device):
@@ -177,8 +205,9 @@ class SarServingEngine:
     serving head and its config (default: the golden head from
     ``params``); ``chip``: a ``hw.ChipInstance`` whose nonideal CIM
     arrays run the conv trunk; ``adaptive_mode=False`` runs the paper's
-    fixed-R dataflow (one r_max-sample round, decide); ``device``: None
-    = the card (raises without CUDA), "cpu" on purpose.
+    fixed-R dataflow (one r_max-sample round, decide); ``telemetry``:
+    True (a default ``TelemetryConfig``), a config, or False for none;
+    ``device``: None = the card (raises without CUDA), "cpu" on purpose.
     """
 
     def __init__(self, params, cfg, *, n_slots: int = 32,
@@ -187,7 +216,8 @@ class SarServingEngine:
                  metrics: ServingMetrics | None = None,
                  head: dict | None = None,
                  hcfg: BayesHeadConfig | None = None,
-                 chip=None, fused: bool = True, device=None):
+                 chip=None, fused: bool = True,
+                 telemetry: bool | TelemetryConfig = True, device=None):
         self.device = resolve_device(device)
         self.n_slots = n_slots
         self.policy = policy
@@ -220,6 +250,12 @@ class SarServingEngine:
         self.pool: dict | None = None
         self.stats: dict | None = None
         self.base: np.ndarray | None = None
+        # device-resident telemetry, read only by telemetry_snapshot()
+        if telemetry is True:
+            telemetry = TelemetryConfig()
+        self.tcfg: TelemetryConfig | None = telemetry or None
+        self._telem = (init_telemetry(self.tcfg, policy.r_max, self.device)
+                       if self.tcfg else None)
 
     # -- queue ----------------------------------------------------------
     def submit(self, request: Request) -> None:
@@ -244,6 +280,21 @@ class SarServingEngine:
                         self._decision_counter + count, dtype=np.uint32)
         self._decision_counter += count
         return ids * np.uint32(self.policy.r_max)
+
+    # -- lifetime -------------------------------------------------------
+    def swap_head(self, head: dict, hcfg: BayesHeadConfig) -> None:
+        """Replace the deployed head and its config between runs (the
+        lifetime loop's recalibrate-and-redeploy, or an aged die's stale
+        view).  In-flight slots hold activations featurized under the
+        old head, so the pool must be empty: swap after ``run()``.
+        Queue, metrics, telemetry and the decision-stream counter
+        survive the swap; the die's trunk (not aged) stays bound."""
+        if self.n_active:
+            raise RuntimeError(
+                f"swap_head with {self.n_active} in-flight slots — "
+                f"drain the pool (run()) and swap between segments")
+        self.hcfg = hcfg
+        self._head = _to_device(head, self.device)
 
     # -- admission ------------------------------------------------------
     def featurize(self, images) -> dict:
@@ -312,6 +363,8 @@ class SarServingEngine:
                                     final=fin["n"] >= self.policy.r_max)
         else:
             verdict = triage.fixed_r_decide(fin, self.policy)
+        if self._telem is not None:
+            record_round(self._telem, self.tcfg, grng, sel, idx, mask)
         return verdict, fin
 
     def _multi_round(self, base: torch.Tensor, active: torch.Tensor):
@@ -325,6 +378,10 @@ class SarServingEngine:
             rounds += looping.to(torch.int32)
             looping = looping & ~(active & (verdict != ESCALATE)).any()
         self.rounds_launched += self.max_rounds
+        if self._telem is not None:
+            record_decisions(self._telem, self.tcfg, fin, verdict,
+                             active & (verdict != ESCALATE))
+            count_dispatch(self._telem)
         return verdict, fin, rounds
 
     # -- retirement -----------------------------------------------------
@@ -390,7 +447,16 @@ class SarServingEngine:
                              spent)
         return True
 
+    def telemetry_snapshot(self) -> dict | None:
+        """The device telemetry on the host (one pull); None without."""
+        if self._telem is None:
+            return None
+        return telemetry_snapshot(self._telem, self.tcfg)
+
     def drain(self) -> dict:
+        """Attach the telemetry snapshot and build the summary."""
+        if self._telem is not None:
+            self.metrics.attach_telemetry(self.telemetry_snapshot())
         return self.metrics.summary()
 
     def run(self, max_ticks: int = 100_000) -> dict:

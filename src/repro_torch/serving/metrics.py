@@ -11,8 +11,9 @@ Bayesian blocks, 640 aJ per GRNG sample.  With a compiled
 the summary carries the deployed area and utilization.
 
 Run metadata (``extra``, e.g. the chip instance served on) is merged
-into the summary.  Telemetry, stage profiles, SLO snapshots and
-lifecycle stamps of the reference's summary wait for later slices.
+into the summary, and so is the engine's telemetry snapshot
+(``attach_telemetry``).  Stage profiles, SLO snapshots and lifecycle
+stamps of the reference's summary wait for later slices.
 """
 
 from __future__ import annotations
@@ -188,9 +189,15 @@ class ServingMetrics:
         self.tile_program = tile_program
         self.wall_start: float | None = None
         self.wall_end: float | None = None
+        # obs/telemetry snapshot attached by the engine at drain time,
+        # surfaced under summary()["telemetry"]
+        self.telemetry: dict | None = None
 
     def record(self, rec: RequestRecord) -> None:
         self.records.append(rec)
+
+    def attach_telemetry(self, snapshot: dict | None) -> None:
+        self.telemetry = snapshot
 
     def mark(self, t: float) -> None:
         if self.wall_start is None:
@@ -218,6 +225,8 @@ class ServingMetrics:
                                placed_decisions_per_s=nan,
                                placed_latency_replicated_s=nan)
             out.update(self._tile_summary())
+            if self.telemetry is not None:
+                out["telemetry"] = self.telemetry
             out.update(self.extra)
             return out
         n_dec = sum(r.n_decisions for r in self.records)
@@ -276,6 +285,8 @@ class ServingMetrics:
                                             self.tile_program,
                                             replicated=True)
         out.update(self._tile_summary())
+        if self.telemetry is not None:
+            out["telemetry"] = self.telemetry
         out.update(self.extra)
         return out
 

@@ -40,6 +40,14 @@ steps on the card against the CPU (tolerance stated in the test).
 Mission: a short mission on the card against the CPU in each mode (the
 same logs, confidence within 1e-5, decision launches = steps × rounds
 a step), and a die's step loop under ``set_sync_debug_mode("error")``.
+Telemetry and lifetime: the serving engine's telemetry on the card
+against the CPU (counters and histograms equal, GRNG moments within a
+relative 1e-5: the probe sums in another order), with the same verdicts
+and host syncs as with telemetry off; a lifetime serve on an aged die,
+card against CPU (the same advisories, heals and ``calib_epoch``;
+verdicts equal unless the two trunks differ by an ADC code, ROADMAP
+C9); an aged mission's segments under ``set_sync_debug_mode("error")``
+with one sync a segment.
 """
 
 import numpy as np
@@ -632,7 +640,7 @@ def test_mission_step_loop_does_not_sync(hopper):
     chip = sample_instances(11, 1, VariationSpec().scaled(2.5))[0]
     wcfg = WorldConfig(grid=6, n_victims=3, seed=2)
     ucfg = UavConfig(n_drones=2, battery_J=120e-6)
-    fn, head, bias = rollout.group_episode(
+    fn, head, bias, _ = rollout.group_episode(
         wcfg, ucfg, MissionPolicy(), params, cfg, chip, True,
         rollout.sar_mission_cost(cfg), True, 6)
     state = (world.stack_worlds(wcfg, 1, device=hopper),
@@ -663,3 +671,91 @@ def test_mission_state_defaults_to_the_card(hopper):
         assert all(v.device.type == "cuda" for v in state.values())
     assert torch.equal(world.make_world(wcfg)["severity"].cpu(),
                        world.make_world(wcfg, device="cpu")["severity"])
+
+
+def _telemetry_serve(device, telemetry=True, chip=None):
+    from repro_torch.launch.serve import serve_sar
+    from repro_torch.serving import TriagePolicy
+    return serve_sar(n_requests=64, n_slots=16, corrupt_frac=0.25,
+                     policy=TriagePolicy(conf_threshold=0.55,
+                                         mi_threshold=0.05),
+                     chip_instance=chip, telemetry=telemetry, device=device)
+
+
+def test_serving_telemetry_card_against_cpu(hopper):
+    """The engine's telemetry on the card equals the CPU's: counters and
+    histograms exactly, the GRNG moments within a relative 1e-5; with
+    telemetry off the card serves the same verdicts with the same
+    syncs."""
+    card = _telemetry_serve(hopper)
+    cpu = _telemetry_serve("cpu")
+    off = _telemetry_serve(hopper, telemetry=False)
+    for key in ("rounds", "dispatches", "samples", "decisions", "verdicts",
+                "r_hist", "conf_hist", "ent_hist", "mi_hist"):
+        assert card["telemetry"][key] == cpu["telemetry"][key], key
+    for key in ("n", "sum", "sumsq"):
+        np.testing.assert_allclose(card["telemetry"]["grng"][key],
+                                   cpu["telemetry"]["grng"][key], rtol=1e-5)
+    assert [v["verdict"] for v in card["verdicts"]] == \
+        [v["verdict"] for v in off["verdicts"]]
+    assert card["host_syncs"] == off["host_syncs"] == cpu["host_syncs"]
+    assert card["drift"]["drifted"] == cpu["drift"]["drifted"] is False
+
+
+def test_lifetime_serve_card_against_cpu(hopper):
+    """A lifetime serve on the seed-11 severity-2.5 die (30 days over 48
+    requests, 2 epochs, healing), card against CPU."""
+    from repro_torch.hw import (LifetimeConfig, VariationSpec,
+                                sample_instances)
+    from repro_torch.launch.serve import serve_sar_lifetime
+    chip = sample_instances(11, 1, VariationSpec().scaled(2.5))[0]
+    kw = dict(lifetime=LifetimeConfig(age_rate=30 * 86400 / 48, epochs=2,
+                                      auto_recalibrate=True),
+              chip_instance=chip, n_requests=48, n_slots=16,
+              corrupt_frac=0.25)
+    card = serve_sar_lifetime(device=hopper, **kw)
+    cpu = serve_sar_lifetime(device="cpu", **kw)
+    for key in ("advisories", "heals", "calib_epoch", "age_s"):
+        assert card["lifetime"][key] == cpu["lifetime"][key], key
+    assert card["lifetime"]["heals"] >= 1
+    same = sum(a["verdict"] == b["verdict"] for a, b in
+               zip(card["verdicts"], cpu["verdicts"]))
+    assert same >= 46, f"{48 - same} verdicts differ card vs CPU"
+
+
+def test_aged_mission_segments_do_not_sync(hopper, monkeypatch):
+    """An aged mission: each segment's step loop under
+    ``set_sync_debug_mode("error")``, one pull a segment."""
+    from repro_torch.hw import (LifetimeConfig, VariationSpec,
+                                sample_instances)
+    from repro_torch.mission import rollout
+    chip = sample_instances(11, 1, VariationSpec().scaled(2.5))[0]
+    real = rollout._episode_fn
+
+    def checked(*args, **kw):
+        fn = real(*args, **kw)
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    monkeypatch.setattr(rollout, "_episode_fn", checked)
+    res = _short_mission(hopper, chip=chip)
+    assert res.host_syncs == 1
+    from repro_torch.mission import (MissionPolicy, UavConfig, WorldConfig,
+                                     fly_mission)
+    from repro_torch.models import sar_cnn
+    cfg = sar_cnn.SarCnnConfig()
+    params = sar_cnn.init_sar_cnn(torch.Generator().manual_seed(3), cfg,
+                                  device=hopper)
+    aged = fly_mission(WorldConfig(grid=6, n_victims=3, seed=2),
+                       UavConfig(n_drones=2, battery_J=120e-6),
+                       MissionPolicy(), params=params, chips=chip,
+                       n_steps=8, device=hopper,
+                       lifetime=LifetimeConfig(age_rate=86400.0, epochs=4))
+    assert aged.host_syncs == 4
