@@ -115,6 +115,22 @@ JSON line):
      comparison, reported (``mission_comparison``), the always-run
      orbit's cost (``mission_orbit_cost``) and a profiled mission on
      each die (``mission_profile``);
+  7f. observability (lines ``observability``): at the serving shape of
+     phase 4, on the ideal die and the gate die, ``serve_sar`` with the
+     tracer, stage profiler and SLO tracker on, off, off, on (verdicts,
+     samples, host syncs and launches identical); time to verdict, queue
+     wait and service (p50/p95/p99: the SLO histograms' and, for time to
+     verdict, the raw records'), the stage profile's median and mean a
+     stage, closed loop; time to verdict open loop at half the closed
+     loop's decisions/s (poisson); the engine's cost records against the
+     launch counts (asserted) with the allocator's peak; the serve CLI on
+     the gate die with --slo/--trace/--metrics-out/--profile (the
+     profiler trace holds every decision and CIM launch under its CUDA
+     symbol; the .prom parses, the JSON loads); the mission CLI with
+     --trace/--metrics-out/--profile at 6x6, 3 victims, 2 drones, 8
+     steps on the seed-11 severity-2.5 die, its step loop under
+     ``set_sync_debug_mode("error")``; each number beside the card's
+     name and power limit;
   8. kernel timing: device time from CUDA graph replays and per-call
      time of eager calls (CUDA events), beside the plain version's and
      the card's byte/flop bound: decision and CIM at the serving path's
@@ -145,15 +161,15 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
 TOL = dict(rtol=1e-5, atol=1e-5)
 CIM_TOL = dict(rtol=1e-4, atol=1e-4)
 STAT_KEYS = ("sum_p", "sum_psq", "sum_ent", "sum_entsq")
@@ -2489,6 +2505,350 @@ def run_mission_lifetime(params) -> dict:
 
 
 # ----------------------------------------------------------------------
+# observability: time to verdict, stage profiles, traces, metric exports
+# ----------------------------------------------------------------------
+SLO_SPECS = ("0.25:p99", "0.05:p50")
+OBS_MISSION_STEPS = 8          # the mission CLI's depth in this phase
+# instruments on (True) and off in five pairs, the starting side
+# alternated, so that a drift over the sequence shows apart from the
+# instruments' own cost
+OBS_ORDER = (True, False, False, True, True, False, False, True, True,
+             False)
+OBS_STAGES = ("admission", "featurize", "dispatch", "triage_loop",
+              "retirement")
+
+
+def exact_quantiles(values, qs=(50, 95, 99)) -> dict:
+    """{p50_s, p95_s, p99_s} of raw per-request times (numpy's linear
+    interpolation), beside the histogram's."""
+    import numpy as np
+    v = np.asarray(values, np.float64)
+    return {f"p{q}_s": float(np.percentile(v, q)) for q in qs}
+
+
+def hist_quantiles(h: dict, qs=(0.5, 0.95, 0.99)) -> dict:
+    """{p50_s, p95_s, p99_s} of an SLO snapshot's histogram."""
+    from repro_torch.obs.registry import quantile
+    return {f"p{round(q * 100)}_s": quantile(h, q) for q in qs}
+
+
+def parse_prom(text: str) -> dict:
+    """The sample lines of a Prometheus text exposition: {series: value};
+    raises on a line that is not ``name{labels} value``."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, val = line.rsplit(" ", 1)
+        check(re.fullmatch(r"[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})?", key)
+              is not None, f"not a Prometheus series: {line!r}")
+        out[key] = float(val)
+    return out
+
+
+def trace_kernels(path: str) -> dict:
+    """{kernel name: launches} of a torch.profiler Chrome trace."""
+    doc = json.loads(Path(path).read_text())
+    names: dict = {}
+    for e in doc["traceEvents"]:
+        if e.get("cat") == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def serve_instrumented(on: bool, die, **kw) -> tuple[dict, dict]:
+    """``serve_sar`` at the serving shape with the tracer, the stage
+    profiler and the SLO tracker all on or all off; the decision and CIM
+    launch counts zeroed just before and read just after."""
+    from repro_torch.kernels.cim import cim_mvm
+    from repro_torch.kernels.decision import decision_stats
+    from repro_torch.launch.serve import serve_sar
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serving import TriagePolicy
+    tracer = Tracer("chip_smoke") if on else None
+    cim_mvm.launches = decision_stats.launches = 0
+    out = serve_sar(n_requests=192, policy=TriagePolicy(**POLICY),
+                    device="cuda", chip_instance=die, tracer=tracer,
+                    profiler=on, slo=SLO_SPECS if on else False,
+                    **dict(STREAM, **kw))
+    launches = {"decision": decision_stats.launches, "cim": cim_mvm.launches}
+    check(out["requests"] == 192, f"{out['requests']} of 192 retired")
+    check(("slo" in out) == on and ("stage_profile" in out) == on,
+          f"instruments {'on' if on else 'off'}: summary keys wrong")
+    if on:
+        spans = [e for e in tracer.to_chrome()["traceEvents"]
+                 if e.get("ph") == "X"]
+        check(sum(e["name"].startswith("req ") for e in spans) == 192,
+              "the tracer missed request spans")
+        check(sum(e["name"] == "sar_rounds" for e in spans)
+              == out["host_syncs"], "sar_rounds spans != dispatches")
+    return out, launches
+
+
+def run_observability() -> dict:
+    """The observability phase at PERF.md §4's serving shape, on the
+    ideal die and the gate die: instruments on and off in five pairs
+    that alternate their starting side (verdicts, samples and host
+    syncs identical, asserted; each pair's rate ratio); time to
+    verdict, queue wait and service (p50/p95/p99) and the stage
+    profile's medians, closed loop; time to verdict open loop at half
+    the closed loop's rate; the cost records against the launch counts (asserted); the
+    serve CLI with --profile/--metrics-out/--trace/--slo (the profiler
+    trace names the kernels' CUDA symbols; the exports parse); the
+    mission CLI with --trace/--metrics-out/--profile at the reference's
+    test size on the gate die, its step loop under
+    ``set_sync_debug_mode("error")``."""
+    import tempfile
+    import torch
+    from repro_torch.kernels.cim import cim_mvm
+    from repro_torch.kernels.decision import decision_stats
+    from repro_torch.launch import mission as mission_cli
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.mission import rollout
+    card = card_line()
+    result = {"launches": {}}
+    for die_name, die in (("ideal", None), ("gate_die", gate_die())):
+        serve_instrumented(True, die)                        # warm-up
+        runs = [serve_instrumented(on, die) for on in OBS_ORDER]
+        first = runs[0][0]
+        for out, launches in runs[1:]:
+            same_decisions(first, out, f"{die_name}: instruments on/off")
+            check(out["host_syncs"] == first["host_syncs"],
+                  f"{die_name}: host syncs differ on/off")
+            check(launches == runs[0][1], f"{die_name}: launches differ "
+                  f"on/off: {launches} vs {runs[0][1]}")
+        on = [r[0] for r in runs if "slo" in r[0]]
+        rate = {k: [r[0]["decisions"] / r[0]["wall_s"] for r in runs
+                    if ("slo" in r[0]) == (k == "on")]
+                for k in ("on", "off")}
+        # each pair's on/off ratio: a drift over the sequence cancels
+        # across pairs that start on either side
+        pair_ratio = [a / b for a, b in zip(rate["on"], rate["off"])]
+        snap, prof_snap = on[-1]["slo"], on[-1]["stage_profile"]
+        # the cost records against this path's own launch counts; the
+        # allocator's peak over this one run
+        torch.cuda.reset_peak_memory_stats()
+        out, launches = serve_instrumented(True, die, cost_records=True)
+        costs = out["compiled_costs"]
+        dec = sum(c["launches_per_dispatch"] for c in costs
+                  if c["kernel"] == "decision_stats")
+        cim = sum(c["launches_per_admission"] for c in costs
+                  if c["kernel"] == "cim_mvm")
+        check(dec * out["host_syncs"] == launches["decision"]
+              == out["rounds_launched"],
+              f"{die_name}: cost records give {dec} decision launches a "
+              f"dispatch x {out['host_syncs']}, counted "
+              f"{launches['decision']}")
+        check(cim * out["admissions"] == launches["cim"],
+              f"{die_name}: cost records give {cim} CIM launches an "
+              f"admission x {out['admissions']}, counted {launches['cim']}")
+        check(out.get("max_memory_allocated", 0) > 0,
+              "the run lacks the card's peak memory")
+        # open loop at half the closed loop's rate
+        closed = round(statistics.median(rate["on"]))
+        offered = max(1, round(0.5 * closed))
+        from repro_torch.launch.serve import serve_sar
+        from repro_torch.serving import TriagePolicy
+        cim_mvm.launches = decision_stats.launches = 0
+        ol = serve_sar(n_requests=192, policy=TriagePolicy(**POLICY),
+                       device="cuda", chip_instance=die,
+                       arrival=f"poisson:{offered}", **STREAM)
+        ol_launches = {"decision": decision_stats.launches,
+                       "cim": cim_mvm.launches}
+        check(ol["requests"] == 192 and ol["offered"]["submitted"] == 192,
+              f"{die_name}: the open loop did not serve 192 requests")
+        result["launches"][die_name] = {
+            "instruments": [r[1] for r in runs], "cost_records": launches,
+            "open_loop": ol_launches}
+        emit({"observability": die_name, "card": card,
+              "what": "serve_sar at PERF.md section 4's serving shape, "
+                      "192 requests at t = 0 (closed loop); time to "
+                      "verdict = arrival -> the host pull that brought "
+                      "the verdict; time_to_verdict, queue_wait, service "
+                      "and stage_median_ms: quantiles of the log-spaced "
+                      "histograms (4 buckets a decade, interpolated "
+                      "inside a bucket); *_exact and latency_exact "
+                      "(arrival -> retirement): numpy percentiles of the "
+                      "raw per-request times",
+              "instruments_on_off": " ".join(
+                  "on" if o else "off" for o in OBS_ORDER)
+              + ": verdicts, samples, host syncs and launches identical",
+              "decisions_per_s_on": rate["on"],
+              "decisions_per_s_off": rate["off"],
+              "decisions_per_s_median": {
+                  k: statistics.median(v) for k, v in rate.items()},
+              "on_over_off_by_pair": pair_ratio,
+              "on_over_off_median": statistics.median(pair_ratio),
+              "host_syncs": first["host_syncs"],
+              "wall_s": on[-1]["wall_s"],
+              "time_to_verdict": {k: snap[k] for k in (
+                  "p50_s", "p95_s", "p99_s", "mean_s", "span_s",
+                  "queue_wait_share")},
+              "time_to_verdict_exact": exact_quantiles(
+                  on[-1]["time_to_verdict_s"]),
+              "latency_exact": {k: on[-1][f"{k[:3]}_latency_s"]
+                                for k in ("p50_s", "p95_s", "p99_s")},
+              "queue_wait": hist_quantiles(snap["queue_wait"]),
+              "service": hist_quantiles(snap["service"]),
+              "slos": [{k: s[k] for k in ("name", "attainment",
+                                          "burn_rate", "breach")}
+                       for s in snap["slos"]],
+              "stage_median_ms": {st: prof_snap[st]["p50_s"] * 1e3
+                                  for st in OBS_STAGES},
+              "stage_mean_ms": {st: prof_snap[st]["mean_s"] * 1e3
+                                for st in OBS_STAGES},
+              "stage_count": {st: prof_snap[st]["count"]
+                              for st in OBS_STAGES},
+              "open_loop": {"arrival": f"poisson:{offered}",
+                            "closed_loop_decisions_per_s": closed,
+                            "offered_rps": ol["offered"]["offered_rps"],
+                            "decisions_per_s": ol["decisions"]
+                            / ol["wall_s"],
+                            "host_syncs": ol["host_syncs"],
+                            "time_to_verdict_exact": exact_quantiles(
+                                ol["time_to_verdict_s"]),
+                            **{k: ol["slo"][k] for k in (
+                                "p50_s", "p95_s", "p99_s", "mean_s",
+                                "queue_wait_share")}},
+              "cost_records": costs,
+              "max_memory_allocated": out["max_memory_allocated"]})
+
+    # the serve CLI on the gate die with every flag; the profiler trace
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        tmp = Path(tmp)
+        cim_mvm.launches = decision_stats.launches = 0
+        out = serve_cli.main([
+            "--arch", "sar_cnn", "--device", "cuda", "--requests", "192",
+            "--corrupt-frac", "0.25", "--conf-threshold", "0.7",
+            "--mi-threshold", "0.05", "--chip-instance", "11",
+            "--chip-severity", "2.0", "--slo", SLO_SPECS[0], "--slo",
+            SLO_SPECS[1], "--trace", str(tmp / "serve_trace.json"),
+            "--metrics-out", str(tmp / "metrics" / "serve"),
+            "--profile", str(tmp / "prof")])
+        cli_launches = {"decision": decision_stats.launches,
+                        "cim": cim_mvm.launches}
+        kernels = trace_kernels(out["profile_trace"])
+        dec_k = sum(n for k, n in kernels.items()
+                    if "decision_stats_small_n_kernel" in k)
+        cim_k = sum(n for k, n in kernels.items() if "cim_mvm_kernel" in k)
+        check(dec_k == cli_launches["decision"] > 0,
+              f"profiler trace: {dec_k} decision kernels, launched "
+              f"{cli_launches['decision']}")
+        check(cim_k == cli_launches["cim"] > 0,
+              f"profiler trace: {cim_k} CIM kernels, launched "
+              f"{cli_launches['cim']}")
+        prom = parse_prom((tmp / "metrics" / "serve.prom").read_text())
+        doc = json.loads((tmp / "metrics" / "serve.json").read_text())
+        check(prom['repro_slo_requests_total{job="serving",arch="sar_cnn"}']
+              == 192, "the .prom lacks the SLO request count")
+        check(any(k.startswith("repro_compiled_bound_ms") for k in prom),
+              "the .prom lacks the cost records")
+        check(any(m["name"] == "repro_stage_total"
+                  for m in doc["metrics"]), "the JSON lacks the stages")
+        serve_trace = json.loads((tmp / "serve_trace.json").read_text())
+        check(sum(e["ph"] == "X" and e["name"].startswith("req ")
+                  for e in serve_trace["traceEvents"]) == 192,
+              "the CLI's trace lacks request spans")
+        result["launches"]["serve_cli"] = cli_launches
+        serve_line = {"cli": "repro_torch.launch.serve", "card": card,
+                      "profile_trace_mb": Path(out["profile_trace"])
+                      .stat().st_size / 2**20,
+                      "trace_kernel_symbols": sorted(
+                          k[:90] for k in kernels
+                          if "decision_stats" in k or "cim_mvm" in k),
+                      "trace_kernels": sum(kernels.values()),
+                      "launches": cli_launches,
+                      "prom_series": len(prom),
+                      "json_metrics": len(doc["metrics"]),
+                      "time_to_verdict_profiled": {
+                          k: out["slo"][k] for k in ("p50_s", "p99_s")}}
+
+        # the mission CLI, its step loop under the sync debug mode
+        real_episode = rollout._episode_fn
+
+        def unsynced(*args, **kw):
+            fn = real_episode(*args, **kw)
+
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            return run
+
+        here = Path.cwd()
+        rollout._episode_fn = unsynced
+        cim_mvm.launches = decision_stats.launches = 0
+        try:
+            os.chdir(tmp)              # the detector's cache lands here
+            w, u = MISSION_SMALL["world"], MISSION_SMALL["uav"]
+            s = mission_cli.main([
+                "--device", "cuda", "--train-steps", "3",
+                "--grid", str(w["grid"]), "--victims", str(w["n_victims"]),
+                "--seed", str(w["seed"]), "--drones", str(u["n_drones"]),
+                "--battery-uJ", str(u["battery_J"] * 1e6),
+                "--steps", str(OBS_MISSION_STEPS),
+                "--chip-instance", str(MISSION_DIE["seed"]),
+                "--chip-severity", str(MISSION_DIE["severity"]),
+                "--trace", str(tmp / "mission_trace.json"),
+                "--metrics-out", str(tmp / "metrics" / "mission"),
+                "--profile", str(tmp / "mprof")])
+        finally:
+            os.chdir(here)
+            rollout._episode_fn = real_episode
+        m_launches = {"decision": decision_stats.launches,
+                      "cim": cim_mvm.launches}
+        mtrace = json.loads((tmp / "mission_trace.json").read_text())
+        mspans = [e for e in mtrace["traceEvents"] if e["ph"] == "X"]
+        check(len(mspans) > 0, "the mission trace has no span")
+        mprom = parse_prom((tmp / "metrics" / "mission.prom").read_text())
+        json.loads((tmp / "metrics" / "mission.json").read_text())
+        mfiles = sorted((tmp / "mprof").glob("trace-*.json"))
+        check(len(mfiles) == 1, f"mission profile traces: {mfiles}")
+        mk = trace_kernels(str(mfiles[0]))
+        check(sum(n for k, n in mk.items() if "decision_stats" in k)
+              == m_launches["decision"] > 0
+              and sum(n for k, n in mk.items() if "cim_mvm_kernel" in k)
+              == m_launches["cim"] > 0,
+              f"mission profile: kernels {m_launches} not all in the trace")
+        result["launches"]["mission_cli"] = m_launches
+        emit({"observability": "cli", "serve": serve_line,
+              "mission": {"cli": "repro_torch.launch.mission",
+                          "step_loop_sync_debug_mode":
+                              "error (no sync raised)",
+                          "decisions": s["decisions"],
+                          "trace_spans": len(mspans),
+                          "prom_series": len(mprom),
+                          "launches": m_launches,
+                          "profile_trace_mb": mfiles[0].stat().st_size
+                          / 2**20}})
+    return result
+
+
+def observed_launches(result: dict) -> dict:
+    """{kernel: launches} over every run of the observability phase."""
+    total = {"decision": 0, "cim": 0}
+
+    def add(counts):
+        if isinstance(counts, list):
+            for c in counts:
+                add(c)
+        elif "decision" in counts:
+            for k in total:
+                total[k] += counts[k]
+        else:
+            for c in counts.values():
+                add(c)
+
+    add(result["launches"])
+    check(total["decision"] > 0 and total["cim"] > 0,
+          f"the observability phase launched {total}")
+    return total
+
+
+# ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
 def call_ms(fn, iters: int, warmup: int = 50) -> float:
@@ -2537,62 +2897,13 @@ def device_ms(fn, iters: int, replays: int = 5) -> float:
     return best
 
 
-def decision_bound_ms(args: dict) -> tuple[float, str, int, int]:
-    """Least time for one round: the bytes the function must move over
-    HBM bandwidth, against the operations it must do over the float32
-    rate.  A masked slot costs its mask byte and its zeroed outputs; an
-    active slot also reads its rows of every per-slot input.  Returns
-    (ms, bound_by, bytes, ops)."""
-    b, n = args["y_mu"].shape
-    r = args["sel"].shape[0]
-    active = int(args["mask"].sum())
-    per_slot = n * 4 * (2 + 16)                # y_mu, x_sigma, m rows
-    shared = 0                                 # read once for all slots
-    if args["sel"].ndim == 3:
-        per_slot += r * 16 * 4
-    else:
-        shared += r * 16 * 4
-    if args["cfg"].read_sigma > 0:
-        per_slot += n * 4                      # x_sigsq
-        if args["sample_idx"].ndim == 2:
-            per_slot += r * 8
-        else:
-            shared += r * 8
-        if args["rows"] is not None:
-            per_slot += 8
-    reads = b + active * per_slot + shared     # mask: one byte a slot
-    writes = 2 * b * n * 4 + 2 * b * 4
-    # per logit: 16-term mix (32), −sum_mean·x_sigma (2), /sum_std + y_mu
-    # (2); softmax + entropy + the two sums (~8)
-    ops = r * active * n * 44
-    bytes_ms = (reads + writes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
-            else "operations", reads + writes, ops)
-
-
-def cim_bound_ms(c: dict) -> tuple[float, str, int, int]:
-    """Least time for one CIM product: x, w, gain, offset and fs read
-    once and out written once over HBM bandwidth, against 2·M·K·N
-    multiply-adds plus the front end and ADC of every chunk (gain·psum +
-    offset·lsb, divide, round, two clamps, code·lsb, accumulate: 8
-    operations an output a chunk) over the float32 rate."""
-    m, k = c["x"].shape
-    n = c["w"].shape[1]
-    nbytes = 4 * (m * k + k * n + 2 * n + 1 + m * n)
-    ops = 2 * m * k * n + 8 * m * n * (k // 64)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
-            else "operations", nbytes, ops)
-
-
 def cim_timing(cases: dict, launches: dict, summary: dict) -> dict:
     """The CIM kernel's line: device and eager times at the three trunk
     shapes, with the die's front end, as the main path calls it;
     ``launches``: its count on each path that was read."""
     import torch
     from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels.bounds import cim_work
     from repro_torch.kernels.cim import cim_mvm, cim_mvm_plain, launch_plan
     qcfg = QuantConfig(enabled=True)
     shapes = []
@@ -2606,7 +2917,10 @@ def cim_timing(cases: dict, launches: dict, summary: dict) -> dict:
         def plain():
             return cim_mvm_plain(*args)
 
-        bound, bound_by, nbytes, ops = cim_bound_ms(c)
+        work = cim_work(*c["x"].shape, c["w"].shape[1])
+        bound, bound_by, nbytes, ops = (work["bound_ms"], work["bound_by"],
+                                        work["bound_bytes"],
+                                        work["bound_ops"])
         plan = launch_plan(*c["x"].shape, c["w"].shape[1],
                            torch.cuda.get_device_properties(0)
                            .multi_processor_count)
@@ -2789,62 +3103,11 @@ def timed(kernel, plain, eager_iters: int = 200) -> dict:
     return out
 
 
-def bound_line(nbytes: int, ops: int, hashes: int) -> dict:
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bound_bytes": nbytes, "bound_ops": ops, "hash3_evals": hashes}
-
-
-def grng_bound(k: int, n: int, r: int, cfg) -> dict:
-    """Least time for one ε block: sel read and ε written once, against
-    its float operations: per current (i_lo+Δi·bit) + γ·gauss with the
-    three-byte gauss (7; 6 more for an imprint term), per sample and cell
-    the 16 products and adds, the read noise (6) and the standardization
-    (2).  The integer hashing (hash3 evaluations, counted apart) has no
-    peak rate in the table and is not in the bound."""
-    per_current = 7 + (6 if cfg.imprint else 0)
-    per_eps = 34 + (6 if cfg.read_sigma else 0)
-    nbytes = 4 * (r * 16 + r * k * n)
-    ops = k * n * 16 * per_current + r * k * n * per_eps
-    hashes = k * n * 16 * (2 if cfg.imprint else 1) + (
-        r * k * n if cfg.read_sigma else 0)
-    return bound_line(nbytes, ops, hashes)
-
-
-def head_bound(kind: str, b: int, k: int, n: int, r: int, cfg,
-               wbytes: int = 4) -> dict:
-    """Least time for one head product: x, µ', σ, sel (and fs) read and
-    the [R, B, N] samples written once, against the float operations the
-    function needs.  rank16: the 18 products 2BKN (x·µ', x·σ, 16 basis;
-    a 19th for (x²)·(σ²) with read noise), the currents (7 a device, 1
-    more for σ·I_j) and per sample the 16-term mix and epilogue (36, and
-    8 more with read noise).  paper: x·µ' and one 2BKN product per
-    sample, the currents, per sample and cell the ε sum (34, 6 more with
-    read noise) and σ·ε; with the ADC 6 operations a partial sum.  The
-    hash3 count is reported apart."""
-    nbytes = wbytes * (b * k + 2 * k * n) + 4 * (r * 16 + r * b * n)
-    currents = k * n * 16 * 8
-    if kind == "rank16":
-        noisy = bool(cfg.read_sigma)
-        ops = (2 * b * k * n * (18 + noisy) + currents
-               + r * b * n * (36 + 8 * noisy))
-        hashes = k * n * 16 + (r * b * n if noisy else 0)
-    else:
-        per_eps = 35 + (6 if cfg.read_sigma else 0)
-        ops = 2 * b * k * n * (1 + r) + currents + r * k * n * per_eps
-        if kind == "paper_adc":
-            nbytes += 8
-            ops += 6 * b * n * -(-k // 64) * (1 + r)
-        hashes = k * n * 16 + (r * k * n if cfg.read_sigma else 0)
-    return bound_line(nbytes, ops, hashes)
-
-
 def eps_timing() -> list[dict]:
     """Device and eager times of the ε kernel and of its plain version at
     the shapes of EPS_TIMED, each beside its bound."""
     from repro_torch.kernels import grng
+    from repro_torch.kernels.bounds import grng_bound
     shapes = []
     for name in EPS_TIMED:
         c = eps_case(**EPS_CASES[name])
@@ -2868,6 +3131,7 @@ def head_timing(uq_launches: dict, fig9: dict, head_checks: dict,
     the R=20 entry is the headline."""
     import torch
     from repro_torch.kernels import bayes
+    from repro_torch.kernels.bounds import head_bound
     shapes = eps_timing()
     first = shapes[0]
     train_shape = next(t for t in shapes if t["case"] == "train_64x2_r1")
@@ -2956,6 +3220,20 @@ def head_timing(uq_launches: dict, fig9: dict, head_checks: dict,
     return [eps_line, lines["rank16"], lines["paper"]]
 
 
+def decision_args_work(args: dict) -> dict:
+    """``kernels/bounds.decision_work`` of one ``decision_stats`` call's
+    arguments."""
+    from repro_torch.kernels.bounds import decision_work
+    b, n = args["y_mu"].shape
+    idx = args.get("sample_idx")
+    return decision_work(
+        b, n, args["sel"].shape[0], int(args["mask"].sum()),
+        sel_per_slot=args["sel"].ndim == 3,
+        read_sigma=args["cfg"].read_sigma,
+        idx_per_slot=idx is not None and idx.ndim == 2,
+        rows=args.get("rows") is not None)
+
+
 def run_timing(inputs: dict, launches: dict, worst: float,
                cim_line: dict, head_lines: list) -> None:
     from repro_torch.kernels.decision import (decision_plan, decision_stats,
@@ -2977,7 +3255,9 @@ def run_timing(inputs: dict, launches: dict, worst: float,
     plans = {case: decision_plan(inputs[case]["y_mu"].shape[1],
                                  inputs[case]["sel"].shape[0])._asdict()
              for case in times}
-    bound, bound_by, nbytes, ops = decision_bound_ms(inputs["main_r4"])
+    work = decision_args_work(inputs["main_r4"])
+    bound, bound_by, nbytes, ops = (work["bound_ms"], work["bound_by"],
+                                    work["bound_bytes"], work["bound_ops"])
     r4, r20 = times["main_r4"], times["main_r20"]
     import torch
     emit({"launch_floor_ms": device_ms(lambda: torch.cuda._sleep(0), 1000),
@@ -3023,7 +3303,7 @@ def run_timing(inputs: dict, launches: dict, worst: float,
         "plain_ms_r20": r20["plain_ms"],
         "call_ms_r20": r20["call_ms"],
         "plain_call_ms_r20": r20["plain_call_ms"],
-        "bound_ms_r20": decision_bound_ms(inputs["main_r20"])[0],
+        "bound_ms_r20": decision_args_work(inputs["main_r20"])["bound_ms"],
     }, cim_line, *head_lines]})
 
 
@@ -3090,6 +3370,9 @@ def main() -> int:
     lifetime = run_lifetime_serving(train["params"])
     aged = run_mission_lifetime(train["params"])
     worst = max(worst, aged["decision_max_abs_err"])
+    t0 = time.perf_counter()
+    obs = observed_launches(run_observability())
+    emit({"observability_phase_s": time.perf_counter() - t0})
     cim_plan_sweep(cim_inputs)
     head_plan_sweep()
     heads = head_timing(uq_path["launches"], fig9, head_checks, train,
@@ -3101,14 +3384,16 @@ def main() -> int:
                         "mission_matrix": mission["decision"],
                         "serve_sar_lifetime": lifetime["launches"]
                         ["decision"],
-                        "mission_aged_arms": aged["launches"]["decision"]},
+                        "mission_aged_arms": aged["launches"]["decision"],
+                        "observability": obs["decision"]},
                worst,
                cim_timing(cim_inputs,
                           {"serve_sar(chip_instance=gate die)":
                            chip_path["launches"],
                            "mission_matrix": mission["cim"],
                            "serve_sar_lifetime": lifetime["launches"]["cim"],
-                           "mission_aged_arms": aged["launches"]["cim"]},
+                           "mission_aged_arms": aged["launches"]["cim"],
+                           "observability": obs["cim"]},
                           cim_summary),
                heads)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,8 +11,10 @@ of every source under ``csrc/`` and the flags, and are built at first
 use: ``load(name)`` builds the one library it needs, ``build_all()``
 runs one ``nvcc`` per source, all at once, and loads them.  The
 compiler's report (registers, shared memory, spills) is kept beside
-each library as ``<lib>.log``.  Nothing here touches CUDA at import
-time, so CPU-only machines import the package freely.
+each library as ``<lib>.log``.  ``nvcc_counters()`` gives the ``nvcc``
+runs of this process and their seconds (``obs/prof.compile_counters``).
+Nothing here touches CUDA at import time, so CPU-only machines import
+the package freely.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -30,6 +34,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# nvcc runs of this process (build_all runs them on threads)
+_NVCC = {"builds": 0, "seconds": 0.0}
+_NVCC_LOCK = threading.Lock()
 
 
 def sources() -> list[str]:
@@ -67,9 +74,13 @@ def _build(name: str) -> None:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    with _NVCC_LOCK:
+        _NVCC["builds"] += 1
+        _NVCC["seconds"] += time.perf_counter() - t0
     out.with_suffix(".so.log").write_text(proc.stdout)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -87,6 +98,12 @@ def build_all() -> dict[str, Path]:
     for name in names:
         load(name)
     return {name: library_path(name) for name in names}
+
+
+def nvcc_counters() -> dict:
+    """{builds, seconds}: the nvcc runs of this process."""
+    with _NVCC_LOCK:
+        return dict(_NVCC)
 
 
 def build_log(name: str) -> str:

@@ -21,8 +21,16 @@ Telemetry is on unless ``--no-telemetry``: each die group's drift
 status is printed, and drift advisories and heal events go through the
 alert bus.  ``--age-rate`` (field seconds a step) flies the chip-bound
 group aged, in ``--age-epochs`` segments; ``--auto-recalibrate`` heals
-it in flight.  The reference's trace, metrics and profile flags wait
-for a later slice (ROADMAP A9b).
+it in flight.
+
+``--trace PATH`` writes a Chrome/Perfetto trace of the mission on the
+simulated clock (``obs/trace.mission_trace`` of the logs, one track a
+drone), ``--metrics-out PREFIX`` writes ``PREFIX.prom`` and
+``PREFIX.json`` (``obs/registry.mission_registry``: the summary, each
+die group's telemetry and drift, the alerts) and ``--profile DIR``
+runs the detector and the rollout under ``torch.profiler``
+(``obs/prof.trace_capture``).  All three read what the mission already
+pulled; the step loop stays free of host syncs.
 """
 
 from __future__ import annotations
@@ -82,6 +90,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--train-steps", type=int, default=None,
                     help="detector training steps (default: the shared "
                          "1600-step detector)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto trace JSON of the "
+                         "mission (a track a drone, on the simulated "
+                         "clock) to PATH")
+    ap.add_argument("--metrics-out", default=None, metavar="PREFIX",
+                    help="write PREFIX.prom / PREFIX.json with the "
+                         "mission summary, per-die telemetry and alerts")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="run the detector and the rollout under "
+                         "torch.profiler, its Chrome trace written into "
+                         "DIR")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
@@ -112,20 +131,22 @@ def main(argv=None) -> dict:
                      f"sev={args.chip_severity} "
                      f"{'UNCAL' if args.uncalibrated else 'cal'}]")
     det_kw = {} if args.train_steps is None else {"steps": args.train_steps}
-    params, cfg = trained_detector(corruption=args.corruption,
-                                   severity_hi=args.severity_hi,
-                                   device=args.device, **det_kw)
     lifetime = None
     if args.age_rate > 0.0 or args.auto_recalibrate:
         from repro_torch.hw.redeploy import LifetimeConfig
         lifetime = LifetimeConfig(age_rate=args.age_rate,
                                   epochs=args.age_epochs,
                                   auto_recalibrate=args.auto_recalibrate)
-    res = fly_mission(wcfg, ucfg, pol, params=params, cfg=cfg, chips=chips,
-                      calibrated=not args.uncalibrated, n_steps=args.steps,
-                      n_episodes=args.episodes, fused=args.fused,
-                      telemetry=args.telemetry, lifetime=lifetime,
-                      device=args.device)
+    from repro_torch.obs.prof import trace_capture
+    with trace_capture(args.profile) as captured:
+        params, cfg = trained_detector(corruption=args.corruption,
+                                       severity_hi=args.severity_hi,
+                                       device=args.device, **det_kw)
+        res = fly_mission(wcfg, ucfg, pol, params=params, cfg=cfg,
+                          chips=chips, calibrated=not args.uncalibrated,
+                          n_steps=args.steps, n_episodes=args.episodes,
+                          fused=args.fused, telemetry=args.telemetry,
+                          lifetime=lifetime, device=args.device)
     s = res.summary
     print(f"[{args.policy}/{args.planner}] "
           f"{s['episodes']}x{s['n_drones']} drones on "
@@ -163,6 +184,25 @@ def main(argv=None) -> dict:
     for group, lt in (res.lifetime or {}).items():
         for ev in lt.get("events", []):
             bus.observe_heal(ev, source=f"mission/{group}")
+    alerts = bus.to_json() if bus.advisories else None
+    if args.trace:
+        import json
+        import os
+        from repro_torch.obs.trace import mission_trace
+        d = os.path.dirname(args.trace)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(args.trace, "w") as f:
+            json.dump(mission_trace(res.logs), f)
+        print(f"[trace] {args.trace}")
+    if args.metrics_out:
+        from repro_torch.obs.registry import mission_registry
+        reg = mission_registry(s, telemetry=res.telemetry, alerts=alerts,
+                               policy=args.policy, planner=args.planner)
+        prom, js = reg.write(args.metrics_out)
+        print(f"[metrics] {prom} {js}")
+    if captured.path:
+        print(f"[profile] {captured.path}")
     return s
 
 

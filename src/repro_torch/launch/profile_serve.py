@@ -11,7 +11,11 @@ given policy) and prints JSON lines:
     share an upper bound), kernel launches per dispatch, the device time
     of the decision kernel and, on a chip instance, of the CIM kernel
     (each per launch and as a share of device-busy time), and the
-    kernels with the most device time.
+    kernels with the most device time; and the engine's own host
+    instruments over that run: the stage profile (count, mean, p50 and
+    p99 a stage, ``obs/prof``) and the SLO snapshot's time to verdict
+    (p50/p95/p99, mean, queue-wait share, ``obs/slo``), both inflated
+    by the profiler's host cost.
 
 ``--chip-instance N`` serves on a die sampled with seed N (severity
 ``--chip-severity``, calibrated): the conv trunk runs through the CIM
@@ -51,21 +55,23 @@ def _union_us(intervals) -> float:
 
 def profile_once(policy: TriagePolicy, n_requests: int, fused: bool,
                  chip=None) -> dict:
-    """One engine run under the profiler; only ``engine.run()`` is
-    inside the profiled region (params, head, die and stream are built
-    before it)."""
+    """One engine run under the profiler; only the submissions and
+    ``engine.run()`` are inside the profiled region (params, head, die
+    and stream are built before it), so the time to verdict does not
+    hold the profiler's start."""
     from torch.profiler import ProfilerActivity, profile
     serve_sar(n_requests=n_requests, n_slots=32, corrupt_frac=0.25,
               policy=policy, device="cuda", fused=fused,
               chip_instance=chip)                           # warm-up
     engine = make_sar_engine(policy=policy, fused=fused, device="cuda",
                              chip_instance=chip)
-    for r in make_sar_stream(n_requests, corrupt_frac=0.25):
-        engine.submit(r)
+    reqs = make_sar_stream(n_requests, corrupt_frac=0.25)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        for r in reqs:             # arrivals stamped once profiling runs
+            engine.submit(r)
         out = engine.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -106,6 +112,13 @@ def profile_once(policy: TriagePolicy, n_requests: int, fused: bool,
                          "device_us_total": sum(v),
                          "device_us_mean": statistics.fmean(v)}
                         for k, v in top],
+        "stage_profile": {
+            stage: {k: rec[k] for k in ("count", "mean_s", "p50_s",
+                                        "p99_s")}
+            for stage, rec in out["stage_profile"].items()},
+        "slo": {k: out["slo"][k] for k in (
+            "requests", "p50_s", "p95_s", "p99_s", "mean_s",
+            "queue_wait_share")},
     }
 
 

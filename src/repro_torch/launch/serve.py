@@ -16,6 +16,18 @@ the deployment's belief and the alert bus's advisories.  With
 stream, cut into ``--age-epochs`` segments; ``--auto-recalibrate``
 heals on drift advisories between them (``serve_sar_lifetime``).
 
+Time to verdict is tracked on every run (``obs/slo``; with ``--slo`` or
+``--arrival`` a line gives its p50/p95/p99).  ``--slo TARGET:PCT[:BURN]``
+(repeatable) declares objectives whose burn goes to the alert bus;
+``--arrival SPEC`` drives the stream open-loop on a seeded schedule
+(``serving/load``: ``poisson:RATE``, ``burst:RATE[:FACTOR]``,
+``ramp:LO:HI``) instead of queueing it all at t = 0; ``--trace PATH``
+writes a Chrome trace of the request spans; ``--metrics-out PREFIX``
+writes ``PREFIX.prom`` and ``PREFIX.json`` (``obs/registry``);
+``--profile DIR`` runs under ``torch.profiler``
+(``obs/prof.trace_capture``) and adds the kernels' cost records to the
+metrics.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch sar_cnn \\
       --requests 192 --corrupt-frac 0.25 --corruption fog [--fixed] \\
@@ -23,14 +35,18 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch sar_cnn \\
       --chip-instance 11 --chip-severity 2.5 --age-rate 27000 \\
       --age-epochs 4 --auto-recalibrate
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch sar_cnn \\
+      --requests 192 --corrupt-frac 0.25 --slo 0.25:p99 \\
+      --arrival poisson:1000 --trace out/trace.json \\
+      --metrics-out out/serve --profile out/prof
 
-The LM archs, fleets, arrival processes, SLOs, traces and metric
-exports of the reference CLI wait for later slices.
+The LM archs and fleets of the reference CLI wait for later slices.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -47,10 +63,10 @@ log = get_logger("serve")
 
 
 def collect_alerts(out: dict, source: str):
-    """The alert bus over a finished serve summary: its drift status and
-    lifetime heal events become one typed advisory stream (logged as
-    emitted; ``out["alerts"]`` when any).  SLO and backpressure inputs
-    do not exist in the port yet."""
+    """The alert bus over a finished serve summary: its drift status,
+    lifetime heal events, SLO burn breaches and (for a fleet's snapshot)
+    backpressure become one typed advisory stream (logged as emitted;
+    ``out["alerts"]`` when any)."""
     from repro_torch.obs.alerts import AlertBus
     bus = AlertBus()
     bus.observe_drift(out.get("drift"), source=source)
@@ -105,7 +121,8 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
                     cfg=None, seed: int = 0, chip_instance=None,
                     calibrated: bool = True, fused: bool = True,
                     telemetry: bool | TelemetryConfig = True, head=None,
-                    hcfg=None, device=None) -> SarServingEngine:
+                    hcfg=None, tracer=None, profiler=True, slo=True,
+                    device=None) -> SarServingEngine:
     """The engine ``serve_sar`` drives: untrained params from
     ``init_sar_cnn`` seeded ``3 + seed`` unless ``params`` is given,
     tilemap-true energy accounting (placed blocks of the compiled layer
@@ -118,7 +135,8 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
     included (``calibrated`` selects the per-chip recalibration over the
     golden factory transform).  The summary gains the die's metadata.
     ``head``/``hcfg``: a head already deployed on that die (the lifetime
-    controller's), used as given.
+    controller's), used as given.  ``tracer``/``profiler``/``slo``: the
+    engine's host instruments (``SarServingEngine``).
     """
     from repro_torch.models.sar_cnn import SarCnnConfig, init_sar_cnn
     cfg = cfg or SarCnnConfig()
@@ -152,11 +170,13 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
     return SarServingEngine(params, cfg, n_slots=n_slots, policy=policy,
                             adaptive_mode=adaptive, metrics=metrics,
                             head=head, hcfg=hcfg, chip=chip_instance,
-                            fused=fused, telemetry=telemetry, device=device)
+                            fused=fused, telemetry=telemetry, tracer=tracer,
+                            profiler=profiler, slo=slo, device=device)
 
 
 def _engine_summary(out: dict, engine: SarServingEngine) -> dict:
-    """The engine's counters and per-request verdicts, added to ``out``."""
+    """The engine's counters, per-request verdicts and times to verdict
+    (``time_to_verdict_s``, in the same order), added to ``out``."""
     out["device"] = str(engine.device)
     out["host_syncs"] = engine.host_syncs
     out["host_syncs_per_decision"] = (engine.host_syncs
@@ -169,6 +189,8 @@ def _engine_summary(out: dict, engine: SarServingEngine) -> dict:
          "confidence": r.confidence,
          "mutual_information": r.mutual_information,
          "n_samples": r.n_samples} for r in engine.metrics.records]
+    out["time_to_verdict_s"] = [r.verdict_latency_s
+                                for r in engine.metrics.records]
     return out
 
 
@@ -177,8 +199,9 @@ def serve_sar(*, n_requests: int = 128, n_slots: int = 32,
               corrupt_frac: float = 0.0, corruption: str = "fog",
               params=None, cfg=None, seed: int = 0, chip_instance=None,
               calibrated: bool = True, fused: bool = True,
-              telemetry: bool | TelemetryConfig = True,
-              device=None) -> dict:
+              telemetry: bool | TelemetryConfig = True, tracer=None,
+              profiler=True, slo=(), arrival=None,
+              cost_records: bool = False, device=None) -> dict:
     """SAR image-stream serving on ``device`` (None = the card) through
     ``make_sar_engine`` (``chip_instance``/``calibrated``: serve on a
     sampled die, see there).  Returns the metrics summary plus host
@@ -186,21 +209,54 @@ def serve_sar(*, n_requests: int = 128, n_slots: int = 32,
     ``telemetry`` (the default) also the snapshot (``"telemetry"``), the
     drift status against the deployment's calibration-time belief
     (``"drift"``: the measured die config when calibrated, the factory
-    config otherwise) and the alert bus's advisories (``"alerts"``)."""
+    config otherwise) and the alert bus's advisories (``"alerts"``).
+
+    The engine's stage profile (``profiler``), build counters and SLO
+    snapshot (``"slo"``: time-to-verdict histograms and percentiles)
+    are in the summary.  ``slo``: SLO specs (``"0.25:p99"``) the
+    tracker evaluates, or False for no tracking (the reference always
+    tracks); ``profiler=False`` turns the stage profile off;
+    ``tracer``: an ``obs.trace.Tracer``; ``arrival``: an arrival spec
+    (``"poisson:8"`` or an ``ArrivalSpec``): the stream is then driven
+    open-loop (``serving/load.run_open_loop``) on the schedule seeded by
+    ``seed`` instead of queued at once; ``cost_records``: add the
+    kernels' cost records (``"compiled_costs"``) and, on the card, the
+    caching allocator's peak since the process started or its last
+    reset (``"max_memory_allocated"``)."""
+    from repro_torch.obs.slo import SloTracker
+    slo_tracker = (SloTracker(slos=tuple(slo)) if slo
+                   else slo is not False)
     engine = make_sar_engine(n_slots=n_slots, adaptive=adaptive,
                              policy=policy, params=params, cfg=cfg,
                              seed=seed, chip_instance=chip_instance,
                              calibrated=calibrated, fused=fused,
-                             telemetry=telemetry, device=device)
+                             telemetry=telemetry, tracer=tracer,
+                             profiler=profiler, slo=slo_tracker,
+                             device=device)
     reqs = make_sar_stream(n_requests, corrupt_frac=corrupt_frac,
                            corruption=corruption,
                            image_size=engine.cfg.image_size)
     t0 = time.perf_counter()
-    for r in reqs:
-        engine.submit(r)
-    out = engine.run()
+    if arrival is not None:
+        from repro_torch.serving.load import ArrivalSpec, run_open_loop
+        spec = (ArrivalSpec.parse(arrival) if isinstance(arrival, str)
+                else arrival)
+        out = run_open_loop(engine, reqs, spec.offsets(len(reqs),
+                                                       seed=seed))
+        out["arrival"] = spec.to_dict()
+    else:
+        for r in reqs:
+            engine.submit(r)
+        out = engine.run()
     out["wall_s"] = time.perf_counter() - t0
+    if slo:        # the caller's tracker: the engine does not attach it
+        out["slo"] = slo_tracker.snapshot()
     _engine_summary(out, engine)
+    if cost_records:
+        out["compiled_costs"] = engine.compiled_cost_records()
+        if engine.device.type == "cuda":
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                engine.device)
     if engine.tcfg is not None and out.get("telemetry"):
         from repro_torch.obs.drift import drift_status, reference_for
         ref = reference_for(engine.cfg, engine.hcfg,
@@ -222,7 +278,7 @@ def serve_sar_lifetime(*, lifetime, chip_instance, n_requests: int = 128,
                        params=None, cfg=None, seed: int = 0,
                        calibrated: bool = True, fused: bool = True,
                        telemetry: bool | TelemetryConfig = True,
-                       device=None) -> dict:
+                       tracer=None, profiler=True, device=None) -> dict:
     """SAR serving over a die's LIFETIME, on ``device`` (None: the card).
 
     The stream is cut into ``lifetime.epochs`` segments; before each
@@ -237,7 +293,8 @@ def serve_sar_lifetime(*, lifetime, chip_instance, n_requests: int = 128,
     With ``lifetime.active`` False this IS ``serve_sar``: one segment,
     no controller, the same verdicts and host syncs.  Returns the serve
     summary plus ``out["lifetime"]``: age, heal events, advisory count
-    and the final drift status.
+    and the final drift status.  ``tracer``/``profiler``: the engine's
+    (``serve_sar``); its SLO snapshot covers every segment.
     """
     if not lifetime.active:
         out = serve_sar(n_requests=n_requests, n_slots=n_slots,
@@ -245,7 +302,8 @@ def serve_sar_lifetime(*, lifetime, chip_instance, n_requests: int = 128,
                         corrupt_frac=corrupt_frac, corruption=corruption,
                         params=params, cfg=cfg, seed=seed,
                         chip_instance=chip_instance, calibrated=calibrated,
-                        fused=fused, telemetry=telemetry, device=device)
+                        fused=fused, telemetry=telemetry, tracer=tracer,
+                        profiler=profiler, device=device)
         out["lifetime"] = {"active": False, "age_s": 0.0, "heals": 0,
                            "advisories": 0, "epochs": 1}
         return out
@@ -283,6 +341,7 @@ def serve_sar_lifetime(*, lifetime, chip_instance, n_requests: int = 128,
                              seed=seed, chip_instance=chip_instance,
                              calibrated=calibrated, fused=fused,
                              telemetry=tcfg, head=ctl.head, hcfg=ctl.hcfg,
+                             tracer=tracer, profiler=profiler,
                              device=device)
     reqs = make_sar_stream(n_requests, corrupt_frac=corrupt_frac,
                            corruption=corruption,
@@ -322,7 +381,7 @@ def serve_sar_lifetime(*, lifetime, chip_instance, n_requests: int = 128,
     return out
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=("sar_cnn",), required=True)
     ap.add_argument("--slots", type=int, default=None,
@@ -365,6 +424,27 @@ def main(argv=None) -> None:
                     action="store_false", default=True,
                     help="serve without the device-resident telemetry "
                          "(obs/telemetry) and its drift check")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto trace JSON of the run's "
+                         "request spans to PATH")
+    ap.add_argument("--arrival", default=None, metavar="SPEC",
+                    help="drive serving open-loop on a seeded arrival "
+                         "schedule instead of queueing everything at "
+                         "once: poisson:RATE, burst:RATE[:FACTOR] or "
+                         "ramp:LO:HI (req/s)")
+    ap.add_argument("--slo", action="append", default=None,
+                    metavar="TARGET:PCT[:BURN]",
+                    help="time-to-verdict SLO, e.g. 0.25:p99 (repeatable):"
+                         " attainment and error-budget burn land in the "
+                         "summary, breaches on the alert bus")
+    ap.add_argument("--metrics-out", default=None, metavar="PREFIX",
+                    help="write PREFIX.prom (Prometheus text) and "
+                         "PREFIX.json with the run's metrics, telemetry, "
+                         "stage profile and SLO snapshot")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="run under torch.profiler, its Chrome trace "
+                         "written into DIR, and add the kernels' cost "
+                         "records to the metrics")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
@@ -376,19 +456,26 @@ def main(argv=None) -> None:
     policy = TriagePolicy(conf_threshold=args.conf_threshold,
                           mi_threshold=args.mi_threshold,
                           r_min=args.r_min, r_max=args.r_max)
+    tracer = None
+    if args.trace:
+        from repro_torch.obs.trace import Tracer
+        tracer = Tracer("repro_torch-serving")
     kw = dict(n_requests=args.requests or 128, n_slots=args.slots or 32,
               adaptive=not args.fixed, policy=policy,
               corrupt_frac=args.corrupt_frac, corruption=args.corruption,
               chip_instance=chip, calibrated=not args.uncalibrated,
-              fused=args.fused, telemetry=args.telemetry,
+              fused=args.fused, telemetry=args.telemetry, tracer=tracer,
               device=args.device)
-    if args.age_rate > 0.0 or args.auto_recalibrate:
-        from repro_torch.hw.redeploy import LifetimeConfig
-        out = serve_sar_lifetime(lifetime=LifetimeConfig(
-            age_rate=args.age_rate, epochs=args.age_epochs,
-            auto_recalibrate=args.auto_recalibrate), **kw)
-    else:
-        out = serve_sar(**kw)
+    from repro_torch.obs.prof import trace_capture
+    with trace_capture(args.profile) as captured:
+        if args.age_rate > 0.0 or args.auto_recalibrate:
+            from repro_torch.hw.redeploy import LifetimeConfig
+            out = serve_sar_lifetime(lifetime=LifetimeConfig(
+                age_rate=args.age_rate, epochs=args.age_epochs,
+                auto_recalibrate=args.auto_recalibrate), **kw)
+        else:
+            out = serve_sar(slo=tuple(args.slo or ()), arrival=args.arrival,
+                            cost_records=bool(args.profile), **kw)
     chip_note = ""
     if chip is not None:
         chip_note = (f" [chip seed={args.chip_instance} "
@@ -410,6 +497,36 @@ def main(argv=None) -> None:
         print(f"[lifetime] age {lt['age_s']:.0f}s over {lt['epochs']} "
               f"epochs: {lt['advisories']} advisories, {lt['heals']} "
               f"heals, calib_epoch {lt['calib_epoch']}")
+    snap = out.get("slo")
+    if snap and (args.slo or args.arrival):
+        print(f"[slo] time to verdict p50 {snap['p50_s']:.4f}s p95 "
+              f"{snap['p95_s']:.4f}s p99 {snap['p99_s']:.4f}s; queue-wait "
+              f"share {snap['queue_wait_share']:.3f}"
+              + "".join(f"; {s['name']} attainment {s['attainment']:.4f} "
+                        f"burn {s['burn_rate']:.2f}"
+                        f"{' BREACH' if s['breach'] else ''}"
+                        for s in snap.get("slos", [])))
+    if tracer is not None:
+        d = os.path.dirname(args.trace)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        tracer.export(args.trace)
+        log.info("trace written", path=args.trace,
+                 events=len(tracer.events))
+    if args.metrics_out:
+        from repro_torch.obs.registry import serving_registry
+        reg = serving_registry(
+            {k: v for k, v in out.items()
+             if isinstance(v, (int, float)) and not isinstance(v, bool)},
+            telemetry=out.get("telemetry"), drift=out.get("drift"),
+            profile=out.get("stage_profile"),
+            compile_counters=out.get("compile_counters"),
+            compiled_costs=out.get("compiled_costs"),
+            slo=out.get("slo"), alerts=out.get("alerts"), arch=args.arch)
+        prom, js = reg.write(args.metrics_out)
+        log.info("metrics written", prom=prom, json=js)
+    out["profile_trace"] = captured.path
+    return out
 
 
 if __name__ == "__main__":

@@ -4,8 +4,10 @@ events (``hw/redeploy``), SLO burn and backpressure, each logged through
 ``obs/log`` as it arrives.  Feeding the bus is host-side and after the
 fact; it never touches the device path.
 
-In this port only the drift and heal kinds have inputs; the SLO and
-backpressure observers take None until ``obs/slo`` and the fleet land.
+``observe_slo`` and ``observe_backpressure`` read an ``obs/slo``
+snapshot (``launch/serve.collect_alerts`` passes the serve summary's);
+backpressure fires only on a fleet's snapshot, which the port has no
+fleet to make yet.
 """
 
 from __future__ import annotations

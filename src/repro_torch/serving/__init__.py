@@ -4,12 +4,14 @@
   adaptive  incremental predictive stats + escalation stream
   triage    the paper's Fig. 1 accept / escalate / flag policy
   metrics   per-request latency, samples/decision, energy accounting
+  load      seeded arrival processes driving an engine open-loop
 """
 
 from repro_torch.serving.adaptive import (escalation_schedule, finalize,
                                           init_stats, stream_indices,
                                           stream_selections, update_stats)
 from repro_torch.serving.engine import Request, SarServingEngine
+from repro_torch.serving.load import ArrivalSpec, run_open_loop
 from repro_torch.serving.metrics import (DecisionCost, RequestRecord,
                                          ServingMetrics, decision_cost,
                                          decision_energy, decision_latency,
@@ -19,10 +21,10 @@ from repro_torch.serving.triage import (ACCEPT, ESCALATE, FLAG,
                                         fixed_r_decide)
 
 __all__ = [
-    "ACCEPT", "DecisionCost", "ESCALATE", "FLAG", "Request",
+    "ACCEPT", "ArrivalSpec", "DecisionCost", "ESCALATE", "FLAG", "Request",
     "RequestRecord", "SarServingEngine", "ServingMetrics", "TriagePolicy",
     "decide", "decision_cost", "decision_energy", "decision_latency",
     "energy_terms", "escalation_schedule", "finalize", "fixed_r_decide",
-    "init_stats", "request_energy", "stream_indices", "stream_selections",
-    "update_stats",
+    "init_stats", "request_energy", "run_open_loop", "stream_indices",
+    "stream_selections", "update_stats",
 ]

@@ -56,8 +56,24 @@ reads it with one pull, and ``drain`` attaches that to the summary.
 ``swap_head`` replaces the deployed head between runs (the lifetime
 loop's recalibrate-and-redeploy).
 
-Tracing, profiling, SLO tracking and slot sharding wait for later
-slices.
+Host instruments (the reference's defaults: ``profiler=True``,
+``slo=True``, ``tracer=None``) read host clocks only; none adds a host
+sync or touches a device tensor, so verdicts and ``host_syncs`` are the
+same with them on or off.  The stage profiler (``obs/prof``) splits a
+tick into admission (featurize inside it), dispatch, triage_loop and
+retirement.  In eager PyTorch ``dispatch`` is the host issuing the
+dispatch's ~700 kernel launches (the rounds run behind it on the card)
+and ``triage_loop`` the one blocking pull, i.e. the wait for the card
+to finish them: together the per-layer host split of a dispatch.  Each
+record carries ``first_dispatch_s`` (stamped before a dispatch's
+launches) and ``verdict_s`` (right after its pull); the SLO tracker
+(``obs/slo``) folds every retired record into time-to-verdict
+histograms, and a tracer (``obs/trace``) records featurize and
+sar_rounds spans and a span per request on its slot's track.
+``drain`` attaches the stage profile, the build counters and the SLO
+snapshot to the summary; ``compiled_cost_records`` gives each kernel's
+work at the live shapes (``obs/prof.compiled_cost``).  Slot sharding
+waits for a call with more than one GPU.
 """
 
 from __future__ import annotations
@@ -76,12 +92,19 @@ from repro_torch.core.bayes_layer import to_serving
 from repro_torch.core.lfsr import indexed_selections
 from repro_torch.core.sampling import (BayesHeadConfig, activation_basis,
                                        mix_samples)
+from repro_torch.kernels import bounds
+from repro_torch.kernels.cim import launch_plan
+from repro_torch.kernels.decision import MAX_SAMPLES, decision_plan
 from repro_torch.kernels.ops import decision_update
 from repro_torch.models.sar_cnn import features, program_trunk
+from repro_torch.obs import prof
+from repro_torch.obs.prof import NULL_PROFILER, StageProfiler
+from repro_torch.obs.slo import NULL_SLO, SloTracker
 from repro_torch.obs.telemetry import (TelemetryConfig, count_dispatch,
                                        init_telemetry, record_decisions,
                                        record_round)
 from repro_torch.obs.telemetry import snapshot as telemetry_snapshot
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving import adaptive, triage
 from repro_torch.serving.metrics import RequestRecord, ServingMetrics
 from repro_torch.serving.triage import ESCALATE, TriagePolicy
@@ -102,6 +125,7 @@ class Request:
 class _Slot:
     req: Request | None = None
     admit_s: float = 0.0              # perf_counter stamp at admission
+    first_dispatch_s: float = 0.0     # first dispatch covering this slot
     n_samples: int = 0                # accumulated over the request
     n_decisions: int = 0              # 1 once decided
 
@@ -207,7 +231,12 @@ class SarServingEngine:
     arrays run the conv trunk; ``adaptive_mode=False`` runs the paper's
     fixed-R dataflow (one r_max-sample round, decide); ``telemetry``:
     True (a default ``TelemetryConfig``), a config, or False for none;
-    ``device``: None = the card (raises without CUDA), "cpu" on purpose.
+    ``tracer``: an ``obs.trace.Tracer`` (None: none); ``profiler``: True
+    (a fresh ``StageProfiler``), a shared one, or False; ``slo``: True
+    (a tracker this engine owns and attaches to its summary), a shared
+    ``SloTracker`` (its owner attaches it), or False; ``trace_pid``: the
+    tracer's process track; ``device``: None = the card (raises without
+    CUDA), "cpu" on purpose.
     """
 
     def __init__(self, params, cfg, *, n_slots: int = 32,
@@ -217,7 +246,9 @@ class SarServingEngine:
                  head: dict | None = None,
                  hcfg: BayesHeadConfig | None = None,
                  chip=None, fused: bool = True,
-                 telemetry: bool | TelemetryConfig = True, device=None):
+                 telemetry: bool | TelemetryConfig = True, tracer=None,
+                 profiler: bool | StageProfiler = True, slo=True,
+                 trace_pid: int = 0, device=None):
         self.device = resolve_device(device)
         self.n_slots = n_slots
         self.policy = policy
@@ -256,6 +287,18 @@ class SarServingEngine:
         self.tcfg: TelemetryConfig | None = telemetry or None
         self._telem = (init_telemetry(self.tcfg, policy.r_max, self.device)
                        if self.tcfg else None)
+        # host instruments (module docstring)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        if profiler is True:
+            profiler = StageProfiler()
+        self.profiler: StageProfiler = profiler or NULL_PROFILER
+        self._own_slo = slo is True
+        if slo is True:
+            slo = SloTracker()
+        self.slo: SloTracker = slo or NULL_SLO
+        self.trace_pid = int(trace_pid)
+        for i in range(n_slots):
+            self.tracer.name_thread(i + 1, f"slot {i}", pid=self.trace_pid)
 
     # -- queue ----------------------------------------------------------
     def submit(self, request: Request) -> None:
@@ -268,6 +311,11 @@ class SarServingEngine:
     @property
     def n_active(self) -> int:
         return self.n_slots - len(self.free)
+
+    @property
+    def pending(self) -> int:
+        """Requests in the queue, not yet in a slot."""
+        return len(self.queue)
 
     def active_mask(self) -> np.ndarray:
         """[n_slots] bool — which slots hold an in-flight request."""
@@ -320,29 +368,35 @@ class SarServingEngine:
         take = min(len(self.free), len(self.queue))
         if take == 0:
             return
-        reqs = [self.queue.popleft() for _ in range(take)]
-        imgs = np.stack([np.asarray(r.payload, np.float32) for r in reqs])
-        if take < self.n_slots:                       # fixed-shape batch
-            pad = np.repeat(imgs[-1:], self.n_slots - take, axis=0)
-            imgs = np.concatenate([imgs, pad], axis=0)
-        rows = self.featurize(imgs)
-        self.admissions += 1
-        now = time.perf_counter()
-        bases = self._next_bases(take)
-        taken = []
-        for j, req in enumerate(reqs):
-            s = self.free.pop()
-            taken.append(s)
-            self.slots[s].req = req
-            self.slots[s].admit_s = now
-            self.base[s] = bases[j]
-        idx = torch.as_tensor(taken, dtype=torch.int64, device=self.device)
-        self.ensure_pool(like=rows)
-        for k, v in rows.items():                     # in place
-            self.pool[k].index_copy_(0, idx, v[:take])
-        for v in self.stats.values():
-            v.index_fill_(0, idx, 0)
-        self.metrics.mark(now)
+        with self.profiler.span("admission"):
+            reqs = [self.queue.popleft() for _ in range(take)]
+            imgs = np.stack([np.asarray(r.payload, np.float32)
+                             for r in reqs])
+            if take < self.n_slots:                   # fixed-shape batch
+                pad = np.repeat(imgs[-1:], self.n_slots - take, axis=0)
+                imgs = np.concatenate([imgs, pad], axis=0)
+            with self.tracer.span("featurize", pid=self.trace_pid,
+                                  n_admitted=take), \
+                    self.profiler.span("featurize"):
+                rows = self.featurize(imgs)
+            self.admissions += 1
+            now = time.perf_counter()
+            bases = self._next_bases(take)
+            taken = []
+            for j, req in enumerate(reqs):
+                s = self.free.pop()
+                taken.append(s)
+                self.slots[s].req = req
+                self.slots[s].admit_s = now
+                self.base[s] = bases[j]
+            idx = torch.as_tensor(taken, dtype=torch.int64,
+                                  device=self.device)
+            self.ensure_pool(like=rows)
+            for k, v in rows.items():                 # in place
+                self.pool[k].index_copy_(0, idx, v[:take])
+            for v in self.stats.values():
+                v.index_fill_(0, idx, 0)
+            self.metrics.mark(now)
 
     # -- rounds ---------------------------------------------------------
     def _one_round(self, base: torch.Tensor, mask: torch.Tensor):
@@ -385,34 +439,57 @@ class SarServingEngine:
         return verdict, fin, rounds
 
     # -- retirement -----------------------------------------------------
-    def _retire(self, slot_idx: int, verdict: int, fin: dict) -> None:
+    def _retire(self, slot_idx: int, verdict: int, fin: dict,
+                verdict_s: float = float("nan")) -> None:
         slot = self.slots[slot_idx]
         req = slot.req
         now = time.perf_counter()
         self.metrics.mark(now)
-        self.metrics.record(RequestRecord(
+        rec = RequestRecord(
             rid=req.rid, verdict=int(verdict), n_samples=slot.n_samples,
             n_decisions=max(slot.n_decisions, 1),
             arrival_s=req.arrival_s, admit_s=slot.admit_s, done_s=now,
             prediction=int(fin["prediction"][slot_idx]),
             confidence=float(fin["confidence"][slot_idx]),
             mutual_information=float(fin["mutual_information"][slot_idx]),
-            arrival_pc=req.arrival_pc))
+            arrival_pc=req.arrival_pc,
+            first_dispatch_s=slot.first_dispatch_s or float("nan"),
+            verdict_s=verdict_s)
+        self.metrics.record(rec)
+        self.slo.observe(rec)
+        if self.tracer.enabled:
+            start = slot.admit_s - self.tracer.t0
+            self.tracer.complete(
+                f"req {req.rid}", start, now - slot.admit_s,
+                tid=slot_idx + 1, pid=self.trace_pid, verdict=int(verdict),
+                n_samples=slot.n_samples,
+                n_decisions=max(slot.n_decisions, 1))
         slot.req = None
         slot.n_samples = slot.n_decisions = 0
+        slot.first_dispatch_s = 0.0
         self.free.append(slot_idx)
 
-    def _retire_decided(self, active, verdict, fin, spent: int) -> int:
+    def _retire_decided(self, active, verdict, fin, spent: int,
+                        verdict_s: float = float("nan")) -> int:
         """Charge samples to every active slot, retire those whose
-        verdict left ESCALATE.  Returns the number retired."""
+        verdict left ESCALATE (``verdict_s``: the stamp of the pull that
+        brought the verdicts).  Returns the number retired."""
         retired = 0
         for i in np.nonzero(active)[0]:
             self.slots[i].n_samples += spent
             if verdict[i] != ESCALATE:
                 self.slots[i].n_decisions = 1
-                self._retire(i, verdict[i], fin)
+                self._retire(i, verdict[i], fin, verdict_s)
                 retired += 1
         return retired
+
+    def _stamp_first_dispatch(self, active) -> None:
+        """Stamp the slots this dispatch covers for the first time
+        (host clock, before the dispatch's launches)."""
+        now = time.perf_counter()
+        for i in np.nonzero(active)[0]:
+            if self.slots[i].first_dispatch_s == 0.0:
+                self.slots[i].first_dispatch_s = now
 
     # -- main loop ------------------------------------------------------
     def start(self) -> None:
@@ -426,25 +503,39 @@ class SarServingEngine:
         if self.n_active == 0:
             return False
         active = self.active_mask()
-        verdict, fin, rounds = self._multi_round(
-            torch.as_tensor(self.base.astype(np.int64), device=self.device),
-            torch.as_tensor(active, device=self.device))
-        # ONE blocking device→host pull: verdict, prediction, confidence,
-        # mutual information and the round count in a single transfer
-        # (float64 holds each of them exactly).
-        b = self.n_slots
-        packed = torch.cat([
-            torch.stack([verdict.double(), fin["prediction"].double(),
-                         fin["confidence"].double(),
-                         fin["mutual_information"].double()]).reshape(-1),
-            rounds.double().reshape(1)]).cpu().numpy()
+        self._stamp_first_dispatch(active)
+        t_disp = self.tracer.now()
+        with self.profiler.span("dispatch"):       # the host's launches
+            verdict, fin, rounds = self._multi_round(
+                torch.as_tensor(self.base.astype(np.int64),
+                                device=self.device),
+                torch.as_tensor(active, device=self.device))
+            # verdict, prediction, confidence, mutual information and the
+            # round count in one tensor (float64 holds each exactly)
+            packed = torch.cat([
+                torch.stack([verdict.double(), fin["prediction"].double(),
+                             fin["confidence"].double(),
+                             fin["mutual_information"].double()]
+                            ).reshape(-1),
+                rounds.double().reshape(1)])
+        # ONE blocking device→host pull: the wait for the card
+        with self.profiler.span("triage_loop"):
+            packed = packed.cpu().numpy()
+        t_verdict = time.perf_counter()
         self.host_syncs += 1
+        b = self.n_slots
         host_fin = {"prediction": packed[b:2 * b].astype(np.int64),
                     "confidence": packed[2 * b:3 * b],
                     "mutual_information": packed[3 * b:4 * b]}
         spent = self.r_step * int(packed[4 * b])
-        self._retire_decided(active, packed[:b].astype(np.int32), host_fin,
-                             spent)
+        if self.tracer.enabled:
+            self.tracer.complete(
+                "sar_rounds", t_disp, self.tracer.now() - t_disp,
+                pid=self.trace_pid, rounds=int(packed[4 * b]),
+                n_active=int(active.sum()), samples_per_slot=spent)
+        with self.profiler.span("retirement"):
+            self._retire_decided(active, packed[:b].astype(np.int32),
+                                 host_fin, spent, verdict_s=t_verdict)
         return True
 
     def telemetry_snapshot(self) -> dict | None:
@@ -453,10 +544,21 @@ class SarServingEngine:
             return None
         return telemetry_snapshot(self._telem, self.tcfg)
 
+    def _attach_perf(self) -> None:
+        """Attach the stage profile and the process's build counters
+        (``stage_profile``/``compile_counters``), and the SLO snapshot
+        when this engine owns its tracker."""
+        self.metrics.attach_profile(self.profiler.snapshot() or None,
+                                    prof.compile_counters())
+        if self._own_slo:
+            self.metrics.attach_slo(self.slo.snapshot())
+
     def drain(self) -> dict:
-        """Attach the telemetry snapshot and build the summary."""
+        """Attach the telemetry, profile and SLO snapshots and build the
+        summary."""
         if self._telem is not None:
             self.metrics.attach_telemetry(self.telemetry_snapshot())
+        self._attach_perf()
         return self.metrics.summary()
 
     def run(self, max_ticks: int = 100_000) -> dict:
@@ -465,3 +567,53 @@ class SarServingEngine:
             if not self.step() and not self.queue:
                 break
         return self.drain()
+
+    # -- cost records (profiling path only) -----------------------------
+    def compiled_cost_records(self) -> list[dict]:
+        """One ``obs/prof.compiled_cost`` record per hand-written kernel
+        on this engine's path, at its live shapes: the decision kernel
+        (every slot active, one record per launch piece of a round:
+        ``ceil(r_step / 64)`` launches a round, ``max_rounds`` rounds a
+        dispatch) and, on a die, the CIM kernel per trunk layer (one
+        launch a layer an admission of ``n_slots`` images).  Each holds
+        the kernel's launch plan (a cached builder) and the work of
+        ``kernels/bounds``.  A kernel this engine's route does not
+        launch (any kernel on the CPU, where the wrappers take the plain
+        versions; the decision kernel with ``fused=False``) has 0
+        launches.  Reads shapes only: nothing is launched."""
+        if self.pool is None:
+            raise RuntimeError(
+                "compiled_cost_records needs live pool shapes: run the "
+                "engine (or admit once) first")
+        recs = []
+        on_card = self.device.type == "cuda"
+        b, n = self.pool["y_mu"].shape
+        grng = self.hcfg.grng
+        pieces = [min(MAX_SAMPLES, self.r_step - r0)
+                  for r0 in range(0, self.r_step, MAX_SAMPLES)]
+        for r in sorted(set(pieces)):
+            work = bounds.decision_work(
+                b, n, r, b, sel_per_slot=True, read_sigma=grng.read_sigma,
+                idx_per_slot=True)
+            recs.append(prof.compiled_cost(
+                "decision_stats" if len(pieces) == 1
+                else f"decision_stats/r{r}", work, kernel="decision_stats",
+                source="src/repro_torch/kernels/csrc/decision.cu",
+                launches=(self.max_rounds * pieces.count(r)
+                          if on_card and self.fused else 0),
+                shape=f"B={b} N={n} R={r}, every slot active",
+                plan=decision_plan(n, r)._asdict()))
+        if self._trunk is not None:
+            h = self.cfg.image_size
+            for i, layer in enumerate(self._trunk):
+                h = (h - layer["k"]) // 2 + 1
+                k, cout = layer["w"].shape
+                m = self.n_slots * h * h
+                recs.append(prof.compiled_cost(
+                    f"cim_mvm/trunk{i}", bounds.cim_work(m, k, cout),
+                    kernel="cim_mvm",
+                    source="src/repro_torch/kernels/csrc/cim_mvm.cu",
+                    launches=int(on_card), per="admission",
+                    shape=f"trunk{i}: M={m} K={k} N={cout}",
+                    plan=launch_plan(m, k, cout)._asdict()))
+        return recs

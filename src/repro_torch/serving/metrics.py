@@ -11,9 +11,13 @@ Bayesian blocks, 640 aJ per GRNG sample.  With a compiled
 the summary carries the deployed area and utilization.
 
 Run metadata (``extra``, e.g. the chip instance served on) is merged
-into the summary, and so is the engine's telemetry snapshot
-(``attach_telemetry``).  Stage profiles, SLO snapshots and lifecycle
-stamps of the reference's summary wait for later slices.
+into the summary, and so are what the engine attaches at drain time:
+its telemetry snapshot (``attach_telemetry``), its stage profile and
+build counters (``attach_profile``: ``stage_profile``,
+``compile_counters``) and its SLO snapshot (``attach_slo``: ``slo``),
+under the reference's keys.  A record carries the lifecycle stamps of
+the reference: the first dispatch covering its slot and the host pull
+that brought its verdict.
 """
 
 from __future__ import annotations
@@ -31,7 +35,10 @@ from repro_torch.serving.triage import VERDICT_NAMES
 class RequestRecord:
     """One retired request.  ``admit_s``/``done_s`` come from
     ``time.perf_counter``; ``arrival_pc`` is the monotonic twin of the
-    wall-clock ``arrival_s`` (NaN falls back to ``arrival_s``)."""
+    wall-clock ``arrival_s`` (NaN falls back to ``arrival_s``).
+    ``first_dispatch_s`` (the first dispatch covering the slot) and
+    ``verdict_s`` (right after the host pull that brought the verdict)
+    are on the same clock, NaN where the engine did not stamp them."""
     rid: int
     verdict: int                 # triage.ACCEPT or triage.FLAG
     n_samples: int               # GRNG samples spent on this decision
@@ -43,6 +50,8 @@ class RequestRecord:
     confidence: float = float("nan")
     mutual_information: float = float("nan")
     arrival_pc: float = float("nan")
+    first_dispatch_s: float = float("nan")
+    verdict_s: float = float("nan")
 
     @property
     def _arrival(self) -> float:
@@ -60,6 +69,18 @@ class RequestRecord:
     @property
     def latency_s(self) -> float:
         return self.done_s - self._arrival
+
+    @property
+    def dispatch_wait_s(self) -> float:
+        """Admission → the first dispatch that covered this slot."""
+        return self.first_dispatch_s - self.admit_s
+
+    @property
+    def verdict_latency_s(self) -> float:
+        """Time to verdict: arrival → the host pull that brought the
+        verdict (NaN without the stamp; ``latency_s`` then stands in,
+        which also holds the retirement)."""
+        return self.verdict_s - self._arrival
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,15 +210,27 @@ class ServingMetrics:
         self.tile_program = tile_program
         self.wall_start: float | None = None
         self.wall_end: float | None = None
-        # obs/telemetry snapshot attached by the engine at drain time,
-        # surfaced under summary()["telemetry"]
+        # snapshots the engine attaches at drain time, surfaced under
+        # summary()["telemetry"], ["stage_profile"], ["compile_counters"]
+        # and ["slo"]
         self.telemetry: dict | None = None
+        self.stage_profile: dict | None = None
+        self.compile_counters: dict | None = None
+        self.slo: dict | None = None
 
     def record(self, rec: RequestRecord) -> None:
         self.records.append(rec)
 
     def attach_telemetry(self, snapshot: dict | None) -> None:
         self.telemetry = snapshot
+
+    def attach_profile(self, stage_profile: dict | None,
+                       compile_counters: dict | None = None) -> None:
+        self.stage_profile = stage_profile
+        self.compile_counters = compile_counters
+
+    def attach_slo(self, snapshot: dict | None) -> None:
+        self.slo = snapshot or None
 
     def mark(self, t: float) -> None:
         if self.wall_start is None:
@@ -227,6 +260,7 @@ class ServingMetrics:
             out.update(self._tile_summary())
             if self.telemetry is not None:
                 out["telemetry"] = self.telemetry
+            out.update(self._perf_summary())
             out.update(self.extra)
             return out
         n_dec = sum(r.n_decisions for r in self.records)
@@ -287,7 +321,18 @@ class ServingMetrics:
         out.update(self._tile_summary())
         if self.telemetry is not None:
             out["telemetry"] = self.telemetry
+        out.update(self._perf_summary())
         out.update(self.extra)
+        return out
+
+    def _perf_summary(self) -> dict:
+        out = {}
+        if self.stage_profile is not None:
+            out["stage_profile"] = self.stage_profile
+        if self.compile_counters is not None:
+            out["compile_counters"] = self.compile_counters
+        if self.slo is not None:
+            out["slo"] = self.slo
         return out
 
     def _tile_summary(self) -> dict:

@@ -48,6 +48,10 @@ card against CPU (the same advisories, heals and ``calib_epoch``;
 verdicts equal unless the two trunks differ by an ADC code, ROADMAP
 C9); an aged mission's segments under ``set_sync_debug_mode("error")``
 with one sync a segment.
+Observability: the engine's cost records against the launches the
+wrappers count (the same verdicts and syncs with the instruments on and
+off), and ``trace_capture``'s trace holding every decision and CIM
+launch under its CUDA symbol.
 """
 
 import numpy as np
@@ -759,3 +763,77 @@ def test_aged_mission_segments_do_not_sync(hopper, monkeypatch):
                        n_steps=8, device=hopper,
                        lifetime=LifetimeConfig(age_rate=86400.0, epochs=4))
     assert aged.host_syncs == 4
+
+
+@pytest.mark.parametrize("die,fused", [(False, True), (True, True),
+                                       (True, False)])
+def test_cost_records_match_the_launch_counts(hopper, die, fused):
+    """The engine's cost records on the card: launches a dispatch (an
+    admission) times the dispatches (admissions) equal the launches the
+    wrappers counted, and 0 for the decision kernel on the unfused
+    route; the run states the allocator's peak once; the instruments on
+    and off give the same verdicts and syncs."""
+    from repro_torch.hw import VariationSpec, sample_instances
+    from repro_torch.launch.serve import serve_sar
+    from repro_torch.obs.trace import Tracer
+    chip = sample_instances(11, 1, VariationSpec().scaled(2.0))[0] \
+        if die else None
+    kw = dict(n_requests=64, n_slots=16, corrupt_frac=0.25,
+              chip_instance=chip, fused=fused, device=hopper)
+    cim_mvm.launches = decision_stats.launches = 0
+    out = serve_sar(cost_records=True, tracer=Tracer(), slo=("0.25:p99",),
+                    **kw)
+    costs = out["compiled_costs"]
+    per_dispatch = sum(c["launches_per_dispatch"] for c in costs
+                       if c["kernel"] == "decision_stats")
+    per_admission = sum(c["launches_per_admission"] for c in costs
+                        if c["kernel"] == "cim_mvm")
+    assert per_dispatch * out["host_syncs"] == decision_stats.launches
+    assert (decision_stats.launches > 0) == fused
+    assert per_admission * out["admissions"] == cim_mvm.launches
+    assert (cim_mvm.launches > 0) == die
+    assert out["max_memory_allocated"] > 0
+    assert not any("max_memory_allocated" in c for c in costs)
+    off = serve_sar(profiler=False, slo=False, **kw)
+    assert [(v["verdict"], v["n_samples"]) for v in off["verdicts"]] == \
+        [(v["verdict"], v["n_samples"]) for v in out["verdicts"]]
+    assert off["host_syncs"] == out["host_syncs"]
+    assert "slo" not in off and out["slo"]["requests"] == 64
+
+
+def test_second_engine_builds_nothing(hopper):
+    """The kernels' cached builders (plans, launchers, library loads)
+    are built by the first engine of a config and by no later one."""
+    from repro_torch.hw import VariationSpec, sample_instances
+    from repro_torch.launch.serve import serve_sar
+    from repro_torch.obs.prof import builder_builds
+    chip = sample_instances(11, 1, VariationSpec().scaled(2.0))[0]
+    kw = dict(n_requests=32, n_slots=16, chip_instance=chip,
+              cost_records=True, device=hopper)
+    serve_sar(**kw)
+    first = builder_builds()
+    assert first["decision_launcher"] == first["cim_launcher"] == 1
+    serve_sar(**kw)
+    assert builder_builds() == first
+
+
+def test_trace_capture_names_the_kernels(hopper, tmp_path):
+    """``trace_capture`` on the card: the Chrome trace holds one kernel
+    event per decision and CIM launch, under their CUDA symbols."""
+    import json
+    from repro_torch.hw import VariationSpec, sample_instances
+    from repro_torch.launch.serve import serve_sar
+    from repro_torch.obs.prof import trace_capture
+    chip = sample_instances(11, 1, VariationSpec().scaled(2.0))[0]
+    kw = dict(n_requests=32, n_slots=16, chip_instance=chip, device=hopper)
+    serve_sar(**kw)                                       # warm-up
+    cim_mvm.launches = decision_stats.launches = 0
+    with trace_capture(str(tmp_path)) as got:
+        serve_sar(**kw)
+        torch.cuda.synchronize()
+    names = [e["name"] for e in json.loads(open(got.path).read())
+             ["traceEvents"] if e.get("cat") == "kernel"]
+    assert sum("decision_stats_small_n_kernel" in n for n in names) == \
+        decision_stats.launches > 0
+    assert sum("cim_mvm_kernel" in n for n in names) == \
+        cim_mvm.launches > 0
