@@ -131,6 +131,27 @@ JSON line):
      steps on the seed-11 severity-2.5 die, its step loop under
      ``set_sync_debug_mode("error")``; each number beside the card's
      name and power limit;
+  7g. a die population and the head's other modes (lines
+     ``die_population``, ``granularity``, ``moment``, ``tiled_hoist``):
+     hw_variation's 16 dies (seed 2026, severity 2.5) saved and loaded
+     equal, ``calibration_report`` on the card against the CPU
+     (measured constants within CALIB_STEPS float32 steps, residuals
+     within CALIB_RESID_ATOL, the calibrated residual under a fifth of
+     the uncalibrated on every die), two loaded dies serving 96
+     fog-mixed requests (CIM trunk, decision kernel; launches zeroed
+     before, read after) with their originals' verdicts, the SAR
+     layers cut onto tiles and put back bit for bit, the tile map's
+     report and 2-shard column partition; Fig. 9's block at 'tile' and
+     'cell' on both dies (selections equal, ε within GRAN_EPS_ATOL,
+     card against CPU; ε moments beside 'layer''s), the reachable
+     selection patterns, paper-mode samples at tile/cell at the UQ
+     head's shape (no head kernel launched; 'layer' launches it once);
+     kernel_bench's head in moment mode (moments card vs CPU, 2,048
+     draws against them); mamba2-130m's head (K=768, N=50,280) hoisted
+     in host chunks of 4,096 columns, ``update_stats_streamed`` against
+     the dense on-device ``update_stats(mix_samples)`` (1e-5), ideal and
+     gate die, times and allocator peaks; each line beside the card's
+     name and power limit;
   8. kernel timing: device time from CUDA graph replays and per-call
      time of eager calls (CUDA events), beside the plain version's and
      the card's byte/flop bound: decision and CIM at the serving path's
@@ -2849,6 +2870,371 @@ def observed_launches(result: dict) -> dict:
 
 
 # ----------------------------------------------------------------------
+# a die population; the GRNG's granularities; the moment mode; the
+# host-tiled hoist
+# ----------------------------------------------------------------------
+# benchmarks/hw_variation.py:79,84: its population of dies
+POPULATION = dict(seed=2026, n=16, severity=2.5)
+POP_REQUESTS = 96
+POP_SERVED = 2                 # loaded dies served against their originals
+CALIB_STEPS = 16               # measured constants, card vs CPU (float32 steps)
+CALIB_RESID_ATOL = 1e-6        # residual offsets, card vs CPU
+GRAN_BLOCK = dict(k=256, n=256, r=8)        # Fig. 9's block
+GRAN_EPS_ATOL = 1e-6           # ε at tile/cell, card vs CPU
+MOMENT_DRAWS = 2048
+# mamba2-130m's head (src/repro/configs/mamba2_130m.py:11-13)
+LM_HEAD = dict(b=8, k=768, n=50280, r=20, tile_n=4096)
+
+
+def same_dies(a, b, what: str) -> None:
+    import numpy as np
+    ta, tb = a.to_tree(), b.to_tree()
+    check(set(ta) == set(tb), f"{what}: different fields")
+    for k in ta:
+        check(ta[k].dtype == tb[k].dtype and np.array_equal(ta[k], tb[k]),
+              f"{what}: field {k} differs: {ta[k]} vs {tb[k]}")
+
+
+def run_die_population() -> dict:
+    """hw_variation's population shipped (save, load), calibrated on
+    the card against the CPU, two loaded dies served against their
+    originals, and the SAR layers cut onto tiles and put back."""
+    import tempfile
+    import torch
+    from repro_torch.core.clt_grng import GRNGConfig
+    from repro_torch.hw import (VariationSpec, calibration_report,
+                                compile_network, load_instances,
+                                sample_instances, save_instances,
+                                shard_column_partition)
+    from repro_torch.kernels.cim import cim_mvm
+    from repro_torch.kernels.decision import decision_stats
+    from repro_torch.launch.serve import sar_layer_shapes, serve_sar
+    from repro_torch.serving import TriagePolicy
+    dies = sample_instances(POPULATION["seed"], POPULATION["n"],
+                            VariationSpec().scaled(POPULATION["severity"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_instances(tmp, dies)
+        loaded = load_instances(tmp)
+        ship_s = time.perf_counter() - t0
+    check(len(loaded) == len(dies), f"loaded {len(loaded)} dies")
+    for a, b in zip(dies, loaded):
+        same_dies(a, b, f"die {a.chip_id} after save/load")
+
+    base = GRNGConfig()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = [calibration_report(d, base, device="cuda") for d in loaded]
+    calib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = [calibration_report(d, base, device="cpu") for d in loaded]
+    calib_cpu_s = time.perf_counter() - t0
+    steps, resid = 0, 0.0
+    for c, h in zip(card, cpu):
+        check((c.energy_J, c.time_s, c.n_samples) ==
+              (h.energy_J, h.time_s, h.n_samples),
+              f"die {c.chip_id}: cost differs card vs CPU")
+        steps = max(steps, float_ulps(c.measured_sum_mean,
+                                      h.measured_sum_mean),
+                    float_ulps(c.measured_sum_std, h.measured_sum_std))
+        resid = max(resid, abs(c.residual_eps_cal - h.residual_eps_cal),
+                    abs(c.residual_eps_uncal - h.residual_eps_uncal))
+        check(c.residual_eps_cal < 0.2 * c.residual_eps_uncal,
+              f"die {c.chip_id}: calibrated residual "
+              f"{c.residual_eps_cal} not under 0.2 x {c.residual_eps_uncal}")
+    check(steps <= CALIB_STEPS,
+          f"measured constants {steps} float32 steps apart card vs CPU")
+    check(resid <= CALIB_RESID_ATOL, f"residuals differ by {resid}")
+
+    policy = TriagePolicy(**POLICY)
+    kw = dict(STREAM, policy=policy, device="cuda")
+    launches = {"decision": 0, "cim": 0}
+    served = []
+    for before, after in zip(dies[:POP_SERVED], loaded[:POP_SERVED]):
+        want = serve_sar(n_requests=POP_REQUESTS, chip_instance=before, **kw)
+        cim_mvm.launches = decision_stats.launches = 0
+        got = serve_sar(n_requests=POP_REQUESTS, chip_instance=after, **kw)
+        check(got["decisions"] == POP_REQUESTS,
+              f"die {after.chip_id}: {got['decisions']} decisions")
+        check(cim_mvm.launches == 3 * got["admissions"] > 0
+              and decision_stats.launches == got["rounds_launched"] > 0,
+              f"die {after.chip_id}: launches {cim_mvm.launches} CIM, "
+              f"{decision_stats.launches} decision")
+        launches["cim"] += cim_mvm.launches
+        launches["decision"] += decision_stats.launches
+        same_decisions(got, want, f"loaded die {after.chip_id} vs before "
+                       f"saving", atol=0.0)
+        served.append({"chip_id": after.chip_id, "wall_s": got["wall_s"],
+                       "decisions_per_s_wall":
+                           got["decisions"] / got["wall_s"],
+                       "flag_fraction": got["flag_fraction"],
+                       "mean_samples_per_decision":
+                           got["mean_samples_per_decision"],
+                       "cim_launches": cim_mvm.launches,
+                       "decision_launches": decision_stats.launches})
+
+    cfg, params = sar_params("cuda")
+    layers = sar_layer_shapes(cfg)
+    prog = compile_network(layers)
+    mats = [c["w"].permute(2, 3, 1, 0).reshape(-1, c["w"].shape[0])
+            for c in params["convs"]]
+    mats.append(params["head"]["mu"])
+    names = [name for name, _ in prog.layers]
+    blocks = 0
+    for name, w in zip(names, mats):
+        shards = prog.shard_weights(name, w)
+        back = prog.reconstruct(name, shards)
+        check(all(b.device == w.device for b in shards.values())
+              and torch.equal(back, w),
+              f"{name}: shard_weights/reconstruct is not exact on the card")
+        blocks += len(shards)
+    sharded = compile_network(layers, n_shards=2)
+    card_name, _, power = card_line().partition(",")
+    out = {"die_population": "hw_variation's population (seed "
+           f"{POPULATION['seed']}, {POPULATION['n']} dies, severity "
+           f"{POPULATION['severity']}): save/load, calibration_report card "
+           "vs CPU, loaded dies served, SAR layers on tiles",
+           "gpu": card_name.strip(), "power_limit": power.strip(),
+           "ship_s": ship_s, "dies_equal_after_load": True,
+           "calibration_card_s": calib_s, "calibration_cpu_s": calib_cpu_s,
+           "calibration_constants_max_float32_steps": steps,
+           "calibration_constants_step_bound": CALIB_STEPS,
+           "residual_max_abs_diff": resid,
+           "residual_atol": CALIB_RESID_ATOL,
+           "residual_eps_uncal": [c.residual_eps_uncal for c in card],
+           "residual_eps_cal": [c.residual_eps_cal for c in card],
+           "measured_sum_std": [c.measured_sum_std for c in card],
+           "energy_J": card[0].energy_J, "time_s": card[0].time_s,
+           "served": served, "verdicts_equal_before_after": True,
+           "launches": launches,
+           "tile_blocks_round_tripped": blocks,
+           "tile_report": prog.report(),
+           "shard_column_partition_2": {
+               name: {str(s): cols for s, cols in
+                      shard_column_partition(sharded, name).items()}
+               for name in names}}
+    emit(out)
+    return {"launches": launches}
+
+
+def run_granularity() -> dict:
+    """Fig. 9's block at 'tile' and 'cell' on the ideal and the gate
+    die, card against CPU; ε's moments beside the layer granularity's;
+    the reachable patterns; paper-mode samples at tile/cell at the UQ
+    path's head shape (plain on the card by the config's route: no head
+    kernel launch), with 'layer' still launching the paper kernel."""
+    import dataclasses
+    import torch
+    from repro_torch.core import clt_grng as g
+    from repro_torch.core import lfsr
+    from repro_torch.core.sampling import (BayesHeadConfig, logit_samples,
+                                           prepare_serving_head)
+    from repro_torch.kernels import bayes
+    k, n, r = GRAN_BLOCK["k"], GRAN_BLOCK["n"], GRAN_BLOCK["r"]
+    dies = {"ideal": g.GRNGConfig(), "gate_die": gate_die().grng(
+        g.GRNGConfig())}
+    rows, worst = {}, 0.0
+    for die, base in dies.items():
+        layer = g.eps(base, k, n, r, device="cuda")
+        rows[die] = {"layer": {"mean": float(layer.mean()),
+                               "std": float(layer.std())}}
+        for gran in ("tile", "cell"):
+            cfg = dataclasses.replace(base, granularity=gran)
+            sel = g.block_selections(cfg, k, n, r, device="cuda")
+            check(torch.equal(sel.cpu(), g.block_selections(
+                cfg, k, n, r, device="cpu")),
+                f"{die} {gran}: selections differ card vs CPU")
+            e = g.eps(cfg, k, n, r, device="cuda")
+            err = float((e.cpu() - g.eps(cfg, k, n, r, device="cpu"))
+                        .abs().max())
+            check(err <= GRAN_EPS_ATOL, f"{die} {gran}: ε differs by {err}")
+            worst = max(worst, err)
+            rows[die][gran] = {"mean": float(e.mean()),
+                               "std": float(e.std())}
+    count, freq = lfsr.enumerate_reachable(device="cuda")
+    count_cpu, freq_cpu = lfsr.enumerate_reachable(device="cpu")
+    check(count == count_cpu and torch.equal(freq.cpu(), freq_cpu),
+          "enumerate_reachable differs card vs CPU")
+
+    b, kk, nn = SAR_HEAD["b"], SAR_HEAD["k"], SAR_HEAD["n"]
+    c = head_inputs(b, kk, nn)
+    paper = {}
+    for gran in ("layer", "tile", "cell"):
+        hcfg = BayesHeadConfig(num_samples=UQ_R, mode="paper",
+                               grng=dataclasses.replace(c["cfg"],
+                                                        granularity=gran),
+                               compute_dtype=torch.float32)
+        head = prepare_serving_head(c["mu"], c["sigma"], hcfg)
+        bayes.bayes_paper.launches = bayes.bayes_rank16.launches = 0
+        got = logit_samples(head, c["x"], hcfg)
+        torch.cuda.synchronize()
+        launched = bayes.bayes_paper.launches + bayes.bayes_rank16.launches
+        check(launched == (1 if gran == "layer" else 0),
+              f"paper at {gran}: {launched} head kernel launches")
+        head_cpu = {key: v.cpu() for key, v in head.items()}
+        want = logit_samples(head_cpu, c["x"].cpu(), hcfg)
+        err = float((got.cpu() - want).abs().max())
+        tol = 1e-4 if gran == "layer" else 1e-5     # kernel vs plain: 1e-4
+        check(torch.allclose(got.cpu(), want, rtol=tol, atol=tol),
+              f"paper at {gran}: card vs CPU differ by {err}")
+        paper[gran] = {"max_abs_err": err, "head_kernel_launches": launched,
+                       "shape": list(got.shape)}
+    card_name, _, power = card_line().partition(",")
+    emit({"granularity": "Fig. 9's block (256x256, R=8) at tile/cell, "
+          "card vs CPU; paper-mode logit_samples at the UQ path's head "
+          "(B=64 K=64 N=2 R=20)",
+          "gpu": card_name.strip(), "power_limit": power.strip(),
+          "selections_equal": True, "eps_max_abs_err": worst,
+          "eps_atol": GRAN_EPS_ATOL, "eps_moments": rows,
+          "reachable_patterns": count,
+          "selection_frequency_range": [float(freq.min()),
+                                        float(freq.max())],
+          "paper_logit_samples": paper,
+          "paper_tol": "rtol/atol 1e-5 at tile/cell (plain on both); 1e-4 "
+                       "at layer (the paper kernel against its plain "
+                       "version, as the head checks)"})
+    return paper
+
+
+def run_moment() -> dict:
+    """kernel_bench's head in moment mode: logit_moments card vs CPU,
+    and MOMENT_DRAWS samples' empirical moments against the analytic
+    ones on the card."""
+    import torch
+    from repro_torch.core.sampling import (BayesHeadConfig, logit_moments,
+                                           logit_samples,
+                                           prepare_serving_head)
+    c = head_inputs(BENCH_HEAD["b"], BENCH_HEAD["k"], BENCH_HEAD["n"])
+    hcfg = BayesHeadConfig(num_samples=UQ_R, mode="moment", grng=c["cfg"],
+                           compute_dtype=torch.float32)
+    head = prepare_serving_head(c["mu"], c["sigma"], hcfg)
+    mean, var = logit_moments(head, c["x"], hcfg)
+    mean_c, var_c = logit_moments({k: v.cpu() for k, v in head.items()},
+                                  c["x"].cpu(), hcfg)
+    mean_err = float((mean.cpu() - mean_c).abs().max())
+    var_rel = float(((var.cpu() - var_c).abs() / var_c).max())
+    check(torch.allclose(mean.cpu(), mean_c, rtol=1e-4, atol=1e-5)
+          and var_rel <= 1e-4,
+          f"logit_moments card vs CPU: mean {mean_err}, var rel {var_rel}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = logit_samples(head, c["x"], hcfg, MOMENT_DRAWS, sample0=7)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    check(tuple(s.shape) == (MOMENT_DRAWS,) + tuple(mean.shape)
+          and bool(torch.isfinite(s).all()), f"moment samples {s.shape}")
+    z = (s.mean(0) - mean) / torch.sqrt(var / MOMENT_DRAWS)
+    ratio = s.var(0) / var
+    zmax, zmean = float(z.abs().max()), float(z.mean())
+    rmax, rmean = float((ratio - 1).abs().max()), float(ratio.mean())
+    check(zmax < 6.0 and abs(zmean) < 0.05,
+          f"moment samples' means: max |z| {zmax}, mean z {zmean}")
+    check(rmax < 0.2 and abs(rmean - 1) < 0.01,
+          f"moment samples' variances: max |ratio-1| {rmax}, mean {rmean}")
+    card_name, _, power = card_line().partition(",")
+    out = {"moment": "kernel_bench's head (B=8 K=512 N=2048): "
+           "logit_moments card vs CPU, 2048 draws against the moments",
+           "gpu": card_name.strip(), "power_limit": power.strip(),
+           "mean_max_abs_err": mean_err, "var_max_rel_err": var_rel,
+           "moments_tol": "mean rtol 1e-4 atol 1e-5, var rtol 1e-4",
+           "draws": MOMENT_DRAWS, "draw_s": draw_s,
+           "mean_z_max_abs": zmax, "mean_z_mean": zmean,
+           "var_ratio_max_abs_dev": rmax, "var_ratio_mean": rmean,
+           "draw_tol": "max |z| < 6, mean z within 0.05; variance ratio "
+                       "within 0.2 each, its mean within 0.01"}
+    emit(out)
+    return out
+
+
+def run_tiled_hoist() -> dict:
+    """mamba2-130m's head (K=768, N=50,280; B=8, R=20) hoisted dense on
+    the card against in host chunks of 4,096 columns: one round's
+    statistics, update_stats_streamed over the chunks against
+    update_stats(mix_samples(...)) over the dense basis (rtol/atol
+    1e-5), on the ideal die and the gate die's view (read noise); each
+    serve timed and its allocator peak read with the head deployed."""
+    import dataclasses
+    import torch
+    from repro_torch.core.clt_grng import GRNGConfig
+    from repro_torch.core.sampling import (BayesHeadConfig, activation_basis,
+                                           mix_samples, prepare_serving_head)
+    from repro_torch.serving import adaptive
+    b, k, n, r, tile_n = (LM_HEAD[key] for key in
+                          ("b", "k", "n", "r", "tile_n"))
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((b, k), generator=gen).to("cuda")
+    mu = (torch.randn((k, n), generator=gen) * 0.05).to("cuda")
+    sigma = (torch.nn.functional.softplus(
+        torch.randn((k, n), generator=gen) - 2.0) * 0.1).to("cuda")
+    base = torch.arange(b, dtype=torch.int64, device="cuda") * r
+    drawn = torch.zeros(b, dtype=torch.int32, device="cuda")
+    rows = {}
+    for die, grng in (("ideal", GRNGConfig()),
+                      ("gate_die", gate_die().grng(GRNGConfig()))):
+        hcfg = BayesHeadConfig(num_samples=r, mode="rank16", grng=grng,
+                               compute_dtype=torch.float32,
+                               hoist_basis=True)
+        sel = adaptive.stream_selections(grng, base, drawn, r)
+        idx = adaptive.stream_indices(base, drawn, r)
+        row = {"read_sigma": grng.read_sigma}
+        stats = {}
+        for kind, tn in (("dense", 0), ("streamed", tile_n)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            head = prepare_serving_head(mu, sigma, hcfg, hoist_tile_n=tn)
+            torch.cuda.synchronize()
+            deploy_s = time.perf_counter() - t0
+            check(("sigma_basis_host" in head) == (kind == "streamed"),
+                  f"{die} {kind}: hoisted as {sorted(head)}")
+            torch.cuda.empty_cache()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ab = activation_basis(head, x, hcfg)
+                fresh = adaptive.init_stats(b, n, device="cuda")
+                if kind == "dense":
+                    st = adaptive.update_stats(
+                        fresh, mix_samples(ab, sel, hcfg, sample_idx=idx))
+                else:
+                    st = adaptive.update_stats_streamed(
+                        fresh, ab, sel, hcfg, sample_idx=idx)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                del ab
+            stats[kind] = st
+            row[kind] = {"deploy_s": deploy_s, "serve_s": times,
+                         "resident_bytes": resident,
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "chunks": len(head.get("sigma_basis_host", ()))}
+            del head
+            torch.cuda.empty_cache()
+        errs = {}
+        for key in ("sum_p", "sum_psq", "sum_ent", "sum_entsq"):
+            got, want = stats["streamed"][key], stats["dense"][key]
+            errs[key] = float((got - want).abs().max())
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                  f"{die}: streamed {key} differs from dense by "
+                  f"{errs[key]}")
+        check(torch.equal(stats["streamed"]["n"], stats["dense"]["n"]),
+              f"{die}: sample counts differ")
+        row["max_abs_err"] = errs
+        rows[die] = row
+    card_name, _, power = card_line().partition(",")
+    emit({"tiled_hoist": "mamba2-130m's head (K=768, N=50280), B=8, R=20: "
+          "update_stats_streamed over host chunks of 4096 columns against "
+          "update_stats(mix_samples) over the dense on-device basis "
+          "(rtol/atol 1e-5); serve = activation_basis + one round, 3 runs; "
+          "peaks with the head deployed",
+          "gpu": card_name.strip(), "power_limit": power.strip(),
+          "dense_basis_bytes": k * n * 16 * 4,
+          "chunk_bytes": k * tile_n * 16 * 4, **rows})
+    return rows
+
+
+# ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
 def call_ms(fn, iters: int, warmup: int = 50) -> float:
@@ -3373,6 +3759,12 @@ def main() -> int:
     t0 = time.perf_counter()
     obs = observed_launches(run_observability())
     emit({"observability_phase_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    population = run_die_population()["launches"]
+    run_granularity()
+    run_moment()
+    run_tiled_hoist()
+    emit({"population_and_modes_phases_s": time.perf_counter() - t0})
     cim_plan_sweep(cim_inputs)
     head_plan_sweep()
     heads = head_timing(uq_path["launches"], fig9, head_checks, train,
@@ -3385,7 +3777,8 @@ def main() -> int:
                         "serve_sar_lifetime": lifetime["launches"]
                         ["decision"],
                         "mission_aged_arms": aged["launches"]["decision"],
-                        "observability": obs["decision"]},
+                        "observability": obs["decision"],
+                        "die_population": population["decision"]},
                worst,
                cim_timing(cim_inputs,
                           {"serve_sar(chip_instance=gate die)":
@@ -3393,7 +3786,8 @@ def main() -> int:
                            "mission_matrix": mission["cim"],
                            "serve_sar_lifetime": lifetime["launches"]["cim"],
                            "mission_aged_arms": aged["launches"]["cim"],
-                           "observability": obs["cim"]},
+                           "observability": obs["cim"],
+                           "die_population": population["cim"]},
                           cim_summary),
                heads)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,15 +3,16 @@
 Layout (mirrors ``repro/core``):
   hashing.py      counter-based entropy (uint32 values carried in int64)
   lfsr.py         16-bit LFSR + swapper selection network
-  clt_grng.py     virtual device currents, selections, read noise
-  offset.py       static offset compensation (exact)
+  clt_grng.py     virtual device currents, selections (layer, tile,
+                  cell), read noise
+  offset.py       static offset compensation (exact) and its report
   quant.py        8b µ / 4b σ quantizers, 6-bit ADC, straight-through
                   estimator
   cim.py          chunked-ADC CIM matmul (the cim_execution trunk)
   bayes_layer.py  variational head: training draw (ε kernel), KL,
                   -> serving head
-  sampling.py     rank16 activation basis and sample mixing; paper and
-                  rank16 logit samples
+  sampling.py     rank16 activation basis (dense or in host chunks) and
+                  sample mixing; paper, rank16 and moment logit samples
   uncertainty.py  predictive statistics, AURC, AECE/AMCE, UQ reports
   energy.py       analytic hardware energy model (pure Python)
 """

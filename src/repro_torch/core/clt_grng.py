@@ -10,9 +10,13 @@ the currents of the 8 devices the shared LFSR selection picks,
 
     ε(k,n,r) = (Σ_j s_r[j] · I(k,n,j) + read noise − sum_mean) / sum_std.
 
-Only the 'layer' selection granularity is ported (the serving path's,
-the per-chip calibration's and Fig. 9's); 'tile' and 'cell' wait for a
-later slice.
+Selection granularity, as the hardware's selection lines are shared:
+'layer' (one stream for every cell: the serving path's, the per-chip
+calibration's, Fig. 9's and the only one the kernels take), 'tile' (one
+LFSR per ``tile``×``tile`` macro) and 'cell' (an idealized independent
+selection per cell and sample, an ablation).  The 8 selected currents
+are summed in the order the reference's contraction gives at each
+granularity, so that the sums equal its bit for bit.
 """
 
 from __future__ import annotations
@@ -100,15 +104,35 @@ def device_currents_grid(cfg: GRNGConfig, n_rows: int, n_cols: int,
 
 
 def selections(cfg: GRNGConfig, num_samples: int, sample0: int = 0,
+               n_rows: int | None = None, n_cols: int | None = None,
                device=None) -> torch.Tensor:
-    """Selection vectors for consecutive samples, 'layer' granularity:
-    -> float32 [R, 16]."""
-    if cfg.granularity != "layer":
-        raise NotImplementedError(
-            f"granularity={cfg.granularity!r} is not ported yet")
-    states = lfsr_mod.lfsr_states(cfg.lfsr_seed, sample0 + num_samples,
-                                  device=device)
-    return lfsr_mod.swapper_select(states[sample0:])
+    """Selection vectors for consecutive samples -> float32 [R, 16] at
+    'layer' granularity, [R, ⌈n_rows/tile⌉, ⌈n_cols/tile⌉, 16] at
+    'tile' (each tile's LFSR stepped from its ``tile_seeds`` seed).
+    'cell' has no shared stream (``raw_sums`` draws it per cell)."""
+    if cfg.granularity == "layer":
+        states = lfsr_mod.lfsr_states(cfg.lfsr_seed, sample0 + num_samples,
+                                      device=device)
+        return lfsr_mod.swapper_select(states[sample0:])
+    if cfg.granularity == "tile":
+        if n_rows is None or n_cols is None:
+            raise ValueError("'tile' selections need the block's n_rows "
+                             "and n_cols")
+        nt_r, nt_c = -(-n_rows // cfg.tile), -(-n_cols // cfg.tile)
+        seeds = lfsr_mod.tile_seeds(cfg.lfsr_seed, nt_r * nt_c,
+                                    device=device).reshape(nt_r, nt_c)
+        states = lfsr_mod.lfsr_walk(seeds, sample0 + num_samples)
+        return lfsr_mod.swapper_select(states[sample0:])
+    raise ValueError(
+        f"selections() is not defined for granularity={cfg.granularity!r}")
+
+
+def _expand_tile_sel(sel_t: torch.Tensor, n_rows: int, n_cols: int,
+                     tile: int) -> torch.Tensor:
+    """[.., nt_r, nt_c, 16] -> [.., n_rows, n_cols, 16]: each tile's
+    selection broadcast over its cells, ragged edge tiles cut."""
+    s = sel_t.repeat_interleave(tile, dim=-3)[..., :n_rows, :, :]
+    return s.repeat_interleave(tile, dim=-2)[..., :, :n_cols, :]
 
 
 def read_noise_at(cfg: GRNGConfig, rows, cols, r_abs) -> torch.Tensor:
@@ -139,14 +163,28 @@ def sum_in_order(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def sum_in_halves(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a power of two long) by halves, first
+    half plus second, until one term is left: the order the reference's
+    per-cell contraction at 'cell' granularity gives."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 def subset_sums(currents: torch.Tensor, sel: torch.Tensor, cfg: GRNGConfig,
                 sample0: int = 0, row0: int = 0,
                 col0: int = 0) -> torch.Tensor:
     """Raw sums of a block's device currents [K, N, 16] under the
-    selections sel [R, 16] (samples ``sample0`` …), the 16 terms summed
-    in order, plus the read noise -> [R, K, N] (µA)."""
-    raw = sum_in_order(sel[:, None, None, :].to(torch.float32)
-                       * currents[None])
+    selections of samples ``sample0`` …: sel [R, 16] shared by the
+    block, or [R, K, N, 16] a cell's own; the 16 terms summed in the
+    reference's order (in order; by halves at 'cell' granularity), plus
+    the read noise -> [R, K, N] (µA)."""
+    if sel.ndim == 2:
+        sel = sel[:, None, None, :]
+    total = sum_in_halves if cfg.granularity == "cell" else sum_in_order
+    raw = total(sel.to(torch.float32) * currents[None])
     if cfg.read_sigma:
         k, n = currents.shape[:2]
         raw = raw + read_noise(cfg, k, n, sel.shape[0], sample0, row0, col0,
@@ -154,14 +192,36 @@ def subset_sums(currents: torch.Tensor, sel: torch.Tensor, cfg: GRNGConfig,
     return raw
 
 
+def block_selections(cfg: GRNGConfig, n_rows: int, n_cols: int,
+                     num_samples: int, sample0: int = 0, row0: int = 0,
+                     col0: int = 0, device=None) -> torch.Tensor:
+    """The selections a block's cells see, by granularity: [R, 16]
+    ('layer'), else [R, n_rows, n_cols, 16] (a tile's broadcast over
+    its cells; a cell's from hash3(row, col, r, lfsr_seed))."""
+    if cfg.granularity == "layer":
+        return selections(cfg, num_samples, sample0, device=device)
+    if cfg.granularity == "tile":
+        sel = selections(cfg, num_samples, sample0, n_rows, n_cols,
+                         device=device)              # [R, nt_r, nt_c, 16]
+        return _expand_tile_sel(sel, n_rows, n_cols, cfg.tile)
+    if cfg.granularity == "cell":
+        rows, cols = _grid(n_rows, n_cols, row0, col0, device)
+        r_abs = sample0 + torch.arange(num_samples, dtype=torch.int64,
+                                       device=device)
+        return lfsr_mod.cell_selections(rows[None], cols[None],
+                                        r_abs[:, None, None], cfg.lfsr_seed)
+    raise ValueError(f"unknown granularity {cfg.granularity!r}")
+
+
 def raw_sums(cfg: GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
              sample0: int = 0, row0: int = 0, col0: int = 0,
              device=None) -> torch.Tensor:
-    """Un-standardized subset sums, 'layer' granularity:
+    """Un-standardized subset sums at the config's granularity:
     -> [R, n_rows, n_cols] (µA)."""
     currents = device_currents_grid(cfg, n_rows, n_cols, row0, col0,
                                     device=device)             # [K, N, 16]
-    sel = selections(cfg, num_samples, sample0, device=device)  # [R, 16]
+    sel = block_selections(cfg, n_rows, n_cols, num_samples, sample0, row0,
+                           col0, device=device)
     return subset_sums(currents, sel, cfg, sample0, row0, col0)
 
 

@@ -10,13 +10,17 @@ are selected whatever the state.
 States are uint32 values carried in int64 tensors (see hashing.py).
 The serving engine reads the stream by random access
 (``indexed_selections``): the sample index is hashed into a state.
+The 'tile' granularity gives each tile×tile macro its own LFSR
+(``tile_seeds``, ``lfsr_walk``); the 'cell' one hashes a state per
+(cell, sample) (``cell_selections``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.hashing import MASK32, as_u32, mix32, mul32
+from repro_torch import resolve_device
+from repro_torch.core.hashing import MASK32, as_u32, hash3, mix32, mul32
 
 LFSR_MASK = 0xB400  # taps 16,14,13,11 (maximal length)
 FIXED_INPUT = tuple([1, 0] * 8)  # eight 1s, alternating
@@ -44,6 +48,16 @@ def lfsr_states(seed: int, num: int, device=None) -> torch.Tensor:
     return torch.tensor(out, dtype=torch.int64, device=device)
 
 
+def lfsr_walk(seeds: torch.Tensor, num: int) -> torch.Tensor:
+    """``num`` successive states of one LFSR per seed, stepped together
+    on the seeds' device: seeds [*S] (16-bit, nonzero) -> [num, *S]."""
+    states, s = [], as_u32(seeds)
+    for _ in range(num):
+        states.append(s)
+        s = lfsr_next(s)
+    return torch.stack(states)
+
+
 def swapper_select(state) -> torch.Tensor:
     """LFSR state(s) [*S] -> selection vectors float32 [*S, 16], exactly
     eight ones each (arithmetic only, as in the reference)."""
@@ -69,13 +83,49 @@ def swapper_select(state) -> torch.Tensor:
     return torch.cat([lo2, hi2], dim=-1)
 
 
+def selection_stream(seed: int, num: int, device=None) -> torch.Tensor:
+    """``num`` successive selection vectors -> float32 [num, 16]."""
+    return swapper_select(lfsr_states(seed, num, device=device))
+
+
+def _nonzero_state(h: torch.Tensor) -> torch.Tensor:
+    s = h & 0xFFFF
+    return torch.where(s == 0, torch.full_like(s, _SEED_FALLBACK), s)
+
+
+def tile_seeds(base_seed: int, n_tiles: int, device=None) -> torch.Tensor:
+    """Per-tile LFSR seeds (the hardware's per-macro selector
+    instances) -> [n_tiles] int64: tile t's seed is the stream state
+    ``indexed_states`` gives sample t."""
+    return indexed_states(base_seed, torch.arange(
+        n_tiles, dtype=torch.int64, device=device))
+
+
+def cell_selections(rows, cols, r, seed: int) -> torch.Tensor:
+    """Idealized independent selections per (cell, sample), 'cell'
+    granularity: the swapper network under the state hash3(row, col,
+    r, seed), so exactly 8 of 16 still hold.  Arguments broadcast ->
+    float32 [..., 16]."""
+    return swapper_select(_nonzero_state(hash3(rows, cols, r, seed)))
+
+
+def enumerate_reachable(device=None) -> tuple[int, torch.Tensor]:
+    """Distinct selection patterns over all 65,535 nonzero LFSR states,
+    walked on ``device`` (None = the card) -> (count, per-position
+    selection frequency float32 [16])."""
+    dev = resolve_device(device)
+    sels = swapper_select(torch.arange(1, 1 << 16, dtype=torch.int64,
+                                       device=dev))          # [65535, 16]
+    pow2 = 1 << torch.arange(16, dtype=torch.int64, device=dev)
+    codes = (sels.to(torch.int64) * pow2).sum(-1)
+    return int(torch.unique(codes).numel()), sels.mean(dim=0)
+
+
 def indexed_states(seed: int, idx) -> torch.Tensor:
     """Random-access 16-bit selection states for sample indices: the
     index is hashed into a state (0 maps to the fallback seed)."""
-    h = mix32((mul32(as_u32(idx), 0x9E3779B9) + (int(seed) & MASK32))
-              & MASK32)
-    s = h & 0xFFFF
-    return torch.where(s == 0, torch.full_like(s, _SEED_FALLBACK), s)
+    return _nonzero_state(mix32(
+        (mul32(as_u32(idx), 0x9E3779B9) + (int(seed) & MASK32)) & MASK32))
 
 
 def indexed_selections(seed: int, idx) -> torch.Tensor:

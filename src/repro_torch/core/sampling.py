@@ -13,15 +13,18 @@ logit also carries N(0, read_sigma²·x_sigsq), hashed from the absolute
 sample index.
 
 The 'paper' mode is the faithful baseline: R explicit σε products, ε
-materialized per sample (``logit_samples_paper``).  ``logit_samples``
-sends both modes through the fused head kernels
-(``kernels/ops.bayes_head_mvm``); ``logit_samples_paper`` and
-``logit_samples_rank16`` stay the plain functions.
+materialized per sample (``logit_samples_paper``), at any selection
+granularity.  The 'moment' mode propagates the analytic mean and
+diagonal variance (``logit_moments``) and draws Gaussians from them.
+``logit_samples`` sends 'rank16' and 'layer' 'paper' through the fused
+head kernels (``kernels/ops.bayes_head_mvm``); ``logit_samples_paper``
+and ``logit_samples_rank16`` stay the plain functions.
 
-Ported: the 'rank16' mode with a dense basis, hoisted or not, and the
-'paper' mode, at 'layer' granularity.  The host-chunked hoist
-(``hoist_tile_n``), the 'moment' mode and the 'tile'/'cell'
-granularities of 'paper' wait for later slices.
+A head hoisted with ``hoist_tile_n`` keeps its basis in host memory as
+column chunks (``sigma_basis_host``); ``activation_basis`` streams them
+through the device one at a time and returns the activation basis as
+host chunks too (``m_host``), which ``mix_samples`` and
+``serving/adaptive.update_stats_streamed`` consume chunk by chunk.
 """
 
 from __future__ import annotations
@@ -35,11 +38,13 @@ from repro_torch.core import quant as q
 from repro_torch.core.hashing import as_u32, gaussianish, hash3
 from repro_torch.core.offset import compensate_mu
 
+MODES = ("rank16", "paper", "moment")
+
 
 @dataclasses.dataclass(frozen=True)
 class BayesHeadConfig:
     num_samples: int = 20            # paper R = 20
-    mode: str = "rank16"
+    mode: str = "rank16"             # 'paper' | 'rank16' | 'moment'
     grng: g.GRNGConfig = dataclasses.field(default_factory=g.GRNGConfig)
     quant: q.QuantConfig = dataclasses.field(
         default_factory=lambda: q.QuantConfig(enabled=False))
@@ -47,29 +52,61 @@ class BayesHeadConfig:
     # Materialize the 16 σ⊙I_j basis matrices once at deployment, so
     # serving never recomputes the device-current hashes.
     hoist_basis: bool = False
+    # With ``hoist_tile_n`` > 0 (and below N) the hoisted basis lives in
+    # host memory as chunks of ``hoist_tile_n`` output columns, streamed
+    # to the device one at a time: the device holds K·hoist_tile_n·16
+    # of it instead of K·N·16 (vocabulary-width heads).
+    hoist_tile_n: int = 0
     # Calibration epoch of the head this config serves: bumped by
     # hw/redeploy on every recalibrate-and-swap, so two calibrations of
     # one die never compare equal.
     calib_epoch: int = 0
 
 
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A device tensor copied to pinned host memory; a CPU tensor is
+    already on the host."""
+    if t.device.type == "cpu":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t)
+
+
 def hoisted_sigma_basis(sigma: torch.Tensor, grng_cfg: g.GRNGConfig,
-                        compute_dtype: torch.dtype) -> torch.Tensor:
-    """The dense hoisted basis σ⊙I_j -> [K, N, 16] in compute dtype."""
+                        compute_dtype: torch.dtype,
+                        tile_n: int = 0) -> dict:
+    """The hoisted basis σ⊙I_j in compute dtype, dense or in host chunks.
+
+    ``tile_n`` > 0 and below N: {"sigma_basis_host": tuple of host
+    [K, ≤tile_n, 16] chunks}, each built on σ's device and copied to
+    pinned host memory, so the whole basis never exists on the device;
+    otherwise {"sigma_basis": [K, N, 16]} on σ's device."""
     kdim, n = sigma.shape
+    if tile_n and tile_n < n:
+        chunks = []
+        for c0 in range(0, n, tile_n):
+            c1 = min(c0 + tile_n, n)
+            cur = g.device_currents_grid(grng_cfg, kdim, c1 - c0, col0=c0,
+                                         device=sigma.device)  # [K, cn, 16]
+            chunks.append(_to_host(
+                (sigma[:, c0:c1, None] * cur).to(compute_dtype)))
+        return {"sigma_basis_host": tuple(chunks)}
     currents = g.device_currents_grid(grng_cfg, kdim, n,
                                       device=sigma.device)      # [K, N, 16]
-    return (sigma[..., None] * currents).to(compute_dtype)
+    return {"sigma_basis": (sigma[..., None] * currents).to(compute_dtype)}
 
 
 def prepare_serving_head(mu: torch.Tensor, sigma: torch.Tensor,
-                         cfg: BayesHeadConfig) -> dict:
+                         cfg: BayesHeadConfig,
+                         hoist_tile_n: int | None = None) -> dict:
     """One-time deployment transform: offset compensation (+
     quantization when ``cfg.quant.enabled``).  Returns {mu_prime,
-    sigma} in compute dtype, plus ``sigma_basis`` [K, N, 16] when the
-    rank16 basis is hoisted."""
-    if cfg.mode not in ("rank16", "paper"):
-        raise NotImplementedError(f"mode={cfg.mode!r} is not ported yet")
+    sigma} in compute dtype, plus the hoisted rank16 basis when
+    ``cfg.hoist_basis`` (``hoisted_sigma_basis`` at ``hoist_tile_n``,
+    which overrides ``cfg.hoist_tile_n``)."""
+    if cfg.mode not in MODES:
+        raise ValueError(f"mode={cfg.mode!r} is not one of {MODES}")
+    tile_n = cfg.hoist_tile_n if hoist_tile_n is None else hoist_tile_n
     mu_p = compensate_mu(mu, sigma, cfg.grng)
     if cfg.quant.enabled:
         mu_p, _ = q.quantize_mu(mu_p, cfg.quant)
@@ -77,8 +114,8 @@ def prepare_serving_head(mu: torch.Tensor, sigma: torch.Tensor,
     head = {"mu_prime": mu_p.to(cfg.compute_dtype),
             "sigma": sigma.to(cfg.compute_dtype)}
     if cfg.hoist_basis and cfg.mode == "rank16":
-        head["sigma_basis"] = hoisted_sigma_basis(sigma, cfg.grng,
-                                                  cfg.compute_dtype)
+        head.update(hoisted_sigma_basis(sigma, cfg.grng, cfg.compute_dtype,
+                                        tile_n))
     return head
 
 
@@ -97,23 +134,39 @@ def sigma_basis_products(x: torch.Tensor, sigma: torch.Tensor,
          for j in range(grng.n_devices)], dim=-1)
 
 
-def activation_basis(head: dict, x: torch.Tensor,
-                     cfg: BayesHeadConfig) -> dict:
+def activation_basis(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
+                     dense: bool = False) -> dict:
     """Per-activation rank-16 basis: the serving engine's per-slot state.
 
     x [B, K] -> {"y_mu": [B,N], "x_sigma": [B,N], "m": [B,N,16]}, plus
     ``x_sigsq = (x²)·(σ²)`` [B,N] when ``cfg.grng.read_sigma > 0``.
+
+    A head hoisted in host chunks (``sigma_basis_host``): each chunk is
+    copied to x's device, contracted and copied back, and the basis
+    comes back as host chunks ``m_host`` (tuple of [B, ≤tile_n, 16])
+    in place of ``m``, so neither basis exists whole on the device.
+    ``dense``: concatenate the chunks' products into one ``m`` on the
+    device instead (what the decision kernel reads; the serving
+    engine's ``featurize``, as the reference's engine does under jit).
     """
     if cfg.grng.granularity != "layer":
         raise ValueError("rank16 requires shared ('layer') selection")
     sigma = head["sigma"]
-    y_mu = x @ head["mu_prime"]                        # [B, N]
-    x_sigma = x @ sigma                                # [B, N]
+    ab = {"y_mu": x @ head["mu_prime"],               # [B, N]
+          "x_sigma": x @ sigma}                       # [B, N]
     if "sigma_basis" in head:                          # hoisted at deployment
-        m = torch.einsum("bk,knj->bnj", x, head["sigma_basis"].to(x.dtype))
+        ab["m"] = torch.einsum("bk,knj->bnj", x,
+                               head["sigma_basis"].to(x.dtype))
+    elif "sigma_basis_host" in head:                   # hoisted in chunks
+        parts = (torch.einsum("bk,knj->bnj", x, blk.to(
+            x.device, x.dtype, non_blocking=True))
+            for blk in head["sigma_basis_host"])
+        if dense:
+            ab["m"] = torch.cat(list(parts), dim=1)
+        else:
+            ab["m_host"] = tuple(_to_host(p) for p in parts)
     else:
-        m = sigma_basis_products(x, sigma, cfg.grng)   # [B, N, 16]
-    ab = {"y_mu": y_mu, "x_sigma": x_sigma, "m": m}
+        ab["m"] = sigma_basis_products(x, sigma, cfg.grng)   # [B, N, 16]
     if cfg.grng.read_sigma:
         ab["x_sigsq"] = (x * x) @ (sigma * sigma)      # [B, N]
     return ab
@@ -155,9 +208,16 @@ def _mix_block(m, y_mu, x_sigma, x_sigsq, sel, cfg: BayesHeadConfig,
 
 def basis_blocks(abasis: dict):
     """Yield (m_block, col0, col1) over an activation basis: one
-    full-width block for the dense ``m`` (host-chunked bases are not
-    ported yet)."""
-    yield abasis["m"], 0, abasis["m"].shape[1]
+    full-width block for the dense ``m``; for host chunks ``m_host``,
+    each chunk copied to the basis's device for its turn only."""
+    if "m_host" not in abasis:
+        yield abasis["m"], 0, abasis["m"].shape[1]
+        return
+    dev, c0 = abasis["y_mu"].device, 0
+    for blk in abasis["m_host"]:
+        m = blk.to(dev, non_blocking=True)
+        yield m, c0, c0 + m.shape[1]
+        c0 += m.shape[1]
 
 
 def mix_samples(abasis: dict, sel: torch.Tensor, cfg: BayesHeadConfig,
@@ -166,7 +226,9 @@ def mix_samples(abasis: dict, sel: torch.Tensor, cfg: BayesHeadConfig,
 
     sel: [R, 16] (shared stream) or [R, B, 16] (per-slot streams).
     sample_idx: the absolute stream indices of ``sel`` ([R] or [R, B]),
-    the read-noise key on a degraded die.  Returns [R, B, N].
+    the read-noise key on a degraded die.  Returns [R, B, N].  A basis
+    in host chunks is mixed chunk by chunk (``basis_blocks``), the
+    read noise keyed on global columns.
     """
     key = _noise_key(sel, sample_idx) if cfg.grng.read_sigma else None
     y_mu, x_sigma = abasis["y_mu"], abasis["x_sigma"]
@@ -182,13 +244,10 @@ def mix_samples(abasis: dict, sel: torch.Tensor, cfg: BayesHeadConfig,
 def _sigma_eps_mvm(x: torch.Tensor, sigma: torch.Tensor, grng: g.GRNGConfig,
                    sel: torch.Tensor, sample0: int = 0, row0: int = 0,
                    col0: int = 0) -> torch.Tensor:
-    """The paper mode's inner loop: R explicit x·(σ⊙ε_r) products, ε_r
-    from the block's currents (hashed once) and sample r's selection,
-    with the per-cell read noise at absolute sample ``sample0 + r`` ->
-    [R, B, N] ('layer' granularity)."""
-    if grng.granularity != "layer":
-        raise NotImplementedError(
-            f"granularity={grng.granularity!r} is not ported yet")
+    """The paper mode's inner loop at 'layer' granularity: R explicit
+    x·(σ⊙ε_r) products, ε_r from the block's currents (hashed once) and
+    the shared selection sel[r], with the per-cell read noise at
+    absolute sample ``sample0 + r`` -> [R, B, N]."""
     kdim, n = sigma.shape
     currents = g.device_currents_grid(grng, kdim, n, row0, col0,
                                       device=x.device)       # [K, N, 16]
@@ -201,12 +260,19 @@ def _sigma_eps_mvm(x: torch.Tensor, sigma: torch.Tensor, grng: g.GRNGConfig,
 def logit_samples_paper(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
                         num_samples: int | None = None,
                         sample0: int = 0) -> torch.Tensor:
-    """Faithful R-pass sampling: x [B, K] -> [R, B, N]."""
+    """Faithful R-pass sampling: x [B, K] -> [R, B, N].  At 'tile' and
+    'cell' granularity the block's ε is materialized whole
+    (``clt_grng.eps``) and multiplied sample by sample, as the
+    reference's oracle path does."""
     num = num_samples or cfg.num_samples
-    sel = g.selections(cfg.grng, num, sample0, device=x.device)
     y_mu = x @ head["mu_prime"]
-    return y_mu[None] + _sigma_eps_mvm(x, head["sigma"], cfg.grng, sel,
-                                       sample0)
+    sigma = head["sigma"]
+    if cfg.grng.granularity == "layer":
+        sel = g.selections(cfg.grng, num, sample0, device=x.device)
+        return y_mu[None] + _sigma_eps_mvm(x, sigma, cfg.grng, sel, sample0)
+    eps = g.eps(cfg.grng, *sigma.shape, num, sample0, device=x.device)
+    return y_mu[None] + torch.stack([x @ (sigma * e.to(x.dtype))
+                                     for e in eps])
 
 
 def logit_samples_rank16(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
@@ -224,17 +290,60 @@ def logit_samples_rank16(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
                        sample_idx=idx)
 
 
+def logit_moments(head: dict, x: torch.Tensor,
+                  cfg: BayesHeadConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Analytic (mean, variance) of the logits: x [B, K] -> two [B, N].
+
+    A cell's ε variance under a uniform 8-of-16 choice of its fixed
+    currents is hypergeometric,
+        Var[ε(k,n)] = k(1−k/n)·(n/(n−1))·var_j(I(k,n,j)) / ĝ²,
+    plus the read noise's read_sigma²/ĝ².  The cross-cell covariance
+    the shared selection creates is dropped (the reference's documented
+    approximation)."""
+    kdim, n = head["sigma"].shape
+    grng = cfg.grng
+    currents = g.device_currents_grid(grng, kdim, n, device=x.device)
+    var_i = currents.var(dim=-1, correction=0)
+    ksel, nd = grng.k_select, grng.n_devices
+    var_eps = ((ksel * (1 - ksel / nd) * (nd / (nd - 1)) * var_i
+                + grng.read_sigma**2) / grng.sum_std**2).to(x.dtype)
+    mean = x @ head["mu_prime"]
+    var = (x * x) @ ((head["sigma"] ** 2) * var_eps)
+    return mean, var
+
+
 def logit_samples(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
-                  num_samples: int | None = None,
-                  sample0: int = 0) -> torch.Tensor:
+                  num_samples: int | None = None, sample0: int = 0,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
     """R logit samples [R, B, N] of the head for x [B, K] from sample
-    ``sample0`` of the selection stream, by ``cfg.mode``: 'paper' and
-    'rank16' through the fused head kernels
-    (``kernels/ops.bayes_head_mvm``; on CPU tensors their plain
-    versions).  The 'moment' mode is not ported yet."""
-    from repro_torch.kernels import ops
-    if cfg.mode not in ("paper", "rank16"):
-        raise NotImplementedError(f"mode={cfg.mode!r} is not ported yet")
+    ``sample0`` of the selection stream, by ``cfg.mode``:
+
+      * 'rank16', and 'paper' at 'layer' granularity: the fused head
+        kernels (``kernels/ops.bayes_head_mvm``; on CPU tensors their
+        plain versions);
+      * 'paper' at 'tile' or 'cell': ``logit_samples_paper`` on x's
+        device.  The head kernels read one shared selection stream, as
+        the reference's do (``kernels/ref.py``), whose
+        ``logit_samples_paper`` draws these granularities outside any
+        kernel.  The config alone picks this route;
+      * 'moment': Gaussians around ``logit_moments``, drawn with
+        ``generator`` (on x's device), or one seeded with ``sample0``
+        where the reference seeds ``PRNGKey(sample0)``: the draws are
+        not the reference's, their statistics are.
+    """
     num = num_samples or cfg.num_samples
+    if cfg.mode == "moment":
+        mean, var = logit_moments(head, x, cfg)
+        if generator is None:
+            generator = torch.Generator(device=mean.device).manual_seed(
+                sample0)
+        z = torch.randn((num,) + tuple(mean.shape), generator=generator,
+                        dtype=mean.dtype, device=mean.device)
+        return mean[None] + torch.sqrt(var.clamp_min(0.0))[None] * z
+    if cfg.mode not in ("paper", "rank16"):
+        raise ValueError(f"mode={cfg.mode!r} is not one of {MODES}")
+    if cfg.mode == "paper" and cfg.grng.granularity != "layer":
+        return logit_samples_paper(head, x, cfg, num, sample0)
+    from repro_torch.kernels import ops
     return ops.bayes_head_mvm(x, head["mu_prime"], head["sigma"], cfg.grng,
                               num, sample0=sample0, mode=cfg.mode)

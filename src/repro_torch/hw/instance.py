@@ -10,9 +10,10 @@ packages draw the same dies field for field, and are immutable
 afterwards.
 
 ``at_age`` gives the die after a time in the field (``hw/aging.py``).
-``save_instances``/``load_instances`` wait for a later slice;
 ``to_tree``/``from_tree`` carry a die as a dict of numpy arrays
-(``bridge.instance_from_tree`` takes the reference's).
+(``bridge.instance_from_tree`` takes the reference's);
+``save_instances``/``load_instances`` ship a population through the
+port's checkpoints (``ckpt``), one ``chip_%04d`` subtree a die.
 """
 
 from __future__ import annotations
@@ -162,3 +163,19 @@ def sample_instances(seed: int, n: int,
                         * rng.standard_normal(tile)).astype(np.float32),
         ))
     return tuple(chips)
+
+
+def save_instances(ckpt_dir, instances, step: int = 0):
+    """Write a population of dies as checkpoint step ``step`` (atomic,
+    checksummed: ``ckpt.save``); returns the step's directory."""
+    from repro_torch.ckpt import save
+    tree = {f"chip_{c.chip_id:04d}": c.to_tree() for c in instances}
+    return save(ckpt_dir, step, tree)
+
+
+def load_instances(ckpt_dir, step: int | None = None) -> tuple:
+    """The dies ``save_instances`` wrote (the newest step unless
+    ``step``), in chip-id order."""
+    from repro_torch.ckpt import restore
+    tree, _ = restore(ckpt_dir, step)
+    return tuple(ChipInstance.from_tree(tree[k]) for k in sorted(tree))

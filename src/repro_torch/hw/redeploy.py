@@ -79,21 +79,21 @@ def aged_belief_view(head: dict, hcfg: BayesHeadConfig, aged: ChipInstance,
     The config's GRNG carries the aged die's physical params (currents,
     read σ, imprint) and the deployment-time standardization constants;
     µ' and σ are untouched (write-free cells are not rewritten).  The
-    hoisted σ⊙I_j basis is rebuilt: it caches physically read currents,
-    and an aged die reads aged ones.  ``base_grng``: the factory config
+    hoisted σ⊙I_j basis is rebuilt (dense, or in host chunks at
+    ``hcfg.hoist_tile_n``): it caches physically read currents, and an
+    aged die reads aged ones.  ``base_grng``: the factory config
     the die's physical view folds over (``cfg.grng``)."""
     phys = aged.grng(base_grng)
     view_grng = dataclasses.replace(phys, sum_mean=hcfg.grng.sum_mean,
                                     sum_std=hcfg.grng.sum_std)
     hcfg_view = dataclasses.replace(hcfg, grng=view_grng)
     head_view = dict(head)
-    if "sigma_basis_host" in head:
-        raise NotImplementedError(
-            "a head hoisted in host tiles (hoist_tile_n) is not ported; "
-            "the port hoists the dense basis")
-    if "sigma_basis" in head:
-        head_view["sigma_basis"] = hoisted_sigma_basis(
-            head["sigma"], view_grng, hcfg.compute_dtype)
+    if "sigma_basis" in head or "sigma_basis_host" in head:
+        head_view.pop("sigma_basis", None)
+        head_view.pop("sigma_basis_host", None)
+        head_view.update(hoisted_sigma_basis(
+            head["sigma"], view_grng, hcfg.compute_dtype,
+            hcfg.hoist_tile_n))
     return head_view, hcfg_view
 
 

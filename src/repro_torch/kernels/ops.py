@@ -21,10 +21,20 @@ def grng_eps(cfg: g.GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
              device=None) -> torch.Tensor:
     """CLT-GRNG ε block [R, n_rows, n_cols] through the ε kernel, on
     ``device`` (None = the card; "cpu" runs the plain version)."""
+    _layer_only(cfg, "the ε kernel")
     dev = resolve_device(device)
     sel = g.selections(cfg, num_samples, sample0, device=dev)
     return grng_kernel.grng_eps(sel, cfg, n_rows, n_cols, row0=row0,
                                 col0=col0, sample0=sample0)
+
+
+def _layer_only(cfg: g.GRNGConfig, what: str) -> None:
+    """The kernels read one selection stream shared by the block, as
+    the reference's (``kernels/ref.py``): other granularities are drawn
+    by the plain ``clt_grng`` / ``sampling`` functions."""
+    if cfg.granularity != "layer":
+        raise ValueError(f"{what} takes 'layer' selections, not "
+                         f"granularity={cfg.granularity!r}")
 
 
 def _rms(t: torch.Tensor) -> torch.Tensor:
@@ -43,8 +53,9 @@ def bayes_head_mvm(x: torch.Tensor, mu_prime: torch.Tensor,
     one σε product per sample with per-cell read noise; ``qcfg``
     (enabled) adds the 6-bit chunked ADC, whose full scales
     ``adc_full_scale(rms(x), rms(µ'))`` and ``adc_full_scale(rms(x),
-    rms(σ))`` stay on the device.
+    rms(σ))`` stay on the device.  'layer' granularity only.
     """
+    _layer_only(cfg, "the head kernel")
     sel = g.selections(cfg, num_samples, sample0, device=x.device)
     if qcfg is not None and not qcfg.enabled:
         qcfg = None

@@ -9,7 +9,8 @@
 
 from repro_torch.serving.adaptive import (escalation_schedule, finalize,
                                           init_stats, stream_indices,
-                                          stream_selections, update_stats)
+                                          stream_selections, update_stats,
+                                          update_stats_streamed)
 from repro_torch.serving.engine import Request, SarServingEngine
 from repro_torch.serving.load import ArrivalSpec, run_open_loop
 from repro_torch.serving.metrics import (DecisionCost, RequestRecord,
@@ -26,5 +27,5 @@ __all__ = [
     "decide", "decision_cost", "decision_energy", "decision_latency",
     "energy_terms", "escalation_schedule", "finalize", "fixed_r_decide",
     "init_stats", "request_energy", "run_open_loop", "stream_indices",
-    "stream_selections", "update_stats",
+    "stream_selections", "update_stats", "update_stats_streamed",
 ]

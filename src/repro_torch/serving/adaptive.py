@@ -4,7 +4,9 @@ Each decision starts at a small R and escalates while the triage is
 ambiguous.  Escalation draws later positions of the same selection
 stream (exact extension), and the predictive statistics are running
 sums, so ``finalize`` of the accumulated state equals the statistics
-of all samples at once.
+of all samples at once.  ``update_stats_streamed`` folds a round in
+column block by column block, for heads whose basis lives in host
+chunks (``hoist_tile_n``).
 
 Stream indices are uint32 values carried in int64 tensors.
 """
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.core.hashing import MASK32
 from repro_torch.core.lfsr import indexed_selections
+from repro_torch.core.sampling import _mix_block, _noise_key, basis_blocks
 from repro_torch.serving.triage import TriagePolicy
 
 _EPS = 1e-12
@@ -58,12 +61,69 @@ def update_stats(stats: dict, logit_samples: torch.Tensor,
         "sum_ent": stats["sum_ent"] + ent.sum(0),
         "sum_entsq": stats["sum_entsq"] + (ent * ent).sum(0),
     }
+    return _masked(upd, stats, mask)
+
+
+def _masked(upd: dict, stats: dict, mask) -> dict:
+    """``upd`` where ``mask`` [B] holds, the old ``stats`` elsewhere."""
     if mask is None:
         return upd
     keep = torch.as_tensor(mask, device=stats["n"].device)
     return {k: torch.where(keep.reshape((-1,) + (1,) * (new.ndim - 1)),
                            new, stats[k])
             for k, new in upd.items()}
+
+
+def update_stats_streamed(stats: dict, abasis: dict, sel: torch.Tensor,
+                          hcfg, sample_idx=None, mask=None) -> dict:
+    """``update_stats(stats, mix_samples(abasis, sel, hcfg, sample_idx),
+    mask)`` without the [R, B, N] samples: the column blocks of the
+    basis (``core/sampling.basis_blocks``; a host-chunked ``m_host``
+    crosses to the device a block at a time) are streamed twice.  Pass 1
+    keeps an online (max, sum of exp) per (sample, slot); pass 2
+    normalizes each block against the finished log-sum-exp and adds its
+    probability and entropy sums.  The device holds one [R, B, block]
+    block of logits at a time.  Equal to the dense update up to float
+    order.  ``hcfg``: the head's BayesHeadConfig."""
+    grng = hcfg.grng
+    key = _noise_key(sel, sample_idx) if grng.read_sigma else None
+    y_mu, x_sigma = abasis["y_mu"], abasis["x_sigma"]
+    x_sigsq = abasis.get("x_sigsq")
+    r, b = sel.shape[0], y_mu.shape[0]
+
+    def logits_block(m, c0, c1):
+        return _mix_block(
+            m, y_mu[:, c0:c1], x_sigma[:, c0:c1],
+            None if x_sigsq is None else x_sigsq[:, c0:c1],
+            sel, hcfg, key, col0=c0).to(torch.float32)
+
+    mrun = torch.full((r, b), -1.0e30, dtype=torch.float32,
+                      device=y_mu.device)
+    lrun = torch.zeros((r, b), dtype=torch.float32, device=y_mu.device)
+    for m, c0, c1 in basis_blocks(abasis):
+        logits = logits_block(m, c0, c1)
+        mnew = torch.maximum(mrun, logits.amax(-1))
+        lrun = (lrun * torch.exp(mrun - mnew)
+                + torch.exp(logits - mnew[..., None]).sum(-1))
+        mrun = mnew
+    lse = mrun + torch.log(lrun)                          # [R, B]
+
+    p_parts, psq_parts = [], []
+    ent = torch.zeros((r, b), dtype=torch.float32, device=y_mu.device)
+    for m, c0, c1 in basis_blocks(abasis):
+        logp = logits_block(m, c0, c1) - lse[..., None]
+        p = torch.exp(logp)
+        p_parts.append(p.sum(0))
+        psq_parts.append((p * p).sum(0))
+        ent = ent - (p * logp).sum(-1)
+    upd = {
+        "n": stats["n"] + r,
+        "sum_p": stats["sum_p"] + torch.cat(p_parts, dim=-1),
+        "sum_psq": stats["sum_psq"] + torch.cat(psq_parts, dim=-1),
+        "sum_ent": stats["sum_ent"] + ent.sum(0),
+        "sum_entsq": stats["sum_entsq"] + (ent * ent).sum(0),
+    }
+    return _masked(upd, stats, mask)
 
 
 def finalize(stats: dict) -> dict:

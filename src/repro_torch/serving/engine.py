@@ -135,9 +135,10 @@ def featurize(params, head: dict, images: torch.Tensor, cfg,
     """Images [B, H, W, 1] -> activation-basis rows (port of
     ``_sar_featurize_fn``): the conv trunk (``trunk``: a die's arrays
     from ``program_trunk``; None: the float trunk), then the head's
-    rank-16 basis."""
+    rank-16 basis, dense on the device even where the head is hoisted
+    in host chunks (the decision kernel reads one ``m``)."""
     feats = features(params, images, cfg, trunk=trunk)
-    return activation_basis(head, feats, hcfg)
+    return activation_basis(head, feats, hcfg, dense=True)
 
 
 def token_decision(abasis: dict, base: torch.Tensor, active: torch.Tensor,
@@ -221,6 +222,14 @@ def _to_device(tree, device):
     return tree
 
 
+def _deploy_head(head: dict, device) -> dict:
+    """A serving head on the engine's device; the host chunks of a
+    basis hoisted with ``hoist_tile_n`` stay on the host
+    (``activation_basis`` streams them)."""
+    return {k: v if k == "sigma_basis_host" else _to_device(v, device)
+            for k, v in head.items()}
+
+
 class SarServingEngine:
     """Adaptive-fidelity victim/no-victim triage over an image stream.
 
@@ -272,7 +281,7 @@ class SarServingEngine:
             compute_dtype=torch.float32, hoist_basis=True)
         self._params = _to_device(params, self.device)
         self._head = (to_serving(self._params["head"], self.hcfg)
-                      if head is None else _to_device(head, self.device))
+                      if head is None else _deploy_head(head, self.device))
         self._trunk = (None if chip is None
                        else program_trunk(self._params, cfg, chip))
         self.r_step = policy.r_min if adaptive_mode else policy.r_max
@@ -342,7 +351,7 @@ class SarServingEngine:
                 f"swap_head with {self.n_active} in-flight slots — "
                 f"drain the pool (run()) and swap between segments")
         self.hcfg = hcfg
-        self._head = _to_device(head, self.device)
+        self._head = _deploy_head(head, self.device)
 
     # -- admission ------------------------------------------------------
     def featurize(self, images) -> dict:

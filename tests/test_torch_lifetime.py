@@ -3,7 +3,8 @@ view of an aged die, recalibrate-and-redeploy, the self-healing
 controller, ``swap_head``, ``serve_sar_lifetime`` and the mission's
 telemetry and lifetime arms.
 
-  * ``aged_belief_view`` and ``recalibrate`` on the seed-11
+  * ``aged_belief_view`` (on a dense head and on one hoisted in host
+    chunks) and ``recalibrate`` on the seed-11
     severity-2.5 die at 30 days: the configs' physics equal the
     reference's, the measured constants and the arrays within 1e-6 (a
     calibrated head's constants differ by 1–2 ulp, ROADMAP C9); within
@@ -157,9 +158,23 @@ def test_stale_view_and_healed_head_match_reference(jax_params):
     assert cold[1] == healed_t[1]
     for k in cold[0]:
         assert torch.equal(cold[0][k], healed_t[0][k]), k
-    tiled = dict(head_t, sigma_basis_host=())
-    with pytest.raises(NotImplementedError, match="hoist_tile_n"):
-        aged_belief_view(tiled, hcfg_t, aged_t, th.grng)
+    # a head hoisted in host chunks (hoist_tile_n): the view rebuilds
+    # the chunks from the aged currents, as the reference's does
+    jt, tt = (dataclasses.replace(c, hoist_tile_n=1) for c in (jh, th))
+    head_jt, hcfg_jt = j_prepare(mu, sigma, jt, jchip)
+    head_tt, hcfg_tt = prepare_instance_head(mu_t, sigma_t, tt, tchip)
+    view_jt = jredeploy.aged_belief_view(head_jt, hcfg_jt, aged_j, jh.grng)
+    view_tt = aged_belief_view(head_tt, hcfg_tt, aged_t, th.grng)
+    chunks_j = view_jt[0].pop("sigma_basis_host")
+    chunks_t = view_tt[0].pop("sigma_basis_host")
+    assert len(chunks_t) == len(chunks_j) == 2
+    for got, want in zip(chunks_t, chunks_j):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
+    assert not any(torch.equal(a, b) for a, b in
+                   zip(chunks_t, head_tt["sigma_basis_host"]))
+    _same_head(view_tt[0], jax.device_get(view_jt[0]), view_tt[1],
+               view_jt[1])
 
 
 def _snapshot(grng_cfg, sample0: int, cum=None):
