@@ -152,6 +152,24 @@ JSON line):
      the dense on-device ``update_stats(mix_samples)`` (1e-5), ideal and
      gate die, times and allocator peaks; each line beside the card's
      name and power limit;
+  7h. the dense LM (lines ``lm_serving``, ``kernel_check``
+     ``lm_vocab_*`` and ``lm_decode_step``, ``lm_tick_split``,
+     ``lm_card_vs_cpu``): qwen3-0.6b at full width (N = 152,064, bf16,
+     random params from seed 0 drawn on the card) through
+     ``serve(smoke=False, batch=4, prompt_len=16, gen_len=8,
+     n_requests=8)`` under accept-always, fixed R = 20 and an
+     escalating policy (its confidence threshold at the accept-always
+     run's median), the decision kernel's launches zeroed before each
+     run and asserted = ticks × launches a schedule after, one host
+     sync a tick; the decision kernel against its plain version on one
+     live token decision's operands at R = 4, 8, 20 and with read_sigma
+     = 0.4 (rtol 1e-4, absolute floors 1e-4 × R/N, R/N², R), two
+     launches bit for bit; rank16 on one decode_step (1e-4, one
+     launch); a tick's basis / decision / decode ms; the SMOKE config
+     on the card against the CPU (f32, TF32 off: accept-always and
+     fixed R decide alike request for request, one escalating token
+     decision's fin within 1e-5 and its _se within 1e-4; bf16: token
+     agreement and the hidden gap within 0.05);
   8. kernel timing: device time from CUDA graph replays and per-call
      time of eager calls (CUDA events), beside the plain version's and
      the card's byte/flop bound: decision and CIM at the serving path's
@@ -160,7 +178,9 @@ JSON line):
      R=1, the head kernels at kernel_bench's
      shape for R = 4, 16, 20, 64 (paper with the ADC at R = 20) and at
      the UQ path's shape (B=64, K=64, N=2, R=20; the head entries'
-     ``path``).  The entries name their design and the launch plan each
+     ``path``); decision at the LM's B=4, N=152,064, R = 4 and 20
+     (``lm_vocab``) and rank16 at decode_step's B=4, K=1,024,
+     N=152,064, R=8 (``lm_decode_step``).  The entries name their design and the launch plan each
      shape took.  Every plan the CIM kernel takes, timed at the trunk's
      shapes for 32 slots and for a UQ batch of 64 images, each giving
      the chosen plan's bits (line ``cim_plans``); every plan the head
@@ -3235,6 +3255,539 @@ def run_tiled_hoist() -> dict:
 
 
 # ----------------------------------------------------------------------
+# the dense LM served at full width
+# ----------------------------------------------------------------------
+# qwen3-0.6b at full width (28 layers, d 1024, vocabulary 151,936 padded
+# to N = 152,064), bf16, random params from seed 0 drawn on the card; the
+# serve() call of the issue: 4 slots, prompts of 16, 8 new tokens, 8
+# requests (the second four admitted mid-stream).
+LM = dict(arch="qwen3-0.6b", batch=4, prompt_len=16, gen_len=8,
+          n_requests=8, seed=0)
+LM_ACCEPT = dict(conf_threshold=0.0, mi_threshold=1e9, r_min=4, r_max=8)
+LM_FIXED = dict(LM_ACCEPT, r_max=20)        # adaptive=False: R = 20
+LM_DECISION_R = (4, 8, 20)
+LM_READ_SIGMA = 0.4
+# the decision kernel at vocabulary width: a sum_p entry is ~R/N, so the
+# tolerance is relative (LM_RTOL) with absolute floors scaled to the
+# size of a uniform distribution's entries (LM_FLOOR × R/N for sum_p,
+# × R/N² for sum_psq, × R for the entropies)
+LM_RTOL = 1e-4
+LM_FLOOR = 1e-4
+# the card against the CPU at the SMOKE config: float32 with TF32 off;
+# fin within ROADMAP C6's 1e-5, its standard errors within 1e-4; bf16
+# hidden states within the reference's relative 0.05
+LM_FIN_ATOL = 1e-5
+LM_SE_ATOL = 1e-4
+LM_BF16_REL = 0.05
+LM_SMOKE_ESC = dict(conf_threshold=0.0, mi_threshold=0.015, r_min=4,
+                    r_max=20)
+TOL_HEAD = dict(rtol=1e-4, atol=1e-4)       # as the head kernels' checks
+
+
+def lm_decision_atol(key: str, r: int, n: int) -> float:
+    return LM_FLOOR * {"sum_p": r / n, "sum_psq": r / n**2,
+                       "sum_ent": r, "sum_entsq": r}[key]
+
+
+def lm_pieces(schedule) -> int:
+    """Decision launches one token dispatch makes (rounds cut at 64)."""
+    from repro_torch.kernels.decision import MAX_SAMPLES
+    return sum(-(-r // MAX_SAMPLES) for r in schedule)
+
+
+def lm_stage_split(out: dict) -> dict:
+    """Median and mean seconds a stage of the stage profile."""
+    prof = out.get("stage_profile") or {}
+    return {stage: {k: v for k, v in row.items()
+                    if k in ("count", "p50_s", "mean_s", "total_s")}
+            for stage, row in prof.items()}
+
+
+def lm_serve_run(name: str, policy, adaptive: bool, params) -> dict:
+    """``serve`` at full width on the card under one policy, the
+    decision kernel's launch count zeroed just before and read just
+    after, the allocator's peak reset before."""
+    import torch
+    from repro_torch.kernels.decision import decision_stats
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving import adaptive as adaptive_mod
+    torch.cuda.reset_peak_memory_stats()
+    decision_stats.launches = 0
+    out = serve(LM["arch"], smoke=False, batch=LM["batch"],
+                prompt_len=LM["prompt_len"], gen_len=LM["gen_len"],
+                n_requests=LM["n_requests"], policy=policy,
+                adaptive=adaptive, seed=LM["seed"], params=params,
+                cost_records=True, device="cuda")
+    launches = decision_stats.launches
+    schedule = (adaptive_mod.escalation_schedule(policy) if adaptive
+                else (policy.r_max,))
+    check(out["requests"] == LM["n_requests"],
+          f"lm {name}: {out['requests']} of {LM['n_requests']} requests")
+    check(launches > 0, f"lm {name}: no decision kernel launched")
+    check(launches == out["ticks"] * lm_pieces(schedule),
+          f"lm {name}: {launches} launches for {out['ticks']} ticks of "
+          f"schedule {schedule}")
+    check(out["host_syncs"] == out["ticks"],
+          f"lm {name}: {out['host_syncs']} host syncs, {out['ticks']} ticks")
+    check(out["decisions"] == sum(v["n_tokens"] for v in out["verdicts"]),
+          f"lm {name}: decisions and tokens disagree")
+    tel = out["telemetry"]
+    return {"name": name, "schedule": list(schedule),
+            "policy": {k: getattr(policy, k) for k in (
+                "conf_threshold", "mi_threshold", "r_min", "r_max")},
+            "adaptive": adaptive, "requests": out["requests"],
+            "decisions": out["decisions"], "ticks": out["ticks"],
+            "admissions": out["admissions"],
+            "mean_samples_per_decision": out["mean_samples_per_decision"],
+            "host_syncs": out["host_syncs"],
+            "decision_launches": launches,
+            "accept_fraction": out["accept_fraction"],
+            "flag_fraction": out["flag_fraction"],
+            "tokens_per_s": out["tokens_per_s"], "wall_s": out["wall_s"],
+            "rounds_run": tel["rounds"], "dispatches": tel["dispatches"],
+            "r_hist": {r: c for r, c in enumerate(tel["r_hist"]) if c},
+            "stage_split": lm_stage_split(out),
+            "max_memory_allocated": out["max_memory_allocated"],
+            "n_tokens": sorted(v["n_tokens"] for v in out["verdicts"]),
+            "confidences": sorted(v["confidence"] for v in out["verdicts"]),
+            "verdicts": sorted((v["rid"], v["verdict"], v["n_tokens"])
+                               for v in out["verdicts"])}
+
+
+def lm_engine(cfg, params, device: str):
+    """An engine admitted once with the first ``batch`` requests of the
+    stream (inside ``float32_math``, as ``run`` does)."""
+    from repro_torch import float32_math
+    from repro_torch.launch.serve import make_lm_engine, make_lm_stream
+    eng = make_lm_engine(cfg, batch=LM["batch"],
+                         prompt_len=LM["prompt_len"], gen_len=LM["gen_len"],
+                         params=params, device=device)
+    for r in make_lm_stream(cfg, LM["batch"], batch=LM["batch"],
+                            prompt_len=LM["prompt_len"],
+                            gen_len=LM["gen_len"], seed=LM["seed"]):
+        eng.submit(r)
+    with float32_math():
+        eng._admit()
+    return eng
+
+
+def lm_decision_args(abasis: dict, grng, base, r: int) -> dict:
+    import torch
+    from repro_torch.core.lfsr import indexed_selections
+    from repro_torch.serving import adaptive
+    b = abasis["y_mu"].shape[0]
+    drawn = torch.zeros(b, dtype=torch.int32, device=base.device)
+    idx = adaptive.stream_indices(base, drawn, r)
+    return dict(y_mu=abasis["y_mu"].contiguous(),
+                x_sigma=abasis["x_sigma"].contiguous(),
+                m=abasis["m"].contiguous(),
+                sel=indexed_selections(grng.lfsr_seed, idx), cfg=grng,
+                x_sigsq=(abasis["x_sigsq"].contiguous()
+                         if "x_sigsq" in abasis else None),
+                sample_idx=idx,
+                mask=torch.ones(b, dtype=torch.bool, device=base.device))
+
+
+def lm_decision_check(name: str, args: dict) -> dict:
+    """decision.cu against decision_stats_plain at vocabulary width, two
+    launches bit for bit alike."""
+    import torch
+    from repro_torch.kernels.decision import (decision_stats,
+                                              decision_stats_plain)
+    before = decision_stats.launches
+    got = decision_stats(**args)
+    again = decision_stats(**args)
+    want = decision_stats_plain(**args)
+    torch.cuda.synchronize()
+    check(decision_stats.launches == before + 2,
+          f"{name}: the decision kernel did not launch")
+    n, r = args["y_mu"].shape[1], args["sel"].shape[0]
+    errs = {}
+    for key in STAT_KEYS:
+        atol = lm_decision_atol(key, r, n)
+        diff = (got[key] - want[key]).abs()
+        errs[key] = {"max_abs_err": float(diff.max()),
+                     "max_rel_err": float((diff / want[key].abs().clamp_min(
+                         atol)).max()),
+                     "atol": atol}
+        check(torch.allclose(got[key], want[key], rtol=LM_RTOL, atol=atol),
+              f"{name}: {key} off its plain version by "
+              f"{errs[key]['max_abs_err']} (rtol {LM_RTOL}, atol {atol})")
+        check(torch.equal(got[key], again[key]),
+              f"{name}: two launches differ in {key}")
+    row = {"kernel_check": "decision_stats", "case": name, "B": int(
+        args["y_mu"].shape[0]), "N": n, "R": r,
+        "read_sigma": args["cfg"].read_sigma, "rtol": LM_RTOL,
+        "errors": errs}
+    emit(row)
+    return row
+
+
+def lm_kernel_checks(cfg, params) -> dict:
+    """The two kernels of the LM path at vocabulary width against their
+    plain versions: decision.cu on one live token decision's operands
+    (the admitted prompts' basis) at R = 4, 8, 20, and at R = 20 with
+    read_sigma = 0.4 at the same shape; bayes_mvm.cu rank16 on one
+    decode_step (K 1,024 × N 152,064, R = uq_samples)."""
+    import dataclasses
+    import torch
+    from repro_torch import float32_math
+    from repro_torch.core.sampling import activation_basis
+    from repro_torch.kernels.bayes import bayes_rank16, bayes_rank16_plain
+    from repro_torch.models import transformer as tr
+    eng = lm_engine(cfg, params, "cuda")
+    base = torch.as_tensor(eng._next_bases(eng.n_slots).astype("int64"),
+                           device="cuda")
+    h32 = eng.hidden.to(torch.float32)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    abasis = eng.basis(eng.hidden)
+    torch.cuda.synchronize()
+    basis_s = time.perf_counter() - t0
+    basis_peak = torch.cuda.max_memory_allocated() - resident
+    grng = eng.hcfg.grng
+    ops, rows = {}, []
+    for r in LM_DECISION_R:
+        ops[f"r{r}"] = lm_decision_args(abasis, grng, base, r)
+        rows.append(lm_decision_check(f"lm_vocab_r{r}", ops[f"r{r}"]))
+    noisy = dataclasses.replace(grng, read_sigma=LM_READ_SIGMA)
+    nbasis = activation_basis(eng._head, h32,
+                              dataclasses.replace(eng.hcfg, grng=noisy))
+    ops["noisy_r20"] = lm_decision_args(nbasis, noisy, base, 20)
+    rows.append(lm_decision_check("lm_vocab_read_noise_r20",
+                                  ops["noisy_r20"]))
+    del nbasis
+    # one decode_step: the trunk, then the head's R samples (one launch)
+    token = torch.arange(eng.n_slots, device="cuda")[:, None] * 7
+    pos = eng.cache["pos"]
+    bayes_rank16.launches = 0
+    with float32_math():
+        logits, _ = tr.decode_step(eng._params, eng.cache, token, cfg)
+        x, _ = tr.decode_hidden(eng._params, eng.cache, token, cfg)
+    torch.cuda.synchronize()
+    check(bayes_rank16.launches == 1,
+          f"decode_step launched the rank16 kernel "
+          f"{bayes_rank16.launches} times")
+    check(tuple(logits.shape) == (cfg.uq_samples, eng.n_slots,
+                                  cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()),
+          f"decode_step logits {tuple(logits.shape)} not finite")
+    head = tr._head_serving(eng._params, cfg)
+    from repro_torch.core.hashing import as_u32
+    from repro_torch.core.lfsr import indexed_selections
+    idx = as_u32(pos * cfg.uq_samples
+                 + torch.arange(cfg.uq_samples, device="cuda"))
+    sel = indexed_selections(grng.lfsr_seed, idx)
+    got = bayes_rank16(x, head["mu_prime"], head["sigma"], sel, grng)
+    want = bayes_rank16_plain(x, head["mu_prime"], head["sigma"], sel,
+                              grng)
+    head_err = float((got - want).abs().max())
+    check(torch.allclose(got, want, **TOL_HEAD),
+          f"rank16 at vocabulary width off its plain version by "
+          f"{head_err}")
+    check(torch.equal(got, logits), "decode_step's samples differ from "
+          "the head kernel's on the same hidden state")
+    emit({"kernel_check": "bayes_rank16", "case": "lm_decode_step",
+          "B": eng.n_slots, "K": cfg.d_model, "N": cfg.vocab_padded,
+          "R": cfg.uq_samples, "dtype": str(cfg.dtype), **TOL_HEAD,
+          "max_abs_err": head_err})
+    return {"rows": rows, "ops": ops, "basis_s_first": basis_s,
+            "basis_peak_bytes": basis_peak, "resident_bytes": resident,
+            "head_case": dict(x=x, mu=head["mu_prime"],
+                              sigma=head["sigma"], sel=sel, grng=grng),
+            "head_max_abs_err": head_err,
+            "decision_max_abs_err": max(
+                e["max_abs_err"] for row in rows
+                for e in row["errors"].values()),
+            "engine": eng}
+
+
+def lm_tick_split(eng, reps: int = 3) -> dict:
+    """Where one tick's time goes at full width: the basis, the token
+    decision (the whole schedule, kernel launches included) and the
+    decode, each the least of ``reps`` eager calls between CUDA events
+    (host launches included), on the admitted engine."""
+    import torch
+    from repro_torch import float32_math
+    from repro_torch.serving.engine import token_decision
+
+    def ms(fn):
+        best = float("inf")
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            best = min(best, start.elapsed_time(end))
+        return best
+
+    base = torch.as_tensor(eng._next_bases(eng.n_slots).astype("int64"),
+                           device="cuda")
+    active = torch.ones(eng.n_slots, dtype=torch.bool, device="cuda")
+    abasis = eng.basis(eng.hidden)
+    token = torch.zeros((eng.n_slots, 1), dtype=torch.int64, device="cuda")
+    out = {}
+    with float32_math():
+        out["basis_ms"] = ms(lambda: eng.basis(eng.hidden))
+        out["decision_ms"] = ms(lambda: token_decision(
+            abasis, base, active, hcfg=eng.hcfg, policy=eng.policy,
+            adaptive_mode=True, schedule=eng.schedule, fused=True))
+        out["decode_ms"] = ms(lambda: eng.decode(eng.cache, token))
+        out["prefill_ms"] = ms(lambda: eng.prefill(
+            torch.zeros((eng.n_slots, eng.prompt_len), dtype=torch.int32,
+                        device="cuda"),
+            torch.full((eng.n_slots,), eng.prompt_len, device="cuda")))
+    out["schedule"] = list(eng.schedule)
+    out["what"] = ("least of 3 eager calls between CUDA events, host "
+                   "launches included; decision = one token's whole "
+                   "schedule under the default policy, every slot active")
+    return out
+
+
+def lm_card_vs_cpu() -> dict:
+    """qwen3-0.6b's SMOKE config on the card and on the CPU with the
+    same port params and prompts: in float32 (TF32 off) the same
+    tokens, verdicts, samples and decisions request for request under
+    accept-always and fixed R = 20, confidence/MI within LM_FIN_ATOL,
+    and one escalating token decision's fin on the same basis within
+    LM_FIN_ATOL (its _se fields LM_SE_ATOL), verdicts and samples
+    equal.  Under the escalating policy (LM_SMOKE_ESC) whole runs are
+    compared and reported, not asserted: its MI threshold sits inside
+    the MI spread, so a standard error that differs by C6's ~1e-5 can
+    move a borderline decision by a round.  In bf16: the token agreement
+    and the hidden states' worst relative gap over prefill and three
+    decode steps."""
+    import dataclasses
+    import torch
+    from repro_torch import float32_math
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import params_init, serve
+    from repro_torch.serving import TriagePolicy, escalation_schedule
+    from repro_torch.serving.engine import _to_device, token_decision
+    kw = dict(batch=LM["batch"], prompt_len=LM["prompt_len"],
+              gen_len=LM["gen_len"], n_requests=LM["n_requests"],
+              seed=LM["seed"])
+    smoke = get_config(LM["arch"], smoke=True)
+    f32 = dataclasses.replace(smoke, dtype=torch.float32)
+    res = {}
+    p_cpu = params_init(f32, LM["seed"], "cpu")
+    p_gpu = _to_device(p_cpu, "cuda")
+    for name, pol, adaptive in (("accept_always", LM_ACCEPT, True),
+                                ("fixed_r20", LM_FIXED, False),
+                                ("escalating", LM_SMOKE_ESC, True)):
+        outs = {dev: serve(LM["arch"], cfg=f32, params=p, device=dev,
+                           policy=TriagePolicy(**pol), adaptive=adaptive,
+                           **kw)
+                for dev, p in (("cpu", p_cpu), ("cuda", p_gpu))}
+        vc = sorted(outs["cuda"]["verdicts"], key=lambda v: v["rid"])
+        vp = sorted(outs["cpu"]["verdicts"], key=lambda v: v["rid"])
+        keys = ("rid", "verdict", "prediction", "n_samples", "n_tokens")
+        alike = sum(tuple(a[k] for k in keys) == tuple(b[k] for k in keys)
+                    for a, b in zip(vc, vp))
+        res[name] = {"requests": outs["cuda"]["requests"],
+                     "decisions": [outs["cuda"]["decisions"],
+                                   outs["cpu"]["decisions"]],
+                     "requests_alike": alike,
+                     "samples": [[v["n_samples"] for v in vc],
+                                 [v["n_samples"] for v in vp]]}
+        if name == "escalating":
+            continue
+        same_decisions(outs["cuda"], outs["cpu"],
+                       f"lm smoke f32 {name}: card vs CPU", LM_FIN_ATOL)
+        check(alike == len(vc) == LM["n_requests"]
+              and outs["cuda"]["decisions"] == outs["cpu"]["decisions"],
+              f"lm smoke f32 {name}: token counts differ")
+    # one token decision's fin on the same basis, card against CPU
+    engs = {dev: lm_engine(f32, p, dev)
+            for dev, p in (("cpu", p_cpu), ("cuda", p_gpu))}
+    ab = engs["cpu"].basis(engs["cpu"].hidden)
+    base = torch.as_tensor(engs["cpu"]._next_bases(LM["batch"])
+                           .astype("int64"))
+    fins = {}
+    for dev in ("cpu", "cuda"):
+        e = engs[dev]
+        v, fin, spent = token_decision(
+            {k: t.to(dev) for k, t in ab.items()}, base.to(dev),
+            torch.ones(LM["batch"], dtype=torch.bool, device=dev),
+            hcfg=e.hcfg, policy=TriagePolicy(**LM_SMOKE_ESC),
+            adaptive_mode=True,
+            schedule=escalation_schedule(TriagePolicy(**LM_SMOKE_ESC)),
+            fused=True)
+        fins[dev] = (v.cpu(), {k: t.cpu() for k, t in fin.items()},
+                     spent.cpu())
+    check(torch.equal(fins["cpu"][0], fins["cuda"][0])
+          and torch.equal(fins["cpu"][2], fins["cuda"][2]),
+          "lm smoke: token decision verdicts/spent differ card vs CPU")
+    fin_err = {}
+    for key, want in fins["cpu"][1].items():
+        got = fins["cuda"][1][key]
+        err = float((got.double() - want.double()).abs().max())
+        fin_err[key] = err
+        tol = LM_SE_ATOL if key.endswith("_se") else LM_FIN_ATOL
+        check(err <= tol, f"lm smoke fin {key}: card vs CPU {err} > {tol}")
+    res["fin_max_abs_err"] = fin_err
+    # bf16: token agreement, hidden gap
+    from repro_torch.models import transformer as tr
+    pb_cpu = params_init(smoke, LM["seed"], "cpu")
+    pb_gpu = _to_device(pb_cpu, "cuda")
+    outs = {dev: serve(LM["arch"], cfg=smoke, params=p, device=dev,
+                       policy=TriagePolicy(**LM_ACCEPT), **kw)
+            for dev, p in (("cpu", pb_cpu), ("cuda", pb_gpu))}
+    vb = {v["rid"]: v for v in outs["cpu"]["verdicts"]}
+    agree = sum((v["prediction"], v["verdict"], v["n_tokens"])
+                == (vb[v["rid"]]["prediction"], vb[v["rid"]]["verdict"],
+                    vb[v["rid"]]["n_tokens"])
+                for v in outs["cuda"]["verdicts"])
+    toks = torch.randint(0, smoke.vocab, (LM["batch"], LM["prompt_len"]),
+                         generator=torch.Generator().manual_seed(5))
+    gaps = []
+    with float32_math():
+        caches, hs = {}, {}
+        for dev, p in (("cpu", pb_cpu), ("cuda", pb_gpu)):
+            caches[dev], hs[dev] = tr.prefill(p, toks.to(dev), smoke,
+                                              cache_len=32)
+        for step in range(4):
+            want = hs["cpu"].float()
+            gaps.append(float((hs["cuda"].float().cpu() - want).abs().max()
+                              / max(float(want.abs().max()), 1e-3)))
+            if step == 3:
+                break
+            tok = toks[:, step:step + 1]
+            for dev, p in (("cpu", pb_cpu), ("cuda", pb_gpu)):
+                hs[dev], caches[dev] = tr.decode_hidden(
+                    p, caches[dev], tok.to(dev), smoke)
+    check(max(gaps) < LM_BF16_REL,
+          f"lm smoke bf16: hidden gap {max(gaps)} >= {LM_BF16_REL}")
+    res["bf16"] = {"requests_agreeing": agree,
+                   "requests": len(outs["cuda"]["verdicts"]),
+                   "hidden_rel_gap": gaps}
+    emit({"lm_card_vs_cpu": f"{LM['arch']} SMOKE, card against CPU, the "
+          "same port params and prompts; f32 with TF32 off: decisions "
+          f"equal, fin within {LM_FIN_ATOL} (_se {LM_SE_ATOL}); bf16 "
+          "token agreement and hidden gap (prefill + 3 decode steps)",
+          **res})
+    return res
+
+
+def run_lm_serving() -> dict:
+    """The lm_serving phase: qwen3-0.6b at full width served on the card
+    under accept-always, fixed R = 20 and an escalating policy (its
+    confidence threshold at the accept-always run's median request
+    confidence); the kernels at vocabulary width; the card against the
+    CPU at the SMOKE config; where a tick's time goes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import params_init, serve
+    from repro_torch.serving import TriagePolicy
+    t_phase = time.perf_counter()
+    card_name, _, power = card_line().partition(",")
+    cfg = get_config(LM["arch"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = params_init(cfg, LM["seed"], "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            leaves.append(t)
+    walk(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(all(t.is_cuda for t in leaves), "params off the card")
+    # warm-up: one request, one token
+    serve(LM["arch"], smoke=False, batch=LM["batch"],
+          prompt_len=LM["prompt_len"], gen_len=1, n_requests=1,
+          params=params, device="cuda")
+    runs = [lm_serve_run("accept_always", TriagePolicy(**LM_ACCEPT), True,
+                         params)]
+    acc = runs[0]
+    check(acc["n_tokens"] == [LM["gen_len"]] * LM["n_requests"]
+          and acc["accept_fraction"] == 1.0,
+          f"accept-always: tokens {acc['n_tokens']}")
+    check(acc["admissions"] >= 2, "accept-always: no mid-stream admission")
+    runs.append(lm_serve_run("fixed_r20", TriagePolicy(**LM_FIXED), False,
+                             params))
+    check(runs[1]["mean_samples_per_decision"] == LM_FIXED["r_max"]
+          and runs[1]["n_tokens"] == acc["n_tokens"],
+          "fixed R: samples per decision or tokens")
+    conf = statistics.median(acc["confidences"])
+    esc = TriagePolicy(conf_threshold=conf, mi_threshold=0.5, r_min=4,
+                       r_max=20)
+    runs.append(lm_serve_run("escalating", esc, True, params))
+    check(runs[2]["rounds_run"] > runs[2]["dispatches"],
+          "escalating policy ran no round past the first")
+    lm_launches = sum(r["decision_launches"] for r in runs)
+    checks = lm_kernel_checks(cfg, params)
+    split = lm_tick_split(checks["engine"])
+    for r in runs:       # the basis does not depend on the policy
+        emit({"lm_serving": r["name"], "arch": LM["arch"],
+              "smoke": False, "gpu": card_name.strip(),
+              "power_limit": power.strip(), "n_params": n_params,
+              "param_bytes": param_bytes, "params_init_s": init_s,
+              "basis_ms_a_tick": split["basis_ms"],
+              **{k: v for k, v in r.items() if k != "confidences"}})
+    emit({"lm_tick_split": f"{LM['arch']} full width, B={LM['batch']}, "
+          f"N={cfg.vocab_padded}", "gpu": card_name.strip(),
+          "power_limit": power.strip(), **split,
+          "basis_peak_bytes": checks["basis_peak_bytes"],
+          "resident_bytes": checks["resident_bytes"]})
+    smoke = lm_card_vs_cpu()
+    del checks["engine"]
+    emit({"lm_serving_phase_s": time.perf_counter() - t_phase})
+    return {"runs": runs, "launches": lm_launches, "checks": checks,
+            "split": split, "smoke": smoke, "n_params": n_params,
+            "param_bytes": param_bytes}
+
+
+def lm_timing(lm: dict) -> dict:
+    """decision.cu at N = 152,064, B 4, R 4 and 20 on the live operands
+    and bayes_mvm.cu rank16 at decode_step's shape, by CUDA-graph replay
+    (``timed``), with their bounds (``kernels/bounds``)."""
+    from repro_torch.kernels.bayes import (bayes_rank16, bayes_rank16_plain,
+                                           head_plan)
+    from repro_torch.kernels.bounds import head_bound
+    from repro_torch.kernels.decision import (decision_stats,
+                                              decision_stats_plain)
+    out = {"decision": {}, "rank16": {}}
+    for key in ("r4", "r20"):
+        args = lm["checks"]["ops"][key]
+        t = timed(lambda: decision_stats(**args),
+                  lambda: decision_stats_plain(**args))
+        w = decision_args_work(args)
+        out["decision"][key] = {**t, **{k: w[k] for k in (
+            "bound_ms", "bound_by", "bound_bytes", "bound_ops")}}
+        emit({"timing": f"decision_stats_lm_{key}", "B": int(
+            args["y_mu"].shape[0]), "N": int(args["y_mu"].shape[1]),
+            **out["decision"][key]})
+    c = lm["checks"]["head_case"]
+    t = timed(lambda: bayes_rank16(c["x"], c["mu"], c["sigma"], c["sel"],
+                                   c["grng"]),
+              lambda: bayes_rank16_plain(c["x"], c["mu"], c["sigma"],
+                                         c["sel"], c["grng"]))
+    b, k = c["x"].shape
+    n, r = c["mu"].shape[1], c["sel"].shape[0]
+    w = head_bound("rank16", b, k, n, r, c["grng"],
+                   wbytes=c["mu"].element_size())
+    out["rank16"] = {"B": b, "K": k, "N": n, "R": r,
+                     "plan": head_plan("rank16", b, k, n, r)._asdict(),
+                     **t, **{kk: w[kk] for kk in (
+                         "bound_ms", "bound_by", "bound_bytes",
+                         "bound_ops", "hash3_evals")}}
+    emit({"timing": "bayes_rank16_lm_decode_step", **out["rank16"]})
+    return out
+
+
+# ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
 def call_ms(fn, iters: int, warmup: int = 50) -> float:
@@ -3621,7 +4174,7 @@ def decision_args_work(args: dict) -> dict:
 
 
 def run_timing(inputs: dict, launches: dict, worst: float,
-               cim_line: dict, head_lines: list) -> None:
+               cim_line: dict, head_lines: list, lm_vocab: dict) -> None:
     from repro_torch.kernels.decision import (decision_plan, decision_stats,
                                               decision_stats_plain)
     times = {}
@@ -3690,6 +4243,10 @@ def run_timing(inputs: dict, launches: dict, worst: float,
         "call_ms_r20": r20["call_ms"],
         "plain_call_ms_r20": r20["plain_call_ms"],
         "bound_ms_r20": decision_args_work(inputs["main_r20"])["bound_ms"],
+        "lm_vocab": {"shape": "B=4 N=152064 (qwen3-0.6b's padded "
+                              "vocabulary), every slot active, the live "
+                              "operands of one token decision",
+                     **lm_vocab},
     }, cim_line, *head_lines]})
 
 
@@ -3765,21 +4322,31 @@ def main() -> int:
     run_moment()
     run_tiled_hoist()
     emit({"population_and_modes_phases_s": time.perf_counter() - t0})
+    lm = run_lm_serving()
     cim_plan_sweep(cim_inputs)
     head_plan_sweep()
     heads = head_timing(uq_path["launches"], fig9, head_checks, train,
                         trained_uq)
     heads[1]["launches_lifetime_static_arms"] = lifetime["rank16_launches"]
     heads[1]["max_abs_err"] = max(heads[1]["max_abs_err"],
-                                  lifetime["rank16_checks"]["max_abs_err"])
+                                  lifetime["rank16_checks"]["max_abs_err"],
+                                  lm["checks"]["head_max_abs_err"])
+    lm_times = lm_timing(lm)
+    heads[1]["launches_lm_decode_step"] = 1
+    heads[1]["lm_decode_step"] = {
+        **lm_times["rank16"],
+        "max_abs_err": lm["checks"]["head_max_abs_err"],
+        "what": "qwen3-0.6b's vocabulary head at decode_step's shape, "
+                "bf16 operands widened by the wrapper"}
     run_timing(inputs, {"serve_sar": main_path["launches"],
                         "mission_matrix": mission["decision"],
                         "serve_sar_lifetime": lifetime["launches"]
                         ["decision"],
                         "mission_aged_arms": aged["launches"]["decision"],
                         "observability": obs["decision"],
-                        "die_population": population["decision"]},
-               worst,
+                        "die_population": population["decision"],
+                        "lm_serving": lm["launches"]},
+               max(worst, lm["checks"]["decision_max_abs_err"]),
                cim_timing(cim_inputs,
                           {"serve_sar(chip_instance=gate die)":
                            chip_path["launches"],
@@ -3789,7 +4356,7 @@ def main() -> int:
                            "observability": obs["cim"],
                            "die_population": population["cim"]},
                           cim_summary),
-               heads)
+               heads, lm_times["decision"])
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -36,10 +36,16 @@ dies that age in the field (``hw.aging``, ``ChipInstance.at_age``) and
 recalibrate-and-redeploy (``hw.redeploy``; ``launch.serve.
 serve_sar_lifetime``, ``fly_mission(lifetime=...)``).
 
+The dense language models: ``launch.serve.serve(arch, smoke=...)``
+serves qwen3-0.6b, qwen3-1.7b, yi-9b or qwen1.5-110b (``configs``)
+through ``serving.LMServingEngine`` over ``models.transformer``, each
+token decided at vocabulary width through the decision kernel.
+
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``): ``resolve_device(None)`` is ``"cuda"``.  Float32
 convolutions and matrix products run in float32 on the card
-(``float32_math``), not in the TF32 PyTorch gives cuDNN by default.
+(``float32_math``), not in the TF32 PyTorch gives cuDNN by default, and
+bfloat16 products reduce in float32.
 """
 
 from __future__ import annotations
@@ -54,18 +60,23 @@ def float32_math(deterministic: bool = False):
     """Float32 convolutions and matrix products in full float32 for the
     duration of the block: cuDNN and cuBLAS without TF32 (PyTorch lets
     cuDNN take TF32, a 10-bit mantissa, for float32 convolutions by
-    default).  ``deterministic`` also makes cuDNN choose deterministic
-    algorithms (no atomics in the backward convolutions).  The
-    process's settings are restored on exit; none is changed at import.
+    default), and bfloat16 products reduced in float32 (cuBLAS may
+    otherwise reduce split-K partial sums in bfloat16).
+    ``deterministic`` also makes cuDNN choose deterministic algorithms
+    (no atomics in the backward convolutions).  The process's settings
+    are restored on exit; none is changed at import.
     """
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic)
+    saved = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic,
+             matmul.allow_bf16_reduced_precision_reduction)
     cudnn.allow_tf32 = matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     cudnn.deterministic = deterministic or saved[2]
     try:
         yield
     finally:
-        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = saved
+        (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic,
+         matmul.allow_bf16_reduced_precision_reduction) = saved
 
 
 def resolve_device(device=None) -> torch.device:

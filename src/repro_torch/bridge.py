@@ -4,7 +4,8 @@ The bridge takes and gives numpy only, so it imports no JAX: callers
 holding JAX arrays pass ``jax.device_get(tree)``.  The one layout move
 is the conv weights: the reference keeps HWIO ``(k, k, cin, cout)``,
 the port OIHW ``(cout, cin, k, k)``; biases and the Bayesian head's
-``mu``/``rho`` pass through.  A chip instance crosses as the dict of
+``mu``/``rho`` pass through.  A transformer LM's params keep the
+reference's tree and stacked layout as they are.  A chip instance crosses as the dict of
 numpy arrays its ``to_tree`` gives, a deployed serving head as its
 arrays, an AdamW state as its two moment trees (laid out like the
 params) and its int32 count, mission worlds as their arrays and,
@@ -36,6 +37,21 @@ def params_to_jax(params: dict) -> dict:
                    "b": to_numpy(c["b"])} for c in params["convs"]],
         "head": to_numpy(params["head"]),
     }
+
+
+def lm_params_from_jax(tree: dict, device="cpu") -> dict:
+    """Transformer LM params of the reference's ``init_transformer``
+    (numpy) -> the port's: the same tree and layout (blocks stacked on
+    a leading layer axis, ``[L, d_in, d_out]``), as tensors."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_jax(v, device) for k, v in tree.items()}
+    return torch.as_tensor(np.array(tree, copy=True), device=device)
+
+
+def lm_params_to_jax(params: dict) -> dict:
+    """Port LM params -> the reference's tree as numpy (inverse of
+    ``lm_params_from_jax``)."""
+    return to_numpy(params)
 
 
 def opt_state_from_jax(state: dict, device="cpu") -> dict:

@@ -42,11 +42,12 @@ def _inv_softplus(x: float) -> float:
 def init(generator: torch.Generator, cfg: BayesDenseConfig,
          device=None) -> dict:
     """µ ~ N(0, 1/d_in), ρ = softplus⁻¹(sigma_init), drawn from
-    ``generator`` (a CPU generator; the result moves to ``device``)."""
+    ``generator`` on its own device; the result moves to ``device``."""
     mu = torch.randn((cfg.d_in, cfg.d_out), generator=generator,
-                     dtype=cfg.param_dtype) / math.sqrt(cfg.d_in)
+                     dtype=cfg.param_dtype,
+                     device=generator.device) / math.sqrt(cfg.d_in)
     rho = torch.full((cfg.d_in, cfg.d_out), _inv_softplus(cfg.sigma_init),
-                     dtype=cfg.param_dtype)
+                     dtype=cfg.param_dtype, device=generator.device)
     return {"mu": mu.to(device), "rho": rho.to(device)}
 
 

@@ -119,18 +119,27 @@ def prepare_serving_head(mu: torch.Tensor, sigma: torch.Tensor,
     return head
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the two operands' promoted dtype, as JAX promotes a
+    mixed product (float32 @ bfloat16 is float32: the bfloat16 operand
+    widens exactly); ``torch.matmul`` refuses mixed dtypes."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 def sigma_basis_products(x: torch.Tensor, sigma: torch.Tensor,
                          grng: g.GRNGConfig, row0: int = 0,
                          col0: int = 0) -> torch.Tensor:
     """The 16 basis products m[..., j] = x·(σ⊙I_j), I_j hashed at global
     coordinates offset by (row0, col0), one device at a time ->
-    [B, N, 16] in x's dtype."""
+    [B, N, 16] in the promoted dtype of x and σ (σ⊙I_j in σ's and x's,
+    as the reference's ``sigma * i_j.astype(x.dtype)`` promotes)."""
     kdim, n = sigma.shape
     rows = row0 + torch.arange(kdim, dtype=torch.int64,
                                device=x.device)[:, None]
     cols = col0 + torch.arange(n, dtype=torch.int64, device=x.device)[None]
     return torch.stack(
-        [x @ (sigma * g.device_current_j(grng, rows, cols, j).to(x.dtype))
+        [_mm(x, sigma * g.device_current_j(grng, rows, cols, j).to(x.dtype))
          for j in range(grng.n_devices)], dim=-1)
 
 
@@ -145,6 +154,8 @@ def activation_basis(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
     copied to x's device, contracted and copied back, and the basis
     comes back as host chunks ``m_host`` (tuple of [B, ≤tile_n, 16])
     in place of ``m``, so neither basis exists whole on the device.
+    Products of mixed dtypes (a float32 x against a bfloat16 head, as
+    the LM engine's) run in the promoted dtype, as the reference's.
     ``dense``: concatenate the chunks' products into one ``m`` on the
     device instead (what the decision kernel reads; the serving
     engine's ``featurize``, as the reference's engine does under jit).
@@ -152,8 +163,8 @@ def activation_basis(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
     if cfg.grng.granularity != "layer":
         raise ValueError("rank16 requires shared ('layer') selection")
     sigma = head["sigma"]
-    ab = {"y_mu": x @ head["mu_prime"],               # [B, N]
-          "x_sigma": x @ sigma}                       # [B, N]
+    ab = {"y_mu": _mm(x, head["mu_prime"]),           # [B, N]
+          "x_sigma": _mm(x, sigma)}                   # [B, N]
     if "sigma_basis" in head:                          # hoisted at deployment
         ab["m"] = torch.einsum("bk,knj->bnj", x,
                                head["sigma_basis"].to(x.dtype))
@@ -168,7 +179,7 @@ def activation_basis(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
     else:
         ab["m"] = sigma_basis_products(x, sigma, cfg.grng)   # [B, N, 16]
     if cfg.grng.read_sigma:
-        ab["x_sigsq"] = (x * x) @ (sigma * sigma)      # [B, N]
+        ab["x_sigsq"] = _mm(x * x, sigma * sigma)      # [B, N]
     return ab
 
 
@@ -314,7 +325,8 @@ def logit_moments(head: dict, x: torch.Tensor,
 
 def logit_samples(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
                   num_samples: int | None = None, sample0: int = 0,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+                  generator: torch.Generator | None = None,
+                  sel: torch.Tensor | None = None) -> torch.Tensor:
     """R logit samples [R, B, N] of the head for x [B, K] from sample
     ``sample0`` of the selection stream, by ``cfg.mode``:
 
@@ -330,6 +342,11 @@ def logit_samples(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
         ``generator`` (on x's device), or one seeded with ``sample0``
         where the reference seeds ``PRNGKey(sample0)``: the draws are
         not the reference's, their statistics are.
+
+    ``sel`` [R, 16]: the selections to draw with in place of the
+    stream's R from ``sample0`` (a decode loop's, indexed by position;
+    the read noise stays keyed on ``sample0 + r``), for the head
+    kernels' route only.
     """
     num = num_samples or cfg.num_samples
     if cfg.mode == "moment":
@@ -343,7 +360,10 @@ def logit_samples(head: dict, x: torch.Tensor, cfg: BayesHeadConfig,
     if cfg.mode not in ("paper", "rank16"):
         raise ValueError(f"mode={cfg.mode!r} is not one of {MODES}")
     if cfg.mode == "paper" and cfg.grng.granularity != "layer":
+        if sel is not None:
+            raise ValueError("sel overrides the shared 'layer' stream "
+                             "only")
         return logit_samples_paper(head, x, cfg, num, sample0)
     from repro_torch.kernels import ops
     return ops.bayes_head_mvm(x, head["mu_prime"], head["sigma"], cfg.grng,
-                              num, sample0=sample0, mode=cfg.mode)
+                              num, sample0=sample0, mode=cfg.mode, sel=sel)

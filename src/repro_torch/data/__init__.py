@@ -1,1 +1,2 @@
-"""Data of the port: synthetic SARD patches (``sard.py``)."""
+"""Data of the port: synthetic SARD patches (``sard.py``) and the
+synthetic token pipeline (``tokens.py``)."""

@@ -44,7 +44,8 @@ def _rms(t: torch.Tensor) -> torch.Tensor:
 def bayes_head_mvm(x: torch.Tensor, mu_prime: torch.Tensor,
                    sigma: torch.Tensor, cfg: g.GRNGConfig, num_samples: int,
                    sample0: int = 0, mode: str = "rank16",
-                   qcfg: QuantConfig | None = None) -> torch.Tensor:
+                   qcfg: QuantConfig | None = None,
+                   sel: torch.Tensor | None = None) -> torch.Tensor:
     """Fused Bayesian head: [R, B, N] logit samples on x's device.
 
     mode='rank16': R-independent (16 basis products and a mix); on a die
@@ -53,10 +54,16 @@ def bayes_head_mvm(x: torch.Tensor, mu_prime: torch.Tensor,
     one σε product per sample with per-cell read noise; ``qcfg``
     (enabled) adds the 6-bit chunked ADC, whose full scales
     ``adc_full_scale(rms(x), rms(µ'))`` and ``adc_full_scale(rms(x),
-    rms(σ))`` stay on the device.  'layer' granularity only.
+    rms(σ))`` stay on the device.  'layer' granularity only.  ``sel``
+    [num_samples, 16]: selections to draw with in place of the stream's
+    from ``sample0`` (the read noise stays keyed on ``sample0 + r``).
     """
     _layer_only(cfg, "the head kernel")
-    sel = g.selections(cfg, num_samples, sample0, device=x.device)
+    if sel is None:
+        sel = g.selections(cfg, num_samples, sample0, device=x.device)
+    elif tuple(sel.shape) != (num_samples, 16):
+        raise ValueError(f"sel has shape {tuple(sel.shape)}, expected "
+                         f"({num_samples}, 16)")
     if qcfg is not None and not qcfg.enabled:
         qcfg = None
     if mode == "rank16":

@@ -1,13 +1,23 @@
-"""SAR serving CLI: a thin layer over the port's engine (port of
-``serve_sar`` and its CLI from ``repro/launch/serve.py``).
+"""Serving CLI: a thin layer over the port's engines (port of ``serve``,
+``serve_sar`` and their CLI from ``repro/launch/serve.py``).
 
-The stream is synthetic SARD patches with a corrupted fraction mixed
-in, classified by the Bayesian-head CNN with per-slot escalation.  It
-runs on the card unless ``--device cpu`` is given, and prints one
-summary line (and one for the lifetime loop when the die ages; a drift
-advisory is logged as it is raised).  ``--chip-instance N`` serves on a die sampled with seed
-N: the conv trunk on its nonideal CIM arrays, the Bayesian head on its
-degraded GRNG, recalibrated per chip unless ``--uncalibrated``.
+``--arch`` names a dense LM (qwen3-0.6b, qwen1.5-110b, yi-9b,
+qwen3-1.7b) or ``sar_cnn``.  An LM serves continuous-batching token
+decode through ``LMServingEngine`` (``serve``): prompts from the
+synthetic token pipeline, each token decision triaged, flagged requests
+retired to verification; the CLI serves the SMOKE config, as the
+reference's does (its ``--smoke`` is always on), and full width is
+``serve(arch, smoke=False)`` from Python.  Random params from a seed,
+drawn on the serving device (``params_init``).
+
+For ``sar_cnn`` the stream is synthetic SARD patches with a corrupted
+fraction mixed in, classified by the Bayesian-head CNN with per-slot
+escalation.  Both run on the card unless ``--device cpu`` is given,
+and print one summary line (and one for the lifetime loop when the die
+ages; a drift advisory is logged as it is raised).  ``--chip-instance
+N`` serves on a die sampled with seed N: the conv trunk on its
+nonideal CIM arrays, the Bayesian head on its degraded GRNG,
+recalibrated per chip unless ``--uncalibrated``.
 
 Telemetry is on by default (``--no-telemetry`` turns it off): the
 summary then carries the telemetry snapshot, the drift status against
@@ -29,6 +39,8 @@ writes ``PREFIX.prom`` and ``PREFIX.json`` (``obs/registry``);
 metrics.
 
 Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --slots 4 --prompt-len 16 --gen 8 --requests 16 [--fixed]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch sar_cnn \\
       --requests 192 --corrupt-frac 0.25 --corruption fog [--fixed] \\
       [--chip-instance 11 --chip-severity 2.0 --uncalibrated]
@@ -40,7 +52,9 @@ Usage:
       --arrival poisson:1000 --trace out/trace.json \\
       --metrics-out out/serve --profile out/prof
 
-The LM archs and fleets of the reference CLI wait for later slices.
+The reference CLI's fleets (``--pools``, ``--mesh``) wait for more than
+one GPU (ROADMAP A10); its MoE, SSM, audio and VLM archs for their
+families (A13).
 """
 
 from __future__ import annotations
@@ -52,12 +66,13 @@ import time
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.energy import LayerShape
 from repro_torch.hw import compile_network
 from repro_torch.obs.log import get_logger
 from repro_torch.obs.telemetry import TelemetryConfig
-from repro_torch.serving import (Request, SarServingEngine, ServingMetrics,
-                                 TriagePolicy)
+from repro_torch.serving import (LMServingEngine, Request, SarServingEngine,
+                                 ServingMetrics, TriagePolicy)
 
 log = get_logger("serve")
 
@@ -77,6 +92,125 @@ def collect_alerts(out: dict, source: str):
     if bus.advisories:
         out["alerts"] = bus.to_json()
     return bus
+
+
+def lm_layer_shapes(cfg) -> list:
+    """Analytic energy layers: a d_model-square trunk approximation (4
+    a layer) and the Bayesian vocabulary head (the R-sampled part)."""
+    shapes = [LayerShape(cfg.d_model, cfg.d_model)] * (4 * cfg.n_layers)
+    shapes.append(LayerShape(cfg.d_model, cfg.vocab_padded, bayesian=True))
+    return shapes
+
+
+def params_init(cfg, seed: int = 0, device=None) -> dict:
+    """Random LM params for ``cfg`` drawn on ``device`` (None = the
+    card) from a ``torch.Generator`` seeded with ``seed``: the port's
+    stand-in for the reference's ``jax_params_init`` (its scales, not
+    its draws)."""
+    from repro_torch.models.registry import get_api
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return get_api(cfg).init(gen, cfg)
+
+
+def make_lm_engine(cfg, *, batch: int = 4, prompt_len: int = 16,
+                   gen_len: int = 8, cache_margin: int = 4,
+                   adaptive: bool = True, policy: TriagePolicy | None = None,
+                   params=None, seed: int = 0, fused: bool = True,
+                   telemetry: bool | TelemetryConfig = True, tracer=None,
+                   profiler=True, device=None) -> LMServingEngine:
+    """The engine ``serve`` drives: ``batch`` slots, a linear cache of
+    prompt_len + gen_len·(1 + cache_margin) (at most a sliding window),
+    params from ``params_init(cfg, seed)`` unless given, tilemap-true
+    energy accounting of ``lm_layer_shapes``, on ``device`` (None = the
+    card)."""
+    device = resolve_device(device)
+    if params is None:
+        params = params_init(cfg, seed, device)
+    cache_len = prompt_len + gen_len * (1 + cache_margin)
+    if cfg.swa_window is not None:
+        cache_len = min(cache_len, cfg.swa_window)
+    layers = lm_layer_shapes(cfg)
+    metrics = ServingMetrics(layers=layers,
+                             tile_program=compile_network(layers))
+    return LMServingEngine(params, cfg, n_slots=batch, prompt_len=prompt_len,
+                           cache_len=cache_len,
+                           policy=policy or TriagePolicy(),
+                           adaptive_mode=adaptive, metrics=metrics,
+                           fused=fused, telemetry=telemetry, tracer=tracer,
+                           profiler=profiler, device=device)
+
+
+def make_lm_stream(cfg, n_requests: int, *, batch: int = 4,
+                   prompt_len: int = 16, gen_len: int = 8,
+                   seed: int = 0) -> list:
+    """Requests whose prompts are the token pipeline's batches 0, 1, ...
+    (``data/tokens``, ``batch`` prompts of ``prompt_len`` a batch), each
+    asking for ``gen_len`` tokens."""
+    from repro_torch.data.tokens import TokenPipelineConfig, batch_at
+    pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=prompt_len,
+                               global_batch=batch, seed=seed)
+    reqs, rid = [], 0
+    for step in range(-(-n_requests // batch)):
+        prompts = batch_at(pipe, step)["tokens"].numpy()
+        for i in range(min(batch, n_requests - rid)):
+            reqs.append(Request(rid=rid, payload=prompts[i],
+                                arrival_s=time.time(),
+                                max_new_tokens=gen_len))
+            rid += 1
+    return reqs
+
+
+def serve(arch: str, *, smoke: bool = True, batch: int = 4,
+          prompt_len: int = 16, gen_len: int = 8,
+          n_requests: int | None = None, adaptive: bool = True,
+          policy: TriagePolicy | None = None, seed: int = 0,
+          cache_margin: int = 4, fused: bool = True,
+          telemetry: bool | TelemetryConfig = True, tracer=None,
+          profiler=True, cost_records: bool = False, params=None,
+          cfg=None, device=None) -> dict:
+    """LM serving through ``LMServingEngine``; ``batch`` is the slot
+    count, ``n_requests`` defaults to 2·batch.  ``smoke`` selects the
+    arch's SMOKE config, ``cfg`` overrides the arch's; ``params``
+    (port params for that config) skip ``params_init``.  ``fused``: the
+    decision kernel (False: ``mix_samples`` + ``update_stats``).
+    Returns the metrics summary plus wall time, tokens/s, host syncs,
+    ticks, admissions and per-request verdicts; ``cost_records`` adds
+    the decision kernel's cost records and, on the card, the caching
+    allocator's peak since the process started or its last reset."""
+    cfg = cfg or get_config(arch, smoke=smoke)
+    n_requests = n_requests or 2 * batch
+    engine = make_lm_engine(cfg, batch=batch, prompt_len=prompt_len,
+                            gen_len=gen_len, cache_margin=cache_margin,
+                            adaptive=adaptive, policy=policy, params=params,
+                            seed=seed, fused=fused, telemetry=telemetry,
+                            tracer=tracer, profiler=profiler, device=device)
+    reqs = make_lm_stream(cfg, n_requests, batch=batch,
+                          prompt_len=prompt_len, gen_len=gen_len, seed=seed)
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    out = engine.run()
+    out["wall_s"] = time.perf_counter() - t0
+    out["tokens_per_s"] = out["decisions"] / out["wall_s"]
+    out["arch"] = cfg.name
+    out["device"] = str(engine.device)
+    out["host_syncs"] = engine.host_syncs
+    out["ticks"] = engine.ticks
+    out["admissions"] = engine.admissions
+    if cost_records:
+        out["compiled_costs"] = engine.compiled_cost_records()
+        if engine.device.type == "cuda":
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                engine.device)
+    out["flagged_fraction"] = out.get("flag_fraction", float("nan"))
+    out["verdicts"] = [
+        {"rid": r.rid, "verdict": r.verdict, "prediction": r.prediction,
+         "confidence": r.confidence,
+         "mutual_information": r.mutual_information,
+         "n_samples": r.n_samples, "n_tokens": r.n_decisions}
+        for r in engine.metrics.records]
+    return out
 
 
 def sar_layer_shapes(cfg) -> list:
@@ -383,10 +517,16 @@ def serve_sar_lifetime(*, lifetime, chip_instance, n_requests: int = 128,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", choices=("sar_cnn",), required=True)
+    ap.add_argument("--arch", choices=ARCHS + ("sar_cnn",), required=True)
+    ap.add_argument("--smoke", action="store_true", default=True,
+                    help="LM archs: the SMOKE config (always on, as the "
+                         "reference's flag is)")
     ap.add_argument("--slots", type=int, default=None,
-                    help="decode slots (default 32)")
+                    help="decode slots (default: 4 for LM, 32 for "
+                         "sar_cnn)")
     ap.add_argument("--requests", type=int, default=None)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=8)
     ap.add_argument("--fixed", action="store_true",
                     help="fixed R=r_max per decision (paper baseline)")
     ap.add_argument("--no-fused", dest="fused", action="store_false",
@@ -448,6 +588,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
+    if args.arch != "sar_cnn":
+        return _main_lm(args)
     chip = None
     if args.chip_instance is not None:
         from repro_torch.hw import VariationSpec, sample_instances
@@ -506,6 +648,14 @@ def main(argv=None) -> dict:
                         f"burn {s['burn_rate']:.2f}"
                         f"{' BREACH' if s['breach'] else ''}"
                         for s in snap.get("slos", [])))
+    out["profile_trace"] = captured.path
+    _write_outputs(args, out, tracer)
+    return out
+
+
+def _write_outputs(args, out: dict, tracer) -> None:
+    """The run's Chrome trace (``--trace``) and metrics exports
+    (``--metrics-out``)."""
     if tracer is not None:
         d = os.path.dirname(args.trace)
         if d:
@@ -525,7 +675,33 @@ def main(argv=None) -> dict:
             slo=out.get("slo"), alerts=out.get("alerts"), arch=args.arch)
         prom, js = reg.write(args.metrics_out)
         log.info("metrics written", prom=prom, json=js)
+
+
+def _main_lm(args) -> dict:
+    """The CLI's LM branch: ``serve`` at the arch's SMOKE config."""
+    policy = TriagePolicy(conf_threshold=args.conf_threshold,
+                          mi_threshold=args.mi_threshold,
+                          r_min=args.r_min, r_max=args.r_max)
+    tracer = None
+    if args.trace:
+        from repro_torch.obs.trace import Tracer
+        tracer = Tracer("repro_torch-serving")
+    from repro_torch.obs.prof import trace_capture
+    with trace_capture(args.profile) as captured:
+        out = serve(args.arch, smoke=args.smoke, batch=args.slots or 4,
+                    prompt_len=args.prompt_len, gen_len=args.gen,
+                    n_requests=args.requests, adaptive=not args.fixed,
+                    policy=policy, fused=args.fused,
+                    telemetry=args.telemetry, tracer=tracer,
+                    cost_records=bool(args.profile), device=args.device)
+    print(f"[{args.arch}] {out['requests']} requests / {out['decisions']} "
+          f"tokens in {out['wall_s']:.2f}s ({out['tokens_per_s']:.1f} "
+          f"tok/s) on {out['device']}; mean samples/token "
+          f"{out['mean_samples_per_decision']:.1f}; "
+          f"{100 * out['flagged_fraction']:.1f}% flagged for verification;"
+          f" host syncs {out['host_syncs']}")
     out["profile_trace"] = captured.path
+    _write_outputs(args, out, tracer)
     return out
 
 

@@ -1,0 +1,52 @@
+"""Family dispatch: one API surface over the model families (port of
+``repro/models/registry.py``).
+
+Every family exposes init(generator, cfg) -> params, train_loss,
+prefill(params, tokens, cfg, cache_len, ...), decode_step(params, cache,
+token, cfg) and decode_hidden (the trunk-only decode the serving engine
+samples adaptively).  The dense family is ported; the others raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from repro_torch.models import transformer
+from repro_torch.models.transformer import ModelConfig
+
+_WAITING = {
+    "moe": "ROADMAP A13: MoE, mixtral-8x7b and qwen3-moe-235b-a22b",
+    "ssm": "ROADMAP A13: SSM/hybrid, mamba2-130m and zamba2-2.7b",
+    "hybrid": "ROADMAP A13: SSM/hybrid, mamba2-130m and zamba2-2.7b",
+    "audio": "ROADMAP A13: audio, whisper-medium",
+    "vlm": "ROADMAP A13: VLM, llama-3.2-vision-11b",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    init: Callable
+    train_loss: Callable
+    prefill: Callable
+    decode_step: Callable
+    decode_hidden: Callable = None   # trunk-only decode (serving engine)
+    needs_frames: bool = False
+    needs_images: bool = False
+
+
+def get_api(cfg: ModelConfig) -> ModelAPI:
+    if cfg.family in _WAITING:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+            f"({_WAITING[cfg.family]})")
+    if cfg.family != "dense":
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    return ModelAPI(
+        init=transformer.init_transformer,
+        train_loss=transformer.train_loss,
+        prefill=transformer.prefill,
+        decode_step=transformer.decode_step,
+        decode_hidden=transformer.decode_hidden,
+    )

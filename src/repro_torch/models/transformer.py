@@ -1,0 +1,465 @@
+"""Decoder-only transformer LM, dense family (port of the dense path of
+``repro/models/transformer.py``).
+
+Pre-norm blocks over parameters stacked on a leading layer axis, as the
+reference's ``lax.scan`` stacks are (``[L, d_in, d_out]`` float32 for
+every layer leaf); the port loops over the layers.  The LM head is the
+paper's Bayesian weight-decomposition layer (µ, ρ), served with
+CLT-GRNG sampling: ``decode_step``/``apply_bayes_head`` draw a fixed R
+through ``core/sampling.logit_samples`` (on the card, ``bayes_mvm.cu``
+rank16), and ``decode_hidden`` gives the trunk's hidden state alone,
+which the serving engine samples adaptively.
+
+What is not here: the MoE, SSM, encoder-decoder (whisper) and
+cross-attention (llama-vision) branches raise ``NotImplementedError``
+naming their ROADMAP item; the rolling sliding-window cache raises in
+``models/attention``; ``train_loss`` waits for the LM trainer (ROADMAP
+A14).  The reference's ``_wsc``/``_tp_linear``/remat helpers constrain
+shardings and trade memory in the backward on a TPU mesh; on one card
+in forward they have no meaning, and ``ModelConfig``'s mesh hints
+(``batch_axes``, ``model_axis_size``, ``explicit_tp``, ``remat``) are
+carried as data only.
+
+The decode cache is {"k", "v": [L, B, Sc, Hkv, dh] in cfg.dtype, "pos":
+a host int (the pool clock: every position it sets is a launch-time
+index, nothing is read back from the card), "start": [B] int32 first
+valid positions (left-padded admissions)}.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import bayes_layer
+from repro_torch.core.bayes_layer import BayesDenseConfig
+from repro_torch.core.clt_grng import GRNGConfig
+from repro_torch.core.hashing import as_u32
+from repro_torch.core.lfsr import indexed_selections
+from repro_torch.models import attention as attn
+from repro_torch.models import blocks
+
+
+# ----------------------------------------------------------------------
+# Config
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"        # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 64
+    d_ff: int = 1024
+    vocab: int = 1024
+    vocab_pad_multiple: int = 256
+    norm: str = "rms"            # rms | ln
+    mlp: str = "swiglu"          # swiglu | gelu
+    use_rope: bool = True
+    rope_theta: float = 1e6
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    swa_window: int | None = None
+    learned_pos: int = 0         # >0: learned positional table size (whisper)
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    # SSM (mamba2 / zamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_ngroups: int = 1
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    hybrid_attn_every: int = 0   # zamba2: shared attn block every N ssm layers
+    # enc-dec (whisper: encoder frames are a stubbed modality frontend)
+    encoder_layers: int = 0
+    n_frames: int = 0
+    # vlm (llama-3.2-vision: patch embeds stubbed)
+    cross_attn_every: int = 0
+    n_image_tokens: int = 0
+    # Paper technique: Bayesian LM head
+    bayesian_head: bool = True
+    uq_samples: int = 8
+    head_mode: str = "rank16"    # paper | rank16 | moment
+    sigma_init: float = 0.03
+    prior_sigma: float = 0.1
+    kl_weight: float = 1e-5
+    # compute
+    dtype: Any = torch.bfloat16
+    remat: str = "full"          # full | dots | none (data only here)
+    attn_chunk_q: int = 512
+    attn_chunk_kv: int = 1024
+    # mesh hints of the reference's launcher (data only on one card)
+    batch_axes: tuple = ()
+    model_axis_size: int = 0
+    explicit_tp: bool = False
+
+    @property
+    def vocab_padded(self) -> int:
+        m = self.vocab_pad_multiple
+        return -(-self.vocab // m) * m
+
+    @property
+    def grng(self) -> GRNGConfig:
+        return GRNGConfig()
+
+    def head_bayes_cfg(self) -> BayesDenseConfig:
+        return BayesDenseConfig(
+            d_in=self.d_model, d_out=self.vocab_padded,
+            sigma_init=self.sigma_init, prior_sigma=self.prior_sigma,
+            grng=self.grng)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head µ+ρ)."""
+        d, f, l = self.d_model, self.d_ff, self.n_layers
+        hq = self.n_heads * self.head_dim
+        hkv = self.n_kv_heads * self.head_dim
+        attn_p = d * hq + 2 * d * hkv + hq * d
+        if self.n_experts:
+            mlp_p = self.n_experts * 3 * d * f + d * self.n_experts
+        else:
+            mlp_p = 3 * d * f if self.mlp == "swiglu" else 2 * d * f
+        per_layer = attn_p + mlp_p + 2 * d
+        total = l * per_layer + self.vocab_padded * d * 2
+        if self.encoder_layers:
+            total += self.encoder_layers * (attn_p + mlp_p + 2 * d)
+            total += l * (attn_p + d)          # decoder xattn blocks
+        if self.cross_attn_every:
+            n_cross = l // self.cross_attn_every
+            total += n_cross * (attn_p + mlp_p + 2 * d)
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        d, f, l = self.d_model, self.d_ff, self.n_layers
+        hq = self.n_heads * self.head_dim
+        hkv = self.n_kv_heads * self.head_dim
+        attn_p = d * hq + 2 * d * hkv + hq * d
+        mlp_p = self.top_k * 3 * d * f + d * self.n_experts
+        return l * (attn_p + mlp_p + 2 * d) + self.vocab_padded * d * 2
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    """Refuse the branches of the reference's transformer not ported."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP A13: "
+            f"MoE, mixtral-8x7b and qwen3-moe-235b-a22b)")
+    if cfg.encoder_layers or cfg.learned_pos:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder, its cross-attention and learned "
+            f"positions are not ported yet (ROADMAP A13: audio, "
+            f"whisper-medium)")
+    if cfg.cross_attn_every:
+        raise NotImplementedError(
+            f"{cfg.name}: cross-attention layers are not ported yet "
+            f"(ROADMAP A13: VLM, llama-3.2-vision-11b)")
+
+
+# ----------------------------------------------------------------------
+# Parameter init
+# ----------------------------------------------------------------------
+def _stack(generator, l: int, d_in: int, d_out: int) -> torch.Tensor:
+    return torch.stack([blocks.dense_init(generator, d_in, d_out)
+                        for _ in range(l)])
+
+
+def _init_attn_block(generator, cfg: ModelConfig, l: int) -> dict:
+    d = cfg.d_model
+    hq = cfg.n_heads * cfg.head_dim
+    hkv = cfg.n_kv_heads * cfg.head_dim
+    dev = generator.device
+    p = {"wq": _stack(generator, l, d, hq),
+         "wk": _stack(generator, l, d, hkv),
+         "wv": _stack(generator, l, d, hkv),
+         "wo": _stack(generator, l, hq, d)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((l, hq), device=dev)
+        p["bk"] = torch.zeros((l, hkv), device=dev)
+        p["bv"] = torch.zeros((l, hkv), device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((l, cfg.head_dim), device=dev)
+        p["k_norm"] = torch.ones((l, cfg.head_dim), device=dev)
+    return p
+
+
+def _init_mlp_block(generator, cfg: ModelConfig, l: int) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp == "swiglu":
+        return {"wi": _stack(generator, l, d, f),
+                "wg": _stack(generator, l, d, f),
+                "wo": _stack(generator, l, f, d)}
+    dev = generator.device
+    return {"wi": _stack(generator, l, d, f),
+            "bi": torch.zeros((l, f), device=dev),
+            "wo": _stack(generator, l, f, d),
+            "bo": torch.zeros((l, d), device=dev)}
+
+
+def init_transformer(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random params in the reference's tree and layout, drawn from
+    ``generator`` on its device with the reference's scales (dense
+    N(0, 1/d_in), embedding N(0, 0.02²), norms 1, biases 0, the head's
+    µ N(0, 1/d_model) and ρ = softplus⁻¹(sigma_init)).  The draws are
+    the port's own, not JAX's."""
+    _dense_only(cfg)
+    dev = generator.device
+    l, d = cfg.n_layers, cfg.d_model
+    params: dict = {
+        "embed": blocks.embed_init(generator, cfg.vocab_padded, d),
+        "blocks": {"attn": _init_attn_block(generator, cfg, l),
+                   "ln1": torch.ones((l, d), device=dev),
+                   "ln2": torch.ones((l, d), device=dev),
+                   "mlp": _init_mlp_block(generator, cfg, l)},
+        "final_norm": torch.ones((d,), device=dev),
+    }
+    if cfg.norm == "ln":
+        params["blocks"]["ln1_b"] = torch.zeros((l, d), device=dev)
+        params["blocks"]["ln2_b"] = torch.zeros((l, d), device=dev)
+        params["final_norm_b"] = torch.zeros((d,), device=dev)
+    if cfg.bayesian_head:
+        params["head"] = bayes_layer.init(generator, cfg.head_bayes_cfg(),
+                                          device=dev)
+    else:
+        params["head"] = {"w": blocks.dense_init(generator, d,
+                                                 cfg.vocab_padded)}
+    return params
+
+
+# ----------------------------------------------------------------------
+# Block applications
+# ----------------------------------------------------------------------
+def _layer(tree: dict, l: int) -> dict:
+    """Layer ``l`` of a stacked block tree."""
+    return {k: _layer(v, l) if isinstance(v, dict) else v[l]
+            for k, v in tree.items()}
+
+
+def _norm(h, scale, bias, cfg: ModelConfig):
+    if cfg.norm == "ln":
+        return blocks.layer_norm(h, scale, bias)
+    return blocks.rms_norm(h, scale)
+
+
+def _project_qkv(h, p: dict, cfg: ModelConfig):
+    """-> q [B, S, Hq, dh], k, v [B, S, Hkv, dh] in h.dtype."""
+    q = h @ p["wq"].to(h.dtype)
+    k = h @ p["wk"].to(h.dtype)
+    v = h @ p["wv"].to(h.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(h.dtype)
+        k = k + p["bk"].to(h.dtype)
+        v = v + p["bv"].to(h.dtype)
+    b, s = q.shape[:2]
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm and "q_norm" in p:
+        q = blocks.rms_norm(q, p["q_norm"])
+        k = blocks.rms_norm(k, p["k_norm"])
+    return q, k, v
+
+
+def _mlp_apply(h, lp: dict, cfg: ModelConfig):
+    """-> (y, aux): the dense MLP, aux 0 (the MoE branch raises)."""
+    if "moe" in lp:
+        _dense_only(cfg)
+    p = lp["mlp"]
+    if cfg.mlp == "swiglu":
+        y = blocks.swiglu(h, p["wi"].to(h.dtype), p["wg"].to(h.dtype),
+                          p["wo"].to(h.dtype))
+    else:
+        y = blocks.gelu_mlp(h, p["wi"].to(h.dtype), p["bi"].to(h.dtype),
+                            p["wo"].to(h.dtype), p["bo"].to(h.dtype))
+    return y, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _block_full(h, lp: dict, cfg: ModelConfig, positions, causal: bool,
+                kv_start=None):
+    """One block over a sequence: self-attention, then the MLP.
+    -> (h, aux, (k, v)) with k RoPE'd, both [B, S, Hkv, dh]."""
+    hn = _norm(h, lp["ln1"], lp.get("ln1_b"), cfg)
+    q, k, v = _project_qkv(hn, lp["attn"], cfg)
+    if cfg.use_rope:
+        q = blocks.apply_rope(q, positions, cfg.rope_theta)
+        k = blocks.apply_rope(k, positions, cfg.rope_theta)
+    o = attn.chunked_attention(
+        q, attn.expand_kv(k, cfg.n_heads), attn.expand_kv(v, cfg.n_heads),
+        causal=causal, window=cfg.swa_window, kv_start=kv_start,
+        chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+    h = h + o.reshape(*h.shape[:2], -1) @ lp["attn"]["wo"].to(h.dtype)
+    hn = _norm(h, lp["ln2"], lp.get("ln2_b"), cfg)
+    y, aux = _mlp_apply(hn, lp, cfg)
+    return h + y, aux, (k, v)
+
+
+def _block_decode(h, lp: dict, cfg: ModelConfig, ck, cv, pos: int,
+                  rolling: bool, start=None):
+    """One token's block against its layer's KV cache (written in
+    place at ``pos``).  -> (h, ck, cv)."""
+    hn = _norm(h, lp["ln1"], lp.get("ln1_b"), cfg)
+    q, k, v = _project_qkv(hn, lp["attn"], cfg)
+    if cfg.use_rope:
+        positions = torch.full((h.shape[0], 1), pos, dtype=torch.int32,
+                               device=h.device)
+        q = blocks.apply_rope(q, positions, cfg.rope_theta)
+        k = blocks.apply_rope(k, positions, cfg.rope_theta)
+    ck, cv = attn.cache_update(ck, cv, k, v, pos, rolling=rolling)
+    o = attn.decode_attention(q, ck, cv, pos, window=cfg.swa_window,
+                              rolling=rolling, start=start)
+    h = h + o.reshape(*h.shape[:2], -1) @ lp["attn"]["wo"].to(h.dtype)
+    hn = _norm(h, lp["ln2"], lp.get("ln2_b"), cfg)
+    y, _ = _mlp_apply(hn, lp, cfg)
+    return h + y, ck, cv
+
+
+def _final_norm(h, params: dict, cfg: ModelConfig):
+    if cfg.norm == "ln":
+        return blocks.layer_norm(h, params["final_norm"],
+                                 params["final_norm_b"])
+    return blocks.rms_norm(h, params["final_norm"])
+
+
+def _embed(params: dict, tokens, cfg: ModelConfig):
+    """Embedding rows in cfg.dtype (gathered, then cast: the values of
+    the reference's cast-then-gather)."""
+    return params["embed"][tokens.long()].to(cfg.dtype)
+
+
+# ----------------------------------------------------------------------
+# Trunk forward
+# ----------------------------------------------------------------------
+def trunk_forward(params: dict, tokens, cfg: ModelConfig, *,
+                  collect_cache: bool = False, kv_start=None):
+    """Token trunk: tokens [B, S] -> (hidden [B, S, D], aux, caches or
+    None, memory None).  ``collect_cache``: caches {"k", "v": [L, B, S,
+    Hkv, dh]}; ``kv_start``: optional [B] first valid positions of
+    left-padded rows (masks self-attention only)."""
+    _dense_only(cfg)
+    b, s = tokens.shape
+    h = _embed(params, tokens, cfg)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=h.device)[None].expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        h, a, (k, v) = _block_full(h, _layer(params["blocks"], l), cfg,
+                                   positions, causal=True,
+                                   kv_start=kv_start)
+        aux = aux + a
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+    caches = ({"k": torch.stack(ks), "v": torch.stack(vs)}
+              if collect_cache else None)
+    return _final_norm(h, params, cfg), aux, caches, None
+
+
+def train_loss(params, batch, cfg: ModelConfig, step=0):
+    """The LM's training loss waits for the LM trainer (ROADMAP A14)."""
+    raise NotImplementedError(
+        "the LM training loss is not ported yet (ROADMAP A14: the LM "
+        "trainer, launch/train and launch/steps)")
+
+
+# ----------------------------------------------------------------------
+# Serving
+# ----------------------------------------------------------------------
+def prefill(params: dict, tokens, cfg: ModelConfig, *, cache_len: int,
+            prompt_lengths=None):
+    """Run the prompt, build a linear KV cache of ``cache_len``.
+
+    -> (cache, last-position hidden [B, D]).  ``prompt_lengths`` [B]:
+    true lengths of LEFT-padded rows (continuous-batching admission):
+    pad positions are masked out of attention and recorded as the
+    cache's per-slot ``start``.  A prompt longer than the cache keeps
+    its last ``cache_len`` entries and its ``start`` shifts with them.
+    A sliding-window cache shorter than the prompt's cache would be the
+    reference's rolling cache, which is not ported (raises)."""
+    b, s = tokens.shape
+    if cfg.swa_window is not None and cache_len > cfg.swa_window:
+        raise NotImplementedError(attn._ROLLING)
+    kv_start = None
+    if prompt_lengths is not None:
+        lengths = torch.as_tensor(prompt_lengths, device=tokens.device)
+        kv_start = (s - lengths).to(torch.int32)
+    h, _, caches, _ = trunk_forward(params, tokens, cfg, collect_cache=True,
+                                    kv_start=kv_start)
+
+    def fit(x):  # [L, B, S, Hkv, dh] -> [L, B, cache_len, Hkv, dh]
+        if s >= cache_len:
+            return x[:, :, s - cache_len:].contiguous()
+        return F.pad(x, (0, 0, 0, 0, 0, cache_len - s))
+
+    cache = {"k": fit(caches["k"]), "v": fit(caches["v"]), "pos": s}
+    if kv_start is not None:
+        cache["start"] = (kv_start if s <= cache_len else
+                          torch.clamp(kv_start - (s - cache_len), min=0))
+    return cache, h[:, -1]
+
+
+def _head_serving(params: dict, cfg: ModelConfig) -> dict:
+    """Serving head {mu_prime, sigma} in cfg.dtype: a prepared head's,
+    or the raw µ and softplus(ρ)."""
+    hp = params["head"]
+    if "mu_prime" in hp:
+        return {"mu_prime": hp["mu_prime"].to(cfg.dtype),
+                "sigma": hp["sigma"].to(cfg.dtype)}
+    return {"mu_prime": hp["mu"].to(cfg.dtype),
+            "sigma": bayes_layer.sigma_of(hp).to(cfg.dtype)}
+
+
+def decode_hidden(params: dict, cache: dict, token, cfg: ModelConfig):
+    """One trunk decode step without the Bayesian head: token [B, 1] ->
+    (last hidden [B, D], new cache).  The new cache's k/v are a copy
+    with this step's entries written at ``pos``; ``pos`` advances by
+    one.  Honors ``cache["start"]`` (left-padded admissions)."""
+    _dense_only(cfg)
+    pos = int(cache["pos"])
+    start = cache.get("start")
+    h = _embed(params, token, cfg)                             # [B, 1, D]
+    rolling = (cfg.swa_window is not None
+               and cache["k"].shape[2] <= cfg.swa_window)
+    new_k, new_v = cache["k"].clone(), cache["v"].clone()
+    for l in range(cfg.n_layers):
+        h, _, _ = _block_decode(h, _layer(params["blocks"], l), cfg,
+                                new_k[l], new_v[l], pos, rolling,
+                                start=start)
+    h = _final_norm(h, params, cfg)
+    return h[:, 0], dict(cache, k=new_k, v=new_v, pos=pos + 1)
+
+
+def decode_step(params: dict, cache: dict, token, cfg: ModelConfig):
+    """One decode step: token [B, 1] -> (logit samples [R, B, Vp], new
+    cache).  The selection stream is indexed by decode position, so
+    every generated token sees fresh samples."""
+    pos = int(cache["pos"])
+    x, new_cache = decode_hidden(params, cache, token, cfg)
+    return apply_bayes_head(params, x, cfg, pos), new_cache
+
+
+def apply_bayes_head(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                     pos: int) -> torch.Tensor:
+    """R = ``cfg.uq_samples`` logit samples [R, B, Vp] of the Bayesian
+    head at decode position ``pos``: selections at stream indices
+    pos·R + r (uint32), through ``logit_samples`` (on the card the
+    rank16 head kernel)."""
+    from repro_torch.core.sampling import BayesHeadConfig, logit_samples
+    if not cfg.bayesian_head:
+        return (x @ params["head"]["w"].to(x.dtype))[None]
+    r = cfg.uq_samples
+    hcfg = BayesHeadConfig(num_samples=r, mode=cfg.head_mode, grng=cfg.grng,
+                           compute_dtype=cfg.dtype)
+    idx = as_u32(int(pos) * r + torch.arange(r, device=x.device))
+    sel = indexed_selections(cfg.grng.lfsr_seed, idx)
+    return logit_samples(_head_serving(params, cfg), x, hcfg, sel=sel)

@@ -1,6 +1,7 @@
-"""Adaptive-fidelity SAR serving (port of ``repro/serving``).
+"""Adaptive-fidelity serving (port of ``repro/serving``).
 
-  engine    continuous-batching scheduler (slots, admission, retirement)
+  engine    continuous-batching schedulers (slots, admission, retirement):
+            SarServingEngine (image patches), LMServingEngine (tokens)
   adaptive  incremental predictive stats + escalation stream
   triage    the paper's Fig. 1 accept / escalate / flag policy
   metrics   per-request latency, samples/decision, energy accounting
@@ -11,7 +12,8 @@ from repro_torch.serving.adaptive import (escalation_schedule, finalize,
                                           init_stats, stream_indices,
                                           stream_selections, update_stats,
                                           update_stats_streamed)
-from repro_torch.serving.engine import Request, SarServingEngine
+from repro_torch.serving.engine import (LMServingEngine, Request,
+                                        SarServingEngine)
 from repro_torch.serving.load import ArrivalSpec, run_open_loop
 from repro_torch.serving.metrics import (DecisionCost, RequestRecord,
                                          ServingMetrics, decision_cost,
@@ -22,7 +24,8 @@ from repro_torch.serving.triage import (ACCEPT, ESCALATE, FLAG,
                                         fixed_r_decide)
 
 __all__ = [
-    "ACCEPT", "ArrivalSpec", "DecisionCost", "ESCALATE", "FLAG", "Request",
+    "ACCEPT", "ArrivalSpec", "DecisionCost", "ESCALATE", "FLAG",
+    "LMServingEngine", "Request",
     "RequestRecord", "SarServingEngine", "ServingMetrics", "TriagePolicy",
     "decide", "decision_cost", "decision_energy", "decision_latency",
     "energy_terms", "escalation_schedule", "finalize", "fixed_r_decide",

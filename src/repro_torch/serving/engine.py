@@ -1,12 +1,15 @@
-"""Continuous-batching SAR triage engine (port of ``SarServingEngine``
-from ``repro/serving/engine.py``).
+"""Continuous-batching serving engines (port of ``SarServingEngine``
+and ``LMServingEngine`` from ``repro/serving/engine.py``).  Both run
+over one scheduler skeleton, ``_EngineBase``: the queue, the slots, the
+selection-stream bases, retirement into ``serving/metrics``, telemetry
+and the host instruments.
 
-A request is one aerial image patch.  A fixed pool of slots holds each
-in-flight request's rank-16 activation basis (computed once at
-admission) and its running predictive statistics; every escalation
-round draws ``r_step`` more samples per active slot, folds them into
-the statistics and re-runs the triage.  A slot retires the moment its
-verdict leaves ESCALATE and is refilled from the queue.
+``SarServingEngine``: a request is one aerial image patch.  A fixed
+pool of slots holds each in-flight request's rank-16 activation basis
+(computed once at admission) and its running predictive statistics;
+every escalation round draws ``r_step`` more samples per active slot,
+folds them into the statistics and re-runs the triage.  A slot retires
+the moment its verdict leaves ESCALATE and is refilled from the queue.
 
 One blocking device→host pull per ``step()``.  The reference runs its
 rounds in a device-resident ``lax.while_loop`` that exits when any
@@ -74,6 +77,28 @@ sar_rounds spans and a span per request on its slot's track.
 snapshot to the summary; ``compiled_cost_records`` gives each kernel's
 work at the live shapes (``obs/prof.compiled_cost``).  Slot sharding
 waits for a call with more than one GPU.
+
+``LMServingEngine``: token streams.  Slots share one decode clock (the
+KV cache's ``pos``, kept on the host), and a tick decides one token for
+every active slot: the rank-16 activation basis of each slot's hidden
+state at vocabulary width (no hoist, as the reference's), one whole
+escalation schedule through ``token_decision`` (the decision kernel
+with ``fused=True``), one blocking pull, retirement on FLAG or on
+ACCEPT at ``max_new_tokens``, then ``decode_hidden`` of the committed
+tokens into the next hidden states.  Admission prefills a batch of
+left-padded prompts; mid-stream (pool clock ahead of the prompt length
+by delta), the cached keys are rolled by delta and re-rotated by RoPE
+(``_rotate_k``: rotations compose additively), values rolled, and the
+per-slot ``start`` shifted, which is exact for RoPE trunks.  Where the
+reference scatters admission rows with ``mode="drop"`` past a sentinel
+slot, the port copies only the admitted rows (``index_copy_``).  The
+reference's first admission takes the prefill cache as the pool with
+its rows in request order while the requests take slots from the free
+list's end, so a request can decode against another's cache (ROADMAP
+C20); the port scatters the first admission's rows into their slots as
+it does every later one's.  On the card the engine's products run with
+TF32 off and bfloat16 products reduced in float32
+(``repro_torch.float32_math``).
 """
 
 from __future__ import annotations
@@ -87,7 +112,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import float32_math, resolve_device
 from repro_torch.core.bayes_layer import to_serving
 from repro_torch.core.lfsr import indexed_selections
 from repro_torch.core.sampling import (BayesHeadConfig, activation_basis,
@@ -107,18 +132,20 @@ from repro_torch.obs.telemetry import snapshot as telemetry_snapshot
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving import adaptive, triage
 from repro_torch.serving.metrics import RequestRecord, ServingMetrics
-from repro_torch.serving.triage import ESCALATE, TriagePolicy
+from repro_torch.serving.triage import ACCEPT, ESCALATE, FLAG, TriagePolicy
 
 
 @dataclasses.dataclass
 class Request:
-    """One unit of admission: an image [H, W, 1].  ``arrival_s`` is wall
-    clock; ``arrival_pc`` its monotonic ``perf_counter`` twin."""
+    """One unit of admission: an image [H, W, 1] (SAR) or a prompt [L]
+    of token ids (LM).  ``arrival_s`` is wall clock; ``arrival_pc`` its
+    monotonic ``perf_counter`` twin; ``max_new_tokens``: LM only."""
     rid: int
     payload: Any
     arrival_s: float = 0.0
     meta: dict = dataclasses.field(default_factory=dict)
     arrival_pc: float = 0.0
+    max_new_tokens: int = 8
 
 
 @dataclasses.dataclass
@@ -127,7 +154,7 @@ class _Slot:
     admit_s: float = 0.0              # perf_counter stamp at admission
     first_dispatch_s: float = 0.0     # first dispatch covering this slot
     n_samples: int = 0                # accumulated over the request
-    n_decisions: int = 0              # 1 once decided
+    n_decisions: int = 0              # tokens decided (LM) / 1 (SAR)
 
 
 def featurize(params, head: dict, images: torch.Tensor, cfg,
@@ -230,31 +257,15 @@ def _deploy_head(head: dict, device) -> dict:
             for k, v in head.items()}
 
 
-class SarServingEngine:
-    """Adaptive-fidelity victim/no-victim triage over an image stream.
+class _EngineBase:
+    """Queue and slot bookkeeping shared by both engines: the slots and
+    the free list, the admission queue, the selection-stream bases,
+    retirement into the metrics, the device telemetry and the host
+    instruments (module docstring); ``device``: None = the card (raises
+    without CUDA), "cpu" on purpose."""
 
-    ``params``: port params (``models.sar_cnn.init_sar_cnn`` or
-    ``bridge.params_from_jax``); ``head``/``hcfg``: a pre-deployed
-    serving head and its config (default: the golden head from
-    ``params``); ``chip``: a ``hw.ChipInstance`` whose nonideal CIM
-    arrays run the conv trunk; ``adaptive_mode=False`` runs the paper's
-    fixed-R dataflow (one r_max-sample round, decide); ``telemetry``:
-    True (a default ``TelemetryConfig``), a config, or False for none;
-    ``tracer``: an ``obs.trace.Tracer`` (None: none); ``profiler``: True
-    (a fresh ``StageProfiler``), a shared one, or False; ``slo``: True
-    (a tracker this engine owns and attaches to its summary), a shared
-    ``SloTracker`` (its owner attaches it), or False; ``trace_pid``: the
-    tracer's process track; ``device``: None = the card (raises without
-    CUDA), "cpu" on purpose.
-    """
-
-    def __init__(self, params, cfg, *, n_slots: int = 32,
-                 policy: TriagePolicy = TriagePolicy(),
-                 adaptive_mode: bool = True,
-                 metrics: ServingMetrics | None = None,
-                 head: dict | None = None,
-                 hcfg: BayesHeadConfig | None = None,
-                 chip=None, fused: bool = True,
+    def __init__(self, n_slots: int, policy: TriagePolicy,
+                 metrics: ServingMetrics | None,
                  telemetry: bool | TelemetryConfig = True, tracer=None,
                  profiler: bool | StageProfiler = True, slo=True,
                  trace_pid: int = 0, device=None):
@@ -269,27 +280,8 @@ class SarServingEngine:
         # Blocking device→host round trips on the decision path: one
         # per dispatch (the verdict pull).
         self.host_syncs = 0
-        # Escalation rounds launched, wasted ones after the exit included.
-        self.rounds_launched = 0
-        # Featurized admission batches (one trunk pass each).
+        # Admission batches (one featurize or prefill pass each).
         self.admissions = 0
-        self.cfg = cfg
-        self.adaptive_mode = adaptive_mode
-        self.fused = fused
-        self.hcfg = hcfg or BayesHeadConfig(
-            num_samples=policy.r_max, mode="rank16", grng=cfg.grng,
-            compute_dtype=torch.float32, hoist_basis=True)
-        self._params = _to_device(params, self.device)
-        self._head = (to_serving(self._params["head"], self.hcfg)
-                      if head is None else _deploy_head(head, self.device))
-        self._trunk = (None if chip is None
-                       else program_trunk(self._params, cfg, chip))
-        self.r_step = policy.r_min if adaptive_mode else policy.r_max
-        self.max_rounds = (math.ceil(policy.r_max / self.r_step)
-                           if adaptive_mode else 1)
-        self.pool: dict | None = None
-        self.stats: dict | None = None
-        self.base: np.ndarray | None = None
         # device-resident telemetry, read only by telemetry_snapshot()
         if telemetry is True:
             telemetry = TelemetryConfig()
@@ -337,6 +329,119 @@ class SarServingEngine:
                         self._decision_counter + count, dtype=np.uint32)
         self._decision_counter += count
         return ids * np.uint32(self.policy.r_max)
+
+    # -- retirement -----------------------------------------------------
+    def _retire(self, slot_idx: int, verdict: int, fin: dict,
+                verdict_s: float = float("nan")) -> None:
+        slot = self.slots[slot_idx]
+        req = slot.req
+        now = time.perf_counter()
+        self.metrics.mark(now)
+        rec = RequestRecord(
+            rid=req.rid, verdict=int(verdict), n_samples=slot.n_samples,
+            n_decisions=max(slot.n_decisions, 1),
+            arrival_s=req.arrival_s, admit_s=slot.admit_s, done_s=now,
+            prediction=int(fin["prediction"][slot_idx]),
+            confidence=float(fin["confidence"][slot_idx]),
+            mutual_information=float(fin["mutual_information"][slot_idx]),
+            arrival_pc=req.arrival_pc,
+            first_dispatch_s=slot.first_dispatch_s or float("nan"),
+            verdict_s=verdict_s)
+        self.metrics.record(rec)
+        self.slo.observe(rec)
+        if self.tracer.enabled:
+            start = slot.admit_s - self.tracer.t0
+            self.tracer.complete(
+                f"req {req.rid}", start, now - slot.admit_s,
+                tid=slot_idx + 1, pid=self.trace_pid, verdict=int(verdict),
+                n_samples=slot.n_samples,
+                n_decisions=max(slot.n_decisions, 1))
+        slot.req = None
+        slot.n_samples = slot.n_decisions = 0
+        slot.first_dispatch_s = 0.0
+        self.free.append(slot_idx)
+
+    def _stamp_first_dispatch(self, active) -> None:
+        """Stamp the slots this dispatch covers for the first time
+        (host clock, before the dispatch's launches)."""
+        now = time.perf_counter()
+        for i in np.nonzero(active)[0]:
+            if self.slots[i].first_dispatch_s == 0.0:
+                self.slots[i].first_dispatch_s = now
+
+    def telemetry_snapshot(self) -> dict | None:
+        """The device telemetry on the host (one pull); None without."""
+        if self._telem is None:
+            return None
+        return telemetry_snapshot(self._telem, self.tcfg)
+
+    def _attach_perf(self) -> None:
+        """Attach the stage profile and the process's build counters
+        (``stage_profile``/``compile_counters``), and the SLO snapshot
+        when this engine owns its tracker."""
+        self.metrics.attach_profile(self.profiler.snapshot() or None,
+                                    prof.compile_counters())
+        if self._own_slo:
+            self.metrics.attach_slo(self.slo.snapshot())
+
+    def drain(self) -> dict:
+        """Attach the telemetry, profile and SLO snapshots and build the
+        summary."""
+        if self._telem is not None:
+            self.metrics.attach_telemetry(self.telemetry_snapshot())
+        self._attach_perf()
+        return self.metrics.summary()
+
+
+class SarServingEngine(_EngineBase):
+    """Adaptive-fidelity victim/no-victim triage over an image stream.
+
+    ``params``: port params (``models.sar_cnn.init_sar_cnn`` or
+    ``bridge.params_from_jax``); ``head``/``hcfg``: a pre-deployed
+    serving head and its config (default: the golden head from
+    ``params``); ``chip``: a ``hw.ChipInstance`` whose nonideal CIM
+    arrays run the conv trunk; ``adaptive_mode=False`` runs the paper's
+    fixed-R dataflow (one r_max-sample round, decide); ``telemetry``:
+    True (a default ``TelemetryConfig``), a config, or False for none;
+    ``tracer``: an ``obs.trace.Tracer`` (None: none); ``profiler``: True
+    (a fresh ``StageProfiler``), a shared one, or False; ``slo``: True
+    (a tracker this engine owns and attaches to its summary), a shared
+    ``SloTracker`` (its owner attaches it), or False; ``trace_pid``: the
+    tracer's process track; ``device``: None = the card (raises without
+    CUDA), "cpu" on purpose.
+    """
+
+    def __init__(self, params, cfg, *, n_slots: int = 32,
+                 policy: TriagePolicy = TriagePolicy(),
+                 adaptive_mode: bool = True,
+                 metrics: ServingMetrics | None = None,
+                 head: dict | None = None,
+                 hcfg: BayesHeadConfig | None = None,
+                 chip=None, fused: bool = True,
+                 telemetry: bool | TelemetryConfig = True, tracer=None,
+                 profiler: bool | StageProfiler = True, slo=True,
+                 trace_pid: int = 0, device=None):
+        super().__init__(n_slots, policy, metrics, telemetry, tracer,
+                         profiler, slo, trace_pid, device)
+        # Escalation rounds launched, wasted ones after the exit included.
+        self.rounds_launched = 0
+        self.cfg = cfg
+        self.adaptive_mode = adaptive_mode
+        self.fused = fused
+        self.hcfg = hcfg or BayesHeadConfig(
+            num_samples=policy.r_max, mode="rank16", grng=cfg.grng,
+            compute_dtype=torch.float32, hoist_basis=True)
+        self._params = _to_device(params, self.device)
+        self._head = (to_serving(self._params["head"], self.hcfg)
+                      if head is None else _deploy_head(head, self.device))
+        self._trunk = (None if chip is None
+                       else program_trunk(self._params, cfg, chip))
+        self.r_step = policy.r_min if adaptive_mode else policy.r_max
+        self.max_rounds = (math.ceil(policy.r_max / self.r_step)
+                           if adaptive_mode else 1)
+        self.pool: dict | None = None
+        self.stats: dict | None = None
+        self.base: np.ndarray | None = None
 
     # -- lifetime -------------------------------------------------------
     def swap_head(self, head: dict, hcfg: BayesHeadConfig) -> None:
@@ -448,36 +553,6 @@ class SarServingEngine:
         return verdict, fin, rounds
 
     # -- retirement -----------------------------------------------------
-    def _retire(self, slot_idx: int, verdict: int, fin: dict,
-                verdict_s: float = float("nan")) -> None:
-        slot = self.slots[slot_idx]
-        req = slot.req
-        now = time.perf_counter()
-        self.metrics.mark(now)
-        rec = RequestRecord(
-            rid=req.rid, verdict=int(verdict), n_samples=slot.n_samples,
-            n_decisions=max(slot.n_decisions, 1),
-            arrival_s=req.arrival_s, admit_s=slot.admit_s, done_s=now,
-            prediction=int(fin["prediction"][slot_idx]),
-            confidence=float(fin["confidence"][slot_idx]),
-            mutual_information=float(fin["mutual_information"][slot_idx]),
-            arrival_pc=req.arrival_pc,
-            first_dispatch_s=slot.first_dispatch_s or float("nan"),
-            verdict_s=verdict_s)
-        self.metrics.record(rec)
-        self.slo.observe(rec)
-        if self.tracer.enabled:
-            start = slot.admit_s - self.tracer.t0
-            self.tracer.complete(
-                f"req {req.rid}", start, now - slot.admit_s,
-                tid=slot_idx + 1, pid=self.trace_pid, verdict=int(verdict),
-                n_samples=slot.n_samples,
-                n_decisions=max(slot.n_decisions, 1))
-        slot.req = None
-        slot.n_samples = slot.n_decisions = 0
-        slot.first_dispatch_s = 0.0
-        self.free.append(slot_idx)
-
     def _retire_decided(self, active, verdict, fin, spent: int,
                         verdict_s: float = float("nan")) -> int:
         """Charge samples to every active slot, retire those whose
@@ -491,14 +566,6 @@ class SarServingEngine:
                 self._retire(i, verdict[i], fin, verdict_s)
                 retired += 1
         return retired
-
-    def _stamp_first_dispatch(self, active) -> None:
-        """Stamp the slots this dispatch covers for the first time
-        (host clock, before the dispatch's launches)."""
-        now = time.perf_counter()
-        for i in np.nonzero(active)[0]:
-            if self.slots[i].first_dispatch_s == 0.0:
-                self.slots[i].first_dispatch_s = now
 
     # -- main loop ------------------------------------------------------
     def start(self) -> None:
@@ -546,29 +613,6 @@ class SarServingEngine:
             self._retire_decided(active, packed[:b].astype(np.int32),
                                  host_fin, spent, verdict_s=t_verdict)
         return True
-
-    def telemetry_snapshot(self) -> dict | None:
-        """The device telemetry on the host (one pull); None without."""
-        if self._telem is None:
-            return None
-        return telemetry_snapshot(self._telem, self.tcfg)
-
-    def _attach_perf(self) -> None:
-        """Attach the stage profile and the process's build counters
-        (``stage_profile``/``compile_counters``), and the SLO snapshot
-        when this engine owns its tracker."""
-        self.metrics.attach_profile(self.profiler.snapshot() or None,
-                                    prof.compile_counters())
-        if self._own_slo:
-            self.metrics.attach_slo(self.slo.snapshot())
-
-    def drain(self) -> dict:
-        """Attach the telemetry, profile and SLO snapshots and build the
-        summary."""
-        if self._telem is not None:
-            self.metrics.attach_telemetry(self.telemetry_snapshot())
-        self._attach_perf()
-        return self.metrics.summary()
 
     def run(self, max_ticks: int = 100_000) -> dict:
         self.start()
@@ -625,4 +669,284 @@ class SarServingEngine:
                     launches=int(on_card), per="admission",
                     shape=f"trunk{i}: M={m} K={k} N={cout}",
                     plan=launch_plan(m, k, cout)._asdict()))
+        return recs
+
+
+# ----------------------------------------------------------------------
+# LM token-stream engine
+# ----------------------------------------------------------------------
+def _rotate_k(k: torch.Tensor, delta: int, theta: float) -> torch.Tensor:
+    """Re-base cached RoPE'd keys [..., Sc, H, dh] by ``delta``
+    positions: rotations about a fixed plane compose additively, so
+    R_Δ(R_i·k) = R_{i+Δ}·k."""
+    from repro_torch.models.blocks import apply_rope
+    flat = k.reshape((-1,) + tuple(k.shape[-3:]))
+    pos = torch.full(flat.shape[:2], delta, dtype=torch.int32,
+                     device=k.device)
+    return apply_rope(flat, pos, theta).reshape(k.shape)
+
+
+class LMServingEngine(_EngineBase):
+    """Continuous-batching LM decode with adaptive per-token fidelity
+    (module docstring).
+
+    ``params``: port params of the model (``models.transformer.
+    init_transformer`` or ``bridge.lm_params_from_jax``), moved to the
+    engine's device; ``cfg``: its ``ModelConfig`` (dense family);
+    ``n_slots`` slots of prompts left-padded to ``prompt_len`` in a
+    linear KV cache of ``cache_len``; ``adaptive_mode=False`` draws
+    r_max samples a token in one round; ``fused=False`` folds rounds
+    through ``mix_samples`` + ``update_stats`` instead of the decision
+    kernel.  The other arguments are the SAR engine's.  One blocking
+    pull a token (``host_syncs``); ``ticks`` counts the decode ticks.
+    """
+
+    def __init__(self, params, cfg, *, n_slots: int = 4,
+                 prompt_len: int = 16, cache_len: int = 64,
+                 policy: TriagePolicy = TriagePolicy(),
+                 adaptive_mode: bool = True,
+                 metrics: ServingMetrics | None = None, fused: bool = True,
+                 telemetry: bool | TelemetryConfig = True, tracer=None,
+                 profiler: bool | StageProfiler = True, slo=True,
+                 trace_pid: int = 0, device=None):
+        super().__init__(n_slots, policy, metrics, telemetry, tracer,
+                         profiler, slo, trace_pid, device)
+        from repro_torch.models.registry import get_api
+        from repro_torch.models.transformer import _head_serving
+        assert cfg.bayesian_head, "adaptive serving needs the Bayesian head"
+        if cfg.swa_window is not None and cache_len > cfg.swa_window:
+            raise ValueError(
+                f"cache_len={cache_len} exceeds swa_window="
+                f"{cfg.swa_window}: the rolling-cache decode path does "
+                "not support continuous-batching admission; use "
+                f"cache_len <= {cfg.swa_window} or a non-SWA arch")
+        self.cfg = cfg
+        self.adaptive_mode = adaptive_mode
+        self.fused = fused
+        self.prompt_len = prompt_len
+        self.cache_len = cache_len
+        # mid-stream admission re-bases keys by a uniform RoPE rotation;
+        # other trunks wait for the pool to drain (delta = 0)
+        self.midstream_ok = bool(cfg.use_rope) and not cfg.learned_pos
+        self._api = get_api(cfg)
+        self._params = _to_device(params, self.device)
+        self.hcfg = BayesHeadConfig(
+            num_samples=policy.r_max, mode="rank16", grng=cfg.grng,
+            compute_dtype=cfg.dtype, hoist_basis=False)
+        self._head = _head_serving(self._params, cfg)
+        self.schedule = (adaptive.escalation_schedule(policy)
+                         if adaptive_mode else (policy.r_max,))
+        self.vocab_padded = cfg.vocab_padded
+        self.ticks = 0
+        self.cache: dict | None = None
+        self.token: torch.Tensor | None = None
+        self.hidden: torch.Tensor | None = None
+        self.base: np.ndarray | None = None
+
+    # -- the model ------------------------------------------------------
+    def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor):
+        return self._api.prefill(self._params, tokens, self.cfg,
+                                 cache_len=self.cache_len,
+                                 prompt_lengths=lengths)
+
+    def decode(self, cache: dict, token: torch.Tensor):
+        return self._api.decode_hidden(self._params, cache, token, self.cfg)
+
+    def basis(self, hidden: torch.Tensor) -> dict:
+        """The rank-16 activation basis of the slots' hidden states in
+        float32 against the cfg.dtype head (products promoted)."""
+        return activation_basis(self._head, hidden.to(torch.float32),
+                                self.hcfg)
+
+    # -- admission ------------------------------------------------------
+    def _pad_prompt(self, tokens) -> tuple[np.ndarray, int]:
+        tokens = np.asarray(tokens, np.int32)[-self.prompt_len:]
+        length = tokens.shape[0]
+        if length < self.prompt_len:
+            tokens = np.concatenate(
+                [np.zeros((self.prompt_len - length,), np.int32), tokens])
+        return tokens, length
+
+    def _align_scatter(self, new: dict, idx: torch.Tensor, take: int,
+                       delta: int) -> None:
+        """Copy the ``take`` admitted rows of a prefill cache into the
+        pool's slots ``idx``, in place, re-based to the pool clock: k
+        rolled by ``delta`` along the cache and re-rotated, v rolled,
+        ``start`` shifted by ``delta``."""
+        for key, leaf in self.cache.items():
+            if key == "pos":
+                continue
+            nw = new[key]
+            if key == "start":
+                leaf.index_copy_(0, idx, nw[:take] + delta)
+                continue
+            rows = nw[:, :take]
+            if key in ("k", "v") and delta:
+                rows = torch.roll(rows, delta, dims=2)
+                if key == "k" and self.cfg.use_rope:
+                    rows = _rotate_k(rows, delta, self.cfg.rope_theta)
+            leaf.index_copy_(1, idx, rows)
+
+    def _admit(self) -> None:
+        if not self.queue:
+            return
+        pos = self.cache["pos"] if self.cache is not None else \
+            self.prompt_len
+        # FIFO admission with a per-request capacity bound: a request
+        # admitted at clock ``pos`` writes cache entries up to
+        # pos + max_new_tokens - 1; the first that would overflow waits
+        # for the pool to drain and rebase.
+        if self.prompt_len + self.queue[0].max_new_tokens > self.cache_len:
+            bad = self.queue[0]
+            raise ValueError(
+                f"request {bad.rid}: max_new_tokens={bad.max_new_tokens} "
+                f"cannot fit even a fresh pool (prompt_len="
+                f"{self.prompt_len}, cache_len={self.cache_len})")
+        if self.cache is not None and pos > self.prompt_len \
+                and not self.midstream_ok:
+            return
+        reqs = []
+        while (self.queue and len(reqs) < len(self.free)
+               and pos + self.queue[0].max_new_tokens <= self.cache_len):
+            reqs.append(self.queue.popleft())
+        take = len(reqs)
+        if take == 0:
+            return
+        with self.profiler.span("admission"):
+            toks = np.zeros((self.n_slots, self.prompt_len), np.int32)
+            lens = np.full((self.n_slots,), self.prompt_len, np.int32)
+            for j, r in enumerate(reqs):
+                toks[j], lens[j] = self._pad_prompt(r.payload)
+            # prefill is the LM engine's featurize
+            with self.tracer.span("prefill", pid=self.trace_pid,
+                                  n_admitted=take), \
+                    self.profiler.span("featurize"):
+                new_cache, last_h = self.prefill(
+                    torch.as_tensor(toks, device=self.device),
+                    torch.as_tensor(lens, device=self.device))
+            self.admissions += 1
+            now = time.perf_counter()
+            taken = []
+            for req in reqs:
+                s = self.free.pop()
+                taken.append(s)
+                self.slots[s].req = req
+                self.slots[s].admit_s = now
+            idx = torch.as_tensor(taken, dtype=torch.int64,
+                                  device=self.device)
+            if self.cache is None:          # a fresh (or rebased) pool
+                self.cache = {k: v.clone() if torch.is_tensor(v) else v
+                              for k, v in new_cache.items()}
+                self.hidden = torch.zeros(
+                    (self.n_slots, last_h.shape[-1]), dtype=last_h.dtype,
+                    device=self.device)
+                self._align_scatter(new_cache, idx, take, 0)
+            else:
+                self._align_scatter(new_cache, idx, take,
+                                    pos - self.prompt_len)
+            # the prefill hidden decides each admitted slot's first token
+            self.hidden.index_copy_(0, idx,
+                                    last_h[:take].to(self.hidden.dtype))
+            self.metrics.mark(now)
+
+    # -- main loop ------------------------------------------------------
+    def _tick(self) -> None:
+        """Decide one token for every active slot (one dispatch, one
+        pull), retire, then decode the committed tokens."""
+        active = self.active_mask()
+        self._stamp_first_dispatch(active)
+        t_disp = self.tracer.now()
+        with self.profiler.span("dispatch"):
+            abasis = self.basis(self.hidden)
+            self.base = self._next_bases(self.n_slots)
+            out = token_decision(
+                abasis, torch.as_tensor(self.base.astype(np.int64),
+                                        device=self.device),
+                torch.as_tensor(active, device=self.device),
+                hcfg=self.hcfg, policy=self.policy,
+                adaptive_mode=self.adaptive_mode, schedule=self.schedule,
+                fused=self.fused, telem=self._telem, tcfg=self.tcfg)
+            verdict, fin, spent = out[:3]
+            self.token = fin["prediction"].to(torch.int64)[:, None]
+            # verdict, token, confidence, mutual information and samples
+            # spent in one tensor (float64 holds each exactly)
+            packed = torch.stack([
+                verdict.double(), fin["prediction"].double(),
+                fin["confidence"].double(),
+                fin["mutual_information"].double(), spent.double()])
+        with self.profiler.span("triage_loop"):   # the one blocking pull
+            packed = packed.cpu().numpy()
+        self.host_syncs += 1
+        t_verdict = time.perf_counter()
+        verdict = packed[0].astype(np.int32)
+        spent = packed[4].astype(np.int64)
+        host_fin = {"prediction": packed[1].astype(np.int64),
+                    "confidence": packed[2],
+                    "mutual_information": packed[3]}
+        if self.tracer.enabled:
+            self.tracer.complete(
+                "lm_token", t_disp, self.tracer.now() - t_disp,
+                pid=self.trace_pid, n_active=int(active.sum()),
+                samples=int(spent[active].sum()))
+        with self.profiler.span("retirement"):
+            for i in np.nonzero(active)[0]:
+                slot = self.slots[i]
+                slot.n_samples += int(spent[i])
+                slot.n_decisions += 1
+                done = slot.n_decisions >= slot.req.max_new_tokens
+                if verdict[i] == FLAG or (verdict[i] == ACCEPT and done):
+                    self._retire(i, verdict[i], host_fin, t_verdict)
+        if self.n_active == 0 and not self.queue:
+            return
+        with self.profiler.span("dispatch"):  # the pool clock advances
+            self.hidden, self.cache = self.decode(self.cache, self.token)
+
+    def run(self, max_ticks: int = 10_000) -> dict:
+        """Tick until the queue and the pool are empty; the first token
+        of every request comes from its prefill hidden state, so each
+        prompt token enters the KV cache once.  Returns the summary."""
+        self.base = np.zeros((self.n_slots,), np.uint32)
+        with float32_math():
+            for _ in range(max_ticks):
+                self._admit()
+                if self.n_active == 0:
+                    if not self.queue:
+                        break
+                    self.cache = None                  # rebase the pool
+                    continue
+                self.ticks += 1
+                self._tick()
+                if self.n_active == 0 and not self.queue:
+                    break
+        return self.drain()
+
+    # -- cost records (profiling path only) -----------------------------
+    def compiled_cost_records(self) -> list[dict]:
+        """The decision kernel's ``obs/prof.compiled_cost`` records at
+        the live shapes (B = n_slots, N = the padded vocabulary, every
+        slot active): one per distinct launch piece of the escalation
+        schedule (rounds cut at 64 samples), with its launches a token
+        dispatch (0 off the card or with ``fused=False``).  Reads shapes
+        only."""
+        if self.hidden is None:
+            raise RuntimeError(
+                "compiled_cost_records needs live shapes: run the "
+                "engine (or admit once) first")
+        on_card = self.device.type == "cuda"
+        b, n = self.n_slots, self.vocab_padded
+        grng = self.hcfg.grng
+        pieces = [min(MAX_SAMPLES, r - r0) for r in self.schedule
+                  for r0 in range(0, r, MAX_SAMPLES)]
+        recs = []
+        for r in sorted(set(pieces)):
+            work = bounds.decision_work(
+                b, n, r, b, sel_per_slot=True, read_sigma=grng.read_sigma,
+                idx_per_slot=True)
+            recs.append(prof.compiled_cost(
+                f"lm_token/r{r}", work, kernel="decision_stats",
+                source="src/repro_torch/kernels/csrc/decision.cu",
+                launches=(pieces.count(r) if on_card and self.fused
+                          else 0),
+                shape=f"B={b} N={n} R={r}, every slot active",
+                plan=decision_plan(n, r)._asdict()))
         return recs

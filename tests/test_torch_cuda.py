@@ -48,6 +48,10 @@ card against CPU (the same advisories, heals and ``calib_epoch``;
 verdicts equal unless the two trunks differ by an ADC code, ROADMAP
 C9); an aged mission's segments under ``set_sync_debug_mode("error")``
 with one sync a segment.
+The dense LM: the decision kernel at N = 152,064 (qwen3-0.6b's padded
+vocabulary) against its plain version, rtol 1e-4 with absolute floors
+scaled to a uniform distribution's entries (stated in the test); the
+SMOKE config's engine in float32 on the card against the CPU.
 Observability: the engine's cost records against the launches the
 wrappers count (the same verdicts and syncs with the instruments on and
 off), and ``trace_capture``'s trace holding every decision and CIM
@@ -837,3 +841,70 @@ def test_trace_capture_names_the_kernels(hopper, tmp_path):
         decision_stats.launches > 0
     assert sum("cim_mvm_kernel" in n for n in names) == \
         cim_mvm.launches > 0
+
+
+# ----------------------------------------------------------------------
+# the dense LM at vocabulary width
+# ----------------------------------------------------------------------
+LM_N = 152064            # qwen3-0.6b's padded vocabulary
+
+
+@pytest.mark.parametrize("r", [4, 20])
+@pytest.mark.parametrize("read_sigma", [0.0, 0.4])
+def test_decision_kernel_at_vocabulary_width(hopper, r, read_sigma):
+    """The streaming variant at N = 152,064 against its plain version.
+    A sum_p entry is ~R/N here, so atol 1e-5 would pass a 10 % error:
+    rtol 1e-4 with absolute floors of 1e-4 × R/N (sum_p), × R/N²
+    (sum_psq) and × R (the entropies)."""
+    args = _case(hopper, 4, LM_N, r, read_sigma)
+    before = decision_stats.launches
+    got = decision_stats(**args)
+    want = decision_stats_plain(**args)
+    torch.cuda.synchronize()
+    assert decision_stats.launches == before + 1
+    floors = {"sum_p": r / LM_N, "sum_psq": r / LM_N**2, "sum_ent": r,
+              "sum_entsq": r}
+    for key in KEYS:
+        torch.testing.assert_close(got[key], want[key], rtol=1e-4,
+                                   atol=1e-4 * floors[key], msg=key)
+    assert bool((got["sum_p"][~args["mask"]] == 0).all())
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_lm_engine_smoke_card_against_cpu(hopper, adaptive):
+    """qwen3-0.6b's SMOKE config in float32 served on the card (the
+    decision kernel) and on the CPU (its plain version) from the same
+    params and prompts, accepting every token (adaptive: 4 samples a
+    token; fixed: R = 20): the same verdicts, tokens, samples and token
+    counts, confidence and MI within 1e-5 (ROADMAP C6).  An escalating
+    policy is not held to equality here: a standard error that differs
+    by C6's ~1e-5 can move a decision at its threshold by a round."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import params_init, serve
+    from repro_torch.serving import TriagePolicy
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", smoke=True),
+                              dtype=torch.float32)
+    params = params_init(cfg, 0, "cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        before = decision_stats.launches
+        outs[dev] = serve("qwen3-0.6b", cfg=cfg, params=params, device=dev,
+                          batch=2, prompt_len=8, gen_len=3, n_requests=3,
+                          adaptive=adaptive,
+                          policy=TriagePolicy(conf_threshold=0.0,
+                                              mi_threshold=1e9, r_min=4,
+                                              r_max=20))
+        launched = decision_stats.launches - before
+        assert (launched > 0) == (dev == "cuda")
+    got = sorted(outs["cuda"]["verdicts"], key=lambda v: v["rid"])
+    want = sorted(outs["cpu"]["verdicts"], key=lambda v: v["rid"])
+    assert [(v["rid"], v["verdict"], v["prediction"], v["n_samples"],
+             v["n_tokens"]) for v in got] == \
+        [(v["rid"], v["verdict"], v["prediction"], v["n_samples"],
+          v["n_tokens"]) for v in want]
+    for a, b in zip(got, want):
+        assert abs(a["confidence"] - b["confidence"]) <= 1e-5
+        assert abs(a["mutual_information"]
+                   - b["mutual_information"]) <= 1e-5
+    assert outs["cuda"]["host_syncs"] == outs["cpu"]["host_syncs"]
