@@ -162,8 +162,8 @@ JSON line):
      run's median), the decision kernel's launches zeroed before each
      run and asserted = ticks × launches a schedule after, one host
      sync a tick; the decision kernel against its plain version on one
-     live token decision's operands at R = 4, 8, 20 and with read_sigma
-     = 0.4 (rtol 1e-4, absolute floors 1e-4 × R/N, R/N², R), two
+     live token decision's operands at R = 1, 4, 8, 20, 64 and with
+     read_sigma = 0.4 (rtol 1e-4, absolute floors 1e-4 × R/N, R/N², R), two
      launches bit for bit; rank16 on one decode_step (1e-4, one
      launch); a tick's basis / decision / decode ms; the SMOKE config
      on the card against the CPU (f32, TF32 off: accept-always and
@@ -239,7 +239,10 @@ FIG9 = dict(n_rows=256, n_cols=256, num_samples=8)
 # the ``previous_design`` line, apart from this run's measurements; the
 # old kernels are not timed here.
 DESIGN = {"decision_stats": "small-N variant: a thread per (sample, class) "
-                            "pair; streaming passes for N > 32",
+                            "pair; tiled variant for N > 32: tiles of "
+                            "128-512 columns x slots, each tile's (max, S1, "
+                            "S2) a sample, a merge a slot (lse and entropy), "
+                            "then the column sums: three kernels",
           "cim_mvm": "tiles to the shape; chunks split over a thread-block "
                      "cluster, folded in order",
           "grng_eps": "two cells a thread (rows k, k + 8), 32 columns by 16 "
@@ -255,6 +258,11 @@ DESIGN = {"decision_stats": "small-N variant: a thread per (sample, class) "
                         "loops its sample chunks over the kept currents"}
 PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PREV_DECISION_MS = {"main_r4": 0.00399, "main_r20": 0.0104}
+# the small-N variant at the SAR shapes and the streaming wide-N variant
+# at the LM's (B 4, N 152,064) in PR 25's final run (PERF.md §6)
+PR25_DECISION_MS = {"main_r4": 0.0033146560192108153,
+                    "main_r20": 0.003542464017868042,
+                    "lm_r4": 11.225823720296225, "lm_r20": 51.25464375813802}
 PREV_CIM_MS = {"trunk0": 0.00707, "trunk1": 0.0118, "trunk2": 0.0186}
 # the head kernels' first design, by R at kernel_bench's head and at the
 # UQ path's shape (PERF.md §6)
@@ -383,13 +391,16 @@ def decision_check(name: str, args: dict, spec: dict) -> float:
     masked = ~args["mask"]
     check(bool((got["sum_p"][masked] == 0).all()),
           f"masked slots advanced: {name}")
+    n, r = args["y_mu"].shape[1], args["sel"].shape[0]
+    rel = relative_errors(name, got, want, r, n) if n > 32 else None
     again = decision_stats(**args)
     torch.cuda.synchronize()
     identical = all(torch.equal(got[k], again[k]) for k in STAT_KEYS)
     check(identical, f"two launches differ: {name}")
     emit({"kernel_check": "decision_stats", "case": name, **spec,
           "max_abs_err": err, "rtol": TOL["rtol"], "atol": TOL["atol"],
-          "bit_identical_relaunch": identical})
+          "bit_identical_relaunch": identical,
+          **({"relative": {"rtol": LM_RTOL, "errors": rel}} if rel else {})})
     return err
 
 
@@ -405,6 +416,9 @@ def run_kernel_checks() -> tuple[float, dict]:
                                   row_offset=77),
         "shared_sel_r64": dict(b=5, n=130, r=64, read_sigma=0.4,
                                shared_sel=True),
+        "wide_n4097": dict(b=4, n=4097, r=20, read_sigma=0.4,
+                           row_offset=500),
+        "wide_n50280": dict(b=4, n=50280, r=20),
     }
     worst = 0.0
     inputs = {}
@@ -424,7 +438,7 @@ def run_kernel_checks() -> tuple[float, dict]:
 
 
 def shared_sel_repeat(args: dict) -> dict:
-    """The shared_sel_r64 case (streaming variant, read noise, one
+    """The shared_sel_r64 case (tiled variant, read noise, one
     selection row shared by the slots) relaunched SHARED_SEL_REPEATS
     times: every launch bit for bit equal to the first, and within TOL
     of the plain version, itself run as often and held to its first
@@ -3265,7 +3279,7 @@ LM = dict(arch="qwen3-0.6b", batch=4, prompt_len=16, gen_len=8,
           n_requests=8, seed=0)
 LM_ACCEPT = dict(conf_threshold=0.0, mi_threshold=1e9, r_min=4, r_max=8)
 LM_FIXED = dict(LM_ACCEPT, r_max=20)        # adaptive=False: R = 20
-LM_DECISION_R = (4, 8, 20)
+LM_DECISION_R = (1, 4, 8, 20, 64)
 LM_READ_SIGMA = 0.4
 # the decision kernel at vocabulary width: a sum_p entry is ~R/N, so the
 # tolerance is relative (LM_RTOL) with absolute floors scaled to the
@@ -3287,6 +3301,25 @@ TOL_HEAD = dict(rtol=1e-4, atol=1e-4)       # as the head kernels' checks
 def lm_decision_atol(key: str, r: int, n: int) -> float:
     return LM_FLOOR * {"sum_p": r / n, "sum_psq": r / n**2,
                        "sum_ent": r, "sum_entsq": r}[key]
+
+
+def relative_errors(name: str, got: dict, want: dict, r: int,
+                    n: int) -> dict:
+    """Each statistic held to its plain version at LM_RTOL with the
+    absolute floors of ``lm_decision_atol``; -> the errors by key."""
+    import torch
+    errs = {}
+    for key in STAT_KEYS:
+        atol = lm_decision_atol(key, r, n)
+        diff = (got[key] - want[key]).abs()
+        errs[key] = {"max_abs_err": float(diff.max()),
+                     "max_rel_err": float((diff / want[key].abs().clamp_min(
+                         atol)).max()),
+                     "atol": atol}
+        check(torch.allclose(got[key], want[key], rtol=LM_RTOL, atol=atol),
+              f"{name}: {key} off its plain version by "
+              f"{errs[key]['max_abs_err']} (rtol {LM_RTOL}, atol {atol})")
+    return errs
 
 
 def lm_pieces(schedule) -> int:
@@ -3402,17 +3435,8 @@ def lm_decision_check(name: str, args: dict) -> dict:
     check(decision_stats.launches == before + 2,
           f"{name}: the decision kernel did not launch")
     n, r = args["y_mu"].shape[1], args["sel"].shape[0]
-    errs = {}
+    errs = relative_errors(name, got, want, r, n)
     for key in STAT_KEYS:
-        atol = lm_decision_atol(key, r, n)
-        diff = (got[key] - want[key]).abs()
-        errs[key] = {"max_abs_err": float(diff.max()),
-                     "max_rel_err": float((diff / want[key].abs().clamp_min(
-                         atol)).max()),
-                     "atol": atol}
-        check(torch.allclose(got[key], want[key], rtol=LM_RTOL, atol=atol),
-              f"{name}: {key} off its plain version by "
-              f"{errs[key]['max_abs_err']} (rtol {LM_RTOL}, atol {atol})")
         check(torch.equal(got[key], again[key]),
               f"{name}: two launches differ in {key}")
     row = {"kernel_check": "decision_stats", "case": name, "B": int(
@@ -3426,7 +3450,7 @@ def lm_decision_check(name: str, args: dict) -> dict:
 def lm_kernel_checks(cfg, params) -> dict:
     """The two kernels of the LM path at vocabulary width against their
     plain versions: decision.cu on one live token decision's operands
-    (the admitted prompts' basis) at R = 4, 8, 20, and at R = 20 with
+    (the admitted prompts' basis) at R = 1, 4, 8, 20, 64, and at R = 20 with
     read_sigma = 0.4 at the same shape; bayes_mvm.cu rank16 on one
     decode_step (K 1,024 × N 152,064, R = uq_samples)."""
     import dataclasses
@@ -3756,7 +3780,7 @@ def lm_timing(lm: dict) -> dict:
     from repro_torch.kernels.bayes import (bayes_rank16, bayes_rank16_plain,
                                            head_plan)
     from repro_torch.kernels.bounds import head_bound
-    from repro_torch.kernels.decision import (decision_stats,
+    from repro_torch.kernels.decision import (decision_plan, decision_stats,
                                               decision_stats_plain)
     out = {"decision": {}, "rank16": {}}
     for key in ("r4", "r20"):
@@ -3764,11 +3788,18 @@ def lm_timing(lm: dict) -> dict:
         t = timed(lambda: decision_stats(**args),
                   lambda: decision_stats_plain(**args))
         w = decision_args_work(args)
+        b, n = args["y_mu"].shape
         out["decision"][key] = {**t, **{k: w[k] for k in (
-            "bound_ms", "bound_by", "bound_bytes", "bound_ops")}}
+            "bound_ms", "bound_by", "bound_bytes", "bound_ops")},
+            "plan": decision_plan(n, args["sel"].shape[0], b)._asdict()}
+        out["decision"][key]["pr25_ms"] = PR25_DECISION_MS[f"lm_{key}"]
         emit({"timing": f"decision_stats_lm_{key}", "B": int(
             args["y_mu"].shape[0]), "N": int(args["y_mu"].shape[1]),
             **out["decision"][key]})
+        check(t["ms"] < t["plain_ms"],
+              f"decision_stats_lm_{key}: the kernel ({t['ms']} ms) is not "
+              f"faster than its plain version ({t['plain_ms']} ms)")
+    out["decision_plans"] = decision_plan_sweep(lm["checks"]["ops"]["r20"])
     c = lm["checks"]["head_case"]
     t = timed(lambda: bayes_rank16(c["x"], c["mu"], c["sigma"], c["sel"],
                                    c["grng"]),
@@ -3785,6 +3816,41 @@ def lm_timing(lm: dict) -> dict:
                          "bound_ops", "hash3_evals")}}
     emit({"timing": "bayes_rank16_lm_decode_step", **out["rank16"]})
     return out
+
+
+def decision_plan_sweep(args: dict) -> dict:
+    """Every tile width the tiled variant could take on one live token
+    decision's operands (B 4, N 152,064, R 20), forced by its plan: each
+    held to the plain version at LM_RTOL with lm_decision_atol's floors
+    and timed by graph replay; whether the chosen plan is the fastest."""
+    import torch
+    from repro_torch.kernels import decision
+    b, n = args["y_mu"].shape
+    r = args["sel"].shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = decision.decision_plan(n, r, b, sms)
+    want = decision.decision_stats_plain(**args)
+    sweep = []
+    for plan in decision.decision_plans(n, b):
+        def call(p=plan):
+            return decision._launch(**args, plan=p)
+        errs = relative_errors(f"decision plan tile={plan.tile}", call(),
+                               want, r, n)
+        sweep.append({**plan._asdict(), "ms": device_ms(call,
+                                                         replay_iters(call)),
+                      "max_rel_err": max(e["max_rel_err"]
+                                         for e in errs.values())})
+    fastest = min(sweep, key=lambda p: p["ms"])
+    row = {"decision_plans": f"B={b} N={n} R={r}", "sms": sms,
+           "chosen": chosen._asdict(),
+           "chosen_ms": next(p["ms"] for p in sweep
+                             if p["tile"] == chosen.tile),
+           "fastest": fastest, "chosen_is_fastest":
+               fastest["tile"] == chosen.tile, "rtol": LM_RTOL,
+           "sweep": sweep, "timing": "device time per call by CUDA graph "
+                                     "replay"}
+    emit(row)
+    return row
 
 
 # ----------------------------------------------------------------------
@@ -4192,7 +4258,8 @@ def run_timing(inputs: dict, launches: dict, worst: float,
                            call_ms=call_ms(kernel, 1000),
                            plain_call_ms=call_ms(plain, 1000))
     plans = {case: decision_plan(inputs[case]["y_mu"].shape[1],
-                                 inputs[case]["sel"].shape[0])._asdict()
+                                 inputs[case]["sel"].shape[0],
+                                 inputs[case]["y_mu"].shape[0])._asdict()
              for case in times}
     work = decision_args_work(inputs["main_r4"])
     bound, bound_by, nbytes, ops = (work["bound_ms"], work["bound_by"],
@@ -4239,6 +4306,10 @@ def run_timing(inputs: dict, launches: dict, worst: float,
         "library_note": "no single PyTorch call computes the fused "
                         "mix -> softmax -> masked statistic sums",
         "ms_r20": r20["ms"],
+        "ms_pr25": {k: PR25_DECISION_MS[k] for k in ("main_r4",
+                                                    "main_r20")},
+        "ms_pr25_note": "PR 25's final run (PERF.md), constants, not "
+                        "measured here; the small-N code is unchanged",
         "plain_ms_r20": r20["plain_ms"],
         "call_ms_r20": r20["call_ms"],
         "plain_call_ms_r20": r20["plain_call_ms"],

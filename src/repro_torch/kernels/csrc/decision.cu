@@ -1,6 +1,7 @@
 // Fused decision update for Hopper (sm_90a): one escalation round of the
-// SAR triage engine, from the rank-16 activation basis to the masked
-// deltas of the running predictive statistics.
+// SAR triage engine (and of an LM's token decision), from the rank-16
+// activation basis to the masked deltas of the running predictive
+// statistics.
 //
 // Replaces: the Pallas TPU kernel decision_stats_pallas
 //   (repro/kernels/decision_kernel.py:165, body _decision_kernel :98,
@@ -16,41 +17,80 @@
 //   sum_ent[b] = sum_r ent, sum_entsq[b] = sum_r ent^2,
 //   all zero for a slot whose mask is 0.
 //
-// What bounds it on this card: at the main path's shapes, the launch.
-// A round at B=32 slots, N=2 classes, R=4 samples moves about 7 KB (2 ns
-// at 3.35 TB/s) and does some 6,000 flops, while an empty kernel alone
-// costs about 0.8 µs by graph replay on the H100 (PERF.md).  So what
-// counts is the dependent chain inside a block: one round trip of loads
-// and a few hundred cycles of arithmetic, not R times that.
+// The launcher takes the variant from kernels/decision.py
+// (decision_plan), which routes by N.  Every reduction below is a
+// fixed-shape tree or a fixed order and no sum uses an atomic, so
+// relaunches are bit-identical; nothing is allocated or synchronised
+// here, so a round is capturable in a CUDA graph.
 //
-// The design: one block per slot (nothing carries over between blocks,
-// so the TPU's sequential (nb, 2, nn) grid becomes work inside a block);
-// the [R,B,N] logits never reach device memory.  The launcher takes the
-// variant from kernels/decision.py (decision_plan), which routes by N:
-//   small N (N <= 32, SAR's N = 2): a thread per (r, n) pair, the N
-//          columns of a sample on np = next_pow2(N) neighbouring lanes
-//          (at R <= 64, N = 2: at most 128 threads; pairs beyond 1024
-//          threads loop).  sel[r,(b)], m[b], y_mu, x_sigma, x_sigsq and
-//          the sample keys are staged in shared memory (rows padded to
-//          17 floats: no bank conflicts), every load issued before any
-//          is used, so staging is one memory round trip after the mask
-//          byte (a masked slot stops there).  Each thread
-//          computes its logit once: the 16-term mix in four interleaved
-//          partial sums, the read noise, the scale.  The sample's
-//          log-sum-exp over its np lanes is a segmented shuffle (padding
-//          lanes are -inf), then p, p*log p and the entropy (another
-//          segmented shuffle).  sum_p, sum_psq, sum_ent and sum_entsq are
-//          fixed-shape trees: xor shuffles over the lanes of a column,
-//          then the warps' partials in warp order.  The same tree on
-//          every launch and no atomics: relaunches are bit-identical.
-//   streaming (N > 32, vocab-scale N later): the first design's three
-//          passes — an online (max, sumexp) per sample over N by a
-//          warp, the entropy per sample, then per column the sums over
-//          r — with every reduction in a fixed order.
+// small N (N <= 32, SAR's N = 2).  What bounds it: the launch.  A round
+//   at B=32 slots, N=2 classes, R=4 samples moves about 7 KB (2 ns at
+//   3.35 TB/s) and does some 6,000 flops, while an empty kernel alone
+//   costs about 1 µs by graph replay on the H100 (PERF.md).  So what
+//   counts is the dependent chain inside a block: one round trip of
+//   loads and a few hundred cycles of arithmetic.  One block per slot,
+//   a thread per (r, n) pair, the N columns of a sample on np =
+//   next_pow2(N) neighbouring lanes (at R <= 64, N = 2: at most 128
+//   threads; pairs beyond 1024 threads loop).  sel[r,(b)], m[b], y_mu,
+//   x_sigma, x_sigsq and the sample keys are staged in shared memory
+//   (rows padded to 17 floats: no bank conflicts), every load issued
+//   before any is used, so staging is one memory round trip after the
+//   mask byte (a masked slot stops there).  Each thread computes its
+//   logit once: the 16-term mix in four interleaved partial sums, the
+//   read noise, the scale.  The sample's log-sum-exp over its np lanes
+//   is a segmented shuffle (padding lanes are -inf), then p, p*log p and
+//   the entropy (another segmented shuffle).  sum_p, sum_psq, sum_ent
+//   and sum_entsq are fixed-shape trees: xor shuffles over the lanes of
+//   a column, then the warps' partials in warp order.
 //
-// The previous design, for comparison: the streaming kernel for every N; at
-// N = 2 two lanes of a warp worked, every logit was computed three times,
-// and two threads walked all R samples in series.
+// tiled (N > 32; an LM's vocabulary, N = 152,064).  What bounds it: the
+//   bytes of the basis (m is 64 B a column: 48.7 MB at B 4) against
+//   3.35 TB/s, ~15 µs; at R = 20 the float work (535 MFLOP, 8 µs at
+//   67 TFLOP/s) comes close.  So the round has to run on every SM at any
+//   B, read each column's operands once a phase, and spend few
+//   instructions a logit beyond its 16 multiply-adds and one exp.  The
+//   previous design ran one 128-thread block a slot (4 of 132 SMs busy
+//   at B 4) and computed every logit three times; 11.2 / 51.3 ms at
+//   R 4 / 20 (PERF.md).  This one splits N into tiles of T = 128·C
+//   columns (C = 1, 2 or 4, from the plan, which takes the widest T
+//   that still gives every SM several blocks) and runs three kernels on
+//   the stream, each a grid over (tile, slot) or slot:
+//   A (partials): a block of 128 threads holds its tile's operands in
+//     registers, C columns a thread (m as four float4 loads, y_mu,
+//     sum_mean*x_sigma, the read-noise scale, and the first two of
+//     hash3's three mixes, which do not depend on r: one mix32 a
+//     (r, n) on a die).  For each sample r in order it computes the
+//     thread's C logits, the warp's max by an xor butterfly, then
+//     S1 = Σ e^(l-max) and S2 = Σ e^(l-max)·(l-max) summed by another;
+//     after the last sample one thread per r folds the four warps'
+//     (max, S1, S2) in warp order into the tile's and writes them to a
+//     scratch buffer the wrapper allocates ([3][B][R][tiles]).
+//   M (merge): a block per slot, a warp per sample; lane l folds tiles
+//     l, l+32, ... in order, then an xor butterfly of the same merge
+//     gives the row's (M, Z = Σ e^(l-M), S2 = Σ e^(l-M)·(l-M)).  Then
+//     lse = M + log Z and ent = log Z - S2 / Z, since
+//     Σ p·log p = (1/Z)·Σ e^(l-M)·((l-M) - log Z) = S2/Z - log Z.  So
+//     the entropy needs no second pass over N; both terms are >= 0, and
+//     S2 is kept shifted by the max because the unshifted Σ e^(l-M)·l
+//     cancels in float32.  sum_ent and sum_entsq fold the samples in
+//     order.  A merge of (m_a, a1, a2) and (m_b, b1, b2) at m = max is
+//     (m, e_a·a1 + e_b·b1, e_a·(a2 + d_a·a1) + e_b·(b2 + d_b·b1)) with
+//     d = m_x - m, e = e^d; an empty side (-inf) adds nothing.
+//   B (sums): the grid of A again; each thread recomputes its C columns'
+//     logits from the same registers' worth of loads, p = e^(l - lse[r])
+//     for r in order, and writes sum_p and sum_psq of its columns: no
+//     reduction across threads.  The logits are recomputed rather than
+//     kept: at R = 20, B 4 they are 48.7 MB, more than the card's shared
+//     memory, and spilling them to device memory moves more bytes than
+//     reading m again (which the 50 MB L2 partly holds).
+//   Three launches, not a cooperative grid barrier (1,188 blocks at
+//   B 4 would have to be co-resident) nor a last-block election (its
+//   counter would need zeroing every call, and a stale one fails
+//   silently): the two extra graph nodes cost about 1 µs each.  A
+//   masked slot's blocks read its mask byte and stop; B's write its
+//   zeros, M's its zero entropies.  Logits scale by 1/sum_std (one
+//   multiply, not a division): within 1.5 ulp of the plain version's
+//   division.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -59,8 +99,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;        // the streaming variant
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxR = 64;
 constexpr int kBasis = 16;
 constexpr int kMaxSmallN = 32;       // the small-N variant's widest N
@@ -86,30 +124,6 @@ struct Params {
   float sum_mean, sum_std, read_sigma;
   uint32_t noise_seed;
 };
-
-__device__ __forceinline__ float logit_at(const Params& p, const float* sel_r,
-                                          uint32_t key, uint32_t row, int b,
-                                          int n) {
-  const size_t bn = static_cast<size_t>(b) * p.N + n;
-  const float4* m4 = reinterpret_cast<const float4*>(p.m + bn * kBasis);
-  float mix = 0.f;
-#pragma unroll
-  for (int q = 0; q < kBasis / 4; ++q) {
-    const float4 v = m4[q];
-    mix += sel_r[4 * q + 0] * v.x;
-    mix += sel_r[4 * q + 1] * v.y;
-    mix += sel_r[4 * q + 2] * v.z;
-    mix += sel_r[4 * q + 3] * v.w;
-  }
-  float num = mix - p.sum_mean * p.x_sigma[bn];
-  if (p.read_sigma > 0.f) {
-    const uint32_t h = repro_torch::hash3(key, row, static_cast<uint32_t>(n),
-                                          p.noise_seed);
-    num += repro_torch::gauss_of(h) *
-           (p.read_sigma * sqrtf(fmaxf(p.x_sigsq[bn], 0.f)));
-  }
-  return p.y_mu[bn] + num / p.sum_std;
-}
 
 // Zero deltas for an inactive slot.
 __device__ __forceinline__ void write_masked(const Params& p, int b) {
@@ -307,93 +321,233 @@ decision_stats_small_n_kernel(Params p, int np) {
   }
 }
 
-// Streaming variant (any N; routed N > 32): three passes over N.
-__global__ void __launch_bounds__(kThreads)
-decision_stats_streaming_kernel(Params p) {
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const size_t row0 = static_cast<size_t>(b) * p.N;
+// ---------------------------------------------------------------------
+// Tiled variant (N > 32): partials, merge, sums.
+// ---------------------------------------------------------------------
+constexpr int kTiledThreads = 128;   // a block of kernels A and B
+constexpr int kTiledWarps = kTiledThreads / 32;
+constexpr int kMergeMaxWarps = 32;
 
-  if (p.mask != nullptr && p.mask[b] == 0) {   // inactive slot: zero deltas
-    write_masked(p, b);
-    return;
+// (max, Σ e^(l-max), Σ e^(l-max)·(l-max)) over some logits of one
+// sample; m = -inf when empty.
+struct Part {
+  float m, s1, s2;
+};
+
+__device__ __forceinline__ Part merge_part(const Part& a, const Part& b) {
+  const float mn = fmaxf(a.m, b.m);
+  Part o{mn, 0.f, 0.f};
+  if (a.m != -INFINITY) {
+    const float d = a.m - mn, e = expf(d);
+    o.s1 = e * a.s1;
+    o.s2 = e * (a.s2 + d * a.s1);
   }
+  if (b.m != -INFINITY) {
+    const float d = b.m - mn, e = expf(d);
+    o.s1 += e * b.s1;
+    o.s2 += e * (b.s2 + d * b.s1);
+  }
+  return o;
+}
 
-  __shared__ float sel_s[kMaxR * kBasis];
-  __shared__ uint32_t key_s[kMaxR];
-  __shared__ float lse_s[kMaxR];
-  __shared__ float ent_s[kMaxR];
+// The operands of a thread's C columns n = n0 + q*128 + threadIdx.x.
+template <int C>
+struct Columns {
+  float4 m[C][kBasis / 4];
+  float y[C];        // y_mu
+  float smx[C];      // sum_mean * x_sigma, rounded as the plain version
+  float sr[C];       // read_sigma * sqrt(max(x_sigsq, 0))
+  uint32_t pre[C];   // hash3's mixes of (column, row): one left per r
+  bool valid[C];     // n < N
+};
 
-  for (int i = tid; i < p.R * kBasis; i += kThreads) {
+template <int C>
+__device__ __forceinline__ void load_columns(const Params& p, int b, int n0,
+                                             uint32_t row, bool noisy,
+                                             Columns<C>& c) {
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int n = n0 + q * kTiledThreads + static_cast<int>(threadIdx.x);
+    c.valid[q] = n < p.N;
+    c.y[q] = c.smx[q] = c.sr[q] = 0.f;
+    c.pre[q] = 0u;
+#pragma unroll
+    for (int j = 0; j < kBasis / 4; ++j) c.m[q][j] = make_float4(0, 0, 0, 0);
+    if (!c.valid[q]) continue;
+    const size_t bn = static_cast<size_t>(b) * p.N + n;
+    const float4* m4 = reinterpret_cast<const float4*>(p.m + bn * kBasis);
+#pragma unroll
+    for (int j = 0; j < kBasis / 4; ++j) c.m[q][j] = __ldg(m4 + j);
+    c.y[q] = __ldg(p.y_mu + bn);
+    c.smx[q] = p.sum_mean * __ldg(p.x_sigma + bn);
+    if (noisy) {
+      c.sr[q] = p.read_sigma * sqrtf(fmaxf(__ldg(p.x_sigsq + bn), 0.f));
+      c.pre[q] = repro_torch::col_prefix(row, static_cast<uint32_t>(n),
+                                         p.noise_seed);
+    }
+  }
+}
+
+// Logit of column q for the sample whose selection row is s and key is
+// key: hash3(key, row, n, seed) = row_hash(key, col_prefix(row, n, seed)).
+template <int C>
+__device__ __forceinline__ float tiled_logit(const Columns<C>& c, int q,
+                                             const float4 (&s)[kBasis / 4],
+                                             uint32_t key, bool noisy,
+                                             float inv_std) {
+  float mix = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBasis / 4; ++j) {
+    mix += s[j].x * c.m[q][j].x;
+    mix += s[j].y * c.m[q][j].y;
+    mix += s[j].z * c.m[q][j].z;
+    mix += s[j].w * c.m[q][j].w;
+  }
+  float num = mix - c.smx[q];
+  if (noisy) {
+    num += repro_torch::gauss_of(repro_torch::row_hash(key, c.pre[q])) *
+           c.sr[q];
+  }
+  return c.y[q] + num * inv_std;
+}
+
+// The round's selection rows of slot b and, with read noise, its sample
+// keys, into shared memory.
+__device__ __forceinline__ void stage_round(const Params& p, int b,
+                                            float* sel_s, uint32_t* key_s,
+                                            bool noisy) {
+  for (int i = threadIdx.x; i < p.R * kBasis; i += blockDim.x) {
     const int r = i / kBasis, j = i % kBasis;
     sel_s[i] = p.sel_per_slot
                    ? p.sel[(static_cast<size_t>(r) * p.B + b) * kBasis + j]
                    : p.sel[static_cast<size_t>(r) * kBasis + j];
   }
-  const bool noisy = p.read_sigma > 0.f;
-  for (int r = tid; r < p.R; r += kThreads)
+  for (int r = threadIdx.x; r < p.R; r += blockDim.x)
     key_s[r] = noisy ? sample_key(p, r, b) : 0u;
-  const uint32_t row = (noisy && p.rows != nullptr)
-                           ? static_cast<uint32_t>(p.rows[b])
-                           : static_cast<uint32_t>(b);
-  __syncthreads();
+}
 
-  // pass 1: online (max, sumexp) over N per sample -> lse[r]
-  for (int r = warp; r < p.R; r += kWarps) {
-    const float* sel_r = sel_s + r * kBasis;
-    float mx = -INFINITY, s = 0.f;
-    for (int n = lane; n < p.N; n += 32) {
-      const float l = logit_at(p, sel_r, key_s[r], row, b, n);
-      if (l > mx) {
-        s = s * expf(mx - l) + 1.f;
-        mx = l;
-      } else {
-        s += expf(l - mx);
+__device__ __forceinline__ uint32_t slot_row(const Params& p, int b,
+                                             bool noisy) {
+  return (noisy && p.rows != nullptr) ? static_cast<uint32_t>(p.rows[b])
+                                      : static_cast<uint32_t>(b);
+}
+
+__device__ __forceinline__ void load_sel(const float* sel_s, int r,
+                                         float4 (&s)[kBasis / 4]) {
+  const float4* s4 = reinterpret_cast<const float4*>(sel_s + r * kBasis);
+#pragma unroll
+  for (int j = 0; j < kBasis / 4; ++j) s[j] = s4[j];
+}
+
+// A: the (max, S1, S2) of every (slot, tile, sample) into
+// part[3][B][R][tiles].  Grid (tiles, B), 128 threads.
+template <int C>
+__global__ void __launch_bounds__(kTiledThreads)
+decision_tiled_partials_kernel(Params p, float* part, int tiles) {
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (p.mask != nullptr && p.mask[b] == 0) return;   // no partials needed
+
+  __shared__ __align__(16) float sel_s[kMaxR * kBasis];
+  __shared__ uint32_t key_s[kMaxR];
+  __shared__ float wpart[3][kTiledWarps][kMaxR];
+
+  const bool noisy = p.read_sigma > 0.f;
+  Columns<C> c;
+  load_columns<C>(p, b, tile * C * kTiledThreads, slot_row(p, b, noisy),
+                  noisy, c);
+  stage_round(p, b, sel_s, key_s, noisy);
+  __syncthreads();
+  const float inv_std = 1.f / p.sum_std;
+
+  for (int r = 0; r < p.R; ++r) {
+    float4 s[kBasis / 4];
+    load_sel(sel_s, r, s);
+    const uint32_t key = key_s[r];
+    float l[C];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      l[q] = c.valid[q] ? tiled_logit<C>(c, q, s, key, noisy, inv_std)
+                        : -INFINITY;
+      mx = fmaxf(mx, l[q]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, off));
+    float s1 = 0.f, s2 = 0.f;
+    if (mx != -INFINITY) {          // warp-uniform: a warp past N skips
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        if (c.valid[q]) {
+          const float d = l[q] - mx, e = expf(d);
+          s1 += e;
+          s2 += e * d;
+        }
       }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float mo = __shfl_xor_sync(kFullMask, mx, off);
-      const float so = __shfl_xor_sync(kFullMask, s, off);
-      const float mn = fmaxf(mx, mo);
-      s = (mn == -INFINITY) ? 0.f : s * expf(mx - mn) + so * expf(mo - mn);
-      mx = mn;
+      s1 += __shfl_xor_sync(kFullMask, s1, off);
+      s2 += __shfl_xor_sync(kFullMask, s2, off);
     }
-    if (lane == 0) lse_s[r] = mx + logf(s);
+    if (lane == 0) {
+      wpart[0][warp][r] = mx;
+      wpart[1][warp][r] = s1;
+      wpart[2][warp][r] = s2;
+    }
   }
   __syncthreads();
-
-  // pass 2a: entropy of each sample, reduced across its warp
-  for (int r = warp; r < p.R; r += kWarps) {
-    const float* sel_r = sel_s + r * kBasis;
-    const float lse = lse_s[r];
-    float acc = 0.f;
-    for (int n = lane; n < p.N; n += 32) {
-      const float lp = logit_at(p, sel_r, key_s[r], row, b, n) - lse;
-      acc += expf(lp) * lp;
-    }
+  const size_t plane = static_cast<size_t>(p.B) * p.R * tiles;
+  for (int r = tid; r < p.R; r += kTiledThreads) {
+    Part t{-INFINITY, 0.f, 0.f};
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(kFullMask, acc, off);
-    if (lane == 0) ent_s[r] = -acc;
+    for (int w = 0; w < kTiledWarps; ++w)
+      t = merge_part(t, Part{wpart[0][w][r], wpart[1][w][r], wpart[2][w][r]});
+    const size_t i = (static_cast<size_t>(b) * p.R + r) * tiles + tile;
+    part[i] = t.m;
+    part[plane + i] = t.s1;
+    part[2 * plane + i] = t.s2;
   }
+}
 
-  // pass 2b: per-column probability sums over the samples
-  for (int n = tid; n < p.N; n += kThreads) {
-    float sp = 0.f, spsq = 0.f;
-    for (int r = 0; r < p.R; ++r) {
-      const float pr =
-          expf(logit_at(p, sel_s + r * kBasis, key_s[r], row, b, n) - lse_s[r]);
-      sp += pr;
-      spsq += pr * pr;
+// M: per slot, every sample's lse[b][r] from its tiles' partials, and
+// sum_ent / sum_entsq.  Grid B, 32·min(R, 32) threads.
+__global__ void __launch_bounds__(kMergeMaxWarps * 32)
+decision_tiled_merge_kernel(Params p, const float* part, float* lse,
+                            int tiles) {
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  if (p.mask != nullptr && p.mask[b] == 0) {
+    if (tid == 0) {
+      p.sum_ent[b] = 0.f;
+      p.sum_entsq[b] = 0.f;
     }
-    p.sum_p[row0 + n] = sp;
-    p.sum_psq[row0 + n] = spsq;
+    return;
+  }
+  __shared__ float ent_s[kMaxR];
+  const size_t plane = static_cast<size_t>(p.B) * p.R * tiles;
+  for (int r = warp; r < p.R; r += warps) {
+    const size_t row0 = (static_cast<size_t>(b) * p.R + r) * tiles;
+    Part a{-INFINITY, 0.f, 0.f};
+    for (int t = lane; t < tiles; t += 32)
+      a = merge_part(a, Part{part[row0 + t], part[plane + row0 + t],
+                             part[2 * plane + row0 + t]});
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const Part o{__shfl_xor_sync(kFullMask, a.m, off),
+                   __shfl_xor_sync(kFullMask, a.s1, off),
+                   __shfl_xor_sync(kFullMask, a.s2, off)};
+      a = merge_part(a, o);
+    }
+    if (lane == 0) {
+      const float log_z = logf(a.s1);
+      lse[static_cast<size_t>(b) * p.R + r] = a.m + log_z;
+      ent_s[r] = log_z - a.s2 / a.s1;
+    }
   }
   __syncthreads();
-
   if (tid == 0) {
     float se = 0.f, se2 = 0.f;
     for (int r = 0; r < p.R; ++r) {
@@ -405,28 +559,113 @@ decision_stats_streaming_kernel(Params p) {
   }
 }
 
+// B: sum_p and sum_psq of the tile's columns, samples in order.  Grid
+// (tiles, B), 128 threads.
+template <int C>
+__global__ void __launch_bounds__(kTiledThreads)
+decision_tiled_sums_kernel(Params p, const float* lse) {
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int n0 = tile * C * kTiledThreads;
+  const size_t row0 = static_cast<size_t>(b) * p.N;
+  if (p.mask != nullptr && p.mask[b] == 0) {     // inactive slot: zeros
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const int n = n0 + q * kTiledThreads + static_cast<int>(threadIdx.x);
+      if (n < p.N) {
+        p.sum_p[row0 + n] = 0.f;
+        p.sum_psq[row0 + n] = 0.f;
+      }
+    }
+    return;
+  }
+  __shared__ __align__(16) float sel_s[kMaxR * kBasis];
+  __shared__ uint32_t key_s[kMaxR];
+  __shared__ float lse_s[kMaxR];
+
+  const bool noisy = p.read_sigma > 0.f;
+  Columns<C> c;
+  load_columns<C>(p, b, n0, slot_row(p, b, noisy), noisy, c);
+  stage_round(p, b, sel_s, key_s, noisy);
+  for (int r = threadIdx.x; r < p.R; r += kTiledThreads)
+    lse_s[r] = lse[static_cast<size_t>(b) * p.R + r];
+  __syncthreads();
+  const float inv_std = 1.f / p.sum_std;
+
+  float sp[C], spsq[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) sp[q] = spsq[q] = 0.f;
+  for (int r = 0; r < p.R; ++r) {
+    float4 s[kBasis / 4];
+    load_sel(sel_s, r, s);
+    const uint32_t key = key_s[r];
+    const float lr = lse_s[r];
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      if (c.valid[q]) {
+        const float pr =
+            expf(tiled_logit<C>(c, q, s, key, noisy, inv_std) - lr);
+        sp[q] += pr;
+        spsq[q] += pr * pr;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    if (c.valid[q]) {
+      const int n = n0 + q * kTiledThreads + static_cast<int>(threadIdx.x);
+      p.sum_p[row0 + n] = sp[q];
+      p.sum_psq[row0 + n] = spsq[q];
+    }
+  }
+}
+
+template <int C>
+int launch_tiled(const Params& p, float* scratch, cudaStream_t s) {
+  const int tile = C * kTiledThreads;
+  const int tiles = (p.N + tile - 1) / tile;
+  float* part = scratch;
+  float* lse = scratch + 3 * static_cast<size_t>(p.B) * p.R * tiles;
+  const dim3 grid(tiles, p.B);
+  decision_tiled_partials_kernel<C><<<grid, kTiledThreads, 0, s>>>(p, part,
+                                                                   tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int merge_warps = p.R < kMergeMaxWarps ? p.R : kMergeMaxWarps;
+  decision_tiled_merge_kernel<<<p.B, 32 * merge_warps, 0, s>>>(p, part, lse,
+                                                               tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decision_tiled_sums_kernel<C><<<grid, kTiledThreads, 0, s>>>(p, lse);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches one round on ``stream`` without synchronising, as the plan of
-// kernels/decision.py says: ``np`` = 0 runs the streaming variant on
-// 128 threads; ``np`` > 0 (a power of two, N <= np <= 32) the small-N
-// variant on ``threads`` (a multiple of 32, at least R).  Returns the
-// launch's cudaError_t (0 = cudaSuccess); cudaErrorInvalidValue for what
-// the kernels do not take.  The wrapper has checked shapes, types, devices,
-// contiguity and 16-byte alignment of m.
+// kernels/decision.py says: ``tile`` > 0 runs the tiled variant's three
+// kernels over tiles of ``tile`` = 128, 256 or 512 columns on
+// ``threads`` = 128, with ``scratch`` holding 3·B·R·tiles + B·R floats
+// (tiles = ceil(N / tile)); ``tile`` = 0 runs the small-N variant:
+// ``np`` a power of two, N <= np <= 32, on ``threads`` (a multiple of
+// 32, at least R).  Returns the first launch's cudaError_t that is not
+// cudaSuccess (0); cudaErrorInvalidValue for what the kernels do not
+// take.  The wrapper has checked shapes, types, devices, contiguity and
+// 16-byte alignment of m.
 extern "C" int decision_stats_launch(
     const float* y_mu, const float* x_sigma, const float* m, const float* sel,
     const uint8_t* mask, const float* x_sigsq, const int64_t* sample_idx,
     const int64_t* rows, float* sum_p, float* sum_psq, float* sum_ent,
     float* sum_entsq, int B, int N, int R, int sel_per_slot, int idx_per_slot,
     float sum_mean, float sum_std, float read_sigma, unsigned int noise_seed,
-    int np, int threads, void* stream) {
+    int np, int threads, int tile, float* scratch, void* stream) {
   if (B < 1 || N < 1 || R < 1 || R > kMaxR) return cudaErrorInvalidValue;
-  if (np != 0 && (np < N || np > kMaxSmallN || (np & (np - 1)) != 0 ||
-                  threads < 32 || threads > kMaxSmallThreads ||
-                  threads % 32 != 0 || threads < R))  // a key_s[r] each
+  if (tile == 0 && (np < N || np > kMaxSmallN || (np & (np - 1)) != 0 ||
+                    threads < 32 || threads > kMaxSmallThreads ||
+                    threads % 32 != 0 || threads < R))  // a key_s[r] each
     return cudaErrorInvalidValue;
-  if (np == 0 && threads != kThreads) return cudaErrorInvalidValue;
+  if (tile != 0 && (threads != kTiledThreads || scratch == nullptr ||
+                    B > 65535))                 // grid.y
+    return cudaErrorInvalidValue;
   if (read_sigma > 0.f && (x_sigsq == nullptr || sample_idx == nullptr))
     return cudaErrorInvalidValue;
   Params p{y_mu,      x_sigma,      m,        sel,       mask,
@@ -435,9 +674,13 @@ extern "C" int decision_stats_launch(
            sel_per_slot, idx_per_slot, sum_mean, sum_std, read_sigma,
            noise_seed};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (np != 0)
-    decision_stats_small_n_kernel<<<B, threads, 0, s>>>(p, np);
-  else
-    decision_stats_streaming_kernel<<<B, kThreads, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  switch (tile) {
+    case 0:
+      decision_stats_small_n_kernel<<<B, threads, 0, s>>>(p, np);
+      return static_cast<int>(cudaGetLastError());
+    case 1 * kTiledThreads: return launch_tiled<1>(p, scratch, s);
+    case 2 * kTiledThreads: return launch_tiled<2>(p, scratch, s);
+    case 4 * kTiledThreads: return launch_tiled<4>(p, scratch, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -1,68 +1,118 @@
-"""Fused decision update: the CUDA kernel's wrapper and its plain version.
+"""Fused decision update: the CUDA kernel's wrapper and its plain versions.
 
 Replaces the Pallas TPU kernel ``decision_stats_pallas``
 (``repro/kernels/decision_kernel.py:165``).  One escalation round of the
-SAR triage engine goes from the rank-16 activation basis straight to
-the masked deltas of the running predictive statistics
+SAR triage engine, or one round of an LM's token decision, goes from
+the rank-16 activation basis straight to the masked deltas of the
+running predictive statistics
 
     {sum_p [B,N], sum_psq [B,N], sum_ent [B], sum_entsq [B]}
 
-without the [R, B, N] logit samples ever reaching device memory.  The
-kernel (``csrc/decision.cu``) moves about 7 KB a round at the main
-path's shape and is bound in practice by its launch; its source notes
-the design.  ``decision_plan`` routes a round to the kernel's small-N
-variant (N ≤ 32: a thread per (sample, class) pair) or to its streaming
-variant (N > 32).
+without the [R, B, N] logit samples ever reaching device memory.
+``decision_plan`` routes a round to one of the kernel's two variants
+(``csrc/decision.cu``'s header notes both designs):
+
+- small N (N ≤ 32, SAR's N = 2): one launch, a block per slot, a thread
+  per (sample, class) pair; bound in practice by its launch.
+- tiled (N > 32, an LM's vocabulary): three launches over tiles of
+  ``tile`` columns × slots, so a round spreads over the whole card at
+  any B.  A: each (slot, tile, sample)'s max logit m_t, S1 = Σ e^(l−m_t)
+  and S2 = Σ e^(l−m_t)·(l−m_t) into a scratch buffer allocated here.
+  M: per slot and sample, the tiles merged into lse = M + log Z and the
+  entropy log Z − S2/Z (Z, S2 shifted to the row's max M), so the
+  entropy needs no second pass over N.  B: p = exp(l − lse) per column,
+  the logits recomputed, summed over the samples in order.
+  ``decision_stats_tiled_plain`` is that algorithm in plain PyTorch, for
+  the tests.
 
 ``decision_stats`` routes by where the tensors lie: CPU tensors go to
 ``decision_stats_plain``, the plain PyTorch version (mix, log-softmax,
 masked sums, as ``repro/kernels/ref.py`` ``decision_stats_ref``); CUDA
 tensors launch the kernel or raise.  There is no fallback.
-``decision_stats.launches`` counts kernel launches.
+``decision_stats.launches`` counts wrapper calls that launched (one a
+round piece, whatever number of kernels the plan runs).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.clt_grng import GRNGConfig
 from repro_torch.core.hashing import as_u32, gaussianish, hash3
+from repro_torch.kernels.cim import H100_SMS, _sm_count
 
 MAX_SAMPLES = 64          # the kernel keeps a round's R selections in smem
 SMALL_N_MAX = 32          # widest N of the small-N variant: one warp
-STREAMING_THREADS = 128
+TILED_THREADS = 128       # a block of the tiled variant's kernels A and B
+TILE_WIDTHS = (128, 256, 512)   # 1, 2 or 4 columns a thread
+FILL_BLOCKS_PER_SM = 8    # the widest tile that still gives each SM these
 _P = ctypes.c_void_p
 
 
 class DecisionPlan(NamedTuple):
-    """The decision kernel's variant for one round: ``np`` = 0 is the
-    streaming variant; ``np`` > 0 the small-N variant, whose threads
-    cover the R × np (sample, column) pairs, np = N rounded up to a
-    power of two (padding lanes carry no logit)."""
+    """The decision kernel's variant for one round.  small_n: ``np`` =
+    N rounded up to a power of two, the threads covering the R × np
+    (sample, column) pairs (padding lanes carry no logit), one kernel of
+    B blocks.  tiled: ``np`` = 0, ``tile`` columns a block of
+    ``threads``, ``tiles`` a slot, kernels A and B of ``blocks`` =
+    tiles × B blocks around the merge's B.  ``smem_bytes``: the static
+    shared memory of its largest kernel (sized for R = MAX_SAMPLES)."""
     variant: str
     np: int
     threads: int
+    tile: int
+    tiles: int
+    blocks: int
+    kernels: int
+    smem_bytes: int
 
 
-def decision_plan(n: int, r: int) -> DecisionPlan:
-    """Route a round of ``r`` samples over ``n`` classes: N ≤ 32 to the
-    small-N variant (a thread per pair, at least a warp, at most 1024
-    threads, pairs beyond that loop), N > 32 to the streaming one."""
+# static shared memory of csrc/decision.cu's kernels, in floats
+_SMALL_N_SMEM = 4 * (MAX_SAMPLES * 17 + SMALL_N_MAX * 17 + 3 * SMALL_N_MAX
+                     + MAX_SAMPLES + 2 * 32 * SMALL_N_MAX + 2 * 32)
+_TILED_SMEM = 4 * (MAX_SAMPLES * 16 + MAX_SAMPLES
+                   + 3 * (TILED_THREADS // 32) * MAX_SAMPLES)
+
+
+def tiled_plan(n: int, b: int, tile: int) -> DecisionPlan:
+    """The tiled variant's plan at ``tile`` columns a block."""
+    if tile not in TILE_WIDTHS:
+        raise ValueError(f"tile {tile} not in {TILE_WIDTHS}")
+    tiles = -(-n // tile)
+    return DecisionPlan("tiled", 0, TILED_THREADS, tile, tiles, tiles * b,
+                        3, _TILED_SMEM)
+
+
+def decision_plans(n: int, b: int) -> list[DecisionPlan]:
+    """Every tiled plan of an [b, n] round, narrowest tile first."""
+    return [tiled_plan(n, b, t) for t in TILE_WIDTHS]
+
+
+@functools.lru_cache(maxsize=None)
+def decision_plan(n: int, r: int, b: int = 1,
+                  sms: int = H100_SMS) -> DecisionPlan:
+    """Route a round of ``r`` samples over ``b`` slots of ``n`` classes:
+    N ≤ 32 to the small-N variant (a thread per pair, at least a warp,
+    at most 1024 threads, pairs beyond that loop), N > 32 to the tiled
+    one at the widest tile whose grid gives each of ``sms`` SMs
+    FILL_BLOCKS_PER_SM blocks, else at the narrowest (the most blocks)."""
     if n > SMALL_N_MAX:
-        return DecisionPlan("streaming", 0, STREAMING_THREADS)
+        plans = decision_plans(n, b)
+        return next((p for p in reversed(plans)
+                     if p.blocks >= FILL_BLOCKS_PER_SM * sms), plans[0])
     np_ = 1 << (n - 1).bit_length()
-    return DecisionPlan("small_n", np_, min(1024, -(-r * np_ // 32) * 32))
+    return DecisionPlan("small_n", np_, min(1024, -(-r * np_ // 32) * 32),
+                        0, 1, b, 1, _SMALL_N_SMEM)
 
 
-def decision_stats_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
-                         x_sigsq=None, sample_idx=None, mask=None,
-                         rows=None) -> dict:
-    """Plain PyTorch version: materializes the [R, B, N] samples, then
-    ``update_stats`` on zeroed sums, multiplied by the [B] mask."""
+def _plain_samples(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq,
+                   sample_idx, rows) -> torch.Tensor:
+    """The round's [R, B, N] logit samples, as ``mix_samples``."""
     b, n = y_mu.shape
     dev = y_mu.device
     if sel.ndim == 2:
@@ -84,16 +134,65 @@ def decision_stats_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
         sigma_read = cfg.read_sigma * torch.sqrt(
             x_sigsq.to(torch.float32).clamp_min(0.0))
         out = out + gaussianish(h) * sigma_read[None]
-    samples = y_mu.to(torch.float32)[None] + out / cfg.sum_std
-    logp = torch.log_softmax(samples, dim=-1)
-    p = torch.exp(logp)
-    ent = -(p * logp).sum(-1)                            # [R, B]
-    mk = (torch.ones((b,), dtype=torch.float32, device=dev) if mask is None
-          else torch.as_tensor(mask, device=dev).to(torch.float32))
+    return y_mu.to(torch.float32)[None] + out / cfg.sum_std
+
+
+def _masked(p, ent, mask) -> dict:
+    """The four deltas of [R, B, N] probabilities and [R, B] entropies,
+    multiplied by the [B] mask (None = all active)."""
+    b = p.shape[1]
+    mk = (torch.ones((b,), dtype=torch.float32, device=p.device)
+          if mask is None
+          else torch.as_tensor(mask, device=p.device).to(torch.float32))
     return {"sum_p": p.sum(0) * mk[:, None],
             "sum_psq": (p * p).sum(0) * mk[:, None],
             "sum_ent": ent.sum(0) * mk,
             "sum_entsq": (ent * ent).sum(0) * mk}
+
+
+def decision_stats_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
+                         x_sigsq=None, sample_idx=None, mask=None,
+                         rows=None) -> dict:
+    """Plain PyTorch version: materializes the [R, B, N] samples, then
+    ``update_stats`` on zeroed sums, multiplied by the [B] mask."""
+    samples = _plain_samples(y_mu, x_sigma, m, sel, cfg, x_sigsq,
+                             sample_idx, rows)
+    logp = torch.log_softmax(samples, dim=-1)
+    p = torch.exp(logp)
+    return _masked(p, -(p * logp).sum(-1), mask)
+
+
+def decision_stats_tiled_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
+                               x_sigsq=None, sample_idx=None, mask=None,
+                               rows=None, *, tile: int) -> dict:
+    """The tiled variant's algorithm in plain PyTorch (tests only): per
+    (sample, slot, tile of ``tile`` columns, the last one ragged) the
+    tile's max m_t, S1 = Σ e^(l−m_t) and S2 = Σ e^(l−m_t)·(l−m_t); the
+    tiles merged in tile order into the row's max M, Z = Σ e^(l−M) and
+    S2 = Σ e^(l−M)·(l−M); lse = M + log Z and ent = log Z − S2/Z; then a
+    second pass p = exp(l − lse) summed over the samples."""
+    logits = _plain_samples(y_mu, x_sigma, m, sel, cfg, x_sigsq,
+                            sample_idx, rows)
+    r, b, n = logits.shape
+    tiles = -(-n // tile)
+    lt = torch.nn.functional.pad(logits, (0, tiles * tile - n),
+                                 value=-math.inf).reshape(r, b, tiles, tile)
+    mt = lt.amax(-1)                         # every tile holds a column
+    d = lt - mt[..., None]                   # -inf on the padding
+    e = torch.exp(d)
+    s1 = e.sum(-1)
+    s2 = torch.where(e > 0, e * d, 0.0).sum(-1)
+    big_m, z, s2m = mt[..., 0], s1[..., 0], s2[..., 0]
+    for t in range(1, tiles):
+        mn = torch.maximum(big_m, mt[..., t])
+        da, db = big_m - mn, mt[..., t] - mn
+        ea, eb = torch.exp(da), torch.exp(db)
+        z, s2m = (ea * z + eb * s1[..., t],
+                  ea * (s2m + da * z) + eb * (s2[..., t] + db * s1[..., t]))
+        big_m = mn
+    log_z = torch.log(z)
+    p = torch.exp(logits - (big_m + log_z)[..., None])
+    return _masked(p, log_z - s2m / z, mask)
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,7 +201,7 @@ def _launcher():
     fn = load("decision").decision_stats_launch
     fn.argtypes = ([_P] * 12 + [ctypes.c_int] * 5
                    + [ctypes.c_float] * 3
-                   + [ctypes.c_uint, ctypes.c_int, ctypes.c_int, _P])
+                   + [ctypes.c_uint] + [ctypes.c_int] * 3 + [_P, _P])
     fn.restype = ctypes.c_int
     return fn
 
@@ -119,8 +218,11 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq, sample_idx,
-            mask, rows) -> dict:
+def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq=None,
+            sample_idx=None, mask=None, rows=None,
+            plan: DecisionPlan | None = None) -> dict:
+    """Launches the round under ``decision_plan``'s plan, or under
+    ``plan`` where one is given (a plan sweep)."""
     dev = y_mu.device
     b, n = y_mu.shape
     r = sel.shape[0]
@@ -152,7 +254,10 @@ def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq, sample_idx,
            "sum_psq": torch.empty((b, n), dtype=f32, device=dev),
            "sum_ent": torch.empty((b,), dtype=f32, device=dev),
            "sum_entsq": torch.empty((b,), dtype=f32, device=dev)}
-    plan = decision_plan(n, r)
+    if plan is None:
+        plan = decision_plan(n, r, b, _sm_count(dev.index))
+    scratch = (torch.empty(3 * b * r * plan.tiles + b * r, dtype=f32,
+                           device=dev) if plan.variant == "tiled" else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -167,7 +272,8 @@ def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq, sample_idx,
             ptr(out["sum_p"]), ptr(out["sum_psq"]), ptr(out["sum_ent"]),
             ptr(out["sum_entsq"]), b, n, r, int(sel_per_slot),
             int(idx_per_slot), cfg.sum_mean, cfg.sum_std, cfg.read_sigma,
-            cfg.noise_seed & 0xFFFFFFFF, plan.np, plan.threads, stream)
+            cfg.noise_seed & 0xFFFFFFFF, plan.np, plan.threads, plan.tile,
+            ptr(scratch), stream)
     if err != 0:
         raise RuntimeError(f"decision kernel launch failed: cudaError {err}")
     decision_stats.launches += 1

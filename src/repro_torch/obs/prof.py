@@ -170,6 +170,7 @@ def _cached_builders() -> dict:
             "cim_launcher": cim._launcher,
             "cim_sm_count": cim._sm_count,
             "decision_launcher": decision._launcher,
+            "decision_plan": decision.decision_plan,
             "grng_launcher": grng._launcher,
             "head_launcher": bayes._launcher,
             "head_plan": bayes.head_plan,

@@ -655,7 +655,7 @@ class SarServingEngine(_EngineBase):
                 launches=(self.max_rounds * pieces.count(r)
                           if on_card and self.fused else 0),
                 shape=f"B={b} N={n} R={r}, every slot active",
-                plan=decision_plan(n, r)._asdict()))
+                plan=decision_plan(n, r, b)._asdict()))
         if self._trunk is not None:
             h = self.cfg.image_size
             for i, layer in enumerate(self._trunk):
@@ -948,5 +948,5 @@ class LMServingEngine(_EngineBase):
                 launches=(pieces.count(r) if on_card and self.fused
                           else 0),
                 shape=f"B={b} N={n} R={r}, every slot active",
-                plan=decision_plan(n, r)._asdict()))
+                plan=decision_plan(n, r, b)._asdict()))
         return recs

@@ -1,7 +1,7 @@
 """The launch plans of the port's kernels, checked on the CPU:
 ``kernels/cim.py`` ``launch_plan`` (tiles and chunk split of
 ``csrc/cim_mvm.cu``), ``kernels/decision.py`` ``decision_plan`` (the
-decision kernel's variant) and ``kernels/bayes.py`` ``head_plan`` (tile,
+decision kernel's variant and, above N = 32, its tiles) and ``kernels/bayes.py`` ``head_plan`` (tile,
 threads and samples a block carries of ``csrc/bayes_mvm.cu``).
 
 The CIM plan is replayed here with the kernel's own index arithmetic
@@ -22,8 +22,10 @@ import pytest
 from repro_torch.kernels import bayes
 from repro_torch.kernels.cim import (CHUNK, H100_SMS, SMEM_LIMIT, CimPlan,
                                      launch_plan, make_plan)
-from repro_torch.kernels.decision import (MAX_SAMPLES, SMALL_N_MAX,
-                                          decision_plan)
+from repro_torch.kernels.decision import (FILL_BLOCKS_PER_SM, MAX_SAMPLES,
+                                          SMALL_N_MAX, TILE_WIDTHS,
+                                          decision_plan, decision_plans,
+                                          tiled_plan)
 
 # The conv trunk's products: an admission of 32 slots (the serving main
 # path) and a UQ batch of 64 images (Fig. 16), for 32×32 patches.
@@ -167,8 +169,76 @@ def test_decision_plan_small_n_covers_each_pair_once(n, r):
 
 @pytest.mark.parametrize("n", [SMALL_N_MAX + 1, 130, 300, 2048])
 def test_decision_plan_routes_wide_n_to_streaming(n):
+    """N > 32 streams N in tiles: the tiled variant's three kernels."""
     plan = decision_plan(n, 4)
-    assert (plan.variant, plan.np, plan.threads) == ("streaming", 0, 128)
+    assert (plan.variant, plan.np, plan.threads) == ("tiled", 0, 128)
+    assert plan.tile in TILE_WIDTHS and plan.kernels == 3
+
+
+# The tiled variant's shapes: ragged and exact tiles, the LM's padded
+# vocabulary (qwen3-0.6b) at its serving B, mamba2-130m's head.
+WIDE = [(1, 33), (9, 300), (5, 130), (3, 4097), (4, 127), (4, 128),
+        (4, 129), (2, 50280), (8, 50280), (4, 152064), (32, 152064)]
+
+
+@pytest.mark.parametrize("shape", WIDE)
+@pytest.mark.parametrize("tile", TILE_WIDTHS)
+def test_decision_tiled_plan_covers_each_column_once(shape, tile):
+    """Kernels A and B's index arithmetic (block (tile, slot), thread t,
+    column q: n = tile·T + q·128 + t, live where n < N) reaches every
+    (slot, column) exactly once, every tile holds a live column, and
+    the merge's partials [B][R][tiles] have one entry a (slot, tile)."""
+    b, n = shape
+    plan = tiled_plan(n, b, tile)
+    cols = plan.tile // plan.threads
+    assert cols * plan.threads == plan.tile and cols in (1, 2, 4)
+    seen = np.zeros((b, n), np.int64)
+    t = np.arange(plan.threads)
+    for tl in range(plan.tiles):
+        cn = (tl * plan.tile + np.arange(cols)[:, None] * plan.threads
+              + t).ravel()
+        live = cn[cn < n]
+        assert live.size > 0                  # lse's merge sees a column
+        seen[:, live] += 1
+    assert (seen == 1).all()
+    assert plan.blocks == plan.tiles * b and plan.tiles == -(-n // tile)
+
+
+@pytest.mark.parametrize("shape", WIDE)
+def test_decision_tiled_plan_fits_shared_memory_at_r64(shape):
+    """Every kernel's static shared memory is sized for R = 64 and fits
+    the 48 KB a block takes without opting in; R does not move it."""
+    b, n = shape
+    plan = decision_plan(n, MAX_SAMPLES, b)
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert plan == decision_plan(n, 1, b)
+
+
+def test_decision_plan_fills_the_card_at_the_lm_shape():
+    """qwen3-0.6b's round (B 4, N 152,064): the widest tile that gives
+    every SM FILL_BLOCKS_PER_SM blocks, 512 columns, 297 tiles a slot and
+    1,188 blocks; at B 1 still every SM a block."""
+    plan = decision_plan(152064, 20, 4)
+    assert plan.blocks >= FILL_BLOCKS_PER_SM * H100_SMS
+    assert (plan.tile, plan.tiles, plan.blocks) == (512, 297, 1188)
+    assert decision_plan(152064, 20, 1).blocks >= H100_SMS
+    wider = [p for p in decision_plans(152064, 4) if p.tile > plan.tile]
+    assert all(p.blocks < FILL_BLOCKS_PER_SM * H100_SMS for p in wider)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 16, 31, SMALL_N_MAX])
+@pytest.mark.parametrize("b", [1, 4, 32])
+def test_decision_plan_small_n_unchanged(n, b):
+    """The small-N plans as before the tiled variant: one kernel of B
+    blocks, its variant, np and threads independent of B."""
+    for r in (1, 4, 20, 64):
+        plan = decision_plan(n, r, b)
+        assert plan[:3] == decision_plan(n, r)[:3]
+        assert (plan.variant, plan.tile, plan.kernels, plan.blocks) == \
+            ("small_n", 0, 1, b)
+        assert plan.smem_bytes <= SMEM_LIMIT
+    assert decision_plan(2, 4)[:3] == ("small_n", 2, 32)
+    assert decision_plan(2, 20)[:3] == ("small_n", 2, 64)
 
 
 # The head kernels' shapes: the UQ path's (Fig. 16's batch of 64 through
