@@ -16,7 +16,9 @@ JSON line):
   3. every kernel against its plain PyTorch version on the card:
      the decision kernel at the main path's shapes and at ragged /
      read-noise / shared-selection shapes (rtol 1e-5, atol 1e-5, as
-     tests/test_decision_kernel.py); the CIM kernel at the three trunk
+     tests/test_decision_kernel.py), the tiled variant (N > 32) also at
+     N = 4,097 and 50,280 and held to rtol 1e-4 with the LM's absolute
+     floors (LM_RTOL, lm_decision_atol); the CIM kernel at the three trunk
      shapes an admission of 32 slots gives on the gate die and at two
      ragged shapes, ideal and with the die's ADC front end (rtol 1e-4,
      atol 1e-4, as tests/test_kernels.py; an output off by more is an
@@ -179,8 +181,12 @@ JSON line):
      shape for R = 4, 16, 20, 64 (paper with the ADC at R = 20) and at
      the UQ path's shape (B=64, K=64, N=2, R=20; the head entries'
      ``path``); decision at the LM's B=4, N=152,064, R = 4 and 20
-     (``lm_vocab``) and rank16 at decode_step's B=4, K=1,024,
-     N=152,064, R=8 (``lm_decode_step``).  The entries name their design and the launch plan each
+     (``lm_vocab``; asserted faster than its plain version, beside PR
+     25's streaming design's times) and rank16 at decode_step's B=4,
+     K=1,024, N=152,064, R=8 (``lm_decode_step``); every tile width of
+     the decision kernel's tiled variant on the LM's R = 20 operands,
+     each held to the plain version at LM_RTOL, timed, and whether the
+     chosen one is the fastest (line ``decision_plans``).  The entries name their design and the launch plan each
      shape took.  Every plan the CIM kernel takes, timed at the trunk's
      shapes for 32 slots and for a UQ batch of 64 images, each giving
      the chosen plan's bits (line ``cim_plans``); every plan the head

@@ -50,47 +50,59 @@
 //   B, read each column's operands once a phase, and spend few
 //   instructions a logit beyond its 16 multiply-adds and one exp.  The
 //   previous design ran one 128-thread block a slot (4 of 132 SMs busy
-//   at B 4) and computed every logit three times; 11.2 / 51.3 ms at
+//   at B 4) and computed every logit three times: 11.2 / 51.3 ms at
 //   R 4 / 20 (PERF.md).  This one splits N into tiles of T = 128·C
-//   columns (C = 1, 2 or 4, from the plan, which takes the widest T
-//   that still gives every SM several blocks) and runs three kernels on
-//   the stream, each a grid over (tile, slot) or slot:
-//   A (partials): a block of 128 threads holds its tile's operands in
-//     registers, C columns a thread (m as four float4 loads, y_mu,
-//     sum_mean*x_sigma, the read-noise scale, and the first two of
-//     hash3's three mixes, which do not depend on r: one mix32 a
-//     (r, n) on a die).  For each sample r in order it computes the
-//     thread's C logits, the warp's max by an xor butterfly, then
-//     S1 = Σ e^(l-max) and S2 = Σ e^(l-max)·(l-max) summed by another;
-//     after the last sample one thread per r folds the four warps'
-//     (max, S1, S2) in warp order into the tile's and writes them to a
-//     scratch buffer the wrapper allocates ([3][B][R][tiles]).
-//   M (merge): a block per slot, a warp per sample; lane l folds tiles
-//     l, l+32, ... in order, then an xor butterfly of the same merge
-//     gives the row's (M, Z = Σ e^(l-M), S2 = Σ e^(l-M)·(l-M)).  Then
-//     lse = M + log Z and ent = log Z - S2 / Z, since
+//   columns (C = 1, 2 or 4, from the plan) and runs three kernels on
+//   the stream:
+//   A (partials), grid (tiles, B) of 128 threads: a thread holds C
+//     columns' operands in registers (m as four float4 loads, y_mu,
+//     sum_mean·x_sigma and, on a die, the read-noise scale and the two
+//     of hash3's three mixes that do not depend on r: one mix32 a
+//     (r, n)).  For each group of 4 samples it computes its 4·C logits
+//     (no branch, so the chains interleave; the 16-term mix in four
+//     partial sums), the warp's max of each sample, then S1 = Σ e^(l-max)
+//     and S2 = Σ e^(l-max)·(l-max), both by transposed xor trees: each
+//     exchange halves the samples a lane keeps, so four samples cost
+//     about the shuffles of two.  The trees, and every sum after them,
+//     are float64: the standard errors the engine derives from sum_ent
+//     and sum_entsq difference squares of ~6, and an entropy off by one
+//     float32 ulp moves them by ~1e-4 (chip_smoke.py lm_card_vs_cpu
+//     holds them to 1e-4); in float64 the card lands where a float64
+//     plain version does.  One thread per sample folds the four warps'
+//     (max, S1, S2) in warp order into the tile's and writes it to a
+//     scratch buffer the wrapper allocates.
+//   M (merge), grid (R, B) of 256 threads: the row's max M over the
+//     tiles' maxima, then each tile's sums scaled to it and added, in
+//     float64 (thread t takes tiles t, t+256, ... in order, then an xor
+//     butterfly in each warp, then the warps in order), give
+//     Z = Σ e^(l-M) and S2 = Σ e^(l-M)·(l-M), a tile (m_t, S1_t, S2_t)
+//     adding e^d·S1_t and e^d·(S2_t + d·S1_t), d = m_t - M (kernel A
+//     folds its warps the same way, a pair at a time).  lse = M + log Z
+//     and ent = log Z - S2/Z, since
 //     Σ p·log p = (1/Z)·Σ e^(l-M)·((l-M) - log Z) = S2/Z - log Z.  So
-//     the entropy needs no second pass over N; both terms are >= 0, and
-//     S2 is kept shifted by the max because the unshifted Σ e^(l-M)·l
-//     cancels in float32.  sum_ent and sum_entsq fold the samples in
-//     order.  A merge of (m_a, a1, a2) and (m_b, b1, b2) at m = max is
-//     (m, e_a·a1 + e_b·b1, e_a·(a2 + d_a·a1) + e_b·(b2 + d_b·b1)) with
-//     d = m_x - m, e = e^d; an empty side (-inf) adds nothing.
-//   B (sums): the grid of A again; each thread recomputes its C columns'
-//     logits from the same registers' worth of loads, p = e^(l - lse[r])
-//     for r in order, and writes sum_p and sum_psq of its columns: no
-//     reduction across threads.  The logits are recomputed rather than
-//     kept: at R = 20, B 4 they are 48.7 MB, more than the card's shared
-//     memory, and spilling them to device memory moves more bytes than
-//     reading m again (which the 50 MB L2 partly holds).
-//   Three launches, not a cooperative grid barrier (1,188 blocks at
-//   B 4 would have to be co-resident) nor a last-block election (its
+//     the entropy needs no second pass over N; both of its terms are
+//     >= 0, and S2 stays shifted by the max because the unshifted
+//     Σ e^(l-M)·l cancels in float32.
+//   B (sums), A's grid walked backwards (last slot, last tile first, so
+//     the columns A read last may still be in L2, and the next round's
+//     A starts where this one ends): each thread recomputes its
+//     columns' logits from the same loads, p = e^(l - lse[r]) for r in
+//     order, and writes sum_p and sum_psq: no reduction across threads.
+//     Grid column 0's block also folds its slot's entropies in sample
+//     order into sum_ent and sum_entsq, in float64 rounded once.  The
+//     logits are recomputed, not kept: at R = 20, B 4 they are 48.7 MB,
+//     more than the card's shared memory, and writing them out moves
+//     more bytes than reading m again.
+//   Three launches, not a cooperative grid barrier (2,376 blocks at B 4
+//   would have to be co-resident) nor a last-block election (its
 //   counter would need zeroing every call, and a stale one fails
-//   silently): the two extra graph nodes cost about 1 µs each.  A
-//   masked slot's blocks read its mask byte and stop; B's write its
-//   zeros, M's its zero entropies.  Logits scale by 1/sum_std (one
-//   multiply, not a division): within 1.5 ulp of the plain version's
-//   division.
+//   silently); an extra graph node costs about 1 µs.  A masked slot's
+//   blocks read its mask byte and stop; B's write its zeros.  Every
+//   float32 exponential is expf, as the plain version's (the SFU's
+//   ex2.approx alone would add up to ~1e-6 of relative error a term,
+//   its argument's rounding scaled by |l - M|).  The logit scales by
+//   1/sum_std (a multiply, within 1 ulp of the plain version's
+//   division).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -326,32 +338,36 @@ decision_stats_small_n_kernel(Params p, int np) {
 // ---------------------------------------------------------------------
 constexpr int kTiledThreads = 128;   // a block of kernels A and B
 constexpr int kTiledWarps = kTiledThreads / 32;
-constexpr int kMergeMaxWarps = 32;
+constexpr int kGroup = 4;            // samples a reduction of kernel A takes
+static_assert(kGroup == 4, "kernel A's transposed trees are written for 4");
+constexpr int kMergeThreads = 256;
 
 // (max, Σ e^(l-max), Σ e^(l-max)·(l-max)) over some logits of one
-// sample; m = -inf when empty.
+// sample, the sums in float64; m = -inf when empty.
 struct Part {
-  float m, s1, s2;
+  float m;
+  double s1, s2;
 };
 
 __device__ __forceinline__ Part merge_part(const Part& a, const Part& b) {
   const float mn = fmaxf(a.m, b.m);
-  Part o{mn, 0.f, 0.f};
+  Part o{mn, 0.0, 0.0};
   if (a.m != -INFINITY) {
-    const float d = a.m - mn, e = expf(d);
+    const double d = static_cast<double>(a.m) - mn, e = exp(d);
     o.s1 = e * a.s1;
     o.s2 = e * (a.s2 + d * a.s1);
   }
   if (b.m != -INFINITY) {
-    const float d = b.m - mn, e = expf(d);
+    const double d = static_cast<double>(b.m) - mn, e = exp(d);
     o.s1 += e * b.s1;
     o.s2 += e * (b.s2 + d * b.s1);
   }
   return o;
 }
 
-// The operands of a thread's C columns n = n0 + q*128 + threadIdx.x.
-template <int C>
+// The operands of a thread's C columns n = n0 + q*128 + threadIdx.x;
+// columns past N hold zeros (their logits are computed and dropped).
+template <int C, bool kNoisy>
 struct Columns {
   float4 m[C][kBasis / 4];
   float y[C];        // y_mu
@@ -361,10 +377,12 @@ struct Columns {
   bool valid[C];     // n < N
 };
 
-template <int C>
+template <int C, bool kNoisy>
 __device__ __forceinline__ void load_columns(const Params& p, int b, int n0,
-                                             uint32_t row, bool noisy,
-                                             Columns<C>& c) {
+                                             Columns<C, kNoisy>& c) {
+  const uint32_t row = (kNoisy && p.rows != nullptr)
+                           ? static_cast<uint32_t>(p.rows[b])
+                           : static_cast<uint32_t>(b);
 #pragma unroll
   for (int q = 0; q < C; ++q) {
     const int n = n0 + q * kTiledThreads + static_cast<int>(threadIdx.x);
@@ -380,7 +398,7 @@ __device__ __forceinline__ void load_columns(const Params& p, int b, int n0,
     for (int j = 0; j < kBasis / 4; ++j) c.m[q][j] = __ldg(m4 + j);
     c.y[q] = __ldg(p.y_mu + bn);
     c.smx[q] = p.sum_mean * __ldg(p.x_sigma + bn);
-    if (noisy) {
+    if (kNoisy) {
       c.sr[q] = p.read_sigma * sqrtf(fmaxf(__ldg(p.x_sigsq + bn), 0.f));
       c.pre[q] = repro_torch::col_prefix(row, static_cast<uint32_t>(n),
                                          p.noise_seed);
@@ -388,23 +406,25 @@ __device__ __forceinline__ void load_columns(const Params& p, int b, int n0,
   }
 }
 
-// Logit of column q for the sample whose selection row is s and key is
-// key: hash3(key, row, n, seed) = row_hash(key, col_prefix(row, n, seed)).
-template <int C>
-__device__ __forceinline__ float tiled_logit(const Columns<C>& c, int q,
+// Logit of column q for the sample of selection row s and key ``key``:
+// the 16-term mix in four interleaved partial sums; the read noise by
+// hash3(key, row, n, seed) = row_hash(key, col_prefix(row, n, seed)).
+// No branch: a thread's C columns (and kernel A's samples) interleave.
+template <int C, bool kNoisy>
+__device__ __forceinline__ float tiled_logit(const Columns<C, kNoisy>& c,
+                                             int q,
                                              const float4 (&s)[kBasis / 4],
-                                             uint32_t key, bool noisy,
-                                             float inv_std) {
-  float mix = 0.f;
+                                             uint32_t key, float inv_std) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll
   for (int j = 0; j < kBasis / 4; ++j) {
-    mix += s[j].x * c.m[q][j].x;
-    mix += s[j].y * c.m[q][j].y;
-    mix += s[j].z * c.m[q][j].z;
-    mix += s[j].w * c.m[q][j].w;
+    a0 = fmaf(s[j].x, c.m[q][j].x, a0);
+    a1 = fmaf(s[j].y, c.m[q][j].y, a1);
+    a2 = fmaf(s[j].z, c.m[q][j].z, a2);
+    a3 = fmaf(s[j].w, c.m[q][j].w, a3);
   }
-  float num = mix - c.smx[q];
-  if (noisy) {
+  float num = ((a0 + a1) + (a2 + a3)) - c.smx[q];
+  if (kNoisy) {
     num += repro_torch::gauss_of(repro_torch::row_hash(key, c.pre[q])) *
            c.sr[q];
   }
@@ -413,23 +433,18 @@ __device__ __forceinline__ float tiled_logit(const Columns<C>& c, int q,
 
 // The round's selection rows of slot b and, with read noise, its sample
 // keys, into shared memory.
+template <bool kNoisy>
 __device__ __forceinline__ void stage_round(const Params& p, int b,
-                                            float* sel_s, uint32_t* key_s,
-                                            bool noisy) {
+                                            float* sel_s, uint32_t* key_s) {
   for (int i = threadIdx.x; i < p.R * kBasis; i += blockDim.x) {
     const int r = i / kBasis, j = i % kBasis;
     sel_s[i] = p.sel_per_slot
                    ? p.sel[(static_cast<size_t>(r) * p.B + b) * kBasis + j]
                    : p.sel[static_cast<size_t>(r) * kBasis + j];
   }
-  for (int r = threadIdx.x; r < p.R; r += blockDim.x)
-    key_s[r] = noisy ? sample_key(p, r, b) : 0u;
-}
-
-__device__ __forceinline__ uint32_t slot_row(const Params& p, int b,
-                                             bool noisy) {
-  return (noisy && p.rows != nullptr) ? static_cast<uint32_t>(p.rows[b])
-                                      : static_cast<uint32_t>(b);
+  if (kNoisy)
+    for (int r = threadIdx.x; r < p.R; r += blockDim.x)
+      key_s[r] = sample_key(p, r, b);
 }
 
 __device__ __forceinline__ void load_sel(const float* sel_s, int r,
@@ -439,135 +454,196 @@ __device__ __forceinline__ void load_sel(const float* sel_s, int r,
   for (int j = 0; j < kBasis / 4; ++j) s[j] = s4[j];
 }
 
-// A: the (max, S1, S2) of every (slot, tile, sample) into
-// part[3][B][R][tiles].  Grid (tiles, B), 128 threads.
-template <int C>
+// A: the (max, S1, S2) of every (slot, tile, sample) into pm[B][R][tiles]
+// (float) and ps[2][B][R][tiles] (float64).  Grid (tiles, B), 128
+// threads.  Samples go in
+// groups of kGroup: the warp's max and sums of a group's samples are
+// transposed xor trees (each exchange halves the samples a lane keeps,
+// so kGroup samples cost about as many shuffles as two), after which
+// lanes 8g..8g+7 hold sample g's.
+template <int C, bool kNoisy>
 __global__ void __launch_bounds__(kTiledThreads)
-decision_tiled_partials_kernel(Params p, float* part, int tiles) {
+decision_tiled_partials_kernel(Params p, float* pm, double* ps,
+                               int tiles) {
   const int tile = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (p.mask != nullptr && p.mask[b] == 0) return;   // no partials needed
 
   __shared__ __align__(16) float sel_s[kMaxR * kBasis];
   __shared__ uint32_t key_s[kMaxR];
-  __shared__ float wpart[3][kTiledWarps][kMaxR];
+  __shared__ float wmax[kTiledWarps][kMaxR];
+  __shared__ double wsum[2][kTiledWarps][kMaxR];
 
-  const bool noisy = p.read_sigma > 0.f;
-  Columns<C> c;
-  load_columns<C>(p, b, tile * C * kTiledThreads, slot_row(p, b, noisy),
-                  noisy, c);
-  stage_round(p, b, sel_s, key_s, noisy);
+  Columns<C, kNoisy> c;
+  load_columns<C, kNoisy>(p, b, tile * C * kTiledThreads, c);
+  stage_round<kNoisy>(p, b, sel_s, key_s);
   __syncthreads();
   const float inv_std = 1.f / p.sum_std;
+  const bool hi16 = lane & 16, hi8 = lane & 8;
+  const int mine = lane >> 3;              // the sample a lane ends with
 
-  for (int r = 0; r < p.R; ++r) {
-    float4 s[kBasis / 4];
-    load_sel(sel_s, r, s);
-    const uint32_t key = key_s[r];
-    float l[C];
-    float mx = -INFINITY;
+  for (int r0 = 0; r0 < p.R; r0 += kGroup) {
+    float l[kGroup][C], mx[kGroup];
 #pragma unroll
-    for (int q = 0; q < C; ++q) {
-      l[q] = c.valid[q] ? tiled_logit<C>(c, q, s, key, noisy, inv_std)
-                        : -INFINITY;
-      mx = fmaxf(mx, l[q]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, off));
-    float s1 = 0.f, s2 = 0.f;
-    if (mx != -INFINITY) {          // warp-uniform: a warp past N skips
+    for (int g = 0; g < kGroup; ++g) {
+      const bool live = r0 + g < p.R;
+      const int r = live ? r0 + g : r0;
+      float4 s[kBasis / 4];
+      load_sel(sel_s, r, s);
+      const uint32_t key = kNoisy ? key_s[r] : 0u;
+      mx[g] = -INFINITY;
 #pragma unroll
       for (int q = 0; q < C; ++q) {
-        if (c.valid[q]) {
-          const float d = l[q] - mx, e = expf(d);
-          s1 += e;
-          s2 += e * d;
-        }
+        const float v = tiled_logit<C, kNoisy>(c, q, s, key, inv_std);
+        l[g][q] = (live && c.valid[q]) ? v : -INFINITY;
+        mx[g] = fmaxf(mx[g], l[g][q]);
       }
     }
+    // the warp's max of each sample: scatter to lanes 8g.., then gather
+    float k0 = hi16 ? mx[2] : mx[0], k1 = hi16 ? mx[3] : mx[1];
+    k0 = fmaxf(k0, __shfl_xor_sync(kFullMask, hi16 ? mx[0] : mx[2], 16));
+    k1 = fmaxf(k1, __shfl_xor_sync(kFullMask, hi16 ? mx[1] : mx[3], 16));
+    float k = hi8 ? k1 : k0;
+    k = fmaxf(k, __shfl_xor_sync(kFullMask, hi8 ? k0 : k1, 8));
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s1 += __shfl_xor_sync(kFullMask, s1, off);
-      s2 += __shfl_xor_sync(kFullMask, s2, off);
+    for (int off = 4; off > 0; off >>= 1)
+      k = fmaxf(k, __shfl_xor_sync(kFullMask, k, off));
+    // S1 and S2 against the warp's max; a dropped logit (-inf, or a warp
+    // past N whose max is -inf) has d = -1e30, e = 0
+    float s1[kGroup], s2[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const float wm = __shfl_sync(kFullMask, k, 8 * g);
+      s1[g] = s2[g] = 0.f;
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const float d = fmaxf(l[g][q] - wm, -1e30f), e = expf(d);
+        s1[g] += e;
+        s2[g] = fmaf(e, d, s2[g]);
+      }
     }
-    if (lane == 0) {
-      wpart[0][warp][r] = mx;
-      wpart[1][warp][r] = s1;
-      wpart[2][warp][r] = s2;
+    // the warp's sums of each sample, scattered the same way, in
+    // float64: the entropy log Z - S2/Z has to stay within a fraction of
+    // an ulp for the standard errors' cancelling differences
+    double a0 = hi16 ? s1[2] : s1[0], a1 = hi16 ? s1[3] : s1[1];
+    double b0 = hi16 ? s2[2] : s2[0], b1 = hi16 ? s2[3] : s2[1];
+    a0 += __shfl_xor_sync(kFullMask, double(hi16 ? s1[0] : s1[2]), 16);
+    a1 += __shfl_xor_sync(kFullMask, double(hi16 ? s1[1] : s1[3]), 16);
+    b0 += __shfl_xor_sync(kFullMask, double(hi16 ? s2[0] : s2[2]), 16);
+    b1 += __shfl_xor_sync(kFullMask, double(hi16 ? s2[1] : s2[3]), 16);
+    double u = hi8 ? a1 : a0, v = hi8 ? b1 : b0;
+    u += __shfl_xor_sync(kFullMask, hi8 ? a0 : a1, 8);
+    v += __shfl_xor_sync(kFullMask, hi8 ? b0 : b1, 8);
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1) {
+      u += __shfl_xor_sync(kFullMask, u, off);
+      v += __shfl_xor_sync(kFullMask, v, off);
+    }
+    if ((lane & 7) == 0 && r0 + mine < p.R) {
+      wmax[warp][r0 + mine] = k;
+      wsum[0][warp][r0 + mine] = u;
+      wsum[1][warp][r0 + mine] = v;
     }
   }
   __syncthreads();
   const size_t plane = static_cast<size_t>(p.B) * p.R * tiles;
   for (int r = tid; r < p.R; r += kTiledThreads) {
-    Part t{-INFINITY, 0.f, 0.f};
+    Part t{-INFINITY, 0.0, 0.0};
 #pragma unroll
     for (int w = 0; w < kTiledWarps; ++w)
-      t = merge_part(t, Part{wpart[0][w][r], wpart[1][w][r], wpart[2][w][r]});
+      t = merge_part(t, Part{wmax[w][r], wsum[0][w][r], wsum[1][w][r]});
     const size_t i = (static_cast<size_t>(b) * p.R + r) * tiles + tile;
-    part[i] = t.m;
-    part[plane + i] = t.s1;
-    part[2 * plane + i] = t.s2;
+    pm[i] = t.m;
+    ps[i] = t.s1;
+    ps[plane + i] = t.s2;
   }
 }
 
-// M: per slot, every sample's lse[b][r] from its tiles' partials, and
-// sum_ent / sum_entsq.  Grid B, 32·min(R, 32) threads.
-__global__ void __launch_bounds__(kMergeMaxWarps * 32)
-decision_tiled_merge_kernel(Params p, const float* part, float* lse,
-                            int tiles) {
-  const int b = blockIdx.x;
+// M: lse[b][r] (float) and ent[b][r] (float64) from sample r's tile
+// partials.  Grid (R, B), kMergeThreads threads.  First the row's max M
+// over the tiles (exact: thread t takes tiles t, t + 256, ..., then a
+// warp butterfly, then the warps); then thread t sums its tiles'
+// e^(m_t - M)·S1_t and e^(m_t - M)·(S2_t + (m_t - M)·S1_t) in order, an
+// xor butterfly in each warp and the warps in order add them: one
+// float64 exp a tile and no dependent chain of them.
+__global__ void __launch_bounds__(kMergeThreads)
+decision_tiled_merge_kernel(Params p, const float* pm, const double* ps,
+                            float* lse, double* ent, int tiles) {
+  constexpr int kWarps = kMergeThreads / 32;
+  const int r = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warps = blockDim.x >> 5;
-  if (p.mask != nullptr && p.mask[b] == 0) {
-    if (tid == 0) {
-      p.sum_ent[b] = 0.f;
-      p.sum_entsq[b] = 0.f;
-    }
-    return;
-  }
-  __shared__ float ent_s[kMaxR];
+  if (p.mask != nullptr && p.mask[b] == 0) return;
+  __shared__ float wm[kWarps];
+  __shared__ double ws[2][kWarps];
   const size_t plane = static_cast<size_t>(p.B) * p.R * tiles;
-  for (int r = warp; r < p.R; r += warps) {
-    const size_t row0 = (static_cast<size_t>(b) * p.R + r) * tiles;
-    Part a{-INFINITY, 0.f, 0.f};
-    for (int t = lane; t < tiles; t += 32)
-      a = merge_part(a, Part{part[row0 + t], part[plane + row0 + t],
-                             part[2 * plane + row0 + t]});
+  const size_t row0 = (static_cast<size_t>(b) * p.R + r) * tiles;
+  float mx = -INFINITY;
+  for (int t = tid; t < tiles; t += kMergeThreads)
+    mx = fmaxf(mx, pm[row0 + t]);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const Part o{__shfl_xor_sync(kFullMask, a.m, off),
-                   __shfl_xor_sync(kFullMask, a.s1, off),
-                   __shfl_xor_sync(kFullMask, a.s2, off)};
-      a = merge_part(a, o);
-    }
-    if (lane == 0) {
-      const float log_z = logf(a.s1);
-      lse[static_cast<size_t>(b) * p.R + r] = a.m + log_z;
-      ent_s[r] = log_z - a.s2 / a.s1;
-    }
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, off));
+  if (lane == 0) wm[warp] = mx;
+  __syncthreads();
+  float big_m = wm[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) big_m = fmaxf(big_m, wm[w]);
+  double z = 0.0, s2 = 0.0;
+  for (int t = tid; t < tiles; t += kMergeThreads) {
+    const double d = static_cast<double>(pm[row0 + t]) - big_m;
+    const double e = exp(d), s1 = ps[row0 + t];
+    z += e * s1;
+    s2 += e * (ps[plane + row0 + t] + d * s1);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    z += __shfl_xor_sync(kFullMask, z, off);
+    s2 += __shfl_xor_sync(kFullMask, s2, off);
+  }
+  if (lane == 0) {
+    ws[0][warp] = z;
+    ws[1][warp] = s2;
   }
   __syncthreads();
   if (tid == 0) {
-    float se = 0.f, se2 = 0.f;
-    for (int r = 0; r < p.R; ++r) {
-      se += ent_s[r];
-      se2 += ent_s[r] * ent_s[r];
+    z = s2 = 0.0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      z += ws[0][w];
+      s2 += ws[1][w];
     }
-    p.sum_ent[b] = se;
-    p.sum_entsq[b] = se2;
+    const double log_z = log(z);
+    const size_t i = static_cast<size_t>(b) * p.R + r;
+    lse[i] = static_cast<float>(big_m + log_z);
+    ent[i] = log_z - s2 / z;
   }
 }
 
-// B: sum_p and sum_psq of the tile's columns, samples in order.  Grid
-// (tiles, B), 128 threads.
-template <int C>
+// B: sum_p and sum_psq of a tile's columns, samples in order; the block
+// of grid column 0 also folds its slot's entropies in sample order.
+// Grid (tiles, B), 128 threads, walked in the reverse of A's order
+// (last slot, last tile first): the columns A read last are likeliest
+// still in L2, and the next round's A, in A's order, starts where this
+// one ends.
+template <int C, bool kNoisy>
 __global__ void __launch_bounds__(kTiledThreads)
-decision_tiled_sums_kernel(Params p, const float* lse) {
-  const int tile = blockIdx.x, b = blockIdx.y;
+decision_tiled_sums_kernel(Params p, const float* lse, const double* ent) {
+  const int tile = gridDim.x - 1 - blockIdx.x;
+  const int b = gridDim.y - 1 - blockIdx.y;
   const int n0 = tile * C * kTiledThreads;
   const size_t row0 = static_cast<size_t>(b) * p.N;
-  if (p.mask != nullptr && p.mask[b] == 0) {     // inactive slot: zeros
+  const bool active = p.mask == nullptr || p.mask[b] != 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {  // rounded to float once
+    double se = 0.0, se2 = 0.0;
+    for (int r = 0; active && r < p.R; ++r) {
+      const double e = ent[static_cast<size_t>(b) * p.R + r];
+      se += e;
+      se2 += e * e;
+    }
+    p.sum_ent[b] = static_cast<float>(se);
+    p.sum_entsq[b] = static_cast<float>(se2);
+  }
+  if (!active) {                                  // inactive slot: zeros
 #pragma unroll
     for (int q = 0; q < C; ++q) {
       const int n = n0 + q * kTiledThreads + static_cast<int>(threadIdx.x);
@@ -582,10 +658,9 @@ decision_tiled_sums_kernel(Params p, const float* lse) {
   __shared__ uint32_t key_s[kMaxR];
   __shared__ float lse_s[kMaxR];
 
-  const bool noisy = p.read_sigma > 0.f;
-  Columns<C> c;
-  load_columns<C>(p, b, n0, slot_row(p, b, noisy), noisy, c);
-  stage_round(p, b, sel_s, key_s, noisy);
+  Columns<C, kNoisy> c;
+  load_columns<C, kNoisy>(p, b, n0, c);
+  stage_round<kNoisy>(p, b, sel_s, key_s);
   for (int r = threadIdx.x; r < p.R; r += kTiledThreads)
     lse_s[r] = lse[static_cast<size_t>(b) * p.R + r];
   __syncthreads();
@@ -597,16 +672,14 @@ decision_tiled_sums_kernel(Params p, const float* lse) {
   for (int r = 0; r < p.R; ++r) {
     float4 s[kBasis / 4];
     load_sel(sel_s, r, s);
-    const uint32_t key = key_s[r];
+    const uint32_t key = kNoisy ? key_s[r] : 0u;
     const float lr = lse_s[r];
 #pragma unroll
     for (int q = 0; q < C; ++q) {
-      if (c.valid[q]) {
-        const float pr =
-            expf(tiled_logit<C>(c, q, s, key, noisy, inv_std) - lr);
-        sp[q] += pr;
-        spsq[q] += pr * pr;
-      }
+      const float pr =
+          expf(tiled_logit<C, kNoisy>(c, q, s, key, inv_std) - lr);
+      sp[q] += pr;
+      spsq[q] = fmaf(pr, pr, spsq[q]);
     }
   }
 #pragma unroll
@@ -619,24 +692,33 @@ decision_tiled_sums_kernel(Params p, const float* lse) {
   }
 }
 
-template <int C>
-int launch_tiled(const Params& p, float* scratch, cudaStream_t s) {
+template <int C, bool kNoisy>
+int launch_tiled_kernels(const Params& p, float* scratch, cudaStream_t s) {
   const int tile = C * kTiledThreads;
   const int tiles = (p.N + tile - 1) / tile;
-  float* part = scratch;
-  float* lse = scratch + 3 * static_cast<size_t>(p.B) * p.R * tiles;
+  const size_t br = static_cast<size_t>(p.B) * p.R;
+  double* ps = reinterpret_cast<double*>(scratch);     // [2][B][R][tiles]
+  double* ent = ps + 2 * br * tiles;                   // [B][R]
+  float* pm = reinterpret_cast<float*>(ent + br);      // [B][R][tiles]
+  float* lse = pm + br * tiles;                        // [B][R]
   const dim3 grid(tiles, p.B);
-  decision_tiled_partials_kernel<C><<<grid, kTiledThreads, 0, s>>>(p, part,
-                                                                   tiles);
+  decision_tiled_partials_kernel<C, kNoisy>
+      <<<grid, kTiledThreads, 0, s>>>(p, pm, ps, tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int merge_warps = p.R < kMergeMaxWarps ? p.R : kMergeMaxWarps;
-  decision_tiled_merge_kernel<<<p.B, 32 * merge_warps, 0, s>>>(p, part, lse,
-                                                               tiles);
+  decision_tiled_merge_kernel<<<dim3(p.R, p.B), kMergeThreads, 0, s>>>(
+      p, pm, ps, lse, ent, tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decision_tiled_sums_kernel<C><<<grid, kTiledThreads, 0, s>>>(p, lse);
+  decision_tiled_sums_kernel<C, kNoisy>
+      <<<grid, kTiledThreads, 0, s>>>(p, lse, ent);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int C>
+int launch_tiled(const Params& p, float* scratch, cudaStream_t s) {
+  return p.read_sigma > 0.f ? launch_tiled_kernels<C, true>(p, scratch, s)
+                            : launch_tiled_kernels<C, false>(p, scratch, s);
 }
 
 }  // namespace
@@ -644,8 +726,9 @@ int launch_tiled(const Params& p, float* scratch, cudaStream_t s) {
 // Launches one round on ``stream`` without synchronising, as the plan of
 // kernels/decision.py says: ``tile`` > 0 runs the tiled variant's three
 // kernels over tiles of ``tile`` = 128, 256 or 512 columns on
-// ``threads`` = 128, with ``scratch`` holding 3·B·R·tiles + B·R floats
-// (tiles = ceil(N / tile)); ``tile`` = 0 runs the small-N variant:
+// ``threads`` = 128, with ``scratch`` (8-byte aligned) holding
+// 5·B·R·tiles + 3·B·R floats (tiles = ceil(N / tile)); ``tile`` = 0
+// runs the small-N variant:
 // ``np`` a power of two, N <= np <= 32, on ``threads`` (a multiple of
 // 32, at least R).  Returns the first launch's cudaError_t that is not
 // cudaSuccess (0); cudaErrorInvalidValue for what the kernels do not
@@ -664,6 +747,7 @@ extern "C" int decision_stats_launch(
                     threads % 32 != 0 || threads < R))  // a key_s[r] each
     return cudaErrorInvalidValue;
   if (tile != 0 && (threads != kTiledThreads || scratch == nullptr ||
+                    reinterpret_cast<uintptr_t>(scratch) % 8 != 0 ||
                     B > 65535))                 // grid.y
     return cudaErrorInvalidValue;
   if (read_sigma > 0.f && (x_sigsq == nullptr || sample_idx == nullptr))

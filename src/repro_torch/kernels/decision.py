@@ -50,7 +50,8 @@ MAX_SAMPLES = 64          # the kernel keeps a round's R selections in smem
 SMALL_N_MAX = 32          # widest N of the small-N variant: one warp
 TILED_THREADS = 128       # a block of the tiled variant's kernels A and B
 TILE_WIDTHS = (128, 256, 512)   # 1, 2 or 4 columns a thread
-FILL_BLOCKS_PER_SM = 8    # the widest tile that still gives each SM these
+FILL_BLOCKS_PER_SM = 16   # the widest tile that still gives each SM these:
+                          # ~2 waves of resident blocks (PERF.md's sweep)
 _P = ctypes.c_void_p
 
 
@@ -75,8 +76,9 @@ class DecisionPlan(NamedTuple):
 # static shared memory of csrc/decision.cu's kernels, in floats
 _SMALL_N_SMEM = 4 * (MAX_SAMPLES * 17 + SMALL_N_MAX * 17 + 3 * SMALL_N_MAX
                      + MAX_SAMPLES + 2 * 32 * SMALL_N_MAX + 2 * 32)
-_TILED_SMEM = 4 * (MAX_SAMPLES * 16 + MAX_SAMPLES
-                   + 3 * (TILED_THREADS // 32) * MAX_SAMPLES)
+_TILED_SMEM = (4 * (MAX_SAMPLES * 16 + MAX_SAMPLES
+                    + (TILED_THREADS // 32) * MAX_SAMPLES)
+               + 8 * 2 * (TILED_THREADS // 32) * MAX_SAMPLES)
 
 
 def tiled_plan(n: int, b: int, tile: int) -> DecisionPlan:
@@ -167,10 +169,12 @@ def decision_stats_tiled_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
                                rows=None, *, tile: int) -> dict:
     """The tiled variant's algorithm in plain PyTorch (tests only): per
     (sample, slot, tile of ``tile`` columns, the last one ragged) the
-    tile's max m_t, S1 = Σ e^(l−m_t) and S2 = Σ e^(l−m_t)·(l−m_t); the
-    tiles merged in tile order into the row's max M, Z = Σ e^(l−M) and
-    S2 = Σ e^(l−M)·(l−M); lse = M + log Z and ent = log Z − S2/Z; then a
-    second pass p = exp(l − lse) summed over the samples."""
+    tile's max m_t, S1 = Σ e^(l−m_t) and S2 = Σ e^(l−m_t)·(l−m_t), summed
+    in float64 as the kernel's trees; the tiles merged in tile order into
+    the row's max M, Z = Σ e^(l−M) and S2 = Σ e^(l−M)·(l−M);
+    lse = M + log Z and ent = log Z − S2/Z in float64, the entropies'
+    sums over the samples rounded to float32 once; then a second pass
+    p = exp(l − lse) summed over the samples in float32."""
     logits = _plain_samples(y_mu, x_sigma, m, sel, cfg, x_sigsq,
                             sample_idx, rows)
     r, b, n = logits.shape
@@ -180,8 +184,10 @@ def decision_stats_tiled_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
     mt = lt.amax(-1)                         # every tile holds a column
     d = lt - mt[..., None]                   # -inf on the padding
     e = torch.exp(d)
-    s1 = e.sum(-1)
-    s2 = torch.where(e > 0, e * d, 0.0).sum(-1)
+    f64 = torch.float64
+    s1 = e.to(f64).sum(-1)
+    s2 = torch.where(e > 0, e * d, 0.0).to(f64).sum(-1)
+    mt = mt.to(f64)
     big_m, z, s2m = mt[..., 0], s1[..., 0], s2[..., 0]
     for t in range(1, tiles):
         mn = torch.maximum(big_m, mt[..., t])
@@ -191,8 +197,10 @@ def decision_stats_tiled_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
                   ea * (s2m + da * z) + eb * (s2[..., t] + db * s1[..., t]))
         big_m = mn
     log_z = torch.log(z)
-    p = torch.exp(logits - (big_m + log_z)[..., None])
-    return _masked(p, log_z - s2m / z, mask)
+    lse = (big_m + log_z).to(torch.float32)
+    p = torch.exp(logits - lse[..., None])
+    out = _masked(p, log_z - s2m / z, mask)
+    return {k: v.to(torch.float32) for k, v in out.items()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -256,7 +264,7 @@ def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq=None,
            "sum_entsq": torch.empty((b,), dtype=f32, device=dev)}
     if plan is None:
         plan = decision_plan(n, r, b, _sm_count(dev.index))
-    scratch = (torch.empty(3 * b * r * plan.tiles + b * r, dtype=f32,
+    scratch = (torch.empty(b * r * (5 * plan.tiles + 3), dtype=f32,
                            device=dev) if plan.variant == "tiled" else None)
 
     def ptr(t):

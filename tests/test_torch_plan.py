@@ -216,11 +216,12 @@ def test_decision_tiled_plan_fits_shared_memory_at_r64(shape):
 
 def test_decision_plan_fills_the_card_at_the_lm_shape():
     """qwen3-0.6b's round (B 4, N 152,064): the widest tile that gives
-    every SM FILL_BLOCKS_PER_SM blocks, 512 columns, 297 tiles a slot and
-    1,188 blocks; at B 1 still every SM a block."""
+    every SM FILL_BLOCKS_PER_SM blocks, 256 columns, 594 tiles a slot and
+    2,376 blocks (the fastest width of chip_smoke.py's sweep at R = 20 on
+    the H100, PERF.md); at B 1 still every SM a block."""
     plan = decision_plan(152064, 20, 4)
     assert plan.blocks >= FILL_BLOCKS_PER_SM * H100_SMS
-    assert (plan.tile, plan.tiles, plan.blocks) == (512, 297, 1188)
+    assert (plan.tile, plan.tiles, plan.blocks) == (256, 594, 2376)
     assert decision_plan(152064, 20, 1).blocks >= H100_SMS
     wider = [p for p in decision_plans(152064, 4) if p.tile > plan.tile]
     assert all(p.blocks < FILL_BLOCKS_PER_SM * H100_SMS for p in wider)
