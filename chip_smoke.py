@@ -186,8 +186,8 @@ JSON line):
      K=1,024, N=152,064, R=8 (``lm_decode_step``); every tile width of
      the decision kernel's tiled variant on the LM's R = 20 operands,
      each held to the plain version at LM_RTOL, timed, and whether the
-     chosen one is the fastest (line ``decision_plans``).  The entries name their design and the launch plan each
-     shape took.  Every plan the CIM kernel takes, timed at the trunk's
+     chosen one is the fastest (line ``decision_plans``).  The entries
+     name their design and the launch plan each shape took.  Every plan the CIM kernel takes, timed at the trunk's
      shapes for 32 slots and for a UQ batch of 64 images, each giving
      the chosen plan's bits (line ``cim_plans``); every plan the head
      kernels take, timed at the UQ path's shape and at kernel_bench's

@@ -48,12 +48,9 @@
 //   3.35 TB/s, ~15 µs; at R = 20 the float work (535 MFLOP, 8 µs at
 //   67 TFLOP/s) comes close.  So the round has to run on every SM at any
 //   B, read each column's operands once a phase, and spend few
-//   instructions a logit beyond its 16 multiply-adds and one exp.  The
-//   previous design ran one 128-thread block a slot (4 of 132 SMs busy
-//   at B 4) and computed every logit three times: 11.2 / 51.3 ms at
-//   R 4 / 20 (PERF.md).  This one splits N into tiles of T = 128·C
-//   columns (C = 1, 2 or 4, from the plan) and runs three kernels on
-//   the stream:
+//   instructions a logit beyond its 16 multiply-adds and one exp.
+//   Hence N is split into tiles of T = 128·C columns (C = 1, 2 or 4, from the
+//   plan), and three kernels run on the stream:
 //   A (partials), grid (tiles, B) of 128 threads: a thread holds C
 //     columns' operands in registers (m as four float4 loads, y_mu,
 //     sum_mean·x_sigma and, on a die, the read-noise scale and the two

@@ -18,9 +18,9 @@ without the [R, B, N] logit samples ever reaching device memory.
   ``tile`` columns × slots, so a round spreads over the whole card at
   any B.  A: each (slot, tile, sample)'s max logit m_t, S1 = Σ e^(l−m_t)
   and S2 = Σ e^(l−m_t)·(l−m_t) into a scratch buffer allocated here.
-  M: per slot and sample, the tiles merged into lse = M + log Z and the
-  entropy log Z − S2/Z (Z, S2 shifted to the row's max M), so the
-  entropy needs no second pass over N.  B: p = exp(l − lse) per column,
+  M: per slot and sample, the tiles merged in float64 into
+  lse = M + log Z and the entropy log Z − S2/Z (Z, S2 shifted to the
+  row's max M), so the entropy needs no second pass over N.  B: p = exp(l − lse) per column,
   the logits recomputed, summed over the samples in order.
   ``decision_stats_tiled_plain`` is that algorithm in plain PyTorch, for
   the tests.
@@ -73,7 +73,7 @@ class DecisionPlan(NamedTuple):
     smem_bytes: int
 
 
-# static shared memory of csrc/decision.cu's kernels, in floats
+# static shared memory of csrc/decision.cu's kernels, in bytes
 _SMALL_N_SMEM = 4 * (MAX_SAMPLES * 17 + SMALL_N_MAX * 17 + 3 * SMALL_N_MAX
                      + MAX_SAMPLES + 2 * 32 * SMALL_N_MAX + 2 * 32)
 _TILED_SMEM = (4 * (MAX_SAMPLES * 16 + MAX_SAMPLES

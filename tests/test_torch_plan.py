@@ -1,8 +1,9 @@
 """The launch plans of the port's kernels, checked on the CPU:
 ``kernels/cim.py`` ``launch_plan`` (tiles and chunk split of
 ``csrc/cim_mvm.cu``), ``kernels/decision.py`` ``decision_plan`` (the
-decision kernel's variant and, above N = 32, its tiles) and ``kernels/bayes.py`` ``head_plan`` (tile,
-threads and samples a block carries of ``csrc/bayes_mvm.cu``).
+decision kernel's variant and, above N = 32, its tiles) and
+``kernels/bayes.py`` ``head_plan`` (tile, threads and samples a block
+carries of ``csrc/bayes_mvm.cu``).
 
 The CIM plan is replayed here with the kernel's own index arithmetic
 (block → tile and cluster rank, thread → column and four rows, rank 0's
