@@ -187,8 +187,9 @@ JSON line):
      the decision kernel's tiled variant on the LM's R = 20 operands,
      each held to the plain version at LM_RTOL, timed, and whether the
      chosen one is the fastest (line ``decision_plans``).  The entries
-     name their design and the launch plan each shape took.  Every plan the CIM kernel takes, timed at the trunk's
-     shapes for 32 slots and for a UQ batch of 64 images, each giving
+     name their design and the launch plan each shape took.  Every plan
+     the CIM kernel takes, timed at the trunk's shapes for 32 slots and
+     for a UQ batch of 64 images, each giving
      the chosen plan's bits (line ``cim_plans``); every plan the head
      kernels take, timed at the UQ path's shape and at kernel_bench's
      (R=20: rank16, paper and paper with the ADC; paper also at R=64),
@@ -3456,8 +3457,8 @@ def lm_decision_check(name: str, args: dict) -> dict:
 def lm_kernel_checks(cfg, params) -> dict:
     """The two kernels of the LM path at vocabulary width against their
     plain versions: decision.cu on one live token decision's operands
-    (the admitted prompts' basis) at R = 1, 4, 8, 20, 64, and at R = 20 with
-    read_sigma = 0.4 at the same shape; bayes_mvm.cu rank16 on one
+    (the admitted prompts' basis) at R = 1, 4, 8, 20, 64, and at R = 20
+    with read_sigma = 0.4 at the same shape; bayes_mvm.cu rank16 on one
     decode_step (K 1,024 × N 152,064, R = uq_samples)."""
     import dataclasses
     import torch
@@ -3783,6 +3784,7 @@ def lm_timing(lm: dict) -> dict:
     """decision.cu at N = 152,064, B 4, R 4 and 20 on the live operands
     and bayes_mvm.cu rank16 at decode_step's shape, by CUDA-graph replay
     (``timed``), with their bounds (``kernels/bounds``)."""
+    import torch
     from repro_torch.kernels.bayes import (bayes_rank16, bayes_rank16_plain,
                                            head_plan)
     from repro_torch.kernels.bounds import head_bound
@@ -3795,9 +3797,10 @@ def lm_timing(lm: dict) -> dict:
                   lambda: decision_stats_plain(**args))
         w = decision_args_work(args)
         b, n = args["y_mu"].shape
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         out["decision"][key] = {**t, **{k: w[k] for k in (
             "bound_ms", "bound_by", "bound_bytes", "bound_ops")},
-            "plan": decision_plan(n, args["sel"].shape[0], b)._asdict()}
+            "plan": decision_plan(n, args["sel"].shape[0], b, sms)._asdict()}
         out["decision"][key]["pr25_ms"] = PR25_DECISION_MS[f"lm_{key}"]
         emit({"timing": f"decision_stats_lm_{key}", "B": int(
             args["y_mu"].shape[0]), "N": int(args["y_mu"].shape[1]),
