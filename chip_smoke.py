@@ -3831,7 +3831,8 @@ def decision_plan_sweep(args: dict) -> dict:
     """Every tile width the tiled variant could take on one live token
     decision's operands (B 4, N 152,064, R 20), forced by its plan: each
     held to the plain version at LM_RTOL with lm_decision_atol's floors
-    and timed by graph replay; whether the chosen plan is the fastest."""
+    and timed by graph replay; whether the chosen plan is the fastest;
+    the chosen plan's three kernels' device times by the profiler."""
     import torch
     from repro_torch.kernels import decision
     b, n = args["y_mu"].shape
@@ -3850,7 +3851,23 @@ def decision_plan_sweep(args: dict) -> dict:
                       "max_rel_err": max(e["max_rel_err"]
                                          for e in errs.values())})
     fastest = min(sweep, key=lambda p: p["ms"])
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        decision.decision_stats(**args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            decision.decision_stats(**args)
+        torch.cuda.synchronize()
+    split = {m.group(1): e.device_time_total / e.count
+             for e in prof.key_averages()
+             for m in [re.search(r"decision_tiled_(\w+?)_kernel", e.key)]
+             if m and e.count}
     row = {"decision_plans": f"B={b} N={n} R={r}", "sms": sms,
+           "kernel_us_chosen": split,
+           "kernel_us_what": "device µs a launch of each of the chosen "
+                             "plan's kernels, torch.profiler over 20 "
+                             "eager calls",
            "chosen": chosen._asdict(),
            "chosen_ms": next(p["ms"] for p in sweep
                              if p["tile"] == chosen.tile),
