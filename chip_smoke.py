@@ -181,8 +181,8 @@ JSON line):
      shape for R = 4, 16, 20, 64 (paper with the ADC at R = 20) and at
      the UQ path's shape (B=64, K=64, N=2, R=20; the head entries'
      ``path``); decision at the LM's B=4, N=152,064, R = 4 and 20
-     (``lm_vocab``; asserted faster than its plain version, beside PR
-     25's streaming design's times) and rank16 at decode_step's B=4,
+     (``lm_vocab``; asserted faster than its plain version, beside the
+     streaming design's times) and rank16 at decode_step's B=4,
      K=1,024, N=152,064, R=8 (``lm_decode_step``); every tile width of
      the decision kernel's tiled variant on the LM's R = 20 operands,
      each held to the plain version at LM_RTOL, timed, and whether the
@@ -265,9 +265,11 @@ DESIGN = {"decision_stats": "small-N variant: a thread per (sample, class) "
                         "loops its sample chunks over the kept currents"}
 PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PREV_DECISION_MS = {"main_r4": 0.00399, "main_r20": 0.0104}
-# the small-N variant at the SAR shapes and the streaming wide-N variant
-# at the LM's (B 4, N 152,064) in PR 25's final run (PERF.md §6)
-PR25_DECISION_MS = {"main_r4": 0.0033146560192108153,
+# the last build before the tiled variant (PERF.md §6), on the card named
+# in PREV_CARD: the small-N variant at the SAR shapes (its code is the
+# same since) and the streaming wide-N design at the LM's (B 4,
+# N 152,064); printed beside this run's times, not timed here
+EARLIER_DECISION_MS = {"main_r4": 0.0033146560192108153,
                     "main_r20": 0.003542464017868042,
                     "lm_r4": 11.225823720296225, "lm_r20": 51.25464375813802}
 PREV_CIM_MS = {"trunk0": 0.00707, "trunk1": 0.0118, "trunk2": 0.0186}
@@ -3801,7 +3803,8 @@ def lm_timing(lm: dict) -> dict:
         out["decision"][key] = {**t, **{k: w[k] for k in (
             "bound_ms", "bound_by", "bound_bytes", "bound_ops")},
             "plan": decision_plan(n, args["sel"].shape[0], b, sms)._asdict()}
-        out["decision"][key]["pr25_ms"] = PR25_DECISION_MS[f"lm_{key}"]
+        out["decision"][key]["streaming_design_ms"] = \
+            EARLIER_DECISION_MS[f"lm_{key}"]
         emit({"timing": f"decision_stats_lm_{key}", "B": int(
             args["y_mu"].shape[0]), "N": int(args["y_mu"].shape[1]),
             **out["decision"][key]})
@@ -4332,10 +4335,11 @@ def run_timing(inputs: dict, launches: dict, worst: float,
         "library_note": "no single PyTorch call computes the fused "
                         "mix -> softmax -> masked statistic sums",
         "ms_r20": r20["ms"],
-        "ms_pr25": {k: PR25_DECISION_MS[k] for k in ("main_r4",
-                                                    "main_r20")},
-        "ms_pr25_note": "PR 25's final run (PERF.md), constants, not "
-                        "measured here; the small-N code is unchanged",
+        "ms_earlier": {k: EARLIER_DECISION_MS[k] for k in ("main_r4",
+                                                          "main_r20")},
+        "ms_earlier_note": "the last build before the tiled variant "
+                           "(PERF.md), constants, not measured here; the "
+                           "small-N code is unchanged",
         "plain_ms_r20": r20["plain_ms"],
         "call_ms_r20": r20["call_ms"],
         "plain_call_ms_r20": r20["plain_call_ms"],
