@@ -181,12 +181,12 @@ JSON line):
      shape for R = 4, 16, 20, 64 (paper with the ADC at R = 20) and at
      the UQ path's shape (B=64, K=64, N=2, R=20; the head entries'
      ``path``); decision at the LM's B=4, N=152,064, R = 4 and 20
-     (``lm_vocab``; asserted faster than its plain version, beside the
-     streaming design's times) and rank16 at decode_step's B=4,
-     K=1,024, N=152,064, R=8 (``lm_decode_step``); every tile width of
-     the decision kernel's tiled variant on the LM's R = 20 operands,
-     each held to the plain version at LM_RTOL, timed, and whether the
-     chosen one is the fastest (line ``decision_plans``).  The entries
+     (``lm_vocab``; asserted faster than its plain version) and rank16
+     at decode_step's B=4, K=1,024, N=152,064, R=8
+     (``lm_decode_step``); the tile width the decision kernel's plan
+     takes on the LM's R = 20 operands (its only one), held to the plain
+     version at LM_RTOL, timed, with its three kernels' device times
+     (line ``decision_plans``).  The entries
      name their design and the launch plan each shape took.  Every plan
      the CIM kernel takes, timed at the trunk's shapes for 32 slots and
      for a UQ batch of 64 images, each giving
@@ -247,7 +247,7 @@ FIG9 = dict(n_rows=256, n_cols=256, num_samples=8)
 # old kernels are not timed here.
 DESIGN = {"decision_stats": "small-N variant: a thread per (sample, class) "
                             "pair; tiled variant for N > 32: tiles of "
-                            "128-512 columns x slots, each tile's (max, S1, "
+                            "256 columns x slots, each tile's (max, S1, "
                             "S2) a sample, a merge a slot (lse and entropy), "
                             "then the column sums: three kernels",
           "cim_mvm": "tiles to the shape; chunks split over a thread-block "
@@ -268,10 +268,11 @@ PREV_DECISION_MS = {"main_r4": 0.00399, "main_r20": 0.0104}
 # the last build before the tiled variant (PERF.md §6), on the card named
 # in PREV_CARD: the small-N variant at the SAR shapes (its code is the
 # same since) and the streaming wide-N design at the LM's (B 4,
-# N 152,064); printed beside this run's times, not timed here
+# N 152,064); printed on the ``previous_design`` line, not timed here
 EARLIER_DECISION_MS = {"main_r4": 0.0033146560192108153,
-                    "main_r20": 0.003542464017868042,
-                    "lm_r4": 11.225823720296225, "lm_r20": 51.25464375813802}
+                       "main_r20": 0.003542464017868042,
+                       "lm_r4": 11.225823720296225,
+                       "lm_r20": 51.25464375813802}
 PREV_CIM_MS = {"trunk0": 0.00707, "trunk1": 0.0118, "trunk2": 0.0186}
 # the head kernels' first design, by R at kernel_bench's head and at the
 # UQ path's shape (PERF.md §6)
@@ -3786,7 +3787,6 @@ def lm_timing(lm: dict) -> dict:
     """decision.cu at N = 152,064, B 4, R 4 and 20 on the live operands
     and bayes_mvm.cu rank16 at decode_step's shape, by CUDA-graph replay
     (``timed``), with their bounds (``kernels/bounds``)."""
-    import torch
     from repro_torch.kernels.bayes import (bayes_rank16, bayes_rank16_plain,
                                            head_plan)
     from repro_torch.kernels.bounds import head_bound
@@ -3799,19 +3799,19 @@ def lm_timing(lm: dict) -> dict:
                   lambda: decision_stats_plain(**args))
         w = decision_args_work(args)
         b, n = args["y_mu"].shape
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
         out["decision"][key] = {**t, **{k: w[k] for k in (
             "bound_ms", "bound_by", "bound_bytes", "bound_ops")},
-            "plan": decision_plan(n, args["sel"].shape[0], b, sms)._asdict()}
-        out["decision"][key]["streaming_design_ms"] = \
-            EARLIER_DECISION_MS[f"lm_{key}"]
-        emit({"timing": f"decision_stats_lm_{key}", "B": int(
-            args["y_mu"].shape[0]), "N": int(args["y_mu"].shape[1]),
-            **out["decision"][key]})
+            "plan": decision_plan(n, args["sel"].shape[0], b)._asdict()}
+        emit({"timing": f"decision_stats_lm_{key}", "B": b, "N": n,
+              **out["decision"][key],
+              "streaming_design_ms": EARLIER_DECISION_MS[f"lm_{key}"],
+              "streaming_design_note": "the wide-N design before the "
+                                       "tiled variant (PERF.md), a "
+                                       "constant, not measured here"})
         check(t["ms"] < t["plain_ms"],
               f"decision_stats_lm_{key}: the kernel ({t['ms']} ms) is not "
               f"faster than its plain version ({t['plain_ms']} ms)")
-    out["decision_plans"] = decision_plan_sweep(lm["checks"]["ops"]["r20"])
+    decision_plan_line(lm["checks"]["ops"]["r20"], out["decision"]["r20"])
     c = lm["checks"]["head_case"]
     t = timed(lambda: bayes_rank16(c["x"], c["mu"], c["sigma"], c["sel"],
                                    c["grng"]),
@@ -3830,54 +3830,46 @@ def lm_timing(lm: dict) -> dict:
     return out
 
 
-def decision_plan_sweep(args: dict) -> dict:
-    """Every tile width the tiled variant could take on one live token
-    decision's operands (B 4, N 152,064, R 20), forced by its plan: each
-    held to the plain version at LM_RTOL with lm_decision_atol's floors
-    and timed by graph replay; whether the chosen plan is the fastest;
-    the chosen plan's three kernels' device times by the profiler."""
+def decision_plan_line(args: dict, timing: dict) -> dict:
+    """The tile width the tiled variant's plan takes on one live token
+    decision's operands (B 4, N 152,064, R 20), the only width it takes:
+    held to the plain version at LM_RTOL with lm_decision_atol's floors,
+    its time by graph replay (``decision_stats_lm_r20``'s), and its three
+    kernels' device times by the profiler."""
     import torch
-    from repro_torch.kernels import decision
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.decision import (decision_plan, decision_stats,
+                                              decision_stats_plain)
     b, n = args["y_mu"].shape
     r = args["sel"].shape[0]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    chosen = decision.decision_plan(n, r, b, sms)
-    want = decision.decision_stats_plain(**args)
-    sweep = []
-    for plan in decision.decision_plans(n, b):
-        def call(p=plan):
-            return decision._launch(**args, plan=p)
-        errs = relative_errors(f"decision plan tile={plan.tile}", call(),
-                               want, r, n)
-        sweep.append({**plan._asdict(), "ms": device_ms(call,
-                                                         replay_iters(call)),
-                      "max_rel_err": max(e["max_rel_err"]
-                                         for e in errs.values())})
-    fastest = min(sweep, key=lambda p: p["ms"])
-    from torch.profiler import ProfilerActivity, profile
+    plan = decision_plan(n, r, b)
+    errs = relative_errors(f"decision plan tile={plan.tile}",
+                           decision_stats(**args),
+                           decision_stats_plain(**args), r, n)
     for _ in range(3):
-        decision.decision_stats(**args)
+        decision_stats(**args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
-            decision.decision_stats(**args)
+            decision_stats(**args)
         torch.cuda.synchronize()
     split = {m.group(1): e.device_time_total / e.count
              for e in prof.key_averages()
              for m in [re.search(r"decision_tiled_(\w+?)_kernel", e.key)]
              if m and e.count}
-    row = {"decision_plans": f"B={b} N={n} R={r}", "sms": sms,
+    row = {"decision_plans": f"B={b} N={n} R={r}",
+           "plans": [{**plan._asdict(), "ms": timing["ms"],
+                      "max_rel_err": max(e["max_rel_err"]
+                                         for e in errs.values())}],
+           "chosen": plan._asdict(), "chosen_is_fastest": True,
+           "chosen_note": "the plan takes one tile width, 256 columns; "
+                          "128 and 512 were slower at this shape "
+                          "(PERF.md)",
            "kernel_us_chosen": split,
-           "kernel_us_what": "device µs a launch of each of the chosen "
-                             "plan's kernels, torch.profiler over 20 "
-                             "eager calls",
-           "chosen": chosen._asdict(),
-           "chosen_ms": next(p["ms"] for p in sweep
-                             if p["tile"] == chosen.tile),
-           "fastest": fastest, "chosen_is_fastest":
-               fastest["tile"] == chosen.tile, "rtol": LM_RTOL,
-           "sweep": sweep, "timing": "device time per call by CUDA graph "
-                                     "replay"}
+           "kernel_us_what": "device µs a launch of each of the plan's "
+                             "kernels, torch.profiler over 20 eager calls",
+           "rtol": LM_RTOL, "timing": "device time per call by CUDA graph "
+                                      "replay"}
     emit(row)
     return row
 
@@ -4305,7 +4297,15 @@ def run_timing(inputs: dict, launches: dict, worst: float,
                 "CUDA-graph replay (the head kernels: their first "
                 "design, r<R> at kernel_bench's head, path_r20 at the UQ "
                 "path's)",
-        "decision_stats_ms": PREV_DECISION_MS, "cim_mvm_ms": PREV_CIM_MS,
+        "decision_stats_ms": PREV_DECISION_MS,
+        "decision_stats_before_tiled_ms": EARLIER_DECISION_MS,
+        "decision_stats_before_tiled_what": "the last build before the "
+                                            "tiled variant: main_r<R> at "
+                                            "the SAR shapes (small-N code "
+                                            "unchanged since), lm_r<R> the "
+                                            "streaming wide-N design at "
+                                            "B=4 N=152064",
+        "cim_mvm_ms": PREV_CIM_MS,
         **{f"{name}_ms": ms for name, ms in PREV_HEAD_MS.items()}}})
     emit({"kernels": [{
         "name": "decision_stats",
@@ -4335,11 +4335,6 @@ def run_timing(inputs: dict, launches: dict, worst: float,
         "library_note": "no single PyTorch call computes the fused "
                         "mix -> softmax -> masked statistic sums",
         "ms_r20": r20["ms"],
-        "ms_earlier": {k: EARLIER_DECISION_MS[k] for k in ("main_r4",
-                                                          "main_r20")},
-        "ms_earlier_note": "the last build before the tiled variant "
-                           "(PERF.md), constants, not measured here; the "
-                           "small-N code is unchanged",
         "plain_ms_r20": r20["plain_ms"],
         "call_ms_r20": r20["call_ms"],
         "plain_call_ms_r20": r20["plain_call_ms"],

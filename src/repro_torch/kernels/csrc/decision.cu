@@ -49,13 +49,15 @@
 //   67 TFLOP/s) comes close.  So the round has to run on every SM at any
 //   B, read each column's operands once a phase, and spend few
 //   instructions a logit beyond its 16 multiply-adds and one exp.
-//   Hence N is split into tiles of T = 128·C columns (C = 1, 2 or 4, from the
-//   plan), and three kernels run on the stream:
-//   A (partials), grid (tiles, B) of 128 threads: a thread holds C
+//   Hence N is split into tiles of 256 columns, two a thread, and three
+//   kernels run on the stream.  At the LM's B 4 that is 594 tiles a slot,
+//   2,376 blocks, about 18 a SM; of the widths 128, 256 and 512 timed
+//   there (PERF.md), 256 was the fastest.
+//   A (partials), grid (tiles, B) of 128 threads: a thread holds its 2
 //     columns' operands in registers (m as four float4 loads, y_mu,
 //     sum_mean·x_sigma and, on a die, the read-noise scale and the two
 //     of hash3's three mixes that do not depend on r: one mix32 a
-//     (r, n)).  For each group of 4 samples it computes its 4·C logits
+//     (r, n)).  For each group of 4 samples it computes its 4·2 logits
 //     (no branch, so the chains interleave; the 16-term mix in four
 //     partial sums), the warp's max of each sample, then S1 = Σ e^(l-max)
 //     and S2 = Σ e^(l-max)·(l-max), both by transposed xor trees: each
@@ -334,6 +336,8 @@ decision_stats_small_n_kernel(Params p, int np) {
 // Tiled variant (N > 32): partials, merge, sums.
 // ---------------------------------------------------------------------
 constexpr int kTiledThreads = 128;   // a block of kernels A and B
+constexpr int kCols = 2;             // columns a thread of kernels A and B
+constexpr int kTile = kCols * kTiledThreads;   // columns a tile
 constexpr int kTiledWarps = kTiledThreads / 32;
 constexpr int kGroup = 4;            // samples a reduction of kernel A takes
 static_assert(kGroup == 4, "kernel A's transposed trees are written for 4");
@@ -362,26 +366,26 @@ __device__ __forceinline__ Part merge_part(const Part& a, const Part& b) {
   return o;
 }
 
-// The operands of a thread's C columns n = n0 + q*128 + threadIdx.x;
+// The operands of a thread's kCols columns n = n0 + q*128 + threadIdx.x;
 // columns past N hold zeros (their logits are computed and dropped).
-template <int C, bool kNoisy>
+template <bool kNoisy>
 struct Columns {
-  float4 m[C][kBasis / 4];
-  float y[C];        // y_mu
-  float smx[C];      // sum_mean * x_sigma, rounded as the plain version
-  float sr[C];       // read_sigma * sqrt(max(x_sigsq, 0))
-  uint32_t pre[C];   // hash3's mixes of (column, row): one left per r
-  bool valid[C];     // n < N
+  float4 m[kCols][kBasis / 4];
+  float y[kCols];       // y_mu
+  float smx[kCols];     // sum_mean * x_sigma, rounded as the plain version
+  float sr[kCols];      // read_sigma * sqrt(max(x_sigsq, 0))
+  uint32_t pre[kCols];  // hash3's mixes of (column, row): one left per r
+  bool valid[kCols];    // n < N
 };
 
-template <int C, bool kNoisy>
+template <bool kNoisy>
 __device__ __forceinline__ void load_columns(const Params& p, int b, int n0,
-                                             Columns<C, kNoisy>& c) {
+                                             Columns<kNoisy>& c) {
   const uint32_t row = (kNoisy && p.rows != nullptr)
                            ? static_cast<uint32_t>(p.rows[b])
                            : static_cast<uint32_t>(b);
 #pragma unroll
-  for (int q = 0; q < C; ++q) {
+  for (int q = 0; q < kCols; ++q) {
     const int n = n0 + q * kTiledThreads + static_cast<int>(threadIdx.x);
     c.valid[q] = n < p.N;
     c.y[q] = c.smx[q] = c.sr[q] = 0.f;
@@ -406,9 +410,9 @@ __device__ __forceinline__ void load_columns(const Params& p, int b, int n0,
 // Logit of column q for the sample of selection row s and key ``key``:
 // the 16-term mix in four interleaved partial sums; the read noise by
 // hash3(key, row, n, seed) = row_hash(key, col_prefix(row, n, seed)).
-// No branch: a thread's C columns (and kernel A's samples) interleave.
-template <int C, bool kNoisy>
-__device__ __forceinline__ float tiled_logit(const Columns<C, kNoisy>& c,
+// No branch: a thread's kCols columns (and kernel A's samples) interleave.
+template <bool kNoisy>
+__device__ __forceinline__ float tiled_logit(const Columns<kNoisy>& c,
                                              int q,
                                              const float4 (&s)[kBasis / 4],
                                              uint32_t key, float inv_std) {
@@ -458,7 +462,7 @@ __device__ __forceinline__ void load_sel(const float* sel_s, int r,
 // transposed xor trees (each exchange halves the samples a lane keeps,
 // so kGroup samples cost about as many shuffles as two), after which
 // lanes 8g..8g+7 hold sample g's.
-template <int C, bool kNoisy>
+template <bool kNoisy>
 __global__ void __launch_bounds__(kTiledThreads)
 decision_tiled_partials_kernel(Params p, float* pm, double* ps,
                                int tiles) {
@@ -471,8 +475,8 @@ decision_tiled_partials_kernel(Params p, float* pm, double* ps,
   __shared__ float wmax[kTiledWarps][kMaxR];
   __shared__ double wsum[2][kTiledWarps][kMaxR];
 
-  Columns<C, kNoisy> c;
-  load_columns<C, kNoisy>(p, b, tile * C * kTiledThreads, c);
+  Columns<kNoisy> c;
+  load_columns<kNoisy>(p, b, tile * kTile, c);
   stage_round<kNoisy>(p, b, sel_s, key_s);
   __syncthreads();
   const float inv_std = 1.f / p.sum_std;
@@ -480,7 +484,7 @@ decision_tiled_partials_kernel(Params p, float* pm, double* ps,
   const int mine = lane >> 3;              // the sample a lane ends with
 
   for (int r0 = 0; r0 < p.R; r0 += kGroup) {
-    float l[kGroup][C], mx[kGroup];
+    float l[kGroup][kCols], mx[kGroup];
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) {
       const bool live = r0 + g < p.R;
@@ -490,8 +494,8 @@ decision_tiled_partials_kernel(Params p, float* pm, double* ps,
       const uint32_t key = kNoisy ? key_s[r] : 0u;
       mx[g] = -INFINITY;
 #pragma unroll
-      for (int q = 0; q < C; ++q) {
-        const float v = tiled_logit<C, kNoisy>(c, q, s, key, inv_std);
+      for (int q = 0; q < kCols; ++q) {
+        const float v = tiled_logit<kNoisy>(c, q, s, key, inv_std);
         l[g][q] = (live && c.valid[q]) ? v : -INFINITY;
         mx[g] = fmaxf(mx[g], l[g][q]);
       }
@@ -513,7 +517,7 @@ decision_tiled_partials_kernel(Params p, float* pm, double* ps,
       const float wm = __shfl_sync(kFullMask, k, 8 * g);
       s1[g] = s2[g] = 0.f;
 #pragma unroll
-      for (int q = 0; q < C; ++q) {
+      for (int q = 0; q < kCols; ++q) {
         const float d = fmaxf(l[g][q] - wm, -1e30f), e = expf(d);
         s1[g] += e;
         s2[g] = fmaf(e, d, s2[g]);
@@ -622,12 +626,12 @@ decision_tiled_merge_kernel(Params p, const float* pm, const double* ps,
 // (last slot, last tile first): the columns A read last are likeliest
 // still in L2, and the next round's A, in A's order, starts where this
 // one ends.
-template <int C, bool kNoisy>
+template <bool kNoisy>
 __global__ void __launch_bounds__(kTiledThreads)
 decision_tiled_sums_kernel(Params p, const float* lse, const double* ent) {
   const int tile = gridDim.x - 1 - blockIdx.x;
   const int b = gridDim.y - 1 - blockIdx.y;
-  const int n0 = tile * C * kTiledThreads;
+  const int n0 = tile * kTile;
   const size_t row0 = static_cast<size_t>(b) * p.N;
   const bool active = p.mask == nullptr || p.mask[b] != 0;
   if (blockIdx.x == 0 && threadIdx.x == 0) {  // rounded to float once
@@ -642,7 +646,7 @@ decision_tiled_sums_kernel(Params p, const float* lse, const double* ent) {
   }
   if (!active) {                                  // inactive slot: zeros
 #pragma unroll
-    for (int q = 0; q < C; ++q) {
+    for (int q = 0; q < kCols; ++q) {
       const int n = n0 + q * kTiledThreads + static_cast<int>(threadIdx.x);
       if (n < p.N) {
         p.sum_p[row0 + n] = 0.f;
@@ -655,32 +659,32 @@ decision_tiled_sums_kernel(Params p, const float* lse, const double* ent) {
   __shared__ uint32_t key_s[kMaxR];
   __shared__ float lse_s[kMaxR];
 
-  Columns<C, kNoisy> c;
-  load_columns<C, kNoisy>(p, b, n0, c);
+  Columns<kNoisy> c;
+  load_columns<kNoisy>(p, b, n0, c);
   stage_round<kNoisy>(p, b, sel_s, key_s);
   for (int r = threadIdx.x; r < p.R; r += kTiledThreads)
     lse_s[r] = lse[static_cast<size_t>(b) * p.R + r];
   __syncthreads();
   const float inv_std = 1.f / p.sum_std;
 
-  float sp[C], spsq[C];
+  float sp[kCols], spsq[kCols];
 #pragma unroll
-  for (int q = 0; q < C; ++q) sp[q] = spsq[q] = 0.f;
+  for (int q = 0; q < kCols; ++q) sp[q] = spsq[q] = 0.f;
   for (int r = 0; r < p.R; ++r) {
     float4 s[kBasis / 4];
     load_sel(sel_s, r, s);
     const uint32_t key = kNoisy ? key_s[r] : 0u;
     const float lr = lse_s[r];
 #pragma unroll
-    for (int q = 0; q < C; ++q) {
+    for (int q = 0; q < kCols; ++q) {
       const float pr =
-          expf(tiled_logit<C, kNoisy>(c, q, s, key, inv_std) - lr);
+          expf(tiled_logit<kNoisy>(c, q, s, key, inv_std) - lr);
       sp[q] += pr;
       spsq[q] = fmaf(pr, pr, spsq[q]);
     }
   }
 #pragma unroll
-  for (int q = 0; q < C; ++q) {
+  for (int q = 0; q < kCols; ++q) {
     if (c.valid[q]) {
       const int n = n0 + q * kTiledThreads + static_cast<int>(threadIdx.x);
       p.sum_p[row0 + n] = sp[q];
@@ -689,17 +693,16 @@ decision_tiled_sums_kernel(Params p, const float* lse, const double* ent) {
   }
 }
 
-template <int C, bool kNoisy>
+template <bool kNoisy>
 int launch_tiled_kernels(const Params& p, float* scratch, cudaStream_t s) {
-  const int tile = C * kTiledThreads;
-  const int tiles = (p.N + tile - 1) / tile;
+  const int tiles = (p.N + kTile - 1) / kTile;
   const size_t br = static_cast<size_t>(p.B) * p.R;
   double* ps = reinterpret_cast<double*>(scratch);     // [2][B][R][tiles]
   double* ent = ps + 2 * br * tiles;                   // [B][R]
   float* pm = reinterpret_cast<float*>(ent + br);      // [B][R][tiles]
   float* lse = pm + br * tiles;                        // [B][R]
   const dim3 grid(tiles, p.B);
-  decision_tiled_partials_kernel<C, kNoisy>
+  decision_tiled_partials_kernel<kNoisy>
       <<<grid, kTiledThreads, 0, s>>>(p, pm, ps, tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -707,22 +710,21 @@ int launch_tiled_kernels(const Params& p, float* scratch, cudaStream_t s) {
       p, pm, ps, lse, ent, tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decision_tiled_sums_kernel<C, kNoisy>
+  decision_tiled_sums_kernel<kNoisy>
       <<<grid, kTiledThreads, 0, s>>>(p, lse, ent);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C>
 int launch_tiled(const Params& p, float* scratch, cudaStream_t s) {
-  return p.read_sigma > 0.f ? launch_tiled_kernels<C, true>(p, scratch, s)
-                            : launch_tiled_kernels<C, false>(p, scratch, s);
+  return p.read_sigma > 0.f ? launch_tiled_kernels<true>(p, scratch, s)
+                            : launch_tiled_kernels<false>(p, scratch, s);
 }
 
 }  // namespace
 
 // Launches one round on ``stream`` without synchronising, as the plan of
 // kernels/decision.py says: ``tile`` > 0 runs the tiled variant's three
-// kernels over tiles of ``tile`` = 128, 256 or 512 columns on
+// kernels over tiles of ``tile`` = 256 columns on
 // ``threads`` = 128, with ``scratch`` (8-byte aligned) holding
 // 5·B·R·tiles + 3·B·R floats (tiles = ceil(N / tile)); ``tile`` = 0
 // runs the small-N variant:
@@ -759,9 +761,7 @@ extern "C" int decision_stats_launch(
     case 0:
       decision_stats_small_n_kernel<<<B, threads, 0, s>>>(p, np);
       return static_cast<int>(cudaGetLastError());
-    case 1 * kTiledThreads: return launch_tiled<1>(p, scratch, s);
-    case 2 * kTiledThreads: return launch_tiled<2>(p, scratch, s);
-    case 4 * kTiledThreads: return launch_tiled<4>(p, scratch, s);
+    case kTile: return launch_tiled(p, scratch, s);
     default: return cudaErrorInvalidValue;
   }
 }

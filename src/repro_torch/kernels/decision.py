@@ -15,7 +15,7 @@ without the [R, B, N] logit samples ever reaching device memory.
 - small N (N ≤ 32, SAR's N = 2): one launch, a block per slot, a thread
   per (sample, class) pair; bound in practice by its launch.
 - tiled (N > 32, an LM's vocabulary): three launches over tiles of
-  ``tile`` columns × slots, so a round spreads over the whole card at
+  TILE = 256 columns × slots, so a round spreads over the whole card at
   any B.  A: each (slot, tile, sample)'s max logit m_t, S1 = Σ e^(l−m_t)
   and S2 = Σ e^(l−m_t)·(l−m_t) into a scratch buffer allocated here.
   M: per slot and sample, the tiles merged in float64 into
@@ -44,14 +44,11 @@ import torch
 
 from repro_torch.core.clt_grng import GRNGConfig
 from repro_torch.core.hashing import as_u32, gaussianish, hash3
-from repro_torch.kernels.cim import H100_SMS, _sm_count
 
 MAX_SAMPLES = 64          # the kernel keeps a round's R selections in smem
 SMALL_N_MAX = 32          # widest N of the small-N variant: one warp
 TILED_THREADS = 128       # a block of the tiled variant's kernels A and B
-TILE_WIDTHS = (128, 256, 512)   # 1, 2 or 4 columns a thread
-FILL_BLOCKS_PER_SM = 16   # the widest tile that still gives each SM these:
-                          # ~2 waves of resident blocks (PERF.md's sweep)
+TILE = 256                # columns a block of the tiled variant: 2 a thread
 _P = ctypes.c_void_p
 
 
@@ -81,32 +78,16 @@ _TILED_SMEM = (4 * (MAX_SAMPLES * 16 + MAX_SAMPLES
                + 8 * 2 * (TILED_THREADS // 32) * MAX_SAMPLES)
 
 
-def tiled_plan(n: int, b: int, tile: int) -> DecisionPlan:
-    """The tiled variant's plan at ``tile`` columns a block."""
-    if tile not in TILE_WIDTHS:
-        raise ValueError(f"tile {tile} not in {TILE_WIDTHS}")
-    tiles = -(-n // tile)
-    return DecisionPlan("tiled", 0, TILED_THREADS, tile, tiles, tiles * b,
-                        3, _TILED_SMEM)
-
-
-def decision_plans(n: int, b: int) -> list[DecisionPlan]:
-    """Every tiled plan of an [b, n] round, narrowest tile first."""
-    return [tiled_plan(n, b, t) for t in TILE_WIDTHS]
-
-
 @functools.lru_cache(maxsize=None)
-def decision_plan(n: int, r: int, b: int = 1,
-                  sms: int = H100_SMS) -> DecisionPlan:
+def decision_plan(n: int, r: int, b: int = 1) -> DecisionPlan:
     """Route a round of ``r`` samples over ``b`` slots of ``n`` classes:
     N ≤ 32 to the small-N variant (a thread per pair, at least a warp,
     at most 1024 threads, pairs beyond that loop), N > 32 to the tiled
-    one at the widest tile whose grid gives each of ``sms`` SMs
-    FILL_BLOCKS_PER_SM blocks, else at the narrowest (the most blocks)."""
+    one, ceil(N / TILE) tiles a slot."""
     if n > SMALL_N_MAX:
-        plans = decision_plans(n, b)
-        return next((p for p in reversed(plans)
-                     if p.blocks >= FILL_BLOCKS_PER_SM * sms), plans[0])
+        tiles = -(-n // TILE)
+        return DecisionPlan("tiled", 0, TILED_THREADS, TILE, tiles,
+                            tiles * b, 3, _TILED_SMEM)
     np_ = 1 << (n - 1).bit_length()
     return DecisionPlan("small_n", np_, min(1024, -(-r * np_ // 32) * 32),
                         0, 1, b, 1, _SMALL_N_SMEM)
@@ -226,11 +207,8 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq=None,
-            sample_idx=None, mask=None, rows=None,
-            plan: DecisionPlan | None = None) -> dict:
-    """Launches the round under ``decision_plan``'s plan, or under
-    ``plan`` where one is given (a plan sweep)."""
+def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq, sample_idx,
+            mask, rows) -> dict:
     dev = y_mu.device
     b, n = y_mu.shape
     r = sel.shape[0]
@@ -262,8 +240,7 @@ def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq=None,
            "sum_psq": torch.empty((b, n), dtype=f32, device=dev),
            "sum_ent": torch.empty((b,), dtype=f32, device=dev),
            "sum_entsq": torch.empty((b,), dtype=f32, device=dev)}
-    if plan is None:
-        plan = decision_plan(n, r, b, _sm_count(dev.index))
+    plan = decision_plan(n, r, b)
     scratch = (torch.empty(b * r * (5 * plan.tiles + 3), dtype=f32,
                            device=dev) if plan.variant == "tiled" else None)
 

@@ -9,8 +9,10 @@ kernel sums the logsumexp, the 16-term mix and the sums over samples in
 its own order.  The cases cover both variants (N ≤ 32 small-N, N > 32
 tiled, ``kernels/decision.py`` ``decision_plan``), R from 1 to 64,
 read noise keyed on global ``rows``, masked slots, shared and per-slot
-selections, N on both sides of a tile boundary, and every tile width
-of the tiled variant.
+selections, and N on both sides of a tile boundary.  Above N = 32 each
+statistic is also held to rtol 1e-4 with absolute floors of 1e-4 × R/N
+(sum_p), × R/N² (sum_psq) and × R (the entropies): at N = 4,097 a
+sum_psq entry is ~1e-6, which atol 1e-5 alone would not see.
 CIM kernel: rtol/atol 1e-4, as tests/test_kernels.py; the kernel sums
 each 64-term partial sum in its own order, so an output may land one
 ADC code away where the partial sum sits on a half-code tie: such
@@ -67,7 +69,7 @@ from repro_torch.core.clt_grng import GRNGConfig, selections
 from repro_torch.core.quant import QuantConfig, adc_full_scale
 from repro_torch.core.sampling import (BayesHeadConfig, activation_basis,
                                        prepare_serving_head)
-from repro_torch.kernels import bayes, cim, decision, grng
+from repro_torch.kernels import bayes, cim, grng
 from repro_torch.kernels.cim import cim_mvm, cim_mvm_plain
 from repro_torch.kernels.decision import (decision_stats,
                                           decision_stats_plain)
@@ -115,6 +117,12 @@ def _case(dev, b, n, r, read_sigma, seed=0, shared_sel=False,
                 rows=rows)
 
 
+def _floor(key, r, n):
+    """The scale of a statistic's entries: R/N, R/N² or R."""
+    return {"sum_p": r / n, "sum_psq": r / n**2, "sum_ent": r,
+            "sum_entsq": r}[key]
+
+
 def _check_decision(args):
     before = decision_stats.launches
     got = decision_stats(**args)
@@ -122,9 +130,14 @@ def _check_decision(args):
     again = decision_stats(**args)
     torch.cuda.synchronize()
     assert decision_stats.launches == before + 2
+    n, r = args["y_mu"].shape[1], args["sel"].shape[0]
     for key in KEYS:
         torch.testing.assert_close(got[key], want[key], rtol=1e-5,
                                    atol=1e-5, msg=key)
+        if n > 32:
+            torch.testing.assert_close(got[key], want[key], rtol=1e-4,
+                                       atol=1e-4 * _floor(key, r, n),
+                                       msg=key)
         assert torch.equal(got[key], again[key]), key     # deterministic
     masked = ~args["mask"]
     assert bool((got["sum_p"][masked] == 0).all())
@@ -135,16 +148,16 @@ def _check_decision(args):
     (32, 2, 1), (32, 2, 4), (32, 2, 20), (32, 2, 32), (32, 2, 33),
     (32, 2, 64), (7, 1, 5), (6, 3, 17), (7, 32, 64), (7, 33, 64),
     (9, 300, 6), (3, 129, 64),
-    # the tiled variant on both sides of a tile boundary (the plan's 128
-    # columns at these B), and wide
-    (5, 33, 20), (4, 127, 4), (4, 128, 20), (4, 129, 64), (3, 511, 1),
+    # the tiled variant on both sides of its tile boundaries (256 and
+    # 512 columns), and wide
+    (5, 33, 20), (4, 255, 4), (4, 256, 20), (4, 257, 64), (3, 511, 1),
     (3, 512, 20), (3, 513, 8), (3, 4097, 20), (2, 50280, 20)])
 @pytest.mark.parametrize("read_sigma", [0.0, 0.4])
 def test_decision_kernel_matches_plain(hopper, shape, read_sigma):
     _check_decision(_case(hopper, *shape, read_sigma))
 
 
-@pytest.mark.parametrize("n", [2, 32, 33, 127, 128, 129, 4097])
+@pytest.mark.parametrize("n", [2, 32, 33, 255, 256, 257, 4097])
 @pytest.mark.parametrize("shared_sel", [False, True])
 def test_decision_kernel_rows_and_shared_selections(hopper, n, shared_sel):
     """Read noise keyed on global slot ids (a shard's ``rows``), with a
@@ -152,27 +165,6 @@ def test_decision_kernel_rows_and_shared_selections(hopper, n, shared_sel):
     routing threshold and of a tile boundary of the tiled variant."""
     _check_decision(_case(hopper, 12, n, 20, 0.4, seed=3,
                           shared_sel=shared_sel, row_offset=1000))
-
-
-@pytest.mark.parametrize("tile", decision.TILE_WIDTHS)
-@pytest.mark.parametrize("dn", [-1, 0, 1, None])
-@pytest.mark.parametrize("read_sigma", [0.0, 0.4])
-def test_decision_kernel_every_tile_width(hopper, tile, dn, read_sigma):
-    """Each tile width the tiled variant takes, forced by its plan, at N
-    one below, at and one above the width and at 4,097: within rtol/atol
-    1e-5 of the plain version, two launches bit for bit alike."""
-    n = 4097 if dn is None else tile + dn
-    args = _case(hopper, 5, n, 20, read_sigma, seed=4)
-    plan = decision.tiled_plan(n, 5, tile)
-    got = decision._launch(**args, plan=plan)
-    again = decision._launch(**args, plan=plan)
-    want = decision_stats_plain(**args)
-    torch.cuda.synchronize()
-    for key in KEYS:
-        torch.testing.assert_close(got[key], want[key], rtol=1e-5,
-                                   atol=1e-5, msg=key)
-        assert torch.equal(got[key], again[key]), key
-    assert bool((got["sum_p"][~args["mask"]] == 0).all())
 
 
 def test_decision_wrapper_refuses_what_the_kernel_does_not_take(hopper):
@@ -888,11 +880,9 @@ def test_decision_kernel_at_vocabulary_width(hopper, r, read_sigma):
     want = decision_stats_plain(**args)
     torch.cuda.synchronize()
     assert decision_stats.launches == before + 1
-    floors = {"sum_p": r / LM_N, "sum_psq": r / LM_N**2, "sum_ent": r,
-              "sum_entsq": r}
     for key in KEYS:
         torch.testing.assert_close(got[key], want[key], rtol=1e-4,
-                                   atol=1e-4 * floors[key], msg=key)
+                                   atol=1e-4 * _floor(key, r, LM_N), msg=key)
     assert bool((got["sum_p"][~args["mask"]] == 0).all())
 
 

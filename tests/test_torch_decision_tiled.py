@@ -16,7 +16,11 @@ kernel itself is held against ``decision_stats_plain`` on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 
 Tolerance rtol/atol 1e-5, as ``tests/test_torch_decision.py``: the
-tiled merge and the one-shot log-softmax sum in different orders.
+tiled merge and the one-shot log-softmax sum in different orders.  Each
+statistic is also held to rtol 1e-4 with absolute floors of 1e-4 × R/N
+(sum_p), × R/N² (sum_psq) and × R (the entropies), as the card's test
+at vocabulary width: at N = 4,097 a sum_psq entry is ~1e-6, which atol
+1e-5 alone would not see.
 """
 
 import dataclasses
@@ -103,10 +107,16 @@ def _three_ways(n, r, read_sigma, tile, shared_sel=False, rows=None):
             {k: np.asarray(oracle[k]) for k in KEYS}, mask)
 
 
-def _assert_close(got, want, msg):
+def _assert_close(got, want, msg, r):
+    n = got["sum_p"].shape[-1]
+    floors = {"sum_p": r / n, "sum_psq": r / n**2, "sum_ent": r,
+              "sum_entsq": r}
     for key in KEYS:
         np.testing.assert_allclose(got[key], want[key], rtol=1e-5,
                                    atol=1e-5, err_msg=f"{msg}{key}")
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
+                                   atol=1e-4 * floors[key],
+                                   err_msg=f"{msg}{key} (relative)")
 
 
 @pytest.mark.parametrize("n", sorted(TILES))
@@ -119,8 +129,8 @@ def test_tiled_algorithm_matches_reference(n, which, r, read_sigma):
     assert (tiles == 1) == (which == "single")
     assert which == "single" or n % tile != 0        # a ragged last tile
     tiled, plain, oracle, mask = _three_ways(n, r, read_sigma, tile)
-    _assert_close(tiled, oracle, "oracle:")
-    _assert_close(tiled, plain, "plain:")
+    _assert_close(tiled, oracle, "oracle:", r)
+    _assert_close(tiled, plain, "plain:", r)
     for key in KEYS:
         assert (tiled[key][~mask] == 0).all(), key
     np.testing.assert_allclose(tiled["sum_p"][mask].sum(-1), r, rtol=1e-5)
@@ -134,17 +144,20 @@ def test_tiled_algorithm_rows_and_shared_selection(n, shared_sel):
     rows = np.arange(B, dtype=np.int64) + 1000
     tiled, plain, oracle, _ = _three_ways(n, 20, 0.4, TILES[n][0],
                                           shared_sel=shared_sel, rows=rows)
-    _assert_close(tiled, oracle, "oracle:")
-    _assert_close(tiled, plain, "plain:")
+    _assert_close(tiled, oracle, "oracle:", 20)
+    _assert_close(tiled, plain, "plain:", 20)
 
 
-@pytest.mark.parametrize("tile", tdec.TILE_WIDTHS)
-def test_tiled_algorithm_at_the_kernel_tile_widths(tile):
-    """The widths the kernel takes, at N = 4,097 (a last tile of one
-    column at each), R = 20, read noise."""
-    tiled, plain, oracle, _ = _three_ways(4097, 20, 0.4, tile)
-    _assert_close(tiled, oracle, "oracle:")
-    _assert_close(tiled, plain, "plain:")
+@pytest.mark.parametrize("n", [255, 256, 257, 4097])
+def test_tiled_algorithm_at_the_kernel_tile(n):
+    """The kernel's tile width (``decision_plan``'s TILE = 256) at N one
+    below, at and one above it and at 4,097 (a last tile of one column),
+    R = 20, read noise."""
+    tile = tdec.decision_plan(n, 20, B).tile
+    assert tile == tdec.TILE
+    tiled, plain, oracle, _ = _three_ways(n, 20, 0.4, tile)
+    _assert_close(tiled, oracle, "oracle:", 20)
+    _assert_close(tiled, plain, "plain:", 20)
 
 
 def test_tiled_entropy_keeps_its_digits_at_large_logits():
@@ -158,4 +171,4 @@ def test_tiled_entropy_keeps_its_digits_at_large_logits():
     tiled = tdec.decision_stats_tiled_plain(*args, sample_idx=idx, tile=128)
     plain = tdec.decision_stats_plain(*args, sample_idx=idx)
     _assert_close({k: v.numpy() for k, v in tiled.items()},
-                  {k: v.numpy() for k, v in plain.items()}, "plain:")
+                  {k: v.numpy() for k, v in plain.items()}, "plain:", 20)

@@ -23,10 +23,8 @@ import pytest
 from repro_torch.kernels import bayes
 from repro_torch.kernels.cim import (CHUNK, H100_SMS, SMEM_LIMIT, CimPlan,
                                      launch_plan, make_plan)
-from repro_torch.kernels.decision import (FILL_BLOCKS_PER_SM, MAX_SAMPLES,
-                                          SMALL_N_MAX, TILE_WIDTHS,
-                                          decision_plan, decision_plans,
-                                          tiled_plan)
+from repro_torch.kernels.decision import (MAX_SAMPLES, SMALL_N_MAX, TILE,
+                                          decision_plan)
 
 # The conv trunk's products: an admission of 32 slots (the serving main
 # path) and a UQ batch of 64 images (Fig. 16), for 32×32 patches.
@@ -173,26 +171,28 @@ def test_decision_plan_routes_wide_n_to_streaming(n):
     """N > 32 streams N in tiles: the tiled variant's three kernels."""
     plan = decision_plan(n, 4)
     assert (plan.variant, plan.np, plan.threads) == ("tiled", 0, 128)
-    assert plan.tile in TILE_WIDTHS and plan.kernels == 3
+    assert plan.tile == TILE and plan.kernels == 3
 
 
-# The tiled variant's shapes: ragged and exact tiles, the LM's padded
-# vocabulary (qwen3-0.6b) at its serving B, mamba2-130m's head.
-WIDE = [(1, 33), (9, 300), (5, 130), (3, 4097), (4, 127), (4, 128),
-        (4, 129), (2, 50280), (8, 50280), (4, 152064), (32, 152064)]
+# The tiled variant's shapes: ragged and exact tiles on both sides of
+# one and two tiles, the LM's padded vocabulary (qwen3-0.6b) at its
+# serving B and others, mamba2-130m's head.
+WIDE = [(1, 33), (7, 65), (9, 300), (5, 130), (6, 1000), (3, 4097),
+        (4, 127), (4, 128), (4, 129), (4, 255), (4, 256), (4, 257),
+        (3, 511), (3, 512), (3, 513), (1, 50280), (2, 50280), (8, 50280),
+        (1, 152064), (4, 152064), (16, 152064), (32, 152064)]
 
 
 @pytest.mark.parametrize("shape", WIDE)
-@pytest.mark.parametrize("tile", TILE_WIDTHS)
-def test_decision_tiled_plan_covers_each_column_once(shape, tile):
+def test_decision_tiled_plan_covers_each_column_once(shape):
     """Kernels A and B's index arithmetic (block (tile, slot), thread t,
     column q: n = tile·T + q·128 + t, live where n < N) reaches every
     (slot, column) exactly once, every tile holds a live column, and
     the merge's partials [B][R][tiles] have one entry a (slot, tile)."""
     b, n = shape
-    plan = tiled_plan(n, b, tile)
+    plan = decision_plan(n, 20, b)
     cols = plan.tile // plan.threads
-    assert cols * plan.threads == plan.tile and cols in (1, 2, 4)
+    assert cols * plan.threads == plan.tile == TILE and cols == 2
     seen = np.zeros((b, n), np.int64)
     t = np.arange(plan.threads)
     for tl in range(plan.tiles):
@@ -202,7 +202,7 @@ def test_decision_tiled_plan_covers_each_column_once(shape, tile):
         assert live.size > 0                  # lse's merge sees a column
         seen[:, live] += 1
     assert (seen == 1).all()
-    assert plan.blocks == plan.tiles * b and plan.tiles == -(-n // tile)
+    assert plan.blocks == plan.tiles * b and plan.tiles == -(-n // TILE)
 
 
 @pytest.mark.parametrize("shape", WIDE)
@@ -216,16 +216,13 @@ def test_decision_tiled_plan_fits_shared_memory_at_r64(shape):
 
 
 def test_decision_plan_fills_the_card_at_the_lm_shape():
-    """qwen3-0.6b's round (B 4, N 152,064): the widest tile that gives
-    every SM FILL_BLOCKS_PER_SM blocks, 256 columns, 594 tiles a slot and
-    2,376 blocks (the fastest width of chip_smoke.py's sweep at R = 20 on
-    the H100, PERF.md); at B 1 still every SM a block."""
+    """qwen3-0.6b's round (B 4, N 152,064): 256 columns a tile, 594
+    tiles a slot and 2,376 blocks, 18 for each of the H100's 132 SMs;
+    at B 1 still every SM a block."""
     plan = decision_plan(152064, 20, 4)
-    assert plan.blocks >= FILL_BLOCKS_PER_SM * H100_SMS
     assert (plan.tile, plan.tiles, plan.blocks) == (256, 594, 2376)
+    assert plan.blocks >= 18 * H100_SMS
     assert decision_plan(152064, 20, 1).blocks >= H100_SMS
-    wider = [p for p in decision_plans(152064, 4) if p.tile > plan.tile]
-    assert all(p.blocks < FILL_BLOCKS_PER_SM * H100_SMS for p in wider)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 16, 31, SMALL_N_MAX])
