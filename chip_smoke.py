@@ -172,6 +172,24 @@ JSON line):
      fixed R decide alike request for request, one escalating token
      decision's fin within 1e-5 and its _se within 1e-4; bf16: token
      agreement and the hidden gap within 0.05);
+  7i. the MoE LMs (lines ``lm_moe``, ``kernel_check`` ``moe_*``,
+     ``lm_tick_split``, ``timing`` ``*_moe_*``, ``lm_moe_card_vs_cpu``,
+     ``lm_moe_phase_s``): mixtral-8x7b (8 of its 32 layers) and
+     qwen3-moe-235b-a22b (2 of 94) at full width, float32 params drawn on
+     the card from seed 0 and freed before the next model; mixtral
+     through 7h's serve() under accept-always, fixed R = 20 and the
+     escalating policy (its sliding window makes every decode the
+     rolling cache's), qwen3-moe with 4 requests under accept-always;
+     decision launches = ticks × launches a schedule and one sync a tick
+     (asserted), at least one admission into a decoding pool (mixtral,
+     asserted); decision.cu on a live token decision's operands at
+     N = 32,000 and 152,064, R = 4, 8, 20 and R = 20 with read noise
+     (7h's tolerance), rank16 on one decode_step (1e-4; K 4,096), both
+     timed by graph replay beside their bounds (the kernels line's
+     ``lm_moe_vocab`` and ``lm_moe_decode_step``); a tick's split; each
+     SMOKE config on the card against the CPU (f32 decisions equal,
+     asserted; bf16 agreement, routings that differ and the hidden gap,
+     reported);
   8. kernel timing: device time from CUDA graph replays and per-call
      time of eager calls (CUDA events), beside the plain version's and
      the card's byte/flop bound: decision and CIM at the serving path's
@@ -3308,6 +3326,13 @@ LM_SMOKE_ESC = dict(conf_threshold=0.0, mi_threshold=0.015, r_min=4,
 TOL_HEAD = dict(rtol=1e-4, atol=1e-4)       # as the head kernels' checks
 
 
+def tensor_leaves(tree) -> list:
+    """The tensors of a nested dict of params."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensor_leaves(v)]
+    return [tree]
+
+
 def lm_decision_atol(key: str, r: int, n: int) -> float:
     return LM_FLOOR * {"sum_p": r / n, "sum_psq": r / n**2,
                        "sum_ent": r, "sum_entsq": r}[key]
@@ -3346,26 +3371,40 @@ def lm_stage_split(out: dict) -> dict:
             for stage, row in prof.items()}
 
 
-def lm_serve_run(name: str, policy, adaptive: bool, params) -> dict:
-    """``serve`` at full width on the card under one policy, the
-    decision kernel's launch count zeroed just before and read just
-    after, the allocator's peak reset before."""
+def lm_serve_run(name: str, policy, adaptive: bool, params, spec=LM,
+                 cfg=None) -> dict:
+    """``serve`` at full width on the card under one policy (``spec``'s
+    arch and shapes; ``cfg`` overrides the arch's, as a cut depth does),
+    the decision kernel's launch count zeroed just before and read just
+    after, the allocator's peak reset before; admissions into a pool
+    already decoding (a clock past the prompt) are counted."""
     import torch
     from repro_torch.kernels.decision import decision_stats
     from repro_torch.launch.serve import serve
     from repro_torch.serving import adaptive as adaptive_mod
+    from repro_torch.serving.engine import LMServingEngine
     torch.cuda.reset_peak_memory_stats()
+    deltas = []
+    scatter = LMServingEngine._align_scatter
+
+    def counted(self, new, idx, take, delta):
+        deltas.append(delta)
+        return scatter(self, new, idx, take, delta)
+    LMServingEngine._align_scatter = counted
     decision_stats.launches = 0
-    out = serve(LM["arch"], smoke=False, batch=LM["batch"],
-                prompt_len=LM["prompt_len"], gen_len=LM["gen_len"],
-                n_requests=LM["n_requests"], policy=policy,
-                adaptive=adaptive, seed=LM["seed"], params=params,
-                cost_records=True, device="cuda")
+    try:
+        out = serve(spec["arch"], smoke=False, cfg=cfg,
+                    batch=spec["batch"], prompt_len=spec["prompt_len"],
+                    gen_len=spec["gen_len"], n_requests=spec["n_requests"],
+                    policy=policy, adaptive=adaptive, seed=spec["seed"],
+                    params=params, cost_records=True, device="cuda")
+    finally:
+        LMServingEngine._align_scatter = scatter
     launches = decision_stats.launches
     schedule = (adaptive_mod.escalation_schedule(policy) if adaptive
                 else (policy.r_max,))
-    check(out["requests"] == LM["n_requests"],
-          f"lm {name}: {out['requests']} of {LM['n_requests']} requests")
+    check(out["requests"] == spec["n_requests"],
+          f"lm {name}: {out['requests']} of {spec['n_requests']} requests")
     check(launches > 0, f"lm {name}: no decision kernel launched")
     check(launches == out["ticks"] * lm_pieces(schedule),
           f"lm {name}: {launches} launches for {out['ticks']} ticks of "
@@ -3381,6 +3420,7 @@ def lm_serve_run(name: str, policy, adaptive: bool, params) -> dict:
             "adaptive": adaptive, "requests": out["requests"],
             "decisions": out["decisions"], "ticks": out["ticks"],
             "admissions": out["admissions"],
+            "midstream_admissions": sum(d > 0 for d in deltas),
             "mean_samples_per_decision": out["mean_samples_per_decision"],
             "host_syncs": out["host_syncs"],
             "decision_launches": launches,
@@ -3397,17 +3437,18 @@ def lm_serve_run(name: str, policy, adaptive: bool, params) -> dict:
                                for v in out["verdicts"])}
 
 
-def lm_engine(cfg, params, device: str):
+def lm_engine(cfg, params, device: str, spec=LM):
     """An engine admitted once with the first ``batch`` requests of the
     stream (inside ``float32_math``, as ``run`` does)."""
     from repro_torch import float32_math
     from repro_torch.launch.serve import make_lm_engine, make_lm_stream
-    eng = make_lm_engine(cfg, batch=LM["batch"],
-                         prompt_len=LM["prompt_len"], gen_len=LM["gen_len"],
-                         params=params, device=device)
-    for r in make_lm_stream(cfg, LM["batch"], batch=LM["batch"],
-                            prompt_len=LM["prompt_len"],
-                            gen_len=LM["gen_len"], seed=LM["seed"]):
+    eng = make_lm_engine(cfg, batch=spec["batch"],
+                         prompt_len=spec["prompt_len"],
+                         gen_len=spec["gen_len"], params=params,
+                         device=device)
+    for r in make_lm_stream(cfg, spec["batch"], batch=spec["batch"],
+                            prompt_len=spec["prompt_len"],
+                            gen_len=spec["gen_len"], seed=spec["seed"]):
         eng.submit(r)
     with float32_math():
         eng._admit()
@@ -3457,19 +3498,20 @@ def lm_decision_check(name: str, args: dict) -> dict:
     return row
 
 
-def lm_kernel_checks(cfg, params) -> dict:
+def lm_kernel_checks(cfg, params, spec=LM, rs=LM_DECISION_R,
+                     tag: str = "lm_vocab") -> dict:
     """The two kernels of the LM path at vocabulary width against their
     plain versions: decision.cu on one live token decision's operands
-    (the admitted prompts' basis) at R = 1, 4, 8, 20, 64, and at R = 20
+    (the admitted prompts' basis) at each R of ``rs``, and at R = 20
     with read_sigma = 0.4 at the same shape; bayes_mvm.cu rank16 on one
-    decode_step (K 1,024 × N 152,064, R = uq_samples)."""
+    decode_step (K d_model × N the padded vocabulary, R = uq_samples)."""
     import dataclasses
     import torch
     from repro_torch import float32_math
     from repro_torch.core.sampling import activation_basis
     from repro_torch.kernels.bayes import bayes_rank16, bayes_rank16_plain
     from repro_torch.models import transformer as tr
-    eng = lm_engine(cfg, params, "cuda")
+    eng = lm_engine(cfg, params, "cuda", spec)
     base = torch.as_tensor(eng._next_bases(eng.n_slots).astype("int64"),
                            device="cuda")
     h32 = eng.hidden.to(torch.float32)
@@ -3483,14 +3525,14 @@ def lm_kernel_checks(cfg, params) -> dict:
     basis_peak = torch.cuda.max_memory_allocated() - resident
     grng = eng.hcfg.grng
     ops, rows = {}, []
-    for r in LM_DECISION_R:
+    for r in rs:
         ops[f"r{r}"] = lm_decision_args(abasis, grng, base, r)
-        rows.append(lm_decision_check(f"lm_vocab_r{r}", ops[f"r{r}"]))
+        rows.append(lm_decision_check(f"{tag}_r{r}", ops[f"r{r}"]))
     noisy = dataclasses.replace(grng, read_sigma=LM_READ_SIGMA)
     nbasis = activation_basis(eng._head, h32,
                               dataclasses.replace(eng.hcfg, grng=noisy))
     ops["noisy_r20"] = lm_decision_args(nbasis, noisy, base, 20)
-    rows.append(lm_decision_check("lm_vocab_read_noise_r20",
+    rows.append(lm_decision_check(f"{tag}_read_noise_r20",
                                   ops["noisy_r20"]))
     del nbasis
     # one decode_step: the trunk, then the head's R samples (one launch)
@@ -3523,7 +3565,9 @@ def lm_kernel_checks(cfg, params) -> dict:
           f"{head_err}")
     check(torch.equal(got, logits), "decode_step's samples differ from "
           "the head kernel's on the same hidden state")
-    emit({"kernel_check": "bayes_rank16", "case": "lm_decode_step",
+    del want
+    emit({"kernel_check": "bayes_rank16",
+          "case": f"{tag.replace('_vocab', '')}_decode_step",
           "B": eng.n_slots, "K": cfg.d_model, "N": cfg.vocab_padded,
           "R": cfg.uq_samples, "dtype": str(cfg.dtype), **TOL_HEAD,
           "max_abs_err": head_err})
@@ -3726,15 +3770,7 @@ def run_lm_serving() -> dict:
     params = params_init(cfg, LM["seed"], "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            for v in t.values():
-                walk(v)
-        else:
-            leaves.append(t)
-    walk(params)
+    leaves = tensor_leaves(params)
     n_params = sum(t.numel() for t in leaves)
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
     check(all(t.is_cuda for t in leaves), "params off the card")
@@ -3783,16 +3819,20 @@ def run_lm_serving() -> dict:
             "param_bytes": param_bytes}
 
 
-def lm_timing(lm: dict) -> dict:
-    """decision.cu at N = 152,064, B 4, R 4 and 20 on the live operands
-    and bayes_mvm.cu rank16 at decode_step's shape, by CUDA-graph replay
-    (``timed``), with their bounds (``kernels/bounds``)."""
+def lm_timing(lm: dict, tag: str = "lm", dense: bool = True) -> dict:
+    """decision.cu at B 4 and the padded vocabulary, R 4 and 20, on the
+    live operands and bayes_mvm.cu rank16 at decode_step's shape, by
+    CUDA-graph replay (``timed``),
+    with their bounds (``kernels/bounds``); lines ``timing
+    decision_stats_<tag>_r<R>`` and ``bayes_rank16_<tag>_decode_step``.
+    ``dense``: qwen3-0.6b's phase, which also gives the earlier design's
+    times, asserts kernel < plain and adds the plan's line."""
     from repro_torch.kernels.bayes import (bayes_rank16, bayes_rank16_plain,
                                            head_plan)
     from repro_torch.kernels.bounds import head_bound
     from repro_torch.kernels.decision import (decision_plan, decision_stats,
                                               decision_stats_plain)
-    out = {"decision": {}, "rank16": {}}
+    out = {"decision": {}}
     for key in ("r4", "r20"):
         args = lm["checks"]["ops"][key]
         t = timed(lambda: decision_stats(**args),
@@ -3802,16 +3842,20 @@ def lm_timing(lm: dict) -> dict:
         out["decision"][key] = {**t, **{k: w[k] for k in (
             "bound_ms", "bound_by", "bound_bytes", "bound_ops")},
             "plan": decision_plan(n, args["sel"].shape[0], b)._asdict()}
-        emit({"timing": f"decision_stats_lm_{key}", "B": b, "N": n,
-              **out["decision"][key],
-              "streaming_design_ms": EARLIER_DECISION_MS[f"lm_{key}"],
-              "streaming_design_note": "the wide-N design before the "
-                                       "tiled variant (PERF.md), a "
-                                       "constant, not measured here"})
-        check(t["ms"] < t["plain_ms"],
-              f"decision_stats_lm_{key}: the kernel ({t['ms']} ms) is not "
-              f"faster than its plain version ({t['plain_ms']} ms)")
-    decision_plan_line(lm["checks"]["ops"]["r20"], out["decision"]["r20"])
+        prev = ({"streaming_design_ms": EARLIER_DECISION_MS[f"lm_{key}"],
+                 "streaming_design_note": "the wide-N design before the "
+                                          "tiled variant (PERF.md), a "
+                                          "constant, not measured here"}
+                if dense else {})
+        emit({"timing": f"decision_stats_{tag}_{key}", "B": b, "N": n,
+              **out["decision"][key], **prev})
+        if dense:
+            check(t["ms"] < t["plain_ms"],
+                  f"decision_stats_lm_{key}: the kernel ({t['ms']} ms) is "
+                  f"not faster than its plain version ({t['plain_ms']} ms)")
+    if dense:
+        decision_plan_line(lm["checks"]["ops"]["r20"],
+                           out["decision"]["r20"])
     c = lm["checks"]["head_case"]
     t = timed(lambda: bayes_rank16(c["x"], c["mu"], c["sigma"], c["sel"],
                                    c["grng"]),
@@ -3826,7 +3870,7 @@ def lm_timing(lm: dict) -> dict:
                      **t, **{kk: w[kk] for kk in (
                          "bound_ms", "bound_by", "bound_bytes",
                          "bound_ops", "hash3_evals")}}
-    emit({"timing": "bayes_rank16_lm_decode_step", **out["rank16"]})
+    emit({"timing": f"bayes_rank16_{tag}_decode_step", **out["rank16"]})
     return out
 
 
@@ -3872,6 +3916,214 @@ def decision_plan_line(args: dict, timing: dict) -> dict:
                                       "replay"}
     emit(row)
     return row
+
+
+# ----------------------------------------------------------------------
+# the MoE LMs served at full width, depth cut
+# ----------------------------------------------------------------------
+# Every width as published; only depth is cut so that the float32 params
+# (the reference's init dtype) fit the 80 GB card: mixtral-8x7b 8 of 32
+# layers (5.81 GB a layer, ~48 GB resident), qwen3-moe-235b-a22b 2 of
+# 94 (9.95 GB a layer, ~27 GB).  The dense phase's serve() shapes;
+# qwen3-moe serves 4 requests (one admission) under accept-always only:
+# its basis at K 4,096 × N 152,064 takes seconds a tick (C22).
+MOE = (dict(LM, arch="mixtral-8x7b", layers=8, tag="moe_mixtral",
+            policies=("accept_always", "fixed_r20", "escalating")),
+       dict(LM, arch="qwen3-moe-235b-a22b", layers=2, n_requests=4,
+            tag="moe_qwen3", policies=("accept_always",)))
+MOE_DECISION_R = (4, 8, 20)
+# the SMOKE configs card against CPU: prompts of 8 and 4 new tokens fit
+# mixtral's SMOKE window of 16
+MOE_SMOKE = dict(LM, prompt_len=8, gen_len=4)
+
+
+def run_moe_model(spec: dict) -> dict:
+    """One MoE config at full width and cut depth, params drawn on the
+    card from ``spec``'s seed: serve() under ``spec``'s policies (launch
+    and sync counts asserted by ``lm_serve_run``), the kernels on its
+    live operands (``lm_kernel_checks``: decision.cu at R 4, 8, 20 and
+    with read noise; rank16 on one decode_step), a tick's split and the
+    kernels' times; the params freed after."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import params_init, serve
+    from repro_torch.serving import TriagePolicy
+    card_name, _, power = card_line().partition(",")
+    full = get_config(spec["arch"])
+    cfg = dataclasses.replace(full, n_layers=spec["layers"])
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = params_init(cfg, spec["seed"], "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tensor_leaves(params)
+    check(all(t.is_cuda for t in leaves), "params off the card")
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    del leaves
+    serve(spec["arch"], smoke=False, cfg=cfg, batch=spec["batch"],
+          prompt_len=spec["prompt_len"], gen_len=1, n_requests=1,
+          params=params, device="cuda")                    # warm-up
+    acc = lm_serve_run("accept_always", TriagePolicy(**LM_ACCEPT), True,
+                       params, spec, cfg)
+    check(acc["n_tokens"] == [spec["gen_len"]] * spec["n_requests"]
+          and acc["accept_fraction"] == 1.0,
+          f"{spec['arch']} accept-always: tokens {acc['n_tokens']}")
+    runs = [acc]
+    if "fixed_r20" in spec["policies"]:
+        runs.append(lm_serve_run("fixed_r20", TriagePolicy(**LM_FIXED),
+                                 False, params, spec, cfg))
+        check(runs[-1]["mean_samples_per_decision"] == LM_FIXED["r_max"]
+              and runs[-1]["n_tokens"] == acc["n_tokens"],
+              f"{spec['arch']} fixed R: samples per decision or tokens")
+    if "escalating" in spec["policies"]:
+        esc = TriagePolicy(conf_threshold=statistics.median(
+            acc["confidences"]), mi_threshold=0.5, r_min=4, r_max=20)
+        runs.append(lm_serve_run("escalating", esc, True, params, spec,
+                                 cfg))
+        check(runs[-1]["rounds_run"] > runs[-1]["dispatches"],
+              f"{spec['arch']} escalating: no round past the first")
+        check(sum(r["midstream_admissions"] for r in runs) >= 1,
+              f"{spec['arch']}: no admission into a decoding pool")
+    checks = lm_kernel_checks(cfg, params, spec, MOE_DECISION_R,
+                              tag=f"{spec['tag']}_vocab")
+    split = lm_tick_split(checks.pop("engine"))
+    for r in runs:
+        emit({"lm_moe": r["name"], "arch": spec["arch"], "smoke": False,
+              "layers": f"{cfg.n_layers} of {full.n_layers}",
+              "gpu": card_name.strip(), "power_limit": power.strip(),
+              "n_params": n_params, "param_bytes": param_bytes,
+              "params_init_s": init_s,
+              "basis_ms_a_tick": split["basis_ms"],
+              **{k: v for k, v in r.items() if k != "confidences"}})
+    emit({"lm_tick_split": f"{spec['arch']} full width, {cfg.n_layers} "
+          f"of {full.n_layers} layers, B={spec['batch']}, "
+          f"N={cfg.vocab_padded}", "gpu": card_name.strip(),
+          "power_limit": power.strip(), **split,
+          "basis_peak_bytes": checks["basis_peak_bytes"],
+          "resident_bytes": checks["resident_bytes"]})
+    del params
+    times = lm_timing({"checks": checks}, tag=spec["tag"], dense=False)
+    del checks["head_case"], checks["ops"]
+    torch.cuda.empty_cache()
+    return {"runs": runs, "split": split, "times": times,
+            "shape": f"B={spec['batch']} N={cfg.vocab_padded}, every slot "
+                     f"active, the live operands of one token decision "
+                     f"({cfg.n_layers} of {full.n_layers} layers)",
+            "launches": sum(r["decision_launches"] for r in runs),
+            "decision_max_abs_err": checks["decision_max_abs_err"],
+            "head_max_abs_err": checks["head_max_abs_err"],
+            "n_params": n_params, "param_bytes": param_bytes}
+
+
+def moe_card_vs_cpu(arch: str) -> dict:
+    """An MoE SMOKE config on the card and on the CPU from the same port
+    params and prompts: in float32 (TF32 off) the same tokens, verdicts,
+    samples and decisions request for request under accept-always and
+    fixed R = 20, confidence/MI within LM_FIN_ATOL (asserted); in bf16
+    the requests that agree and, over a prefill and three decode steps
+    on the same tokens, the (token, choice) routings that differ and
+    the hidden states' worst relative gap (reported: a router near a
+    tie may pick another expert on the card)."""
+    import dataclasses
+    import torch
+    from repro_torch import float32_math
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import params_init, serve
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import TriagePolicy
+    from repro_torch.serving.engine import _to_device
+    kw = dict(batch=MOE_SMOKE["batch"], prompt_len=MOE_SMOKE["prompt_len"],
+              gen_len=MOE_SMOKE["gen_len"],
+              n_requests=MOE_SMOKE["n_requests"], seed=MOE_SMOKE["seed"])
+    smoke = get_config(arch, smoke=True)
+    f32 = dataclasses.replace(smoke, dtype=torch.float32)
+    res = {}
+    p_cpu = params_init(f32, MOE_SMOKE["seed"], "cpu")
+    p_gpu = _to_device(p_cpu, "cuda")
+    for name, pol, adaptive in (("accept_always", LM_ACCEPT, True),
+                                ("fixed_r20", LM_FIXED, False)):
+        outs = {dev: serve(arch, cfg=f32, params=p, device=dev,
+                           policy=TriagePolicy(**pol), adaptive=adaptive,
+                           **kw)
+                for dev, p in (("cpu", p_cpu), ("cuda", p_gpu))}
+        same_decisions(outs["cuda"], outs["cpu"],
+                       f"{arch} smoke f32 {name}: card vs CPU", LM_FIN_ATOL)
+        tokens = [sorted((v["rid"], v["n_tokens"]) for v in o["verdicts"])
+                  for o in (outs["cuda"], outs["cpu"])]
+        check(tokens[0] == tokens[1]
+              and outs["cuda"]["requests"] == MOE_SMOKE["n_requests"],
+              f"{arch} smoke f32 {name}: token counts differ")
+        res[name] = {"requests": outs["cuda"]["requests"],
+                     "decisions": outs["cuda"]["decisions"],
+                     "requests_alike": outs["cuda"]["requests"]}
+    pb_cpu = params_init(smoke, MOE_SMOKE["seed"], "cpu")
+    pb_gpu = _to_device(pb_cpu, "cuda")
+    outs = {dev: serve(arch, cfg=smoke, params=p, device=dev,
+                       policy=TriagePolicy(**LM_ACCEPT), **kw)
+            for dev, p in (("cpu", pb_cpu), ("cuda", pb_gpu))}
+    vb = {v["rid"]: v for v in outs["cpu"]["verdicts"]}
+    agree = sum((v["prediction"], v["verdict"], v["n_tokens"])
+                == (vb[v["rid"]]["prediction"], vb[v["rid"]]["verdict"],
+                    vb[v["rid"]]["n_tokens"])
+                for v in outs["cuda"]["verdicts"])
+    toks = torch.randint(0, smoke.vocab, (MOE_SMOKE["batch"],
+                                          MOE_SMOKE["prompt_len"]),
+                         generator=torch.Generator().manual_seed(5))
+    routes = {"cpu": [], "cuda": []}
+    route = moe.route
+    gaps = []
+    try:
+        with float32_math():
+            caches, hs = {}, {}
+            for dev, p in (("cpu", pb_cpu), ("cuda", pb_gpu)):
+                def recorded(*a, _dev=dev):
+                    out = route(*a)
+                    routes[_dev].append(out[2].cpu())
+                    return out
+                moe.route = recorded
+                caches[dev], hs[dev] = tr.prefill(
+                    p, toks.to(dev), smoke, cache_len=16)
+                for step in range(3):
+                    tok = toks[:, step:step + 1].to(dev)
+                    hs[dev], caches[dev] = tr.decode_hidden(
+                        p, caches[dev], tok, smoke)
+            want = hs["cpu"].float()
+            gaps.append(float((hs["cuda"].float().cpu() - want).abs().max()
+                              / max(float(want.abs().max()), 1e-3)))
+    finally:
+        moe.route = route
+    check(len(routes["cpu"]) == len(routes["cuda"]) == 4 * smoke.n_layers,
+          f"{arch} smoke: {len(routes['cpu'])} routings recorded")
+    differ = sum(int((a != b).sum())
+                 for a, b in zip(routes["cuda"], routes["cpu"]))
+    total = sum(a.numel() for a in routes["cpu"])
+    res["bf16"] = {"requests_agreeing": agree,
+                   "requests": len(outs["cuda"]["verdicts"]),
+                   "routings_differing": differ, "routings": total,
+                   "hidden_rel_gap_after_3_decode_steps": gaps[0]}
+    emit({"lm_moe_card_vs_cpu": f"{arch} SMOKE, card against CPU, the "
+          "same port params and prompts; f32 with TF32 off: decisions "
+          f"equal, fin within {LM_FIN_ATOL} (asserted); bf16: requests "
+          "agreeing, routings differing over prefill + 3 decode steps, "
+          "hidden gap (reported)", **res})
+    return res
+
+
+def run_lm_moe() -> dict:
+    """The lm_moe phase: mixtral-8x7b (8 of 32 layers) under
+    accept-always, fixed R = 20 and an escalating policy, and
+    qwen3-moe-235b-a22b (2 of 94) under accept-always, each at full
+    width and freed before the next; both SMOKE configs card against
+    CPU."""
+    t_phase = time.perf_counter()
+    models = {spec["arch"]: run_moe_model(spec) for spec in MOE}
+    smoke = {spec["arch"]: moe_card_vs_cpu(spec["arch"]) for spec in MOE}
+    emit({"lm_moe_phase_s": time.perf_counter() - t_phase})
+    return {"models": models, "smoke": smoke}
 
 
 # ----------------------------------------------------------------------
@@ -4261,7 +4513,8 @@ def decision_args_work(args: dict) -> dict:
 
 
 def run_timing(inputs: dict, launches: dict, worst: float,
-               cim_line: dict, head_lines: list, lm_vocab: dict) -> None:
+               cim_line: dict, head_lines: list, lm_vocab: dict,
+               moe_vocab: dict) -> None:
     from repro_torch.kernels.decision import (decision_plan, decision_stats,
                                               decision_stats_plain)
     times = {}
@@ -4343,6 +4596,7 @@ def run_timing(inputs: dict, launches: dict, worst: float,
                               "vocabulary), every slot active, the live "
                               "operands of one token decision",
                      **lm_vocab},
+        "lm_moe_vocab": moe_vocab,
     }, cim_line, *head_lines]})
 
 
@@ -4419,6 +4673,7 @@ def main() -> int:
     run_tiled_hoist()
     emit({"population_and_modes_phases_s": time.perf_counter() - t0})
     lm = run_lm_serving()
+    moe = run_lm_moe()
     cim_plan_sweep(cim_inputs)
     head_plan_sweep()
     heads = head_timing(uq_path["launches"], fig9, head_checks, train,
@@ -4426,7 +4681,9 @@ def main() -> int:
     heads[1]["launches_lifetime_static_arms"] = lifetime["rank16_launches"]
     heads[1]["max_abs_err"] = max(heads[1]["max_abs_err"],
                                   lifetime["rank16_checks"]["max_abs_err"],
-                                  lm["checks"]["head_max_abs_err"])
+                                  lm["checks"]["head_max_abs_err"],
+                                  *(m["head_max_abs_err"]
+                                    for m in moe["models"].values()))
     lm_times = lm_timing(lm)
     heads[1]["launches_lm_decode_step"] = 1
     heads[1]["lm_decode_step"] = {
@@ -4434,6 +4691,13 @@ def main() -> int:
         "max_abs_err": lm["checks"]["head_max_abs_err"],
         "what": "qwen3-0.6b's vocabulary head at decode_step's shape, "
                 "bf16 operands widened by the wrapper"}
+    heads[1]["launches_lm_moe_decode_step"] = len(MOE)
+    heads[1]["lm_moe_decode_step"] = {
+        a: {**m["times"]["rank16"], "max_abs_err": m["head_max_abs_err"]}
+        for a, m in moe["models"].items()}
+    heads[1]["lm_moe_decode_step_what"] = (
+        "each MoE config's vocabulary head at decode_step's shape, bf16 "
+        "operands widened by the wrapper; one launch a config")
     run_timing(inputs, {"serve_sar": main_path["launches"],
                         "mission_matrix": mission["decision"],
                         "serve_sar_lifetime": lifetime["launches"]
@@ -4441,8 +4705,12 @@ def main() -> int:
                         "mission_aged_arms": aged["launches"]["decision"],
                         "observability": obs["decision"],
                         "die_population": population["decision"],
-                        "lm_serving": lm["launches"]},
-               max(worst, lm["checks"]["decision_max_abs_err"]),
+                        "lm_serving": lm["launches"],
+                        **{f"lm_moe/{a}": m["launches"]
+                           for a, m in moe["models"].items()}},
+               max(worst, lm["checks"]["decision_max_abs_err"],
+                   *(m["decision_max_abs_err"]
+                     for m in moe["models"].values())),
                cim_timing(cim_inputs,
                           {"serve_sar(chip_instance=gate die)":
                            chip_path["launches"],
@@ -4452,7 +4720,9 @@ def main() -> int:
                            "observability": obs["cim"],
                            "die_population": population["cim"]},
                           cim_summary),
-               heads, lm_times["decision"])
+               heads, lm_times["decision"],
+               {a: {"shape": m["shape"], **m["times"]["decision"]}
+                for a, m in moe["models"].items()})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

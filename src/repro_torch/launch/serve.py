@@ -2,7 +2,8 @@
 ``serve_sar`` and their CLI from ``repro/launch/serve.py``).
 
 ``--arch`` names a dense LM (qwen3-0.6b, qwen1.5-110b, yi-9b,
-qwen3-1.7b) or ``sar_cnn``.  An LM serves continuous-batching token
+qwen3-1.7b), an MoE LM (mixtral-8x7b, qwen3-moe-235b-a22b) or
+``sar_cnn``.  An LM serves continuous-batching token
 decode through ``LMServingEngine`` (``serve``): prompts from the
 synthetic token pipeline, each token decision triaged, flagged requests
 retired to verification; the CLI serves the SMOKE config, as the
@@ -41,6 +42,8 @@ metrics.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --slots 4 --prompt-len 16 --gen 8 --requests 16 [--fixed]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
+      --slots 2 --prompt-len 8 --gen 2 --requests 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch sar_cnn \\
       --requests 192 --corrupt-frac 0.25 --corruption fog [--fixed] \\
       [--chip-instance 11 --chip-severity 2.0 --uncalibrated]
@@ -53,8 +56,8 @@ Usage:
       --metrics-out out/serve --profile out/prof
 
 The reference CLI's fleets (``--pools``, ``--mesh``) wait for more than
-one GPU (ROADMAP A10); its MoE, SSM, audio and VLM archs for their
-families (A13).
+one GPU (ROADMAP A10); its SSM, audio and VLM archs for their
+families (A13.2, A13.3).
 """
 
 from __future__ import annotations

@@ -11,10 +11,10 @@ masked scores here are ``NEG_INF = -1e30``, not ``-inf``, as there (a
 query row whose keys are all masked averages the chunk's values, as the
 reference's does).
 
-The reference's rolling (circular) cache for sliding-window decode
-longer than the window is not ported: ``decode_attention`` and
-``cache_update`` raise on ``rolling`` (ROADMAP A13, the rolling cache
-mixtral's long-context cell needs).
+Sliding-window decode takes a rolling (circular) cache: slot s holds
+position pos − ((pos − s) mod Sc) and a new entry goes to pos mod Sc.
+There, as in the reference, a slot's ``start`` is not applied (ROADMAP
+C25: a fault of the reference that the port matches).
 """
 
 from __future__ import annotations
@@ -25,9 +25,6 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
-
-_ROLLING = ("the rolling sliding-window cache is not ported yet "
-            "(ROADMAP A13: the rolling cache, mixtral-8x7b)")
 
 
 def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -105,15 +102,16 @@ def chunked_attention(q, k, v, *, causal: bool = True,
 def decode_attention(q, cache_k, cache_v, pos: int, *,
                      window: int | None = None, rolling: bool = False,
                      start=None):
-    """One token's attention against a linear KV cache.
+    """One token's attention against a KV cache.
 
     q [B, 1, Hq, dh]; cache_k/v [B, Sc, Hkv, dh]; pos: the new token's
     position (already inserted); start: optional [B] first valid cache
-    position per slot (left-padded admissions stay masked).  GQA
+    position per slot (left-padded admissions stay masked), applied only
+    to a linear cache, as the reference applies it (ROADMAP C25).  With
+    ``rolling`` the cache is circular: slot s holds position p = pos −
+    ((pos − s) mod Sc), valid if 0 ≤ p ≤ pos and p > pos − window.  GQA
     without expanding the cache: query head h = kv·g + i reads KV head
     kv.  Returns [B, 1, Hq, dh] in q.dtype."""
-    if rolling:
-        raise NotImplementedError(_ROLLING)
     b, _, hq, dh = q.shape
     sc, hkv = cache_k.shape[1], cache_k.shape[2]
     g = hq // hkv
@@ -121,11 +119,12 @@ def decode_attention(q, cache_k, cache_v, pos: int, *,
     qf = q.reshape(b, hkv, g, dh).to(f32) * (1.0 / math.sqrt(dh))
     s = torch.einsum("bhgd,bkhd->bhgk", qf, cache_k.to(f32))
     idx = torch.arange(sc, device=q.device)
-    mask = idx <= pos
+    p = pos - torch.remainder(pos - idx, sc) if rolling else idx
+    mask = (p >= 0) & (p <= pos)
     if window is not None:
-        mask = mask & (idx > pos - window)
+        mask = mask & (p > pos - window)
     mask = mask[None, None, None]                            # [1,1,1,Sc]
-    if start is not None:
+    if start is not None and not rolling:
         mask = mask & (idx[None, :] >= start[:, None])[:, None, None, :]
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, cache_v.to(f32))
@@ -134,12 +133,12 @@ def decode_attention(q, cache_k, cache_v, pos: int, *,
 
 def cache_update(cache_k, cache_v, k_new, v_new, pos: int, *,
                  rolling: bool = False):
-    """Write [B, 1, Hkv, dh] entries at cache position ``pos`` IN PLACE
-    and return the caches.  The position is clamped into the cache as
-    the reference's ``dynamic_update_slice`` clamps its start."""
-    if rolling:
-        raise NotImplementedError(_ROLLING)
-    slot = min(max(int(pos), 0), cache_k.shape[1] - 1)
+    """Write [B, 1, Hkv, dh] entries at cache position ``pos`` (rolling:
+    pos mod Sc) IN PLACE and return the caches.  A linear cache's
+    position is clamped into the cache as the reference's
+    ``dynamic_update_slice`` clamps its start."""
+    sc = cache_k.shape[1]
+    slot = int(pos) % sc if rolling else min(max(int(pos), 0), sc - 1)
     cache_k[:, slot] = k_new[:, 0]
     cache_v[:, slot] = v_new[:, 0]
     return cache_k, cache_v

@@ -4,8 +4,9 @@
 Every family exposes init(generator, cfg) -> params, train_loss,
 prefill(params, tokens, cfg, cache_len, ...), decode_step(params, cache,
 token, cfg) and decode_hidden (the trunk-only decode the serving engine
-samples adaptively).  The dense family is ported; the others raise
-``NotImplementedError`` naming their ROADMAP item.
+samples adaptively).  The dense and MoE families share the
+transformer's; the others raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,11 +18,10 @@ from repro_torch.models import transformer
 from repro_torch.models.transformer import ModelConfig
 
 _WAITING = {
-    "moe": "ROADMAP A13: MoE, mixtral-8x7b and qwen3-moe-235b-a22b",
-    "ssm": "ROADMAP A13: SSM/hybrid, mamba2-130m and zamba2-2.7b",
-    "hybrid": "ROADMAP A13: SSM/hybrid, mamba2-130m and zamba2-2.7b",
-    "audio": "ROADMAP A13: audio, whisper-medium",
-    "vlm": "ROADMAP A13: VLM, llama-3.2-vision-11b",
+    "ssm": "ROADMAP A13.2: SSM/hybrid, mamba2-130m and zamba2-2.7b",
+    "hybrid": "ROADMAP A13.2: SSM/hybrid, mamba2-130m and zamba2-2.7b",
+    "audio": "ROADMAP A13.3: audio, whisper-medium",
+    "vlm": "ROADMAP A13.3: VLM, llama-3.2-vision-11b",
 }
 
 
@@ -41,7 +41,7 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"({_WAITING[cfg.family]})")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"unknown model family {cfg.family!r}")
     return ModelAPI(
         init=transformer.init_transformer,

@@ -1,29 +1,34 @@
-"""Decoder-only transformer LM, dense family (port of the dense path of
-``repro/models/transformer.py``).
+"""Decoder-only transformer LM, dense and MoE families (port of the
+dense and MoE paths of ``repro/models/transformer.py``).
 
 Pre-norm blocks over parameters stacked on a leading layer axis, as the
 reference's ``lax.scan`` stacks are (``[L, d_in, d_out]`` float32 for
-every layer leaf); the port loops over the layers.  The LM head is the
-paper's Bayesian weight-decomposition layer (µ, ρ), served with
-CLT-GRNG sampling: ``decode_step``/``apply_bayes_head`` draw a fixed R
-through ``core/sampling.logit_samples`` (on the card, ``bayes_mvm.cu``
-rank16), and ``decode_hidden`` gives the trunk's hidden state alone,
-which the serving engine samples adaptively.
+every layer leaf; an MoE block's ``moe`` leaves ``[L, E, ...]``); the
+port loops over the layers.  The LM head is the paper's Bayesian
+weight-decomposition layer (µ, ρ), served with CLT-GRNG sampling:
+``decode_step``/``apply_bayes_head`` draw a fixed R through
+``core/sampling.logit_samples`` (on the card, ``bayes_mvm.cu`` rank16),
+and ``decode_hidden`` gives the trunk's hidden state alone, which the
+serving engine samples adaptively.
 
-What is not here: the MoE, SSM, encoder-decoder (whisper) and
+What is not here: the SSM families live elsewhere in the reference and
+are not ported (``models/registry``); the encoder-decoder (whisper) and
 cross-attention (llama-vision) branches raise ``NotImplementedError``
-naming their ROADMAP item; the rolling sliding-window cache raises in
-``models/attention``; ``train_loss`` waits for the LM trainer (ROADMAP
-A14).  The reference's ``_wsc``/``_tp_linear``/remat helpers constrain
-shardings and trade memory in the backward on a TPU mesh; on one card
-in forward they have no meaning, and ``ModelConfig``'s mesh hints
-(``batch_axes``, ``model_axis_size``, ``explicit_tp``, ``remat``) are
-carried as data only.
+naming their ROADMAP item; ``train_loss`` waits for the LM trainer
+(ROADMAP A14); the MoE mesh path (``make_sharded_moe``) waits for more
+than one GPU (A10).  The reference's ``_wsc``/``_tp_linear``/remat
+helpers constrain shardings and trade memory in the backward on a TPU
+mesh; on one card in forward they have no meaning, and
+``ModelConfig``'s mesh hints (``batch_axes``, ``model_axis_size``,
+``explicit_tp``, ``remat``) are carried as data only.
 
 The decode cache is {"k", "v": [L, B, Sc, Hkv, dh] in cfg.dtype, "pos":
 a host int (the pool clock: every position it sets is a launch-time
 index, nothing is read back from the card), "start": [B] int32 first
-valid positions (left-padded admissions)}.
+valid positions (left-padded admissions)}.  A sliding-window config
+whose cache is no longer than its window decodes through the rolling
+cache (``models/attention``), as the reference's does, and then
+ignores ``start`` as the reference does (ROADMAP C25).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from repro_torch.core.hashing import as_u32
 from repro_torch.core.lfsr import indexed_selections
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
+from repro_torch.models.moe import init_moe, moe_apply
 
 
 # ----------------------------------------------------------------------
@@ -149,21 +155,17 @@ class ModelConfig:
         return l * (attn_p + mlp_p + 2 * d) + self.vocab_padded * d * 2
 
 
-def _dense_only(cfg: ModelConfig) -> None:
+def _refuse_unported(cfg: ModelConfig) -> None:
     """Refuse the branches of the reference's transformer not ported."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP A13: "
-            f"MoE, mixtral-8x7b and qwen3-moe-235b-a22b)")
     if cfg.encoder_layers or cfg.learned_pos:
         raise NotImplementedError(
             f"{cfg.name}: the encoder, its cross-attention and learned "
-            f"positions are not ported yet (ROADMAP A13: audio, "
+            f"positions are not ported yet (ROADMAP A13.3: audio, "
             f"whisper-medium)")
     if cfg.cross_attn_every:
         raise NotImplementedError(
             f"{cfg.name}: cross-attention layers are not ported yet "
-            f"(ROADMAP A13: VLM, llama-3.2-vision-11b)")
+            f"(ROADMAP A13.3: VLM, llama-3.2-vision-11b)")
 
 
 # ----------------------------------------------------------------------
@@ -210,19 +212,24 @@ def init_transformer(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Random params in the reference's tree and layout, drawn from
     ``generator`` on its device with the reference's scales (dense
     N(0, 1/d_in), embedding N(0, 0.02²), norms 1, biases 0, the head's
-    µ N(0, 1/d_model) and ρ = softplus⁻¹(sigma_init)).  The draws are
-    the port's own, not JAX's."""
-    _dense_only(cfg)
+    µ N(0, 1/d_model) and ρ = softplus⁻¹(sigma_init); an MoE config's
+    blocks hold ``moe`` in place of ``mlp``, from ``models/moe.init_moe``).
+    The draws are the port's own, not JAX's."""
+    _refuse_unported(cfg)
     dev = generator.device
     l, d = cfg.n_layers, cfg.d_model
     params: dict = {
         "embed": blocks.embed_init(generator, cfg.vocab_padded, d),
         "blocks": {"attn": _init_attn_block(generator, cfg, l),
                    "ln1": torch.ones((l, d), device=dev),
-                   "ln2": torch.ones((l, d), device=dev),
-                   "mlp": _init_mlp_block(generator, cfg, l)},
+                   "ln2": torch.ones((l, d), device=dev)},
         "final_norm": torch.ones((d,), device=dev),
     }
+    if cfg.n_experts:
+        params["blocks"]["moe"] = init_moe(generator, l, d, cfg.d_ff,
+                                           cfg.n_experts)
+    else:
+        params["blocks"]["mlp"] = _init_mlp_block(generator, cfg, l)
     if cfg.norm == "ln":
         params["blocks"]["ln1_b"] = torch.zeros((l, d), device=dev)
         params["blocks"]["ln2_b"] = torch.zeros((l, d), device=dev)
@@ -271,9 +278,15 @@ def _project_qkv(h, p: dict, cfg: ModelConfig):
 
 
 def _mlp_apply(h, lp: dict, cfg: ModelConfig):
-    """-> (y, aux): the dense MLP, aux 0 (the MoE branch raises)."""
+    """-> (y, aux): the MoE layer (its router cast to h.dtype before
+    the float32 softmax, as the reference's) and its aux loss, or the
+    dense MLP and aux 0."""
     if "moe" in lp:
-        _dense_only(cfg)
+        p = lp["moe"]
+        return moe_apply(h, p["router"].to(h.dtype), p["wi"].to(h.dtype),
+                         p["wg"].to(h.dtype), p["wo"].to(h.dtype),
+                         top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor)
     p = lp["mlp"]
     if cfg.mlp == "swiglu":
         y = blocks.swiglu(h, p["wi"].to(h.dtype), p["wg"].to(h.dtype),
@@ -345,7 +358,7 @@ def trunk_forward(params: dict, tokens, cfg: ModelConfig, *,
     None, memory None).  ``collect_cache``: caches {"k", "v": [L, B, S,
     Hkv, dh]}; ``kv_start``: optional [B] first valid positions of
     left-padded rows (masks self-attention only)."""
-    _dense_only(cfg)
+    _refuse_unported(cfg)
     b, s = tokens.shape
     h = _embed(params, tokens, cfg)
     positions = torch.arange(s, dtype=torch.int32,
@@ -377,34 +390,41 @@ def train_loss(params, batch, cfg: ModelConfig, step=0):
 # ----------------------------------------------------------------------
 def prefill(params: dict, tokens, cfg: ModelConfig, *, cache_len: int,
             prompt_lengths=None):
-    """Run the prompt, build a linear KV cache of ``cache_len``.
+    """Run the prompt, build a KV cache of ``cache_len``.
 
     -> (cache, last-position hidden [B, D]).  ``prompt_lengths`` [B]:
     true lengths of LEFT-padded rows (continuous-batching admission):
     pad positions are masked out of attention and recorded as the
     cache's per-slot ``start``.  A prompt longer than the cache keeps
-    its last ``cache_len`` entries and its ``start`` shifts with them.
-    A sliding-window cache shorter than the prompt's cache would be the
-    reference's rolling cache, which is not ported (raises)."""
+    its last entries and its ``start`` shifts with them.  A
+    sliding-window config whose ``cache_len`` exceeds its window gets a
+    rolling cache of the window's size, which takes no
+    ``prompt_lengths`` (ValueError), as the reference's."""
     b, s = tokens.shape
-    if cfg.swa_window is not None and cache_len > cfg.swa_window:
-        raise NotImplementedError(attn._ROLLING)
+    rolling = cfg.swa_window is not None and cache_len > cfg.swa_window
+    sc = cfg.swa_window if rolling else cache_len
     kv_start = None
     if prompt_lengths is not None:
+        if rolling:
+            raise ValueError(
+                "prompt_lengths (left-padded admission) is not supported "
+                f"with a rolling SWA cache (cache_len={cache_len} > "
+                f"window={cfg.swa_window}): decode_attention cannot apply "
+                "the per-slot start mask to a circular buffer")
         lengths = torch.as_tensor(prompt_lengths, device=tokens.device)
         kv_start = (s - lengths).to(torch.int32)
     h, _, caches, _ = trunk_forward(params, tokens, cfg, collect_cache=True,
                                     kv_start=kv_start)
 
-    def fit(x):  # [L, B, S, Hkv, dh] -> [L, B, cache_len, Hkv, dh]
-        if s >= cache_len:
-            return x[:, :, s - cache_len:].contiguous()
-        return F.pad(x, (0, 0, 0, 0, 0, cache_len - s))
+    def fit(x):  # [L, B, S, Hkv, dh] -> [L, B, sc, Hkv, dh]
+        if s >= sc:
+            return x[:, :, s - sc:].contiguous()
+        return F.pad(x, (0, 0, 0, 0, 0, sc - s))
 
     cache = {"k": fit(caches["k"]), "v": fit(caches["v"]), "pos": s}
     if kv_start is not None:
-        cache["start"] = (kv_start if s <= cache_len else
-                          torch.clamp(kv_start - (s - cache_len), min=0))
+        cache["start"] = (kv_start if s <= sc else
+                          torch.clamp(kv_start - (s - sc), min=0))
     return cache, h[:, -1]
 
 
@@ -423,8 +443,10 @@ def decode_hidden(params: dict, cache: dict, token, cfg: ModelConfig):
     """One trunk decode step without the Bayesian head: token [B, 1] ->
     (last hidden [B, D], new cache).  The new cache's k/v are a copy
     with this step's entries written at ``pos``; ``pos`` advances by
-    one.  Honors ``cache["start"]`` (left-padded admissions)."""
-    _dense_only(cfg)
+    one.  Honors ``cache["start"]`` (left-padded admissions) on a linear
+    cache; a sliding-window config's cache decodes as the rolling one,
+    which ignores it, as the reference's does (ROADMAP C25)."""
+    _refuse_unported(cfg)
     pos = int(cache["pos"])
     start = cache.get("start")
     h = _embed(params, token, cfg)                             # [B, 1, D]

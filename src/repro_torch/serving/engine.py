@@ -692,9 +692,10 @@ class LMServingEngine(_EngineBase):
 
     ``params``: port params of the model (``models.transformer.
     init_transformer`` or ``bridge.lm_params_from_jax``), moved to the
-    engine's device; ``cfg``: its ``ModelConfig`` (dense family);
-    ``n_slots`` slots of prompts left-padded to ``prompt_len`` in a
-    linear KV cache of ``cache_len``; ``adaptive_mode=False`` draws
+    engine's device; ``cfg``: its ``ModelConfig`` (dense and MoE
+    families); ``n_slots`` slots of prompts left-padded to
+    ``prompt_len`` in a KV cache of ``cache_len`` (at most a sliding
+    window: such a cache decodes as the rolling one); ``adaptive_mode=False`` draws
     r_max samples a token in one round; ``fused=False`` folds rounds
     through ``mix_samples`` + ``update_stats`` instead of the decision
     kernel.  The other arguments are the SAR engine's.  One blocking

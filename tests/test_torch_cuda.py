@@ -55,6 +55,12 @@ The dense LM: the decision kernel at N = 152,064 (qwen3-0.6b's padded
 vocabulary) against its plain version, rtol 1e-4 with absolute floors
 scaled to a uniform distribution's entries (stated in the test); the
 SMOKE config's engine in float32 on the card against the CPU.
+The MoE LM: ``moe_apply`` on the card against its CPU run in float32
+(the same routing and keep mask, y within 1e-5, aux within 1e-6; E 8,
+k 2 as mixtral and E 128, k 8 as qwen3-moe, with drops); the decision
+kernel at mixtral's padded vocabulary (N = 32,000, B 4) to the dense
+LM's tolerance and rank16 at its head (B 4, K 4,096, N 32,000, R 8,
+bf16 operands widened by the wrapper) to rtol/atol 1e-4.
 Observability: the engine's cost records against the launches the
 wrappers count (the same verdicts and syncs with the instruments on and
 off), and ``trace_capture``'s trace holding every decision and CIM
@@ -924,3 +930,71 @@ def test_lm_engine_smoke_card_against_cpu(hopper, adaptive):
         assert abs(a["mutual_information"]
                    - b["mutual_information"]) <= 1e-5
     assert outs["cuda"]["host_syncs"] == outs["cpu"]["host_syncs"]
+
+
+# ----------------------------------------------------------------------
+# the MoE LM
+# ----------------------------------------------------------------------
+MIXTRAL_N = 32000        # mixtral-8x7b's padded vocabulary
+
+
+@pytest.mark.parametrize("e,k", [(8, 2), (128, 8)])
+def test_moe_apply_card_against_cpu(hopper, e, k):
+    """moe_apply in float32 on the card and on the CPU from the same
+    inputs: routing and keep mask equal, y within 1e-5, aux within
+    1e-6 (the products sum in another order; TF32 off)."""
+    from repro_torch import float32_math
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(e)
+    d, f = 256, 192
+    x = torch.randn((4, 16, d), generator=gen)
+    router = torch.randn((d, e), generator=gen) / d ** 0.5
+    router[:, 0] += x.reshape(-1, d).mean(0)          # expert 0 overflows
+    wi, wg = (torch.randn((e, d, f), generator=gen) / d ** 0.5
+              for _ in range(2))
+    wo = torch.randn((e, f, d), generator=gen) / f ** 0.5
+    args = (x, router, wi, wg, wo)
+    out, routes = {}, {}
+    with float32_math():
+        for dev in ("cpu", "cuda"):
+            a = [t.to(dev) for t in args]
+            _, _, experts = moe.route(a[0].reshape(-1, d), a[1], k)
+            t = experts.shape[0]
+            routes[dev] = (experts.cpu(), moe.dispatch(
+                experts, e, int(max(k, 1.25 * t * k / e)))[2].cpu())
+            out[dev] = [v.cpu() for v in moe.moe_apply(*a, top_k=k)]
+    assert torch.equal(routes["cuda"][0], routes["cpu"][0])
+    assert torch.equal(routes["cuda"][1], routes["cpu"][1])
+    assert not bool(routes["cpu"][1].all())             # some pairs drop
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("r", [4, 8, 20])
+def test_decision_kernel_at_mixtral_vocabulary(hopper, r):
+    args = _case(hopper, 4, MIXTRAL_N, r, 0.0)
+    got = decision_stats(**args)
+    want = decision_stats_plain(**args)
+    torch.cuda.synchronize()
+    for key in KEYS:
+        torch.testing.assert_close(got[key], want[key], rtol=1e-4,
+                                   atol=1e-4 * _floor(key, r, MIXTRAL_N),
+                                   msg=key)
+
+
+def test_rank16_at_mixtral_head(hopper):
+    """decode_step's head at mixtral's width: B 4, K 4,096, N 32,000,
+    R 8 (its uq_samples), bf16 x, µ' and σ."""
+    cfg = GRNGConfig()
+    x, mu, sigma = _head_case(hopper, 4, 4096, MIXTRAL_N,
+                              dtype=torch.bfloat16)
+    sel = selections(cfg, 8, 11, device=hopper)
+    before = bayes.bayes_rank16.launches
+    got = bayes.bayes_rank16(x, mu, sigma, sel, cfg)
+    want = bayes.bayes_rank16_plain(x, mu, sigma, sel, cfg)
+    torch.cuda.synchronize()
+    assert bayes.bayes_rank16.launches == before + 1
+    assert got.shape == (8, 4, MIXTRAL_N)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

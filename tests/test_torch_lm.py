@@ -179,8 +179,12 @@ def test_decode_attention_and_expand_kv_match_reference(window):
     np.testing.assert_array_equal(
         tattn.expand_kv(_t(ck), 4).numpy(),
         np.asarray(jattn.expand_kv(jnp.asarray(ck), 4)))
-    with pytest.raises(NotImplementedError, match="rolling"):
-        tattn.decode_attention(_t(q), _t(ck), _t(cv), 9, rolling=True)
+    # before the circular cache wraps, its decode is the linear one
+    # without start (ROADMAP C25)
+    linear = tattn.decode_attention(_t(q), _t(ck), _t(cv), 9, window=window)
+    assert torch.equal(tattn.decode_attention(_t(q), _t(ck), _t(cv), 9,
+                                              window=window, rolling=True,
+                                              start=_t(start)), linear)
 
 
 # ----------------------------------------------------------------------
@@ -449,7 +453,7 @@ def test_serve_summary_and_cli(capsys):
     assert cli["requests"] == 2
     assert "[yi-9b] 2 requests" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        tserve.main(["--arch", "mixtral-8x7b", "--device", "cpu"])
+        tserve.main(["--arch", "mamba2-130m", "--device", "cpu"])
 
 
 def test_params_init_matches_reference_tree():
@@ -508,8 +512,7 @@ def test_lm_params_bridge_round_trip():
         np.testing.assert_array_equal(b, np.asarray(a))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b",
-                                  "mamba2-130m", "zamba2-2.7b",
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b",
                                   "whisper-medium", "llama-3.2-vision-11b"])
 def test_families_not_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
@@ -522,14 +525,15 @@ def test_families_not_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         get_api(cfg)
     dense = dataclasses.replace(cfg, family="dense")   # the blocks raise
-    if cfg.n_experts or cfg.encoder_layers or cfg.cross_attn_every:
+    if cfg.encoder_layers or cfg.cross_attn_every:
         with pytest.raises(NotImplementedError, match="ROADMAP A13"):
             ttr.init_transformer(torch.Generator(), dense)
 
 
 def test_configs_port_as_data():
     assert set(ARCHS) == {"qwen3-0.6b", "qwen3-1.7b", "yi-9b",
-                          "qwen1.5-110b"}
+                          "qwen1.5-110b", "mixtral-8x7b",
+                          "qwen3-moe-235b-a22b"}
     for arch in ARCHS:
         for smoke in (False, True):
             jc, tc = jget_config(arch, smoke), get_config(arch, smoke)
@@ -551,7 +555,9 @@ def test_lm_port_imports_neither_jax_nor_reference():
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py")
     assert {"repro_torch.models.transformer", "repro_torch.configs.yi_9b",
-            "repro_torch.data.tokens"} <= set(mods)
+            "repro_torch.data.tokens", "repro_torch.models.moe",
+            "repro_torch.configs.mixtral_8x7b",
+            "repro_torch.configs.qwen3_moe_235b_a22b"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods + ['repro_torch.configs']!r}:\n"
             "    importlib.import_module(m)\n"
