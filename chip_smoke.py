@@ -190,6 +190,25 @@ JSON line):
      SMOKE config on the card against the CPU (f32 decisions equal,
      asserted; bf16 agreement, routings that differ and the hidden gap,
      reported);
+  7j. the SSM and hybrid LMs (lines ``lm_ssm``, ``kernel_check``
+     ``ssm_*``, ``ssm_chunk_carry``, ``lm_tick_split``, ``timing``
+     ``*_ssm_*``, ``lm_ssm_card_vs_cpu``, ``lm_ssm_phase_s``):
+     mamba2-130m (24 of 24 layers) and zamba2-2.7b (54 of 54) at full
+     width, float32 params drawn on the card from seed 0 and freed before
+     the next model, through 7h's serve() with prompts of 512 (two SSD
+     chunks, so the state carried between chunks runs) under
+     accept-always, fixed R = 20 and the escalating policy: decision
+     launches = ticks × launches a schedule and one sync a tick, at least
+     one admission into a decoding pool (asserted); decision.cu on a live
+     token decision's operands at N = 50,432 and 32,000, R = 4, 8, 20 and
+     R = 20 with read noise (7h's tolerance), rank16 on one
+     decode_step_ssm (1e-4; K 768 and 2,560), both timed by graph replay
+     beside their bounds (the kernels line's ``lm_ssm_vocab`` and
+     ``lm_ssm_decode_step``); ``ssd_chunked`` at each arch's layer shape
+     over 512 tokens against two 256-token calls with the state carried
+     and card against CPU (SSM_CARRY_TOL); a tick's split; each SMOKE
+     config on the card against the CPU (f32 decisions equal, bf16 hidden
+     gap within 0.05, asserted; bf16 requests agreeing, reported);
   8. kernel timing: device time from CUDA graph replays and per-call
      time of eager calls (CUDA events), beside the plain version's and
      the card's byte/flop bound: decision and CIM at the serving path's
@@ -3414,6 +3433,11 @@ def lm_serve_run(name: str, policy, adaptive: bool, params, spec=LM,
     check(out["decisions"] == sum(v["n_tokens"] for v in out["verdicts"]),
           f"lm {name}: decisions and tokens disagree")
     tel = out["telemetry"]
+    spans = out.get("stage_profile") or {}
+    outside = out["wall_s"] - sum(
+        spans[k]["total_s"] for k in ("admission", "dispatch",
+                                      "triage_loop", "retirement")
+        if k in spans)
     return {"name": name, "schedule": list(schedule),
             "policy": {k: getattr(policy, k) for k in (
                 "conf_threshold", "mi_threshold", "r_min", "r_max")},
@@ -3427,6 +3451,7 @@ def lm_serve_run(name: str, policy, adaptive: bool, params, spec=LM,
             "accept_fraction": out["accept_fraction"],
             "flag_fraction": out["flag_fraction"],
             "tokens_per_s": out["tokens_per_s"], "wall_s": out["wall_s"],
+            "outside_stages_s": outside,
             "rounds_run": tel["rounds"], "dispatches": tel["dispatches"],
             "r_hist": {r: c for r, c in enumerate(tel["r_hist"]) if c},
             "stage_split": lm_stage_split(out),
@@ -3504,13 +3529,16 @@ def lm_kernel_checks(cfg, params, spec=LM, rs=LM_DECISION_R,
     plain versions: decision.cu on one live token decision's operands
     (the admitted prompts' basis) at each R of ``rs``, and at R = 20
     with read_sigma = 0.4 at the same shape; bayes_mvm.cu rank16 on one
-    decode_step (K d_model × N the padded vocabulary, R = uq_samples)."""
+    decode_step (K d_model × N the padded vocabulary, R = uq_samples),
+    the family's own (the registry's ``decode_step``/``decode_hidden``)."""
     import dataclasses
     import torch
     from repro_torch import float32_math
     from repro_torch.core.sampling import activation_basis
     from repro_torch.kernels.bayes import bayes_rank16, bayes_rank16_plain
     from repro_torch.models import transformer as tr
+    from repro_torch.models.registry import get_api
+    api = get_api(cfg)
     eng = lm_engine(cfg, params, "cuda", spec)
     base = torch.as_tensor(eng._next_bases(eng.n_slots).astype("int64"),
                            device="cuda")
@@ -3540,8 +3568,8 @@ def lm_kernel_checks(cfg, params, spec=LM, rs=LM_DECISION_R,
     pos = eng.cache["pos"]
     bayes_rank16.launches = 0
     with float32_math():
-        logits, _ = tr.decode_step(eng._params, eng.cache, token, cfg)
-        x, _ = tr.decode_hidden(eng._params, eng.cache, token, cfg)
+        logits, _ = api.decode_step(eng._params, eng.cache, token, cfg)
+        x, _ = api.decode_hidden(eng._params, eng.cache, token, cfg)
     torch.cuda.synchronize()
     check(bayes_rank16.launches == 1,
           f"decode_step launched the rank16 kernel "
@@ -4127,6 +4155,272 @@ def run_lm_moe() -> dict:
 
 
 # ----------------------------------------------------------------------
+# the SSM and hybrid LMs served at full width and full depth
+# ----------------------------------------------------------------------
+# mamba2-130m (24 layers, d 768, vocabulary 50,432 padded; 0.83 GB of
+# float32 params) and zamba2-2.7b (54 layers, d 2,560, the shared block
+# at 9 sites, vocabulary 32,000; 10.1 GB), bf16, params drawn on the card
+# from seed 0.  Prompts of 512 tokens: two SSD chunks of 256, so that the
+# state carried between chunks (y_off, the decayed state update) runs on
+# the card (at one chunk it multiplies a zero state).  The dense phase's
+# serve() otherwise: 4 slots, 8 new tokens, 8 requests.
+SSM = (dict(LM, arch="mamba2-130m", prompt_len=512, tag="ssm_mamba2"),
+       dict(LM, arch="zamba2-2.7b", prompt_len=512, tag="ssm_zamba2"))
+SSM_DECISION_R = (4, 8, 20)
+# ssd_chunked at a full-width layer shape: 512 tokens at once against
+# two 256-token calls with the state carried, and the card against the
+# CPU (float32, TF32 off: only the products' order differs)
+SSM_CARRY_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def ssm_chunk_carry(cfg) -> dict:
+    """``ssd_chunked`` at ``cfg``'s layer shape (B 4, H, P, N, G, chunk;
+    two chunks), inputs from a seed at the scales a layer gives them: on
+    the card 512 tokens against 256 + 256 with the state carried (y and
+    the final state within SSM_CARRY_TOL), and the card against the
+    CPU."""
+    import torch
+    from repro_torch import float32_math
+    from repro_torch.models.mamba2 import mamba_dims, ssd_chunked
+    dims = mamba_dims(cfg)
+    b, s, q = 4, 2 * cfg.ssm_chunk, cfg.ssm_chunk
+    h, p, n, g = (dims["nheads"], dims["headdim"], dims["d_state"],
+                  dims["ngroups"])
+    gen = torch.Generator().manual_seed(7)
+    args = [torch.randn((b, s, h, p), generator=gen) * 0.5,
+            torch.nn.functional.softplus(
+                torch.randn((b, s, h), generator=gen) - 2),
+            -torch.ones((h,)),                    # A = −exp(0), as init
+            torch.randn((b, s, g, n), generator=gen) * 0.3,
+            torch.randn((b, s, g, n), generator=gen) * 0.3]
+    out, err = {}, {}
+    with float32_math():
+        for dev in ("cuda", "cpu"):
+            a = [t.to(dev) for t in args]
+            y, st = ssd_chunked(*a, q)
+            y1, st1 = ssd_chunked(*(t[:, :q] if t.ndim > 1 else t
+                                    for t in a), q)
+            y2, st2 = ssd_chunked(*(t[:, q:] if t.ndim > 1 else t
+                                    for t in a), q, st1)
+            ys = torch.cat([y1, y2], 1)
+            err[f"{dev}_split_y"] = float((ys - y).abs().max())
+            err[f"{dev}_split_state"] = float((st2 - st).abs().max())
+            check(torch.allclose(ys, y, **SSM_CARRY_TOL)
+                  and torch.allclose(st2, st, **SSM_CARRY_TOL),
+                  f"{cfg.name}: ssd_chunked over {s} tokens differs from "
+                  f"two chunks with the state carried on {dev}")
+            out[dev] = (y.cpu(), st.cpu())
+    for name, got, want in (("y", out["cuda"][0], out["cpu"][0]),
+                            ("state", out["cuda"][1], out["cpu"][1])):
+        err[f"card_vs_cpu_{name}"] = float((got - want).abs().max())
+        check(torch.allclose(got, want, **SSM_CARRY_TOL),
+              f"{cfg.name}: ssd_chunked {name} card vs CPU off by "
+              f"{err[f'card_vs_cpu_{name}']}")
+    row = {"ssm_chunk_carry": cfg.name, "B": b, "S": s, "chunk": q, "H": h,
+           "P": p, "N": n, "G": g, **SSM_CARRY_TOL, "max_abs_err": err,
+           "magnitude": {"y": float(out["cpu"][0].abs().max()),
+                         "state": float(out["cpu"][1].abs().max())}}
+    emit(row)
+    return row
+
+
+def placed_latency_s(cfg) -> float:
+    """Host seconds of the two ``placed_decision_latency`` calls a
+    serve's summary makes (its tile map's layer walk) at ``cfg``'s
+    ``lm_layer_shapes``: work inside ``serve``'s wall time, outside
+    every stage span."""
+    from repro_torch.hw import compile_network
+    from repro_torch.launch.serve import lm_layer_shapes
+    from repro_torch.serving.metrics import placed_decision_latency
+    layers = lm_layer_shapes(cfg)
+    program = compile_network(layers)
+    t0 = time.perf_counter()
+    placed_decision_latency(4.0, layers, program)
+    placed_decision_latency(4.0, layers, program, replicated=True)
+    return time.perf_counter() - t0
+
+
+def run_ssm_model(spec: dict) -> dict:
+    """One SSM config at full width and full depth, params drawn on the
+    card from ``spec``'s seed: serve() under accept-always, fixed R = 20
+    and the escalating policy (launch and sync counts asserted by
+    ``lm_serve_run``; at least one admission into a decoding pool), the
+    kernels on its live operands (``lm_kernel_checks``: decision.cu at
+    R 4, 8, 20 and with read noise; rank16 on one decode_step_ssm), the
+    chunk carry at its layer shape, a tick's split and the kernels'
+    times; the params freed after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import params_init, serve
+    from repro_torch.serving import TriagePolicy
+    card_name, _, power = card_line().partition(",")
+    cfg = get_config(spec["arch"])
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = params_init(cfg, spec["seed"], "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tensor_leaves(params)
+    check(all(t.is_cuda for t in leaves), "params off the card")
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    del leaves
+    serve(spec["arch"], smoke=False, batch=spec["batch"],
+          prompt_len=spec["prompt_len"], gen_len=1, n_requests=1,
+          params=params, device="cuda")                    # warm-up
+    acc = lm_serve_run("accept_always", TriagePolicy(**LM_ACCEPT), True,
+                       params, spec, cfg)
+    check(acc["n_tokens"] == [spec["gen_len"]] * spec["n_requests"]
+          and acc["accept_fraction"] == 1.0,
+          f"{spec['arch']} accept-always: tokens {acc['n_tokens']}")
+    fixed = lm_serve_run("fixed_r20", TriagePolicy(**LM_FIXED), False,
+                         params, spec, cfg)
+    check(fixed["mean_samples_per_decision"] == LM_FIXED["r_max"]
+          and fixed["n_tokens"] == acc["n_tokens"],
+          f"{spec['arch']} fixed R: samples per decision or tokens")
+    esc = TriagePolicy(conf_threshold=statistics.median(acc["confidences"]),
+                       mi_threshold=0.5, r_min=4, r_max=20)
+    runs = [acc, fixed, lm_serve_run("escalating", esc, True, params, spec,
+                                     cfg)]
+    check(runs[-1]["rounds_run"] > runs[-1]["dispatches"],
+          f"{spec['arch']} escalating: no round past the first")
+    check(sum(r["midstream_admissions"] for r in runs) >= 1,
+          f"{spec['arch']}: no admission into a decoding pool")
+    checks = lm_kernel_checks(cfg, params, spec, SSM_DECISION_R,
+                              tag=f"{spec['tag']}_vocab")
+    split = lm_tick_split(checks.pop("engine"))
+    carry = ssm_chunk_carry(cfg)
+    summary_s = placed_latency_s(cfg)
+    for r in runs:
+        emit({"lm_ssm": r["name"], "arch": spec["arch"], "smoke": False,
+              "layers": f"{cfg.n_layers} of {cfg.n_layers}",
+              "prompt_len": spec["prompt_len"],
+              "gpu": card_name.strip(), "power_limit": power.strip(),
+              "n_params": n_params, "param_bytes": param_bytes,
+              "params_init_s": init_s,
+              "basis_ms_a_tick": split["basis_ms"],
+              "summary_placed_latency_s": summary_s,
+              **{k: v for k, v in r.items() if k != "confidences"}})
+    emit({"lm_tick_split": f"{spec['arch']} full width, all "
+          f"{cfg.n_layers} layers, B={spec['batch']}, prompts of "
+          f"{spec['prompt_len']}, N={cfg.vocab_padded}",
+          "gpu": card_name.strip(), "power_limit": power.strip(), **split,
+          "basis_peak_bytes": checks["basis_peak_bytes"],
+          "resident_bytes": checks["resident_bytes"]})
+    del params
+    times = lm_timing({"checks": checks}, tag=spec["tag"], dense=False)
+    del checks["head_case"], checks["ops"]
+    torch.cuda.empty_cache()
+    return {"runs": runs, "split": split, "times": times, "carry": carry,
+            "shape": f"B={spec['batch']} N={cfg.vocab_padded}, every slot "
+                     f"active, the live operands of one token decision "
+                     f"(all {cfg.n_layers} layers, prompts of "
+                     f"{spec['prompt_len']})",
+            "launches": sum(r["decision_launches"] for r in runs),
+            "decision_max_abs_err": checks["decision_max_abs_err"],
+            "head_max_abs_err": checks["head_max_abs_err"],
+            "n_params": n_params, "param_bytes": param_bytes}
+
+
+def ssm_card_vs_cpu(arch: str) -> dict:
+    """An SSM SMOKE config on the card and on the CPU from the same port
+    params and prompts (16 tokens: one SMOKE chunk): in float32 (TF32
+    off) the same tokens, verdicts, samples and decisions request for
+    request under accept-always and fixed R = 20, confidence/MI within
+    LM_FIN_ATOL (asserted); in bf16 the hidden states' worst relative
+    gap over a prefill of two chunks and three decode steps within
+    LM_BF16_REL (asserted), and the requests that agree (reported)."""
+    import dataclasses
+    import torch
+    from repro_torch import float32_math
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import params_init, serve
+    from repro_torch.models.registry import get_api
+    from repro_torch.serving import TriagePolicy
+    from repro_torch.serving.engine import _to_device
+    kw = dict(batch=LM["batch"], prompt_len=LM["prompt_len"],
+              gen_len=LM["gen_len"], n_requests=LM["n_requests"],
+              seed=LM["seed"])
+    smoke = get_config(arch, smoke=True)
+    check(LM["prompt_len"] % smoke.ssm_chunk == 0,
+          f"{arch} SMOKE: prompts of {LM['prompt_len']} are not whole "
+          f"chunks of {smoke.ssm_chunk}")
+    f32 = dataclasses.replace(smoke, dtype=torch.float32)
+    res = {}
+    p_cpu = params_init(f32, LM["seed"], "cpu")
+    p_gpu = _to_device(p_cpu, "cuda")
+    for name, pol, adaptive in (("accept_always", LM_ACCEPT, True),
+                                ("fixed_r20", LM_FIXED, False)):
+        outs = {dev: serve(arch, cfg=f32, params=p, device=dev,
+                           policy=TriagePolicy(**pol), adaptive=adaptive,
+                           **kw)
+                for dev, p in (("cpu", p_cpu), ("cuda", p_gpu))}
+        same_decisions(outs["cuda"], outs["cpu"],
+                       f"{arch} smoke f32 {name}: card vs CPU", LM_FIN_ATOL)
+        tokens = [sorted((v["rid"], v["n_tokens"]) for v in o["verdicts"])
+                  for o in (outs["cuda"], outs["cpu"])]
+        check(tokens[0] == tokens[1]
+              and outs["cuda"]["requests"] == LM["n_requests"],
+              f"{arch} smoke f32 {name}: token counts differ")
+        res[name] = {"requests": outs["cuda"]["requests"],
+                     "decisions": outs["cuda"]["decisions"],
+                     "requests_alike": outs["cuda"]["requests"]}
+    pb_cpu = params_init(smoke, LM["seed"], "cpu")
+    pb_gpu = _to_device(pb_cpu, "cuda")
+    outs = {dev: serve(arch, cfg=smoke, params=p, device=dev,
+                       policy=TriagePolicy(**LM_ACCEPT), **kw)
+            for dev, p in (("cpu", pb_cpu), ("cuda", pb_gpu))}
+    vb = {v["rid"]: v for v in outs["cpu"]["verdicts"]}
+    agree = sum((v["prediction"], v["verdict"], v["n_tokens"])
+                == (vb[v["rid"]]["prediction"], vb[v["rid"]]["verdict"],
+                    vb[v["rid"]]["n_tokens"])
+                for v in outs["cuda"]["verdicts"])
+    api = get_api(smoke)
+    toks = torch.randint(0, smoke.vocab, (LM["batch"], 2 * smoke.ssm_chunk),
+                         generator=torch.Generator().manual_seed(5))
+    gaps = []
+    with float32_math():
+        caches, hs = {}, {}
+        for dev, p in (("cpu", pb_cpu), ("cuda", pb_gpu)):
+            caches[dev], hs[dev] = api.prefill(p, toks.to(dev), smoke,
+                                               cache_len=48)
+        for step in range(4):
+            want = hs["cpu"].float()
+            gaps.append(float((hs["cuda"].float().cpu() - want).abs().max()
+                              / max(float(want.abs().max()), 1e-3)))
+            if step == 3:
+                break
+            tok = toks[:, step:step + 1]
+            for dev, p in (("cpu", pb_cpu), ("cuda", pb_gpu)):
+                hs[dev], caches[dev] = api.decode_hidden(
+                    p, caches[dev], tok.to(dev), smoke)
+    check(max(gaps) < LM_BF16_REL,
+          f"{arch} smoke bf16: hidden gap {max(gaps)} >= {LM_BF16_REL}")
+    res["bf16"] = {"requests_agreeing": agree,
+                   "requests": len(outs["cuda"]["verdicts"]),
+                   "hidden_rel_gap": gaps}
+    emit({"lm_ssm_card_vs_cpu": f"{arch} SMOKE, card against CPU, the "
+          "same port params and prompts; f32 with TF32 off: decisions "
+          f"equal, fin within {LM_FIN_ATOL} (asserted); bf16: hidden gap "
+          f"over prefill (two chunks) + 3 decode steps within "
+          f"{LM_BF16_REL} (asserted), requests agreeing (reported)", **res})
+    return res
+
+
+def run_lm_ssm() -> dict:
+    """The lm_ssm phase: mamba2-130m and zamba2-2.7b at full width and
+    full depth, each under accept-always, fixed R = 20 and an
+    escalating policy and freed before the next; both SMOKE configs card
+    against CPU."""
+    t_phase = time.perf_counter()
+    models = {spec["arch"]: run_ssm_model(spec) for spec in SSM}
+    smoke = {spec["arch"]: ssm_card_vs_cpu(spec["arch"]) for spec in SSM}
+    emit({"lm_ssm_phase_s": time.perf_counter() - t_phase})
+    return {"models": models, "smoke": smoke}
+
+
+# ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
 def call_ms(fn, iters: int, warmup: int = 50) -> float:
@@ -4514,7 +4808,7 @@ def decision_args_work(args: dict) -> dict:
 
 def run_timing(inputs: dict, launches: dict, worst: float,
                cim_line: dict, head_lines: list, lm_vocab: dict,
-               moe_vocab: dict) -> None:
+               moe_vocab: dict, ssm_vocab: dict) -> None:
     from repro_torch.kernels.decision import (decision_plan, decision_stats,
                                               decision_stats_plain)
     times = {}
@@ -4597,6 +4891,7 @@ def run_timing(inputs: dict, launches: dict, worst: float,
                               "operands of one token decision",
                      **lm_vocab},
         "lm_moe_vocab": moe_vocab,
+        "lm_ssm_vocab": ssm_vocab,
     }, cim_line, *head_lines]})
 
 
@@ -4674,6 +4969,7 @@ def main() -> int:
     emit({"population_and_modes_phases_s": time.perf_counter() - t0})
     lm = run_lm_serving()
     moe = run_lm_moe()
+    ssm = run_lm_ssm()
     cim_plan_sweep(cim_inputs)
     head_plan_sweep()
     heads = head_timing(uq_path["launches"], fig9, head_checks, train,
@@ -4683,7 +4979,8 @@ def main() -> int:
                                   lifetime["rank16_checks"]["max_abs_err"],
                                   lm["checks"]["head_max_abs_err"],
                                   *(m["head_max_abs_err"]
-                                    for m in moe["models"].values()))
+                                    for m in (*moe["models"].values(),
+                                              *ssm["models"].values())))
     lm_times = lm_timing(lm)
     heads[1]["launches_lm_decode_step"] = 1
     heads[1]["lm_decode_step"] = {
@@ -4698,6 +4995,14 @@ def main() -> int:
     heads[1]["lm_moe_decode_step_what"] = (
         "each MoE config's vocabulary head at decode_step's shape, bf16 "
         "operands widened by the wrapper; one launch a config")
+    heads[1]["launches_lm_ssm_decode_step"] = len(SSM)
+    heads[1]["lm_ssm_decode_step"] = {
+        a: {**m["times"]["rank16"], "max_abs_err": m["head_max_abs_err"]}
+        for a, m in ssm["models"].items()}
+    heads[1]["lm_ssm_decode_step_what"] = (
+        "each SSM config's vocabulary head at decode_step_ssm's shape "
+        "(full depth), bf16 operands widened by the wrapper; one launch "
+        "a config")
     run_timing(inputs, {"serve_sar": main_path["launches"],
                         "mission_matrix": mission["decision"],
                         "serve_sar_lifetime": lifetime["launches"]
@@ -4707,10 +5012,13 @@ def main() -> int:
                         "die_population": population["decision"],
                         "lm_serving": lm["launches"],
                         **{f"lm_moe/{a}": m["launches"]
-                           for a, m in moe["models"].items()}},
+                           for a, m in moe["models"].items()},
+                        **{f"lm_ssm/{a}": m["launches"]
+                           for a, m in ssm["models"].items()}},
                max(worst, lm["checks"]["decision_max_abs_err"],
                    *(m["decision_max_abs_err"]
-                     for m in moe["models"].values())),
+                     for m in (*moe["models"].values(),
+                               *ssm["models"].values()))),
                cim_timing(cim_inputs,
                           {"serve_sar(chip_instance=gate die)":
                            chip_path["launches"],
@@ -4722,7 +5030,9 @@ def main() -> int:
                           cim_summary),
                heads, lm_times["decision"],
                {a: {"shape": m["shape"], **m["times"]["decision"]}
-                for a, m in moe["models"].items()})
+                for a, m in moe["models"].items()},
+               {a: {"shape": m["shape"], **m["times"]["decision"]}
+                for a, m in ssm["models"].items()})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

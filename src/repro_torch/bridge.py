@@ -40,9 +40,10 @@ def params_to_jax(params: dict) -> dict:
 
 
 def lm_params_from_jax(tree: dict, device="cpu") -> dict:
-    """Transformer LM params of the reference's ``init_transformer``
-    (numpy) -> the port's: the same tree and layout (blocks stacked on
-    a leading layer axis, ``[L, d_in, d_out]``), as tensors."""
+    """LM params of the reference's ``init_transformer`` or
+    ``init_ssm_lm`` (numpy) -> the port's: the same tree and layout
+    (blocks and mamba layers stacked on a leading layer axis, the
+    hybrid's shared block without one), as tensors."""
     if isinstance(tree, dict):
         return {k: lm_params_from_jax(v, device) for k, v in tree.items()}
     return torch.as_tensor(np.array(tree, copy=True), device=device)

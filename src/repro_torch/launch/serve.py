@@ -2,14 +2,16 @@
 ``serve_sar`` and their CLI from ``repro/launch/serve.py``).
 
 ``--arch`` names a dense LM (qwen3-0.6b, qwen1.5-110b, yi-9b,
-qwen3-1.7b), an MoE LM (mixtral-8x7b, qwen3-moe-235b-a22b) or
-``sar_cnn``.  An LM serves continuous-batching token
-decode through ``LMServingEngine`` (``serve``): prompts from the
-synthetic token pipeline, each token decision triaged, flagged requests
-retired to verification; the CLI serves the SMOKE config, as the
-reference's does (its ``--smoke`` is always on), and full width is
-``serve(arch, smoke=False)`` from Python.  Random params from a seed,
-drawn on the serving device (``params_init``).
+qwen3-1.7b), an MoE LM (mixtral-8x7b, qwen3-moe-235b-a22b), an SSM or
+hybrid LM (mamba2-130m, zamba2-2.7b: prompts a multiple of the SSD
+chunk, 16 at SMOKE and 256 at full width) or ``sar_cnn``.  An LM
+serves continuous-batching token decode through ``LMServingEngine``
+(``serve``): prompts from the synthetic token pipeline, each token
+decision triaged, flagged requests retired to verification; the CLI
+serves the SMOKE config, as the reference's does (its ``--smoke`` is
+always on), and full width is ``serve(arch, smoke=False)`` from Python.
+Random params from a seed, drawn on the serving device
+(``params_init``).
 
 For ``sar_cnn`` the stream is synthetic SARD patches with a corrupted
 fraction mixed in, classified by the Bayesian-head CNN with per-slot
@@ -44,6 +46,8 @@ Usage:
       --slots 4 --prompt-len 16 --gen 8 --requests 16 [--fixed]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
       --slots 2 --prompt-len 8 --gen 2 --requests 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --slots 2 --prompt-len 16 --gen 4 --requests 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch sar_cnn \\
       --requests 192 --corrupt-frac 0.25 --corruption fog [--fixed] \\
       [--chip-instance 11 --chip-severity 2.0 --uncalibrated]
@@ -56,8 +60,8 @@ Usage:
       --metrics-out out/serve --profile out/prof
 
 The reference CLI's fleets (``--pools``, ``--mesh``) wait for more than
-one GPU (ROADMAP A10); its SSM, audio and VLM archs for their
-families (A13.2, A13.3).
+one GPU (ROADMAP A10); its audio and VLM archs for their families
+(A13.3).
 """
 
 from __future__ import annotations
@@ -126,7 +130,14 @@ def make_lm_engine(cfg, *, batch: int = 4, prompt_len: int = 16,
     prompt_len + gen_len·(1 + cache_margin) (at most a sliding window),
     params from ``params_init(cfg, seed)`` unless given, tilemap-true
     energy accounting of ``lm_layer_shapes``, on ``device`` (None = the
-    card)."""
+    card).  An SSM or hybrid config's ``prompt_len`` must be a multiple
+    of its ``ssm_chunk`` (its SSD prefill takes whole chunks; 256 at
+    full width): ValueError otherwise."""
+    if cfg.family in ("ssm", "hybrid") and prompt_len % cfg.ssm_chunk:
+        raise ValueError(
+            f"{cfg.name}: prompt_len={prompt_len} is not a multiple of "
+            f"ssm_chunk={cfg.ssm_chunk} (the SSD prefill takes whole "
+            f"chunks)")
     device = resolve_device(device)
     if params is None:
         params = params_init(cfg, seed, device)

@@ -54,6 +54,13 @@ def embed_init(generator: torch.Generator, vocab: int, dim: int,
                        device=generator.device) * 0.02
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x · 1/(1 + exp(−x)), each step rounded in x.dtype: the form
+    ``jax.nn.silu`` lowers to (``F.silu`` rounds once, and in bfloat16
+    differs from it in a third of the elements)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
            wo: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: silu(x·wg) ⊙ (x·wi) · wo."""

@@ -5,8 +5,8 @@ Every family exposes init(generator, cfg) -> params, train_loss,
 prefill(params, tokens, cfg, cache_len, ...), decode_step(params, cache,
 token, cfg) and decode_hidden (the trunk-only decode the serving engine
 samples adaptively).  The dense and MoE families share the
-transformer's; the others raise ``NotImplementedError`` naming their
-ROADMAP item.
+transformer's, the SSM and hybrid families ``ssm_lm``'s; the others
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -14,12 +14,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from repro_torch.models import transformer
+from repro_torch.models import ssm_lm, transformer
 from repro_torch.models.transformer import ModelConfig
 
 _WAITING = {
-    "ssm": "ROADMAP A13.2: SSM/hybrid, mamba2-130m and zamba2-2.7b",
-    "hybrid": "ROADMAP A13.2: SSM/hybrid, mamba2-130m and zamba2-2.7b",
     "audio": "ROADMAP A13.3: audio, whisper-medium",
     "vlm": "ROADMAP A13.3: VLM, llama-3.2-vision-11b",
 }
@@ -41,6 +39,14 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"({_WAITING[cfg.family]})")
+    if cfg.family in ("ssm", "hybrid"):
+        return ModelAPI(
+            init=ssm_lm.init_ssm_lm,
+            train_loss=ssm_lm.train_loss_ssm,
+            prefill=ssm_lm.prefill_ssm,
+            decode_step=ssm_lm.decode_step_ssm,
+            decode_hidden=ssm_lm.decode_hidden_ssm,
+        )
     if cfg.family not in ("dense", "moe"):
         raise ValueError(f"unknown model family {cfg.family!r}")
     return ModelAPI(

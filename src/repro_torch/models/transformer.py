@@ -11,8 +11,11 @@ weight-decomposition layer (µ, ρ), served with CLT-GRNG sampling:
 and ``decode_hidden`` gives the trunk's hidden state alone, which the
 serving engine samples adaptively.
 
-What is not here: the SSM families live elsewhere in the reference and
-are not ported (``models/registry``); the encoder-decoder (whisper) and
+The SSM and hybrid families live in ``models/ssm_lm`` and reuse this
+module's blocks (``_init_block``, ``_block_full``, ``_block_decode``)
+for the hybrid's shared block.
+
+What is not here: the encoder-decoder (whisper) and
 cross-attention (llama-vision) branches raise ``NotImplementedError``
 naming their ROADMAP item; ``train_loss`` waits for the LM trainer
 (ROADMAP A14); the MoE mesh path (``make_sharded_moe``) waits for more
@@ -208,6 +211,31 @@ def _init_mlp_block(generator, cfg: ModelConfig, l: int) -> dict:
             "bo": torch.zeros((l, d), device=dev)}
 
 
+def _init_block_stack(generator, cfg: ModelConfig, l: int) -> dict:
+    """``l`` blocks stacked on a leading layer axis: attention, norms
+    (and their biases under layer norm), the MLP or, in an MoE config,
+    ``moe`` from ``models/moe.init_moe``."""
+    dev, d = generator.device, cfg.d_model
+    p = {"attn": _init_attn_block(generator, cfg, l),
+         "ln1": torch.ones((l, d), device=dev),
+         "ln2": torch.ones((l, d), device=dev)}
+    if cfg.norm == "ln":
+        p["ln1_b"] = torch.zeros((l, d), device=dev)
+        p["ln2_b"] = torch.zeros((l, d), device=dev)
+    if cfg.n_experts:
+        p["moe"] = init_moe(generator, l, d, cfg.d_ff, cfg.n_experts)
+    else:
+        p["mlp"] = _init_mlp_block(generator, cfg, l)
+    return p
+
+
+def _init_block(generator, cfg: ModelConfig) -> dict:
+    """One block with no layer axis, the hybrid's shared block: the
+    reference's ``_init_block_stack(key, cfg, 1)`` with its stack axis
+    dropped."""
+    return _layer(_init_block_stack(generator, cfg, 1), 0)
+
+
 def init_transformer(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Random params in the reference's tree and layout, drawn from
     ``generator`` on its device with the reference's scales (dense
@@ -220,19 +248,10 @@ def init_transformer(generator: torch.Generator, cfg: ModelConfig) -> dict:
     l, d = cfg.n_layers, cfg.d_model
     params: dict = {
         "embed": blocks.embed_init(generator, cfg.vocab_padded, d),
-        "blocks": {"attn": _init_attn_block(generator, cfg, l),
-                   "ln1": torch.ones((l, d), device=dev),
-                   "ln2": torch.ones((l, d), device=dev)},
+        "blocks": _init_block_stack(generator, cfg, l),
         "final_norm": torch.ones((d,), device=dev),
     }
-    if cfg.n_experts:
-        params["blocks"]["moe"] = init_moe(generator, l, d, cfg.d_ff,
-                                           cfg.n_experts)
-    else:
-        params["blocks"]["mlp"] = _init_mlp_block(generator, cfg, l)
     if cfg.norm == "ln":
-        params["blocks"]["ln1_b"] = torch.zeros((l, d), device=dev)
-        params["blocks"]["ln2_b"] = torch.zeros((l, d), device=dev)
         params["final_norm_b"] = torch.zeros((d,), device=dev)
     if cfg.bayesian_head:
         params["head"] = bayes_layer.init(generator, cfg.head_bayes_cfg(),

@@ -690,12 +690,17 @@ class LMServingEngine(_EngineBase):
     """Continuous-batching LM decode with adaptive per-token fidelity
     (module docstring).
 
-    ``params``: port params of the model (``models.transformer.
-    init_transformer`` or ``bridge.lm_params_from_jax``), moved to the
-    engine's device; ``cfg``: its ``ModelConfig`` (dense and MoE
-    families); ``n_slots`` slots of prompts left-padded to
-    ``prompt_len`` in a KV cache of ``cache_len`` (at most a sliding
-    window: such a cache decodes as the rolling one); ``adaptive_mode=False`` draws
+    ``params``: port params of the model (the registry's ``init`` or
+    ``bridge.lm_params_from_jax``), moved to the engine's device;
+    ``cfg``: its ``ModelConfig`` (dense, MoE, SSM and hybrid families);
+    ``n_slots`` slots of prompts left-padded to ``prompt_len`` (an SSM
+    config's a multiple of its ``ssm_chunk``) in a KV cache of
+    ``cache_len`` (at most a sliding window: such a cache decodes as the
+    rolling one).  An SSM cache's recurrent ``ssm``/``conv`` rows are
+    slot-local and admitted as they are; the hybrid's shared-block k/v
+    are rolled and re-rotated as a transformer's, so every family here
+    (``use_rope``, no learned positions) admits mid-stream.
+    ``adaptive_mode=False`` draws
     r_max samples a token in one round; ``fused=False`` folds rounds
     through ``mix_samples`` + ``update_stats`` instead of the decision
     kernel.  The other arguments are the SAR engine's.  One blocking
@@ -773,7 +778,10 @@ class LMServingEngine(_EngineBase):
         """Copy the ``take`` admitted rows of a prefill cache into the
         pool's slots ``idx``, in place, re-based to the pool clock: k
         rolled by ``delta`` along the cache and re-rotated, v rolled,
-        ``start`` shifted by ``delta``."""
+        ``start`` shifted by ``delta``; the SSM's ``ssm``/``conv`` rows
+        are slot-local and copied as they are (cast to the pool's
+        dtype: a decode step leaves the conv state in float32, as the
+        reference's)."""
         for key, leaf in self.cache.items():
             if key == "pos":
                 continue
@@ -786,7 +794,7 @@ class LMServingEngine(_EngineBase):
                 rows = torch.roll(rows, delta, dims=2)
                 if key == "k" and self.cfg.use_rope:
                     rows = _rotate_k(rows, delta, self.cfg.rope_theta)
-            leaf.index_copy_(1, idx, rows)
+            leaf.index_copy_(1, idx, rows.to(leaf.dtype))
 
     def _admit(self) -> None:
         if not self.queue:

@@ -61,6 +61,11 @@ k 2 as mixtral and E 128, k 8 as qwen3-moe, with drops); the decision
 kernel at mixtral's padded vocabulary (N = 32,000, B 4) to the dense
 LM's tolerance and rank16 at its head (B 4, K 4,096, N 32,000, R 8,
 bf16 operands widened by the wrapper) to rtol/atol 1e-4.
+The SSM LMs: the decision kernel at mamba2-130m's and zamba2-2.7b's
+padded vocabularies (N = 50,432 and 32,000, B 4) to the dense LM's
+tolerance, rank16 at their heads (K 768 and 2,560, R 8, bf16) to
+rtol/atol 1e-4, and ``ssd_chunked`` at mamba2-130m's layer shape: 512
+tokens equal to two chunks with the state carried, card against CPU.
 Observability: the engine's cost records against the launches the
 wrappers count (the same verdicts and syncs with the instruments on and
 off), and ``trace_capture``'s trace holding every decision and CIM
@@ -998,3 +1003,75 @@ def test_rank16_at_mixtral_head(hopper):
     assert bayes.bayes_rank16.launches == before + 1
     assert got.shape == (8, 4, MIXTRAL_N)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# the SSM and hybrid LMs
+# ----------------------------------------------------------------------
+SSM_HEADS = {"mamba2-130m": (768, 50432), "zamba2-2.7b": (2560, 32000)}
+
+
+@pytest.mark.parametrize("arch", list(SSM_HEADS))
+@pytest.mark.parametrize("r,read_sigma", [(4, 0.0), (20, 0.0), (20, 0.4)])
+def test_decision_kernel_at_ssm_vocabulary(hopper, arch, r, read_sigma):
+    """The tiled variant at each SSM arch's padded vocabulary (B 4),
+    held as at qwen3-0.6b's: rtol 1e-4 with absolute floors of 1e-4 ×
+    R/N, × R/N² and × R."""
+    n = SSM_HEADS[arch][1]
+    args = _case(hopper, 4, n, r, read_sigma)
+    got = decision_stats(**args)
+    want = decision_stats_plain(**args)
+    torch.cuda.synchronize()
+    for key in KEYS:
+        torch.testing.assert_close(got[key], want[key], rtol=1e-4,
+                                   atol=1e-4 * _floor(key, r, n), msg=key)
+
+
+@pytest.mark.parametrize("arch", list(SSM_HEADS))
+def test_rank16_at_ssm_heads(hopper, arch):
+    """decode_step_ssm's head: B 4, K d_model, N the padded vocabulary,
+    R 8 (uq_samples), bf16 x, µ' and σ; rtol/atol 1e-4."""
+    k, n = SSM_HEADS[arch]
+    cfg = GRNGConfig()
+    x, mu, sigma = _head_case(hopper, 4, k, n, dtype=torch.bfloat16)
+    sel = selections(cfg, 8, 13, device=hopper)
+    before = bayes.bayes_rank16.launches
+    got = bayes.bayes_rank16(x, mu, sigma, sel, cfg)
+    want = bayes.bayes_rank16_plain(x, mu, sigma, sel, cfg)
+    torch.cuda.synchronize()
+    assert bayes.bayes_rank16.launches == before + 1
+    assert got.shape == (8, 4, n)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_ssm_chunk_carry_card_against_cpu(hopper):
+    """ssd_chunked in float32 at mamba2-130m's full-width layer shape (B
+    2, H 24, P 64, N 128, chunk 256) over 512 tokens equals two 256-token
+    calls with the state carried, on the card, and the card equals the
+    CPU (the products sum in another order; TF32 off): y and the final
+    state within rtol 1e-4, atol 1e-5."""
+    from repro_torch import float32_math
+    from repro_torch.models.mamba2 import ssd_chunked
+    gen = torch.Generator().manual_seed(3)
+    b, s, h, p, n = 2, 512, 24, 64, 128
+    args = [torch.randn((b, s, h, p), generator=gen) * 0.5,
+            torch.nn.functional.softplus(torch.randn((b, s, h),
+                                                     generator=gen) - 2),
+            -torch.exp(torch.randn((h,), generator=gen) * 0.3),
+            torch.randn((b, s, 1, n), generator=gen) * 0.3,
+            torch.randn((b, s, 1, n), generator=gen) * 0.3]
+    out = {}
+    with float32_math():
+        for dev in ("cpu", "cuda"):
+            a = [t.to(dev) for t in args]
+            y, st = ssd_chunked(*a, 256)
+            y1, st1 = ssd_chunked(*(t[:, :256] if t.ndim > 1 else t
+                                    for t in a), 256)
+            y2, st2 = ssd_chunked(*(t[:, 256:] if t.ndim > 1 else t
+                                    for t in a), 256, st1)
+            torch.testing.assert_close(torch.cat([y1, y2], 1), y,
+                                       rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(st2, st, rtol=1e-4, atol=1e-5)
+            out[dev] = (y.cpu(), st.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

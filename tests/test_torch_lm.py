@@ -29,8 +29,8 @@ Inputs are numpy arrays from a seed; params are the reference's
     into their slots whatever the order, tested on its own).
   * ``serve()``'s summary and the CLI; ``data/tokens``' bigram and its
     purity in (seed, step); the ``lm_params`` bridge; the families and
-    archs not yet ported raise; importing every module of the port
-    loads neither jax nor the reference.
+    archs not yet ported (audio, VLM) raise; importing every module of
+    the port loads neither jax nor the reference.
 """
 
 import dataclasses
@@ -452,8 +452,8 @@ def test_serve_summary_and_cli(capsys):
                        "--fixed"])
     assert cli["requests"] == 2
     assert "[yi-9b] 2 requests" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        tserve.main(["--arch", "mamba2-130m", "--device", "cpu"])
+    with pytest.raises(SystemExit):       # not a choice until A13.3
+        tserve.main(["--arch", "whisper-medium", "--device", "cpu"])
 
 
 def test_params_init_matches_reference_tree():
@@ -512,8 +512,7 @@ def test_lm_params_bridge_round_trip():
         np.testing.assert_array_equal(b, np.asarray(a))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b",
-                                  "whisper-medium", "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-11b"])
 def test_families_not_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         get_config(arch)
@@ -533,7 +532,8 @@ def test_families_not_ported_raise(arch):
 def test_configs_port_as_data():
     assert set(ARCHS) == {"qwen3-0.6b", "qwen3-1.7b", "yi-9b",
                           "qwen1.5-110b", "mixtral-8x7b",
-                          "qwen3-moe-235b-a22b"}
+                          "qwen3-moe-235b-a22b", "mamba2-130m",
+                          "zamba2-2.7b"}
     for arch in ARCHS:
         for smoke in (False, True):
             jc, tc = jget_config(arch, smoke), get_config(arch, smoke)
@@ -557,7 +557,10 @@ def test_lm_port_imports_neither_jax_nor_reference():
     assert {"repro_torch.models.transformer", "repro_torch.configs.yi_9b",
             "repro_torch.data.tokens", "repro_torch.models.moe",
             "repro_torch.configs.mixtral_8x7b",
-            "repro_torch.configs.qwen3_moe_235b_a22b"} <= set(mods)
+            "repro_torch.configs.qwen3_moe_235b_a22b",
+            "repro_torch.models.mamba2", "repro_torch.models.ssm_lm",
+            "repro_torch.configs.mamba2_130m",
+            "repro_torch.configs.zamba2_2_7b"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods + ['repro_torch.configs']!r}:\n"
             "    importlib.import_module(m)\n"
