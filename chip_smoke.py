@@ -209,6 +209,31 @@ JSON line):
      and card against CPU (SSM_CARRY_TOL); a tick's split; each SMOKE
      config on the card against the CPU (f32 decisions equal, bf16 hidden
      gap within 0.05, asserted; bf16 requests agreeing, reported);
+  7k. the audio and VLM LMs (lines ``lm_xattn``, ``kernel_check``
+     ``xattn_*``, ``lm_tick_split``, ``xattn_consistency``, ``timing``
+     ``*_xattn_*``, ``lm_xattn_card_vs_cpu``, ``lm_xattn_phase_s``):
+     whisper-medium (24 encoder + 24 decoder layers, 1,500 stub frames)
+     and llama-3.2-vision-11b (40 self + 8 cross layers, 1,601 stub image
+     tokens) at full width and full depth, float32 params drawn on the
+     card from seed 0 and freed before the next model, through 7h's
+     serve(): whisper 8 requests under accept-always, fixed R = 20 and
+     the escalating policy, none admitted into a decoding pool and at
+     least two admissions a serve (asserted: its learned positions wait
+     for the drain); llama-vision 8 under accept-always (an admission
+     into a decoding pool asserted) and 4 under each of the others;
+     decision launches = ticks × launches a schedule and one sync a tick
+     (asserted); decision.cu on a live token decision's operands at
+     N = 51,968 and 128,256, R = 4, 8, 20 and R = 20 with read noise
+     (7h's tolerance), rank16 on one decode_step (1e-4; K 1,024 and
+     4,096), both timed by graph replay beside their bounds (the kernels
+     line's ``lm_xattn_vocab`` and ``lm_xattn_decode_step``); a tick's
+     split and the summary's tile walk; prefill over 17 tokens against
+     prefill over 16 and one decode_hidden in float32 at a full-width
+     layer shape (whisper whole, llama-vision one group of 5 + 1;
+     XATTN_CONSISTENCY_REL, with whisper's decode position term as the
+     reference's, ROADMAP C28); each SMOKE config on the card against
+     the CPU (f32 decisions equal, bf16 hidden gap within 0.05,
+     asserted; bf16 requests agreeing, reported);
   8. kernel timing: device time from CUDA graph replays and per-call
      time of eager calls (CUDA events), beside the plain version's and
      the card's byte/flop bound: decision and CIM at the serving path's
@@ -220,7 +245,10 @@ JSON line):
      ``path``); decision at the LM's B=4, N=152,064, R = 4 and 20
      (``lm_vocab``; asserted faster than its plain version) and rank16
      at decode_step's B=4, K=1,024, N=152,064, R=8
-     (``lm_decode_step``); the tile width the decision kernel's plan
+     (``lm_decode_step``); decision at the read-noise ``rows`` case
+     (B 32, N 2, R 4, rows from 1,000), ``decision_stats_sharded``'s
+     per-device body, beside its bound (``sharded_body_rows``); the
+     tile width the decision kernel's plan
      takes on the LM's R = 20 operands (its only one), held to the plain
      version at LM_RTOL, timed, with its three kernels' device times
      (line ``decision_plans``).  The entries
@@ -4421,6 +4449,293 @@ def run_lm_ssm() -> dict:
 
 
 # ----------------------------------------------------------------------
+# the audio and VLM LMs served at full width and full depth
+# ----------------------------------------------------------------------
+# whisper-medium (24 encoder + 24 decoder layers, d 1,024, 1,500 stub
+# frames, vocabulary 51,968 padded; 0.87 B params, 3.47 GB in float32)
+# and llama-3.2-vision-11b (40 self + 8 cross layers, d 4,096, 1,601 stub
+# image tokens, vocabulary 128,256; 12.0 B params, 48.2 GB), bf16,
+# params drawn on the card from seed 0 and freed before the next model.
+# The dense phase's serve(): 4 slots, prompts of 16, 8 new tokens.
+# whisper serves 8 requests under each policy; its learned positions
+# cannot be re-based, so its second admission waits for the pool to
+# drain (asserted: none into a decoding pool).  llama-vision serves 8
+# under accept-always (asserted: an admission into a decoding pool, so
+# xk/xv rows land in a decoding pool at full width) and 4 under fixed R
+# and the escalating policy, to hold the phase's time: its basis at
+# K 4,096 x N 128,256 takes seconds a tick (C22).
+XATTN = (dict(LM, arch="whisper-medium", tag="xattn_whisper",
+              requests=(8, 8, 8)),
+         dict(LM, arch="llama-3.2-vision-11b", tag="xattn_llama",
+              requests=(8, 4, 4)))
+XATTN_DECISION_R = (4, 8, 20)
+# prefill over S + 1 tokens against prefill over S and one decode_hidden,
+# float32 with TF32 off, at full width: the worst |difference| over the
+# largest |hidden| (only the order of the sums differs)
+XATTN_CONSISTENCY_REL = 1e-4
+
+
+def xattn_consistency(arch: str) -> dict:
+    """The prefill/decode consistency check at a full-width layer shape,
+    float32: whisper-medium whole (24 + 24 layers), llama-3.2-vision-11b
+    as one group (5 self layers and its cross layer), params drawn on
+    the card from seed 1, 4 prompts of 16 tokens and the stub memory.
+    The last hidden of ``prefill`` over 17 tokens against ``prefill``
+    over 16 plus one ``decode_hidden`` within XATTN_CONSISTENCY_REL, the
+    memory, the cross layers and (whisper) learned positions in play.
+    whisper's decode adds the position row's first element only, as the
+    reference's does (ROADMAP C28): its prefill is taken with row 16 of
+    the table set to that element, and the plain prefill's gap is
+    reported beside it."""
+    import dataclasses
+    import torch
+    from repro_torch import float32_math
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import lm_extras, params_init
+    from repro_torch.models import transformer as tr
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, dtype=torch.float32)
+    if cfg.cross_attn_every:
+        cfg = dataclasses.replace(cfg, n_layers=cfg.cross_attn_every)
+    torch.cuda.empty_cache()
+    params = params_init(cfg, 1, "cuda")
+    s, b = LM["prompt_len"], LM["batch"]
+    toks = torch.randint(0, cfg.vocab, (b, s + 1),
+                         generator=torch.Generator().manual_seed(11)).cuda()
+    extras = lm_extras(cfg, b, s, 0, "cuda")
+    out = {}
+    with float32_math():
+        cache, _ = tr.prefill(params, toks[:, :s], cfg, cache_len=s + 8,
+                              **extras)
+        dec, _ = tr.decode_hidden(params, cache, toks[:, s:], cfg)
+        _, whole = tr.prefill(params, toks, cfg, cache_len=s + 8, **extras)
+        if cfg.learned_pos:
+            out["plain_prefill_rel_gap"] = float(
+                (whole - dec).abs().max() / whole.abs().max())
+            table = params["pos_embed"].clone()
+            table[s] = table[s, 0]
+            _, whole = tr.prefill(dict(params, pos_embed=table), toks, cfg,
+                                  cache_len=s + 8, **extras)
+    torch.cuda.synchronize()
+    rel = float((whole - dec).abs().max() / whole.abs().max())
+    check(bool(torch.isfinite(dec).all()) and rel <= XATTN_CONSISTENCY_REL,
+          f"{arch}: prefill over {s + 1} tokens and prefill over {s} + one "
+          f"decode differ by {rel} > {XATTN_CONSISTENCY_REL}")
+    n_cross = full.n_layers // max(full.cross_attn_every, 1)
+    row = {"xattn_consistency": arch, "dtype": "float32",
+           "layers": (f"{cfg.encoder_layers} encoder + {cfg.n_layers} "
+                      f"decoder" if cfg.encoder_layers else
+                      f"{cfg.n_layers} self + 1 cross (one group of "
+                      f"{full.n_layers} + {n_cross})"),
+           "B": b, "S": s, "memory": (cfg.n_frames if cfg.encoder_layers
+                                      else cfg.n_image_tokens),
+           "rel_gap": rel, "rel_tol": XATTN_CONSISTENCY_REL, **out}
+    emit(row)
+    del params, cache
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_xattn_model(spec: dict) -> dict:
+    """One cross-attention config at full width and full depth, params
+    drawn on the card from ``spec``'s seed: serve() under accept-always,
+    fixed R = 20 and the escalating policy (``spec['requests']`` each;
+    launch and sync counts asserted by ``lm_serve_run``; whisper: no
+    admission into a decoding pool and at least two a serve; llama-
+    vision: at least one into a decoding pool), the kernels on its live
+    operands (``lm_kernel_checks``: decision.cu at R 4, 8, 20 and with
+    read noise; rank16 on one decode_step), a tick's split, the
+    summary's tile walk and the kernels' times; the params freed
+    after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import params_init, serve
+    from repro_torch.serving import TriagePolicy
+    card_name, _, power = card_line().partition(",")
+    cfg = get_config(spec["arch"])
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = params_init(cfg, spec["seed"], "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tensor_leaves(params)
+    check(all(t.is_cuda for t in leaves), "params off the card")
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    del leaves
+    serve(spec["arch"], smoke=False, batch=spec["batch"],
+          prompt_len=spec["prompt_len"], gen_len=1, n_requests=1,
+          params=params, device="cuda")                    # warm-up
+    n_acc, n_fixed, n_esc = spec["requests"]
+    acc = lm_serve_run("accept_always", TriagePolicy(**LM_ACCEPT), True,
+                       params, dict(spec, n_requests=n_acc), cfg)
+    check(acc["n_tokens"] == [spec["gen_len"]] * n_acc
+          and acc["accept_fraction"] == 1.0,
+          f"{spec['arch']} accept-always: tokens {acc['n_tokens']}")
+    fixed = lm_serve_run("fixed_r20", TriagePolicy(**LM_FIXED), False,
+                         params, dict(spec, n_requests=n_fixed), cfg)
+    check(fixed["mean_samples_per_decision"] == LM_FIXED["r_max"]
+          and fixed["n_tokens"] == [spec["gen_len"]] * n_fixed,
+          f"{spec['arch']} fixed R: samples per decision or tokens")
+    esc = TriagePolicy(conf_threshold=statistics.median(acc["confidences"]),
+                       mi_threshold=0.5, r_min=4, r_max=20)
+    runs = [acc, fixed, lm_serve_run("escalating", esc, True, params,
+                                     dict(spec, n_requests=n_esc), cfg)]
+    check(runs[-1]["rounds_run"] > runs[-1]["dispatches"],
+          f"{spec['arch']} escalating: no round past the first")
+    midstream = sum(r["midstream_admissions"] for r in runs)
+    if cfg.learned_pos:
+        check(midstream == 0, f"{spec['arch']}: {midstream} admissions "
+              f"into a decoding pool (learned positions cannot re-base)")
+        check(all(r["admissions"] >= 2 for r in runs),
+              f"{spec['arch']}: a serve admitted once: "
+              f"{[r['admissions'] for r in runs]}")
+    else:
+        check(acc["midstream_admissions"] >= 1,
+              f"{spec['arch']}: no admission into a decoding pool")
+    checks = lm_kernel_checks(cfg, params, spec, XATTN_DECISION_R,
+                              tag=f"{spec['tag']}_vocab")
+    split = lm_tick_split(checks.pop("engine"))
+    summary_s = placed_latency_s(cfg)
+    for r in runs:
+        emit({"lm_xattn": r["name"], "arch": spec["arch"], "smoke": False,
+              "layers": (f"{cfg.encoder_layers} encoder + {cfg.n_layers} "
+                         f"decoder of {cfg.encoder_layers} + "
+                         f"{cfg.n_layers}" if cfg.encoder_layers else
+                         f"{cfg.n_layers} self + "
+                         f"{cfg.n_layers // cfg.cross_attn_every} cross of "
+                         f"{cfg.n_layers} + "
+                         f"{cfg.n_layers // cfg.cross_attn_every}"),
+              "memory": (cfg.n_frames if cfg.encoder_layers
+                         else cfg.n_image_tokens),
+              "gpu": card_name.strip(), "power_limit": power.strip(),
+              "n_params": n_params, "param_bytes": param_bytes,
+              "params_init_s": init_s,
+              "basis_ms_a_tick": split["basis_ms"],
+              "summary_placed_latency_s": summary_s,
+              **{k: v for k, v in r.items() if k != "confidences"}})
+    emit({"lm_tick_split": f"{spec['arch']} full width, full depth, "
+          f"B={spec['batch']}, N={cfg.vocab_padded}",
+          "gpu": card_name.strip(), "power_limit": power.strip(), **split,
+          "basis_peak_bytes": checks["basis_peak_bytes"],
+          "resident_bytes": checks["resident_bytes"]})
+    del params
+    times = lm_timing({"checks": checks}, tag=spec["tag"], dense=False)
+    del checks["head_case"], checks["ops"]
+    torch.cuda.empty_cache()
+    return {"runs": runs, "split": split, "times": times,
+            "shape": f"B={spec['batch']} N={cfg.vocab_padded}, every slot "
+                     f"active, the live operands of one token decision "
+                     f"(full depth)",
+            "launches": sum(r["decision_launches"] for r in runs),
+            "decision_max_abs_err": checks["decision_max_abs_err"],
+            "head_max_abs_err": checks["head_max_abs_err"],
+            "n_params": n_params, "param_bytes": param_bytes}
+
+
+def xattn_card_vs_cpu(arch: str) -> dict:
+    """A cross-attention SMOKE config on the card and on the CPU from the
+    same port params, prompts and stub memory: in float32 (TF32 off)
+    the same tokens, verdicts, samples and decisions request for request
+    under accept-always and fixed R = 20, confidence/MI within
+    LM_FIN_ATOL (asserted); in bf16 the hidden states' worst relative
+    gap over a prefill and three decode steps within LM_BF16_REL
+    (asserted), and the requests that agree (reported)."""
+    import dataclasses
+    import torch
+    from repro_torch import float32_math
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import lm_extras, params_init, serve
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import TriagePolicy
+    from repro_torch.serving.engine import _to_device
+    kw = dict(batch=LM["batch"], prompt_len=LM["prompt_len"],
+              gen_len=LM["gen_len"], n_requests=LM["n_requests"],
+              seed=LM["seed"])
+    smoke = get_config(arch, smoke=True)
+    f32 = dataclasses.replace(smoke, dtype=torch.float32)
+    res = {}
+    p_cpu = params_init(f32, LM["seed"], "cpu")
+    p_gpu = _to_device(p_cpu, "cuda")
+    for name, pol, adaptive in (("accept_always", LM_ACCEPT, True),
+                                ("fixed_r20", LM_FIXED, False)):
+        outs = {dev: serve(arch, cfg=f32, params=p, device=dev,
+                           policy=TriagePolicy(**pol), adaptive=adaptive,
+                           **kw)
+                for dev, p in (("cpu", p_cpu), ("cuda", p_gpu))}
+        same_decisions(outs["cuda"], outs["cpu"],
+                       f"{arch} smoke f32 {name}: card vs CPU", LM_FIN_ATOL)
+        tokens = [sorted((v["rid"], v["n_tokens"]) for v in o["verdicts"])
+                  for o in (outs["cuda"], outs["cpu"])]
+        check(tokens[0] == tokens[1]
+              and outs["cuda"]["requests"] == LM["n_requests"]
+              and outs["cuda"]["admissions"] == outs["cpu"]["admissions"],
+              f"{arch} smoke f32 {name}: token counts or admissions differ")
+        res[name] = {"requests": outs["cuda"]["requests"],
+                     "decisions": outs["cuda"]["decisions"],
+                     "admissions": outs["cuda"]["admissions"],
+                     "requests_alike": outs["cuda"]["requests"]}
+    pb_cpu = params_init(smoke, LM["seed"], "cpu")
+    pb_gpu = _to_device(pb_cpu, "cuda")
+    outs = {dev: serve(arch, cfg=smoke, params=p, device=dev,
+                       policy=TriagePolicy(**LM_ACCEPT), **kw)
+            for dev, p in (("cpu", pb_cpu), ("cuda", pb_gpu))}
+    vb = {v["rid"]: v for v in outs["cpu"]["verdicts"]}
+    agree = sum((v["prediction"], v["verdict"], v["n_tokens"])
+                == (vb[v["rid"]]["prediction"], vb[v["rid"]]["verdict"],
+                    vb[v["rid"]]["n_tokens"])
+                for v in outs["cuda"]["verdicts"])
+    toks = torch.randint(0, smoke.vocab, (LM["batch"], LM["prompt_len"]),
+                         generator=torch.Generator().manual_seed(5))
+    extras = lm_extras(smoke, LM["batch"], LM["prompt_len"], LM["seed"])
+    gaps = []
+    with float32_math():
+        caches, hs = {}, {}
+        for dev, p in (("cpu", pb_cpu), ("cuda", pb_gpu)):
+            caches[dev], hs[dev] = tr.prefill(
+                p, toks.to(dev), smoke, cache_len=32,
+                **{k: v.to(dev) for k, v in extras.items()})
+        for step in range(4):
+            want = hs["cpu"].float()
+            gaps.append(float((hs["cuda"].float().cpu() - want).abs().max()
+                              / max(float(want.abs().max()), 1e-3)))
+            if step == 3:
+                break
+            tok = toks[:, step:step + 1]
+            for dev, p in (("cpu", pb_cpu), ("cuda", pb_gpu)):
+                hs[dev], caches[dev] = tr.decode_hidden(
+                    p, caches[dev], tok.to(dev), smoke)
+    check(max(gaps) < LM_BF16_REL,
+          f"{arch} smoke bf16: hidden gap {max(gaps)} >= {LM_BF16_REL}")
+    res["bf16"] = {"requests_agreeing": agree,
+                   "requests": len(outs["cuda"]["verdicts"]),
+                   "hidden_rel_gap": gaps}
+    emit({"lm_xattn_card_vs_cpu": f"{arch} SMOKE, card against CPU, the "
+          "same port params, prompts and stub memory; f32 with TF32 off: "
+          f"decisions equal, fin within {LM_FIN_ATOL} (asserted); bf16: "
+          f"hidden gap over prefill + 3 decode steps within {LM_BF16_REL} "
+          "(asserted), requests agreeing (reported)", **res})
+    return res
+
+
+def run_lm_xattn() -> dict:
+    """The lm_xattn phase: whisper-medium and llama-3.2-vision-11b at
+    full width and full depth, each under accept-always, fixed R = 20
+    and an escalating policy and freed before the next; the
+    prefill/decode consistency check at a full-width layer shape; both
+    SMOKE configs card against CPU."""
+    t_phase = time.perf_counter()
+    models = {spec["arch"]: run_xattn_model(spec) for spec in XATTN}
+    consistency = {spec["arch"]: xattn_consistency(spec["arch"])
+                   for spec in XATTN}
+    smoke = {spec["arch"]: xattn_card_vs_cpu(spec["arch"])
+             for spec in XATTN}
+    emit({"lm_xattn_phase_s": time.perf_counter() - t_phase})
+    return {"models": models, "consistency": consistency, "smoke": smoke}
+
+
+# ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
 def call_ms(fn, iters: int, warmup: int = 50) -> float:
@@ -4806,9 +5121,29 @@ def decision_args_work(args: dict) -> dict:
         rows=args.get("rows") is not None)
 
 
+def sharded_body_timing(args: dict) -> dict:
+    """``decision_stats_sharded``'s per-device body, decision.cu with
+    global ``rows`` keying the read-noise hash, at the read_noise_rows
+    check's shape: device ms of the kernel and its plain version by
+    graph replay (1000 calls) beside the bound."""
+    from repro_torch.kernels.decision import (decision_stats,
+                                              decision_stats_plain)
+    work = decision_args_work(args)
+    return {"shape": "B=32 N=2 R=4, read_sigma 0.4, rows = slot + 1000, "
+                     "half the slots masked (kernel_check "
+                     "read_noise_rows)",
+            "ms": device_ms(lambda: decision_stats(**args), 1000),
+            "plain_ms": device_ms(lambda: decision_stats_plain(**args),
+                                  1000),
+            **{k: work[k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                                    "bound_ops")},
+            "what": "one device's shard; spreading shards over devices "
+                    "needs more than one GPU"}
+
+
 def run_timing(inputs: dict, launches: dict, worst: float,
                cim_line: dict, head_lines: list, lm_vocab: dict,
-               moe_vocab: dict, ssm_vocab: dict) -> None:
+               moe_vocab: dict, ssm_vocab: dict, xattn_vocab: dict) -> None:
     from repro_torch.kernels.decision import (decision_plan, decision_stats,
                                               decision_stats_plain)
     times = {}
@@ -4833,6 +5168,7 @@ def run_timing(inputs: dict, launches: dict, worst: float,
     bound, bound_by, nbytes, ops = (work["bound_ms"], work["bound_by"],
                                     work["bound_bytes"], work["bound_ops"])
     r4, r20 = times["main_r4"], times["main_r20"]
+    sharded_body = sharded_body_timing(inputs["read_noise_rows"])
     import torch
     emit({"launch_floor_ms": device_ms(lambda: torch.cuda._sleep(0), 1000),
           "what": "torch.cuda._sleep(0), a kernel that does no work, by the "
@@ -4892,6 +5228,8 @@ def run_timing(inputs: dict, launches: dict, worst: float,
                      **lm_vocab},
         "lm_moe_vocab": moe_vocab,
         "lm_ssm_vocab": ssm_vocab,
+        "lm_xattn_vocab": xattn_vocab,
+        "sharded_body_rows": sharded_body,
     }, cim_line, *head_lines]})
 
 
@@ -4970,6 +5308,7 @@ def main() -> int:
     lm = run_lm_serving()
     moe = run_lm_moe()
     ssm = run_lm_ssm()
+    xattn = run_lm_xattn()
     cim_plan_sweep(cim_inputs)
     head_plan_sweep()
     heads = head_timing(uq_path["launches"], fig9, head_checks, train,
@@ -4980,7 +5319,8 @@ def main() -> int:
                                   lm["checks"]["head_max_abs_err"],
                                   *(m["head_max_abs_err"]
                                     for m in (*moe["models"].values(),
-                                              *ssm["models"].values())))
+                                              *ssm["models"].values(),
+                                              *xattn["models"].values())))
     lm_times = lm_timing(lm)
     heads[1]["launches_lm_decode_step"] = 1
     heads[1]["lm_decode_step"] = {
@@ -5003,6 +5343,14 @@ def main() -> int:
         "each SSM config's vocabulary head at decode_step_ssm's shape "
         "(full depth), bf16 operands widened by the wrapper; one launch "
         "a config")
+    heads[1]["launches_lm_xattn_decode_step"] = len(XATTN)
+    heads[1]["lm_xattn_decode_step"] = {
+        a: {**m["times"]["rank16"], "max_abs_err": m["head_max_abs_err"]}
+        for a, m in xattn["models"].items()}
+    heads[1]["lm_xattn_decode_step_what"] = (
+        "each audio/VLM config's vocabulary head at decode_step's shape "
+        "(full depth), bf16 operands widened by the wrapper; one launch a "
+        "config")
     run_timing(inputs, {"serve_sar": main_path["launches"],
                         "mission_matrix": mission["decision"],
                         "serve_sar_lifetime": lifetime["launches"]
@@ -5014,11 +5362,14 @@ def main() -> int:
                         **{f"lm_moe/{a}": m["launches"]
                            for a, m in moe["models"].items()},
                         **{f"lm_ssm/{a}": m["launches"]
-                           for a, m in ssm["models"].items()}},
+                           for a, m in ssm["models"].items()},
+                        **{f"lm_xattn/{a}": m["launches"]
+                           for a, m in xattn["models"].items()}},
                max(worst, lm["checks"]["decision_max_abs_err"],
                    *(m["decision_max_abs_err"]
                      for m in (*moe["models"].values(),
-                               *ssm["models"].values()))),
+                               *ssm["models"].values(),
+                               *xattn["models"].values()))),
                cim_timing(cim_inputs,
                           {"serve_sar(chip_instance=gate die)":
                            chip_path["launches"],
@@ -5032,7 +5383,9 @@ def main() -> int:
                {a: {"shape": m["shape"], **m["times"]["decision"]}
                 for a, m in moe["models"].items()},
                {a: {"shape": m["shape"], **m["times"]["decision"]}
-                for a, m in ssm["models"].items()})
+                for a, m in ssm["models"].items()},
+               {a: {"shape": m["shape"], **m["times"]["decision"]}
+                for a, m in xattn["models"].items()})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

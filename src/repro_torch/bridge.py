@@ -43,7 +43,9 @@ def lm_params_from_jax(tree: dict, device="cpu") -> dict:
     """LM params of the reference's ``init_transformer`` or
     ``init_ssm_lm`` (numpy) -> the port's: the same tree and layout
     (blocks and mamba layers stacked on a leading layer axis, the
-    hybrid's shared block without one), as tensors."""
+    hybrid's shared block without one; whisper's ``encoder`` subtree,
+    learned ``pos_embed`` tables and decoder ``xattn``/``lnx``/``lnx_b``
+    leaves, the VLM's ``blocks_cross``), as tensors."""
     if isinstance(tree, dict):
         return {k: lm_params_from_jax(v, device) for k, v in tree.items()}
     return torch.as_tensor(np.array(tree, copy=True), device=device)

@@ -10,8 +10,11 @@ V in int32 arithmetic (the product wraps at 2³², as the reference's
 int32 product does, then the remainder is taken as a floor modulus),
 and with probability ``noise`` a uniform random token instead.  The
 draws are the port's own, not JAX's threefry: the structure is the
-reference's, the tokens are not.  ``host_shard`` and the stub
-audio/vision embeddings wait for their families (ROADMAP A13/A14).
+reference's, the tokens are not.  The stub audio-frontend frames and
+vision patch embeddings (``stub_frames``, ``stub_image_embeds``) are
+standard normal float32 [B, n, d], drawn the same way from (seed, salt,
+step) with a salt each.  ``host_shard`` waits for the LM trainer
+(ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ class TokenPipelineConfig:
 
 
 _SALT = 0x70C5
+_FRAMES_SALT = 0xF0
+_IMAGE_SALT = 0xF1
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -75,3 +80,29 @@ def batch_iterator(cfg: TokenPipelineConfig, start_step: int = 0,
     while True:
         yield step, batch_at(cfg, step, device)
         step += 1
+
+
+def _stub_embeds(cfg: TokenPipelineConfig, salt: int, n: int, d_model: int,
+                 step: int, batch: int, device) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(
+        int(hash2(int(step), int(cfg.seed), salt)))
+    return torch.randn((batch, n, d_model), generator=gen,
+                       dtype=torch.float32).to(device)
+
+
+def stub_frames(cfg: TokenPipelineConfig, n_frames: int, d_model: int,
+                step: int, batch: int, device=None) -> torch.Tensor:
+    """Stub audio-frontend frame embeddings [batch, n_frames, d_model]
+    (whisper's frontend is a stub), float32 N(0, 1), a pure function of
+    (seed, step).  Drawn on the host, then moved."""
+    return _stub_embeds(cfg, _FRAMES_SALT, n_frames, d_model, step, batch,
+                        device)
+
+
+def stub_image_embeds(cfg: TokenPipelineConfig, n_tokens: int, d_model: int,
+                      step: int, batch: int, device=None) -> torch.Tensor:
+    """Stub vision-frontend patch embeddings [batch, n_tokens, d_model]
+    (llama-3.2-vision's frontend is a stub), float32 N(0, 1), a pure
+    function of (seed, step).  Drawn on the host, then moved."""
+    return _stub_embeds(cfg, _IMAGE_SALT, n_tokens, d_model, step, batch,
+                        device)

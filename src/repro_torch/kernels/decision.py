@@ -27,7 +27,8 @@ without the [R, B, N] logit samples ever reaching device memory.
 
 ``decision_stats`` routes by where the tensors lie: CPU tensors go to
 ``decision_stats_plain``, the plain PyTorch version (mix, log-softmax,
-masked sums, as ``repro/kernels/ref.py`` ``decision_stats_ref``); CUDA
+masked sums, as ``repro/kernels/ref.py`` ``decision_stats_ref``, with
+the tiled variant's float64 entropies above N = 32); CUDA
 tensors launch the kernel or raise.  There is no fallback.
 ``decision_stats.launches`` counts wrapper calls that launched (one a
 round piece, whatever number of kernels the plan runs).
@@ -122,26 +123,36 @@ def _plain_samples(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq,
 
 def _masked(p, ent, mask) -> dict:
     """The four deltas of [R, B, N] probabilities and [R, B] entropies,
-    multiplied by the [B] mask (None = all active)."""
+    multiplied by the [B] mask (None = all active); the entropies' sums
+    in their dtype, rounded to float32 once."""
     b = p.shape[1]
     mk = (torch.ones((b,), dtype=torch.float32, device=p.device)
           if mask is None
           else torch.as_tensor(mask, device=p.device).to(torch.float32))
     return {"sum_p": p.sum(0) * mk[:, None],
             "sum_psq": (p * p).sum(0) * mk[:, None],
-            "sum_ent": ent.sum(0) * mk,
-            "sum_entsq": (ent * ent).sum(0) * mk}
+            "sum_ent": (ent.sum(0) * mk).to(torch.float32),
+            "sum_entsq": ((ent * ent).sum(0) * mk).to(torch.float32)}
 
 
 def decision_stats_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
                          x_sigsq=None, sample_idx=None, mask=None,
                          rows=None) -> dict:
     """Plain PyTorch version: materializes the [R, B, N] samples, then
-    ``update_stats`` on zeroed sums, multiplied by the [B] mask."""
+    ``update_stats`` on zeroed sums, multiplied by the [B] mask.  Above
+    SMALL_N_MAX the entropies are the tiled variant's: in float64 from
+    the float32 logits, their sums over the samples rounded to float32
+    once.  A standard error the engine derives from sum_ent and
+    sum_entsq differences squares of ~6, so the float32 entropies' last
+    bits move it by ~1e-4 (ROADMAP C6), and the card's float64 ones
+    would then disagree with the plain version's by that much."""
     samples = _plain_samples(y_mu, x_sigma, m, sel, cfg, x_sigsq,
                              sample_idx, rows)
     logp = torch.log_softmax(samples, dim=-1)
     p = torch.exp(logp)
+    if samples.shape[-1] > SMALL_N_MAX:
+        lp = torch.log_softmax(samples.to(torch.float64), dim=-1)
+        return _masked(p, -(torch.exp(lp) * lp).sum(-1), mask)
     return _masked(p, -(p * logp).sum(-1), mask)
 
 

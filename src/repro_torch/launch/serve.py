@@ -4,7 +4,11 @@
 ``--arch`` names a dense LM (qwen3-0.6b, qwen1.5-110b, yi-9b,
 qwen3-1.7b), an MoE LM (mixtral-8x7b, qwen3-moe-235b-a22b), an SSM or
 hybrid LM (mamba2-130m, zamba2-2.7b: prompts a multiple of the SSD
-chunk, 16 at SMOKE and 256 at full width) or ``sar_cnn``.  An LM
+chunk, 16 at SMOKE and 256 at full width), the audio encoder-decoder
+(whisper-medium: stub frames from ``data/tokens.stub_frames``; its
+admissions wait for the pool to drain) or the VLM
+(llama-3.2-vision-11b: stub patch embeddings from
+``stub_image_embeds``), or ``sar_cnn``.  An LM
 serves continuous-batching token decode through ``LMServingEngine``
 (``serve``): prompts from the synthetic token pipeline, each token
 decision triaged, flagged requests retired to verification; the CLI
@@ -48,6 +52,8 @@ Usage:
       --slots 2 --prompt-len 8 --gen 2 --requests 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --slots 2 --prompt-len 16 --gen 4 --requests 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
+      --slots 2 --gen 4 --requests 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch sar_cnn \\
       --requests 192 --corrupt-frac 0.25 --corruption fog [--fixed] \\
       [--chip-instance 11 --chip-severity 2.0 --uncalibrated]
@@ -60,8 +66,7 @@ Usage:
       --metrics-out out/serve --profile out/prof
 
 The reference CLI's fleets (``--pools``, ``--mesh``) wait for more than
-one GPU (ROADMAP A10); its audio and VLM archs for their families
-(A13.3).
+one GPU (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -102,8 +107,11 @@ def collect_alerts(out: dict, source: str):
 
 
 def lm_layer_shapes(cfg) -> list:
-    """Analytic energy layers: a d_model-square trunk approximation (4
-    a layer) and the Bayesian vocabulary head (the R-sampled part)."""
+    """Analytic energy layers, as the reference's: a d_model-square
+    trunk approximation (4 a layer of ``n_layers``) and the Bayesian
+    vocabulary head (the R-sampled part).  An encoder's layers and the
+    cross-attention layers are not counted: the reference's count
+    leaves them out too."""
     shapes = [LayerShape(cfg.d_model, cfg.d_model)] * (4 * cfg.n_layers)
     shapes.append(LayerShape(cfg.d_model, cfg.vocab_padded, bayesian=True))
     return shapes
@@ -120,6 +128,26 @@ def params_init(cfg, seed: int = 0, device=None) -> dict:
     return get_api(cfg).init(gen, cfg)
 
 
+def lm_extras(cfg, batch: int, prompt_len: int = 16, seed: int = 0,
+              device=None) -> dict:
+    """The memory inputs a family's prefill takes, as the reference's
+    ``serve`` builds them: the audio family's stub frames [batch,
+    n_frames, d_model] and the VLM's stub patch embeddings [batch,
+    n_image_tokens, d_model] (``data/tokens``, step 0 of the prompts'
+    pipeline); {} for the others."""
+    from repro_torch.data.tokens import (TokenPipelineConfig, stub_frames,
+                                         stub_image_embeds)
+    pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=prompt_len,
+                               global_batch=batch, seed=seed)
+    if cfg.family == "audio":
+        return {"frames": stub_frames(pipe, cfg.n_frames, cfg.d_model, 0,
+                                      batch, device)}
+    if cfg.family == "vlm":
+        return {"image_embeds": stub_image_embeds(
+            pipe, cfg.n_image_tokens, cfg.d_model, 0, batch, device)}
+    return {}
+
+
 def make_lm_engine(cfg, *, batch: int = 4, prompt_len: int = 16,
                    gen_len: int = 8, cache_margin: int = 4,
                    adaptive: bool = True, policy: TriagePolicy | None = None,
@@ -128,7 +156,8 @@ def make_lm_engine(cfg, *, batch: int = 4, prompt_len: int = 16,
                    profiler=True, device=None) -> LMServingEngine:
     """The engine ``serve`` drives: ``batch`` slots, a linear cache of
     prompt_len + gen_len·(1 + cache_margin) (at most a sliding window),
-    params from ``params_init(cfg, seed)`` unless given, tilemap-true
+    params from ``params_init(cfg, seed)`` unless given, the memory
+    inputs of ``lm_extras(cfg, batch, prompt_len, seed)``, tilemap-true
     energy accounting of ``lm_layer_shapes``, on ``device`` (None = the
     card).  An SSM or hybrid config's ``prompt_len`` must be a multiple
     of its ``ssm_chunk`` (its SSD prefill takes whole chunks; 256 at
@@ -141,6 +170,7 @@ def make_lm_engine(cfg, *, batch: int = 4, prompt_len: int = 16,
     device = resolve_device(device)
     if params is None:
         params = params_init(cfg, seed, device)
+    extras = lm_extras(cfg, batch, prompt_len, seed, device)
     cache_len = prompt_len + gen_len * (1 + cache_margin)
     if cfg.swa_window is not None:
         cache_len = min(cache_len, cfg.swa_window)
@@ -151,8 +181,8 @@ def make_lm_engine(cfg, *, batch: int = 4, prompt_len: int = 16,
                            cache_len=cache_len,
                            policy=policy or TriagePolicy(),
                            adaptive_mode=adaptive, metrics=metrics,
-                           fused=fused, telemetry=telemetry, tracer=tracer,
-                           profiler=profiler, device=device)
+                           extras=extras, fused=fused, telemetry=telemetry,
+                           tracer=tracer, profiler=profiler, device=device)
 
 
 def make_lm_stream(cfg, n_requests: int, *, batch: int = 4,

@@ -22,7 +22,8 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
+
+from repro_torch.models import blocks
 
 
 def _normal_stack(generator: torch.Generator, shape: tuple,
@@ -128,7 +129,7 @@ def moe_apply(x: torch.Tensor, router: torch.Tensor, wi: torch.Tensor,
     buf = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=dev)
     buf[slot] = xf[order // top_k]
     xe = buf[:e * capacity].reshape(e, capacity, d)
-    h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wi)
+    h = blocks.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wi)
     yf = torch.bmm(h, wo).reshape(e * capacity, d)
 
     y_pairs = torch.where(keep[:, None],

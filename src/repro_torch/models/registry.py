@@ -4,9 +4,10 @@
 Every family exposes init(generator, cfg) -> params, train_loss,
 prefill(params, tokens, cfg, cache_len, ...), decode_step(params, cache,
 token, cfg) and decode_hidden (the trunk-only decode the serving engine
-samples adaptively).  The dense and MoE families share the
-transformer's, the SSM and hybrid families ``ssm_lm``'s; the others
-raise ``NotImplementedError`` naming their ROADMAP item.
+samples adaptively).  The dense, MoE, audio and VLM families share
+the transformer's (the audio family's prefill takes ``frames``, the
+VLM's ``image_embeds``: ``needs_frames``/``needs_images``), the SSM and
+hybrid families ``ssm_lm``'s.
 """
 
 from __future__ import annotations
@@ -16,12 +17,6 @@ from typing import Callable
 
 from repro_torch.models import ssm_lm, transformer
 from repro_torch.models.transformer import ModelConfig
-
-_WAITING = {
-    "audio": "ROADMAP A13.3: audio, whisper-medium",
-    "vlm": "ROADMAP A13.3: VLM, llama-3.2-vision-11b",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
@@ -35,10 +30,6 @@ class ModelAPI:
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family in _WAITING:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"({_WAITING[cfg.family]})")
     if cfg.family in ("ssm", "hybrid"):
         return ModelAPI(
             init=ssm_lm.init_ssm_lm,
@@ -47,7 +38,7 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
             decode_step=ssm_lm.decode_step_ssm,
             decode_hidden=ssm_lm.decode_hidden_ssm,
         )
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "audio", "vlm"):
         raise ValueError(f"unknown model family {cfg.family!r}")
     return ModelAPI(
         init=transformer.init_transformer,
@@ -55,4 +46,6 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         prefill=transformer.prefill,
         decode_step=transformer.decode_step,
         decode_hidden=transformer.decode_hidden,
+        needs_frames=cfg.family == "audio",
+        needs_images=cfg.family == "vlm",
     )

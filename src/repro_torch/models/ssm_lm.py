@@ -58,7 +58,7 @@ def init_ssm_lm(generator: torch.Generator, cfg) -> dict:
 
 def _shared_block_full(h, h0, params: dict, cfg, positions):
     u = torch.cat([h, h0], dim=-1) @ params["shared_w_in"].to(h.dtype)
-    u, _, kv = tr._block_full(u, params["shared_attn"], cfg, positions,
+    u, _, kv, _ = tr._block_full(u, params["shared_attn"], cfg, positions,
                               causal=True)
     return h + u @ params["shared_w_out"].to(h.dtype), kv
 

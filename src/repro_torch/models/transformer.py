@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM, dense and MoE families (port of the
-dense and MoE paths of ``repro/models/transformer.py``).
+"""Decoder-only, encoder-decoder and cross-attention transformer LMs:
+the dense, MoE, audio (whisper) and VLM (llama-3.2-vision) families
+(port of ``repro/models/transformer.py``).
 
 Pre-norm blocks over parameters stacked on a leading layer axis, as the
 reference's ``lax.scan`` stacks are (``[L, d_in, d_out]`` float32 for
@@ -11,15 +12,25 @@ weight-decomposition layer (µ, ρ), served with CLT-GRNG sampling:
 and ``decode_hidden`` gives the trunk's hidden state alone, which the
 serving engine samples adaptively.
 
+An encoder-decoder config (whisper: ``encoder_layers``) runs a
+non-causal encoder over its stub frame embeddings plus the encoder's
+learned positions, and every decoder layer carries a cross-attention
+sub-block (self-attention, then cross-attention, then the MLP) over the
+encoder's output; its tokens take learned positions (``learned_pos``)
+instead of RoPE.  A cross-attention config (llama-3.2-vision:
+``cross_attn_every``) runs its self layers in groups of
+``cross_attn_every``, each group followed by a dedicated cross layer
+(with its own MLP) over the stub image embeddings.  Cross keys and
+values come from the memory and are not rotated; decode reads them from
+the cache's ``xk``/``xv`` at the last memory position, with no mask.
+
 The SSM and hybrid families live in ``models/ssm_lm`` and reuse this
 module's blocks (``_init_block``, ``_block_full``, ``_block_decode``)
 for the hybrid's shared block.
 
-What is not here: the encoder-decoder (whisper) and
-cross-attention (llama-vision) branches raise ``NotImplementedError``
-naming their ROADMAP item; ``train_loss`` waits for the LM trainer
-(ROADMAP A14); the MoE mesh path (``make_sharded_moe``) waits for more
-than one GPU (A10).  The reference's ``_wsc``/``_tp_linear``/remat
+What is not here: ``train_loss`` waits for the LM trainer (ROADMAP
+A14); the MoE mesh path (``make_sharded_moe``) waits for more than one
+GPU (A10).  The reference's ``_wsc``/``_tp_linear``/remat
 helpers constrain shardings and trade memory in the backward on a TPU
 mesh; on one card in forward they have no meaning, and
 ``ModelConfig``'s mesh hints (``batch_axes``, ``model_axis_size``,
@@ -28,9 +39,11 @@ mesh; on one card in forward they have no meaning, and
 The decode cache is {"k", "v": [L, B, Sc, Hkv, dh] in cfg.dtype, "pos":
 a host int (the pool clock: every position it sets is a launch-time
 index, nothing is read back from the card), "start": [B] int32 first
-valid positions (left-padded admissions)}.  A sliding-window config
-whose cache is no longer than its window decodes through the rolling
-cache (``models/attention``), as the reference's does, and then
+valid positions (left-padded admissions)} and, for the cross-attention
+families, "xk", "xv": [L (whisper) or G cross layers (VLM), B, Sm,
+Hkv, dh], the memory's keys and values, slot-local.  A sliding-window
+config whose cache is no longer than its window decodes through the
+rolling cache (``models/attention``), as the reference's does, and then
 ignores ``start`` as the reference does (ROADMAP C25).
 """
 
@@ -158,19 +171,6 @@ class ModelConfig:
         return l * (attn_p + mlp_p + 2 * d) + self.vocab_padded * d * 2
 
 
-def _refuse_unported(cfg: ModelConfig) -> None:
-    """Refuse the branches of the reference's transformer not ported."""
-    if cfg.encoder_layers or cfg.learned_pos:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder, its cross-attention and learned "
-            f"positions are not ported yet (ROADMAP A13.3: audio, "
-            f"whisper-medium)")
-    if cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention layers are not ported yet "
-            f"(ROADMAP A13.3: VLM, llama-3.2-vision-11b)")
-
-
 # ----------------------------------------------------------------------
 # Parameter init
 # ----------------------------------------------------------------------
@@ -179,7 +179,10 @@ def _stack(generator, l: int, d_in: int, d_out: int) -> torch.Tensor:
                         for _ in range(l)])
 
 
-def _init_attn_block(generator, cfg: ModelConfig, l: int) -> dict:
+def _init_attn_block(generator, cfg: ModelConfig, l: int,
+                     cross: bool = False) -> dict:
+    """Attention projections of ``l`` layers; a cross block (``cross``)
+    has no qkv bias, as the reference's."""
     d = cfg.d_model
     hq = cfg.n_heads * cfg.head_dim
     hkv = cfg.n_kv_heads * cfg.head_dim
@@ -188,7 +191,7 @@ def _init_attn_block(generator, cfg: ModelConfig, l: int) -> dict:
          "wk": _stack(generator, l, d, hkv),
          "wv": _stack(generator, l, d, hkv),
          "wo": _stack(generator, l, hq, d)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((l, hq), device=dev)
         p["bk"] = torch.zeros((l, hkv), device=dev)
         p["bv"] = torch.zeros((l, hkv), device=dev)
@@ -211,21 +214,30 @@ def _init_mlp_block(generator, cfg: ModelConfig, l: int) -> dict:
             "bo": torch.zeros((l, d), device=dev)}
 
 
-def _init_block_stack(generator, cfg: ModelConfig, l: int) -> dict:
+def _init_block_stack(generator, cfg: ModelConfig, l: int,
+                      cross: bool = False, with_xattn: bool = False) -> dict:
     """``l`` blocks stacked on a leading layer axis: attention, norms
-    (and their biases under layer norm), the MLP or, in an MoE config,
-    ``moe`` from ``models/moe.init_moe``."""
+    (and their biases under layer norm), the MLP or, in an MoE config's
+    self layers, ``moe`` from ``models/moe.init_moe``.  ``cross``: the
+    VLM's cross layers (no qkv bias, a dense MLP); ``with_xattn``: an
+    encoder-decoder's decoder layers, with the cross-attention
+    sub-block ``xattn`` and its norm ``lnx`` (and ``lnx_b``)."""
     dev, d = generator.device, cfg.d_model
-    p = {"attn": _init_attn_block(generator, cfg, l),
+    p = {"attn": _init_attn_block(generator, cfg, l, cross),
          "ln1": torch.ones((l, d), device=dev),
          "ln2": torch.ones((l, d), device=dev)}
     if cfg.norm == "ln":
         p["ln1_b"] = torch.zeros((l, d), device=dev)
         p["ln2_b"] = torch.zeros((l, d), device=dev)
-    if cfg.n_experts:
+    if cfg.n_experts and not cross:
         p["moe"] = init_moe(generator, l, d, cfg.d_ff, cfg.n_experts)
     else:
         p["mlp"] = _init_mlp_block(generator, cfg, l)
+    if with_xattn:
+        p["xattn"] = _init_attn_block(generator, cfg, l, cross=True)
+        p["lnx"] = torch.ones((l, d), device=dev)
+        if cfg.norm == "ln":
+            p["lnx_b"] = torch.zeros((l, d), device=dev)
     return p
 
 
@@ -241,18 +253,32 @@ def init_transformer(generator: torch.Generator, cfg: ModelConfig) -> dict:
     ``generator`` on its device with the reference's scales (dense
     N(0, 1/d_in), embedding N(0, 0.02²), norms 1, biases 0, the head's
     µ N(0, 1/d_model) and ρ = softplus⁻¹(sigma_init); an MoE config's
-    blocks hold ``moe`` in place of ``mlp``, from ``models/moe.init_moe``).
-    The draws are the port's own, not JAX's."""
-    _refuse_unported(cfg)
+    blocks hold ``moe`` in place of ``mlp``, from ``models/moe.init_moe``;
+    learned position tables N(0, 0.02²): ``pos_embed`` [learned_pos, d]
+    and the encoder's [n_frames, d]).  The draws are the port's own, not
+    JAX's."""
     dev = generator.device
     l, d = cfg.n_layers, cfg.d_model
     params: dict = {
         "embed": blocks.embed_init(generator, cfg.vocab_padded, d),
-        "blocks": _init_block_stack(generator, cfg, l),
+        "blocks": _init_block_stack(generator, cfg, l,
+                                    with_xattn=cfg.encoder_layers > 0),
         "final_norm": torch.ones((d,), device=dev),
     }
     if cfg.norm == "ln":
         params["final_norm_b"] = torch.zeros((d,), device=dev)
+    if cfg.learned_pos:
+        params["pos_embed"] = blocks.embed_init(generator, cfg.learned_pos,
+                                                d)
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "blocks": _init_block_stack(generator, cfg, cfg.encoder_layers),
+            "final_norm": torch.ones((d,), device=dev),
+            "final_norm_b": torch.zeros((d,), device=dev),
+            "pos_embed": blocks.embed_init(generator, cfg.n_frames, d)}
+    if cfg.cross_attn_every:
+        params["blocks_cross"] = _init_block_stack(
+            generator, cfg, l // cfg.cross_attn_every, cross=True)
     if cfg.bayesian_head:
         params["head"] = bayes_layer.init(generator, cfg.head_bayes_cfg(),
                                           device=dev)
@@ -277,19 +303,22 @@ def _norm(h, scale, bias, cfg: ModelConfig):
     return blocks.rms_norm(h, scale)
 
 
-def _project_qkv(h, p: dict, cfg: ModelConfig):
-    """-> q [B, S, Hq, dh], k, v [B, S, Hkv, dh] in h.dtype."""
+def _project_qkv(h, p: dict, cfg: ModelConfig, memory=None):
+    """-> q [B, S, Hq, dh], k, v [B, Skv, Hkv, dh] in h.dtype: q from
+    ``h``, k and v from ``memory`` (cross-attention) or ``h``."""
+    src = h if memory is None else memory
     q = h @ p["wq"].to(h.dtype)
-    k = h @ p["wk"].to(h.dtype)
-    v = h @ p["wv"].to(h.dtype)
+    k = src @ p["wk"].to(h.dtype)
+    v = src @ p["wv"].to(h.dtype)
     if "bq" in p:
         q = q + p["bq"].to(h.dtype)
         k = k + p["bk"].to(h.dtype)
         v = v + p["bv"].to(h.dtype)
     b, s = q.shape[:2]
+    skv = k.shape[1]
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    k = k.reshape(b, skv, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, skv, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm and "q_norm" in p:
         q = blocks.rms_norm(q, p["q_norm"])
         k = blocks.rms_norm(k, p["k_norm"])
@@ -316,10 +345,32 @@ def _mlp_apply(h, lp: dict, cfg: ModelConfig):
     return y, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
+def _attend_memory(h, p: dict, cfg: ModelConfig, memory):
+    """Cross-attention over the whole memory (no mask, no rotation):
+    -> (the output projection [B, S, D], (k, v) [B, Sm, Hkv, dh])."""
+    q, k, v = _project_qkv(h, p, cfg, memory=memory)
+    o = attn.chunked_attention(
+        q, attn.expand_kv(k, cfg.n_heads), attn.expand_kv(v, cfg.n_heads),
+        causal=False, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+    return o.reshape(*h.shape[:2], -1) @ p["wo"].to(h.dtype), (k, v)
+
+
+def _attend_cache(h, p: dict, cfg: ModelConfig, xk, xv):
+    """One token's cross-attention against the memory's cached k/v
+    [B, Sm, Hkv, dh]: ``decode_attention`` at the last memory position,
+    GQA without expanding.  -> the output projection [B, 1, D]."""
+    q = (h @ p["wq"].to(h.dtype)).reshape(h.shape[0], 1, cfg.n_heads,
+                                          cfg.head_dim)
+    o = attn.decode_attention(q, xk, xv, xk.shape[1] - 1)
+    return o.reshape(*h.shape[:2], -1) @ p["wo"].to(h.dtype)
+
+
 def _block_full(h, lp: dict, cfg: ModelConfig, positions, causal: bool,
-                kv_start=None):
-    """One block over a sequence: self-attention, then the MLP.
-    -> (h, aux, (k, v)) with k RoPE'd, both [B, S, Hkv, dh]."""
+                kv_start=None, memory=None):
+    """One block over a sequence: self-attention, [cross-attention over
+    ``memory`` where the block has ``xattn``,] then the MLP.  -> (h, aux,
+    (k, v) with k RoPE'd, both [B, S, Hkv, dh], (xk, xv) [B, Sm, Hkv, dh]
+    or None)."""
     hn = _norm(h, lp["ln1"], lp.get("ln1_b"), cfg)
     q, k, v = _project_qkv(hn, lp["attn"], cfg)
     if cfg.use_rope:
@@ -330,15 +381,21 @@ def _block_full(h, lp: dict, cfg: ModelConfig, positions, causal: bool,
         causal=causal, window=cfg.swa_window, kv_start=kv_start,
         chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
     h = h + o.reshape(*h.shape[:2], -1) @ lp["attn"]["wo"].to(h.dtype)
+    xkv = None
+    if "xattn" in lp:
+        delta, xkv = _attend_memory(_norm(h, lp["lnx"], lp.get("lnx_b"),
+                                          cfg), lp["xattn"], cfg, memory)
+        h = h + delta
     hn = _norm(h, lp["ln2"], lp.get("ln2_b"), cfg)
     y, aux = _mlp_apply(hn, lp, cfg)
-    return h + y, aux, (k, v)
+    return h + y, aux, (k, v), xkv
 
 
 def _block_decode(h, lp: dict, cfg: ModelConfig, ck, cv, pos: int,
-                  rolling: bool, start=None):
+                  rolling: bool, xk=None, xv=None, start=None):
     """One token's block against its layer's KV cache (written in
-    place at ``pos``).  -> (h, ck, cv)."""
+    place at ``pos``) and, where the block has ``xattn``, the memory's
+    cached k/v.  -> (h, ck, cv)."""
     hn = _norm(h, lp["ln1"], lp.get("ln1_b"), cfg)
     q, k, v = _project_qkv(hn, lp["attn"], cfg)
     if cfg.use_rope:
@@ -350,9 +407,30 @@ def _block_decode(h, lp: dict, cfg: ModelConfig, ck, cv, pos: int,
     o = attn.decode_attention(q, ck, cv, pos, window=cfg.swa_window,
                               rolling=rolling, start=start)
     h = h + o.reshape(*h.shape[:2], -1) @ lp["attn"]["wo"].to(h.dtype)
+    if "xattn" in lp:
+        h = h + _attend_cache(_norm(h, lp["lnx"], lp.get("lnx_b"), cfg),
+                              lp["xattn"], cfg, xk, xv)
     hn = _norm(h, lp["ln2"], lp.get("ln2_b"), cfg)
     y, _ = _mlp_apply(hn, lp, cfg)
     return h + y, ck, cv
+
+
+def _cross_layer_full(h, lp: dict, cfg: ModelConfig, memory):
+    """A VLM cross layer (its own MLP, llama-3.2 style) over the
+    memory.  -> (h, aux, (xk, xv))."""
+    delta, xkv = _attend_memory(_norm(h, lp["ln1"], lp.get("ln1_b"), cfg),
+                                lp["attn"], cfg, memory)
+    h = h + delta
+    y, aux = _mlp_apply(_norm(h, lp["ln2"], lp.get("ln2_b"), cfg), lp, cfg)
+    return h + y, aux, xkv
+
+
+def _cross_layer_decode(h, lp: dict, cfg: ModelConfig, xk, xv):
+    """One token through a VLM cross layer against its cached k/v."""
+    h = h + _attend_cache(_norm(h, lp["ln1"], lp.get("ln1_b"), cfg),
+                          lp["attn"], cfg, xk, xv)
+    y, _ = _mlp_apply(_norm(h, lp["ln2"], lp.get("ln2_b"), cfg), lp, cfg)
+    return h + y
 
 
 def _final_norm(h, params: dict, cfg: ModelConfig):
@@ -371,30 +449,92 @@ def _embed(params: dict, tokens, cfg: ModelConfig):
 # ----------------------------------------------------------------------
 # Trunk forward
 # ----------------------------------------------------------------------
-def trunk_forward(params: dict, tokens, cfg: ModelConfig, *,
-                  collect_cache: bool = False, kv_start=None):
+def _encode(params: dict, frames, cfg: ModelConfig):
+    """The whisper encoder: the stub frame embeddings [B, n_frames, D]
+    plus the encoder's learned positions, in cfg.dtype, through its
+    blocks without a causal mask, then its final LayerNorm."""
+    enc = params["encoder"]
+    eh = frames.to(cfg.dtype) + enc["pos_embed"].to(cfg.dtype)[None]
+    b, sf = eh.shape[:2]
+    epos = torch.arange(sf, dtype=torch.int32,
+                        device=eh.device)[None].expand(b, sf)
+    for l in range(enc["blocks"]["ln1"].shape[0]):
+        eh, _, _, _ = _block_full(eh, _layer(enc["blocks"], l), cfg, epos,
+                                  causal=False)
+    return blocks.layer_norm(eh, enc["final_norm"], enc["final_norm_b"])
+
+
+def _memory(params: dict, cfg: ModelConfig, frames, image_embeds):
+    """The cross-attention memory [B, Sm, D] in cfg.dtype: the encoder's
+    output (audio) or the stub image embeddings (VLM); None otherwise."""
+    if cfg.encoder_layers:
+        if frames is None:
+            raise ValueError(f"{cfg.name} needs stub frame embeddings "
+                             f"(frames [B, {cfg.n_frames}, d_model])")
+        return _encode(params, frames, cfg)
+    if cfg.cross_attn_every:
+        if image_embeds is None:
+            raise ValueError(f"{cfg.name} needs stub patch embeddings "
+                             f"(image_embeds [B, {cfg.n_image_tokens}, "
+                             f"d_model])")
+        return image_embeds.to(cfg.dtype)
+    return None
+
+
+def _n_groups(params: dict, cfg: ModelConfig) -> int:
+    """A VLM's cross layers, one after each group of
+    ``cross_attn_every`` self layers; 0 for the other families."""
+    if cfg.cross_attn_every and "blocks_cross" in params:
+        return params["blocks_cross"]["ln1"].shape[0]
+    return 0
+
+
+def trunk_forward(params: dict, tokens, cfg: ModelConfig, *, frames=None,
+                  image_embeds=None, collect_cache: bool = False,
+                  kv_start=None):
     """Token trunk: tokens [B, S] -> (hidden [B, S, D], aux, caches or
-    None, memory None).  ``collect_cache``: caches {"k", "v": [L, B, S,
-    Hkv, dh]}; ``kv_start``: optional [B] first valid positions of
-    left-padded rows (masks self-attention only)."""
-    _refuse_unported(cfg)
+    None, memory [B, Sm, D] or None).  ``collect_cache``: caches {"k",
+    "v": [L, B, S, Hkv, dh]} and, with a memory, {"xk", "xv": [L or G,
+    B, Sm, Hkv, dh]}; ``kv_start``: optional [B] first valid positions
+    of left-padded rows (masks self-attention only).  ``frames``
+    (whisper) or ``image_embeds`` (VLM) feed the memory; a learned
+    position table adds its first S rows to the embeddings."""
     b, s = tokens.shape
     h = _embed(params, tokens, cfg)
+    if cfg.learned_pos:
+        h = h + params["pos_embed"][:s].to(cfg.dtype)[None]
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device)[None].expand(b, s)
+    memory = _memory(params, cfg, frames, image_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    ks, vs = [], []
-    for l in range(cfg.n_layers):
-        h, a, (k, v) = _block_full(h, _layer(params["blocks"], l), cfg,
-                                   positions, causal=True,
-                                   kv_start=kv_start)
-        aux = aux + a
-        if collect_cache:
-            ks.append(k)
-            vs.append(v)
-    caches = ({"k": torch.stack(ks), "v": torch.stack(vs)}
-              if collect_cache else None)
-    return _final_norm(h, params, cfg), aux, caches, None
+    ks, vs, xks, xvs = [], [], [], []
+    n_groups = _n_groups(params, cfg)
+    every = cfg.cross_attn_every if n_groups else cfg.n_layers
+    for g in range(max(n_groups, 1)):
+        for l in range(g * every, (g + 1) * every):
+            h, a, (k, v), xkv = _block_full(
+                h, _layer(params["blocks"], l), cfg, positions, causal=True,
+                kv_start=kv_start, memory=memory)
+            aux = aux + a
+            if collect_cache:
+                ks.append(k)
+                vs.append(v)
+                if xkv is not None:
+                    xks.append(xkv[0])
+                    xvs.append(xkv[1])
+        if n_groups:
+            h, a, (xk, xv) = _cross_layer_full(
+                h, _layer(params["blocks_cross"], g), cfg, memory)
+            aux = aux + a
+            if collect_cache:
+                xks.append(xk)
+                xvs.append(xv)
+    caches = None
+    if collect_cache:
+        caches = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        if xks:
+            caches["xk"], caches["xv"] = torch.stack(xks), torch.stack(xvs)
+    return _final_norm(h, params, cfg), aux, caches, memory
 
 
 def train_loss(params, batch, cfg: ModelConfig, step=0):
@@ -408,7 +548,7 @@ def train_loss(params, batch, cfg: ModelConfig, step=0):
 # Serving
 # ----------------------------------------------------------------------
 def prefill(params: dict, tokens, cfg: ModelConfig, *, cache_len: int,
-            prompt_lengths=None):
+            frames=None, image_embeds=None, prompt_lengths=None):
     """Run the prompt, build a KV cache of ``cache_len``.
 
     -> (cache, last-position hidden [B, D]).  ``prompt_lengths`` [B]:
@@ -418,7 +558,9 @@ def prefill(params: dict, tokens, cfg: ModelConfig, *, cache_len: int,
     its last entries and its ``start`` shifts with them.  A
     sliding-window config whose ``cache_len`` exceeds its window gets a
     rolling cache of the window's size, which takes no
-    ``prompt_lengths`` (ValueError), as the reference's."""
+    ``prompt_lengths`` (ValueError), as the reference's.  ``frames`` /
+    ``image_embeds`` feed a cross-attention family's memory, whose k/v
+    the cache carries as ``xk``/``xv``."""
     b, s = tokens.shape
     rolling = cfg.swa_window is not None and cache_len > cfg.swa_window
     sc = cfg.swa_window if rolling else cache_len
@@ -432,8 +574,9 @@ def prefill(params: dict, tokens, cfg: ModelConfig, *, cache_len: int,
                 "the per-slot start mask to a circular buffer")
         lengths = torch.as_tensor(prompt_lengths, device=tokens.device)
         kv_start = (s - lengths).to(torch.int32)
-    h, _, caches, _ = trunk_forward(params, tokens, cfg, collect_cache=True,
-                                    kv_start=kv_start)
+    h, _, caches, _ = trunk_forward(params, tokens, cfg, frames=frames,
+                                    image_embeds=image_embeds,
+                                    collect_cache=True, kv_start=kv_start)
 
     def fit(x):  # [L, B, S, Hkv, dh] -> [L, B, sc, Hkv, dh]
         if s >= sc:
@@ -444,6 +587,8 @@ def prefill(params: dict, tokens, cfg: ModelConfig, *, cache_len: int,
     if kv_start is not None:
         cache["start"] = (kv_start if s <= sc else
                           torch.clamp(kv_start - (s - sc), min=0))
+    if "xk" in caches:
+        cache["xk"], cache["xv"] = caches["xk"], caches["xv"]
     return cache, h[:, -1]
 
 
@@ -458,24 +603,48 @@ def _head_serving(params: dict, cfg: ModelConfig) -> dict:
             "sigma": bayes_layer.sigma_of(hp).to(cfg.dtype)}
 
 
+def _learned_position(params: dict, pos: int, cfg: ModelConfig):
+    """The learned position term decode adds at ``pos``, as the
+    reference's ``decode_hidden`` computes it: the table's row at
+    ``pos``, clamped to its last row past the table (``lax.
+    dynamic_slice_in_dim`` clamps its start), of which the indexing
+    ``pe[None, 0:1, 0]`` keeps the first element only, broadcast over
+    the model width (ROADMAP C28: prefill adds the whole row).  ->
+    [1, 1] in cfg.dtype."""
+    row = min(max(int(pos), 0), params["pos_embed"].shape[0] - 1)
+    return params["pos_embed"][row, 0:1].to(cfg.dtype)[None]
+
+
 def decode_hidden(params: dict, cache: dict, token, cfg: ModelConfig):
     """One trunk decode step without the Bayesian head: token [B, 1] ->
     (last hidden [B, D], new cache).  The new cache's k/v are a copy
     with this step's entries written at ``pos``; ``pos`` advances by
-    one.  Honors ``cache["start"]`` (left-padded admissions) on a linear
-    cache; a sliding-window config's cache decodes as the rolling one,
-    which ignores it, as the reference's does (ROADMAP C25)."""
-    _refuse_unported(cfg)
+    one; ``xk``/``xv`` are read, not written.  Honors ``cache["start"]``
+    (left-padded admissions) on a linear cache; a sliding-window
+    config's cache decodes as the rolling one, which ignores it, as the
+    reference's does (ROADMAP C25).  A learned position table adds
+    ``_learned_position`` (C28)."""
     pos = int(cache["pos"])
     start = cache.get("start")
     h = _embed(params, token, cfg)                             # [B, 1, D]
+    if cfg.learned_pos:
+        h = h + _learned_position(params, pos, cfg)
     rolling = (cfg.swa_window is not None
                and cache["k"].shape[2] <= cfg.swa_window)
     new_k, new_v = cache["k"].clone(), cache["v"].clone()
-    for l in range(cfg.n_layers):
-        h, _, _ = _block_decode(h, _layer(params["blocks"], l), cfg,
-                                new_k[l], new_v[l], pos, rolling,
-                                start=start)
+    xk, xv = cache.get("xk"), cache.get("xv")
+    n_groups = _n_groups(params, cfg)
+    every = cfg.cross_attn_every if n_groups else cfg.n_layers
+    for g in range(max(n_groups, 1)):
+        for l in range(g * every, (g + 1) * every):
+            lp = _layer(params["blocks"], l)
+            h, _, _ = _block_decode(
+                h, lp, cfg, new_k[l], new_v[l], pos, rolling,
+                xk=xk[l] if "xattn" in lp else None,
+                xv=xv[l] if "xattn" in lp else None, start=start)
+        if n_groups:
+            h = _cross_layer_decode(h, _layer(params["blocks_cross"], g),
+                                    cfg, xk[g], xv[g])
     h = _final_norm(h, params, cfg)
     return h[:, 0], dict(cache, k=new_k, v=new_v, pos=pos + 1)
 

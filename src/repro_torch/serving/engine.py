@@ -692,14 +692,19 @@ class LMServingEngine(_EngineBase):
 
     ``params``: port params of the model (the registry's ``init`` or
     ``bridge.lm_params_from_jax``), moved to the engine's device;
-    ``cfg``: its ``ModelConfig`` (dense, MoE, SSM and hybrid families);
+    ``cfg``: its ``ModelConfig`` (every family of the registry);
     ``n_slots`` slots of prompts left-padded to ``prompt_len`` (an SSM
     config's a multiple of its ``ssm_chunk``) in a KV cache of
     ``cache_len`` (at most a sliding window: such a cache decodes as the
-    rolling one).  An SSM cache's recurrent ``ssm``/``conv`` rows are
-    slot-local and admitted as they are; the hybrid's shared-block k/v
-    are rolled and re-rotated as a transformer's, so every family here
-    (``use_rope``, no learned positions) admits mid-stream.
+    rolling one).  ``extras``: the memory inputs every prefill takes
+    (``frames`` for the audio family, ``image_embeds`` for the VLM,
+    [n_slots, n, d_model]), moved to the engine's device.  An SSM
+    cache's recurrent ``ssm``/``conv`` rows and a cross-attention
+    family's memory ``xk``/``xv`` rows are slot-local and admitted as
+    they are; the self-attention k/v (the hybrid's shared block's too)
+    are rolled and re-rotated, so every RoPE family admits mid-stream.
+    A learned-position trunk (whisper) cannot be re-based: its
+    admissions wait for the pool to drain (``midstream_ok``).
     ``adaptive_mode=False`` draws
     r_max samples a token in one round; ``fused=False`` folds rounds
     through ``mix_samples`` + ``update_stats`` instead of the decision
@@ -711,7 +716,8 @@ class LMServingEngine(_EngineBase):
                  prompt_len: int = 16, cache_len: int = 64,
                  policy: TriagePolicy = TriagePolicy(),
                  adaptive_mode: bool = True,
-                 metrics: ServingMetrics | None = None, fused: bool = True,
+                 metrics: ServingMetrics | None = None,
+                 extras: dict | None = None, fused: bool = True,
                  telemetry: bool | TelemetryConfig = True, tracer=None,
                  profiler: bool | StageProfiler = True, slo=True,
                  trace_pid: int = 0, device=None):
@@ -736,6 +742,7 @@ class LMServingEngine(_EngineBase):
         self.midstream_ok = bool(cfg.use_rope) and not cfg.learned_pos
         self._api = get_api(cfg)
         self._params = _to_device(params, self.device)
+        self._extras = _to_device(dict(extras or {}), self.device)
         self.hcfg = BayesHeadConfig(
             num_samples=policy.r_max, mode="rank16", grng=cfg.grng,
             compute_dtype=cfg.dtype, hoist_basis=False)
@@ -753,7 +760,7 @@ class LMServingEngine(_EngineBase):
     def prefill(self, tokens: torch.Tensor, lengths: torch.Tensor):
         return self._api.prefill(self._params, tokens, self.cfg,
                                  cache_len=self.cache_len,
-                                 prompt_lengths=lengths)
+                                 prompt_lengths=lengths, **self._extras)
 
     def decode(self, cache: dict, token: torch.Tensor):
         return self._api.decode_hidden(self._params, cache, token, self.cfg)
@@ -779,9 +786,9 @@ class LMServingEngine(_EngineBase):
         pool's slots ``idx``, in place, re-based to the pool clock: k
         rolled by ``delta`` along the cache and re-rotated, v rolled,
         ``start`` shifted by ``delta``; the SSM's ``ssm``/``conv`` rows
-        are slot-local and copied as they are (cast to the pool's
-        dtype: a decode step leaves the conv state in float32, as the
-        reference's)."""
+        and the memory's ``xk``/``xv`` rows are slot-local and copied as
+        they are (cast to the pool's dtype: a decode step leaves the
+        conv state in float32, as the reference's)."""
         for key, leaf in self.cache.items():
             if key == "pos":
                 continue

@@ -66,6 +66,11 @@ padded vocabularies (N = 50,432 and 32,000, B 4) to the dense LM's
 tolerance, rank16 at their heads (K 768 and 2,560, R 8, bf16) to
 rtol/atol 1e-4, and ``ssd_chunked`` at mamba2-130m's layer shape: 512
 tokens equal to two chunks with the state carried, card against CPU.
+The audio and VLM LMs: the decision kernel at whisper-medium's and
+llama-3.2-vision-11b's padded vocabularies (N = 51,968 and 128,256, B 4)
+to the dense LM's tolerance, rank16 at their heads (K 1,024 and 4,096,
+R 8, bf16) to rtol/atol 1e-4, and both SMOKE configs' engines in
+float32, card against CPU, as qwen3-0.6b's.
 Observability: the engine's cost records against the launches the
 wrappers count (the same verdicts and syncs with the instruments on and
 off), and ``trace_capture``'s trace holding every decision and CIM
@@ -1075,3 +1080,78 @@ def test_ssm_chunk_carry_card_against_cpu(hopper):
             out[dev] = (y.cpu(), st.cpu())
     for got, want in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# the audio and VLM LMs
+# ----------------------------------------------------------------------
+XATTN_HEADS = {"whisper-medium": (1024, 51968),
+               "llama-3.2-vision-11b": (4096, 128256)}
+
+
+@pytest.mark.parametrize("arch", list(XATTN_HEADS))
+@pytest.mark.parametrize("r,read_sigma", [(4, 0.0), (20, 0.0), (20, 0.4)])
+def test_decision_kernel_at_xattn_vocabulary(hopper, arch, r, read_sigma):
+    """The tiled variant at each arch's padded vocabulary (B 4), held as
+    at qwen3-0.6b's: rtol 1e-4 with absolute floors of 1e-4 × R/N,
+    × R/N² and × R."""
+    n = XATTN_HEADS[arch][1]
+    args = _case(hopper, 4, n, r, read_sigma)
+    got = decision_stats(**args)
+    want = decision_stats_plain(**args)
+    torch.cuda.synchronize()
+    for key in KEYS:
+        torch.testing.assert_close(got[key], want[key], rtol=1e-4,
+                                   atol=1e-4 * _floor(key, r, n), msg=key)
+
+
+@pytest.mark.parametrize("arch", list(XATTN_HEADS))
+def test_rank16_at_xattn_heads(hopper, arch):
+    """decode_step's head: B 4, K d_model, N the padded vocabulary, R 8
+    (uq_samples), bf16 x, µ' and σ; rtol/atol 1e-4."""
+    k, n = XATTN_HEADS[arch]
+    cfg = GRNGConfig()
+    x, mu, sigma = _head_case(hopper, 4, k, n, dtype=torch.bfloat16)
+    sel = selections(cfg, 8, 17, device=hopper)
+    before = bayes.bayes_rank16.launches
+    got = bayes.bayes_rank16(x, mu, sigma, sel, cfg)
+    want = bayes.bayes_rank16_plain(x, mu, sigma, sel, cfg)
+    torch.cuda.synchronize()
+    assert bayes.bayes_rank16.launches == before + 1
+    assert got.shape == (8, 4, n)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", list(XATTN_HEADS))
+def test_xattn_engine_smoke_card_against_cpu(hopper, arch):
+    """Each SMOKE config in float32 served on the card and on the CPU
+    from the same params, prompts and stub memory, accepting every
+    token: the same verdicts, tokens, samples and host syncs,
+    confidence and MI within 1e-5 (ROADMAP C6); whisper's third request
+    waits for the drain, so both runs admit twice."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import params_init, serve
+    from repro_torch.serving import TriagePolicy
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              dtype=torch.float32)
+    params = params_init(cfg, 0, "cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        outs[dev] = serve(arch, cfg=cfg, params=params, device=dev, batch=2,
+                          prompt_len=8, gen_len=3, n_requests=3,
+                          policy=TriagePolicy(conf_threshold=0.0,
+                                              mi_threshold=1e9, r_min=4,
+                                              r_max=8))
+    got = sorted(outs["cuda"]["verdicts"], key=lambda v: v["rid"])
+    want = sorted(outs["cpu"]["verdicts"], key=lambda v: v["rid"])
+    assert [(v["rid"], v["verdict"], v["prediction"], v["n_samples"],
+             v["n_tokens"]) for v in got] == \
+        [(v["rid"], v["verdict"], v["prediction"], v["n_samples"],
+          v["n_tokens"]) for v in want]
+    for a, b in zip(got, want):
+        assert abs(a["confidence"] - b["confidence"]) <= 1e-5
+        assert abs(a["mutual_information"]
+                   - b["mutual_information"]) <= 1e-5
+    assert outs["cuda"]["host_syncs"] == outs["cpu"]["host_syncs"]
+    assert outs["cuda"]["admissions"] == outs["cpu"]["admissions"] == 2

@@ -391,9 +391,9 @@ def test_hybrid_prefill_attention_is_not_masked():
     got, (tk, _) = ts._shared_block_full(_t(h), _t(h0), tp, tc, _t(pos))
     assert _rel(want, got) < F32_REL and _rel(jk, tk) < F32_REL
     u = torch.cat([_t(h), _t(h0)], -1) @ tp["shared_w_in"]
-    masked, _, _ = ttr._block_full(u, tp["shared_attn"], tc, _t(pos),
-                                   causal=True,
-                                   kv_start=torch.tensor([0, s - 5]))
+    masked, _, _, _ = ttr._block_full(u, tp["shared_attn"], tc, _t(pos),
+                                      causal=True,
+                                      kv_start=torch.tensor([0, s - 5]))
     masked = _t(h) + masked @ tp["shared_w_out"]
     assert torch.allclose(masked[0], got[0], atol=1e-5)  # nothing masked
     assert float((masked[1] - got[1]).abs().max()) > 1e-3
