@@ -234,6 +234,24 @@ JSON line):
      reference's, ROADMAP C28); each SMOKE config on the card against
      the CPU (f32 decisions equal, bf16 hidden gap within 0.05,
      asserted; bf16 requests agreeing, reported);
+  7l. the LM trainer (lines ``lm_train``, ``kernel_check`` ``grng_eps``
+     ``lm_train_*``, ``lm_train_card_vs_cpu``, ``lm_train_resume``,
+     ``lm_train_phase_s``): ``launch.train.train(smoke=False)`` on the
+     card for qwen3-0.6b (28 layers, vocabulary 152,064 padded; 30 steps
+     of 8 × 64) and mamba2-130m (24 layers, vocabulary 50,432; 10 steps
+     of 8 × 512, two SSD chunks), params drawn on the card from seed 0:
+     ε launches = steps, every loss finite, the mean ce of the last 5
+     steps below the first step's, one host sync a step (counted by
+     ``set_sync_debug_mode`` over two run lengths) (asserted); ms a step,
+     allocator peak, and a few more steps under ``torch.profiler``
+     (device idle share, ε ms a launch); the head's ε at full width
+     bit-equal to the plain version on its first, middle and last
+     column blocks, timed by graph replay beside its bound; qwen3-0.6b
+     SMOKE through ``make_train_step`` on the card against the CPU, 5
+     steps from the same params (f32: loss within 1e-4 a step, params
+     within 1e-3, asserted; bf16 reported); ``train`` at SMOKE failing
+     at step 3 and resumed, bit for bit an uninterrupted run, and
+     ``compress=True`` leaving a nonzero error state;
   8. kernel timing: device time from CUDA graph replays and per-call
      time of eager calls (CUDA events), beside the plain version's and
      the card's byte/flop bound: decision and CIM at the serving path's
@@ -265,7 +283,8 @@ JSON line):
      ``launch_floor_ms``).  The previous design's times at the same
      shapes, constants from PERF.md and not timed here, stand on a line
      of their own (``previous_design``).  The ε entry counts its launches
-     on the training path (one a step);
+     on the training paths (one a step: the SAR detector's
+     and, under ``lm_train_vocab``, the LM trainer's at full width);
   9. last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the reference package.
 """
@@ -4736,6 +4755,347 @@ def run_lm_xattn() -> dict:
 
 
 # ----------------------------------------------------------------------
+# the LM trainer (launch/train) at full width
+# ----------------------------------------------------------------------
+# qwen3-0.6b (28 layers, d 1,024, vocabulary 152,064 padded; float32
+# params, bf16 compute) at the reference trainer's own batch and
+# sequence defaults (8 × 64), 30 steps; mamba2-130m (24 layers, d 768,
+# vocabulary 50,432) at 8 × 512, two SSD chunks, so the carried state's
+# gradient runs, 10 steps.  Params drawn on the card from seed 0
+# (launch/serve.params_init), the port's own batches (data/tokens).
+LM_TRAIN = (dict(arch="qwen3-0.6b", steps=30, batch=8, seq=64),
+            dict(arch="mamba2-130m", steps=10, batch=8, seq=512))
+LM_TRAIN_TAIL = 5                  # the last steps whose mean ce must fall
+LM_TRAIN_PROFILE_STEPS = 4         # steps under torch.profiler
+LM_TRAIN_SYNC_RUNS = (2, 4)        # train() lengths whose syncs differ by
+# the steps between them: one sync a step, the metrics pull (after a
+# 1-step run under the debug mode, whose first calls sync once more)
+LM_TRAIN_SMOKE = dict(arch="qwen3-0.6b", steps=5, batch=4, seq=16)
+LM_TRAIN_LOSS_ATOL = 1e-4          # card vs CPU a step (float32, SMOKE)
+LM_TRAIN_PARAM_ATOL = 1e-3         # and the params after the steps
+EPS_COL_BLOCK = 4096               # the plain version's column blocks
+
+
+def lm_train_syncs(spec: dict) -> dict:
+    """Host syncs a training step: ``train`` for LM_TRAIN_SYNC_RUNS
+    steps at ``spec``'s shape under ``set_sync_debug_mode("warn")``
+    (after a 1-step run under it), counting the synchronizing calls it
+    reports; both runs make their params and log alike, so the
+    difference over the extra steps is the syncs a step.  Each run's
+    syncs are listed by the line that made them."""
+    import warnings
+    import torch
+    from repro_torch.launch.train import train
+    counts, where = {}, {}
+    for steps in (1, *LM_TRAIN_SYNC_RUNS):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                train(spec["arch"], smoke=False, steps=steps,
+                      batch=spec["batch"], seq=spec["seq"], log_every=10**9)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        synced = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                  if "synchroniz" in str(w.message)]
+        counts[steps] = len(synced)
+        where[steps] = {x: synced.count(x) for x in sorted(set(synced))}
+    a, b = LM_TRAIN_SYNC_RUNS
+    return {"syncs_by_run": counts, "syncs_per_step":
+            (counts[b] - counts[a]) / (b - a), "synced_at": where}
+
+
+def lm_train_profile(spec: dict, params, opt) -> dict:
+    """LM_TRAIN_PROFILE_STEPS more steps of the trainer's loop body
+    (``build_batch``, the step, ``pull_metrics``) from the trained state
+    under ``torch.profiler``: wall and device busy a step, the device's
+    idle share, kernels a step, the ε kernel's device time a launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipelineConfig
+    from repro_torch.launch.profile_serve import _union_us
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_batch, pull_metrics
+    from repro_torch.optim import AdamWConfig
+    cfg = get_config(spec["arch"])
+    pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                               global_batch=spec["batch"])
+    step_fn = make_train_step(cfg, AdamWConfig(), total_steps=spec["steps"],
+                              warmup_steps=max(1, spec["steps"] // 20))
+    n = LM_TRAIN_PROFILE_STEPS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(spec["steps"], spec["steps"] + n):
+            params, opt, m = step_fn(params, opt,
+                                     build_batch(cfg, pipe, s, "cuda"), s)
+            pull_metrics(m)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(kernels, "the profiler recorded no device kernels")
+    busy = _union_us((e.time_range.start, e.time_range.end)
+                     for e in kernels)
+    eps = [e.time_range.elapsed_us() for e in kernels
+           if "grng_eps" in e.name]
+    check(len(eps) == n, f"profile: {len(eps)} ε kernels in {n} steps")
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"profiled_steps": n, "wall_ms_per_step": wall_us / 1e3 / n,
+            "device_busy_ms_per_step": busy / 1e3 / n,
+            "device_idle_share": 1 - busy / wall_us,
+            "kernels_per_step": len(kernels) / n,
+            "eps_kernel_ms_per_launch": sum(eps) / len(eps) / 1e3,
+            "top_kernels_ms_per_step": {k[:60]: v / 1e3 / n
+                                        for k, v in top}}
+
+
+def lm_eps_check(cfg, step: int) -> dict:
+    """The training draw's ε at ``cfg``'s full width, [d_model,
+    vocab_padded] at stream offset ``step`` (the selection
+    ``indexed_selections(lfsr_seed, step)``, as ``bayes_layer.eps_at``
+    draws it): one kernel launch, held bit for bit to the plain version
+    on column blocks of EPS_COL_BLOCK at their offsets (the first, one
+    in the middle and the last, ragged, ending at vocab_padded); then
+    timed by graph replay beside its bound, and the plain version over
+    the whole block (in those column blocks: its [K, N, 16] currents
+    would not fit whole) by one eager call."""
+    import dataclasses
+    import torch
+    from repro_torch.core import lfsr
+    from repro_torch.kernels import grng
+    from repro_torch.kernels.bounds import grng_bound
+    ideal = dataclasses.replace(cfg.grng, read_sigma=0.0, imprint=0.0)
+    k, n = cfg.d_model, cfg.vocab_padded
+    sel = lfsr.indexed_selections(ideal.lfsr_seed, torch.full(
+        (1,), step, dtype=torch.int64, device="cuda"))
+
+    def kernel():
+        return grng.grng_eps(sel, ideal, k, n, sample0=step)
+
+    def plain(c0, c1):
+        return grng.grng_eps_plain(sel, ideal, k, c1 - c0, col0=c0,
+                                   sample0=step)
+    got = kernel()
+    starts = list(range(0, n, EPS_COL_BLOCK))
+    blocks = {"first": starts[0], "middle": starts[len(starts) // 2],
+              "last": starts[-1]}
+    checked = {}
+    for where, c0 in blocks.items():
+        c1 = min(c0 + EPS_COL_BLOCK, n)
+        want = plain(c0, c1)
+        unequal = int((got[:, :, c0:c1] != want).sum())
+        check(unequal == 0, f"{cfg.name}: ε at vocabulary width != plain "
+              f"on columns [{c0}, {c1}) ({unequal} differ)")
+        checked[where] = [c0, c1]
+    del want
+    launches = grng.grng_eps.launches
+    one = time.perf_counter()
+    kernel()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - one
+    ms = device_ms(kernel, max(3, min(100, int(0.02 / max(one, 1e-6)))))
+
+    def plain_whole():
+        for c0 in starts:
+            plain(c0, min(c0 + EPS_COL_BLOCK, n))
+    plain_ms = call_ms(plain_whole, 1, warmup=1)
+    grng.grng_eps.launches = launches
+    del got
+    torch.cuda.empty_cache()
+    row = {"K": k, "N": n, "R": 1, "sample0": step, "equal": True,
+           "blocks_checked": checked, "ms": ms, "plain_ms": plain_ms,
+           "plain_timing": f"eager, CUDA events, over column blocks of "
+                           f"{EPS_COL_BLOCK}",
+           **grng_bound(k, n, 1, ideal)}
+    emit({"kernel_check": "grng_eps", "case": f"lm_train_{cfg.name}",
+          **row})
+    return row
+
+
+def run_lm_train_model(spec: dict) -> dict:
+    """One config trained at full width through ``launch.train.train``
+    on the card: ε launches = steps, every loss finite, the mean ce of
+    the last LM_TRAIN_TAIL steps below the first step's, one host sync a
+    step (asserted); ms a step (median past the first), allocator
+    peak; a profile of a few more steps; the ε kernel at the head's
+    width against its plain version and timed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grng
+    from repro_torch.launch.train import train
+    cfg = get_config(spec["arch"])
+    card_name, _, power = card_line().partition(",")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    grng.grng_eps.launches = 0
+    t0 = time.perf_counter()
+    out = train(spec["arch"], smoke=False, steps=spec["steps"],
+                batch=spec["batch"], seq=spec["seq"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = grng.grng_eps.launches
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    check(launches == spec["steps"], f"{cfg.name}: {launches} ε launches "
+          f"in {spec['steps']} steps")
+    check(all(math.isfinite(h["loss"]) for h in hist),
+          f"{cfg.name}: non-finite training loss")
+    ce = [h["ce"] for h in hist]
+    tail = sum(ce[-LM_TRAIN_TAIL:]) / LM_TRAIN_TAIL
+    check(tail < ce[0], f"{cfg.name}: ce did not fall: {ce[0]} -> {tail}")
+    leaves = tensor_leaves(out["params"])
+    check(all(t.is_cuda for t in leaves), "params off the card")
+    n_params = sum(t.numel() for t in leaves)
+    del leaves
+    profile = lm_train_profile(spec, out["params"], out["opt"])
+    del out
+    torch.cuda.empty_cache()
+    syncs = lm_train_syncs(spec)
+    check(syncs["syncs_per_step"] == 1, f"{cfg.name}: "
+          f"{syncs['syncs_per_step']} host syncs a step ({syncs})")
+    times = [h["step_time"] for h in hist]
+    row = {"lm_train": cfg.name, "card": card_name.strip(),
+           "power_limit": power.strip(), "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab_padded": cfg.vocab_padded,
+           "params": n_params, "batch": spec["batch"], "seq": spec["seq"],
+           "steps": spec["steps"], "eps_launches": launches,
+           "wall_s": wall, "ms_per_step_median":
+           statistics.median(times[1:]) * 1e3,
+           "ms_first_step": times[0] * 1e3,
+           "loss_first": hist[0]["loss"], "loss_last": hist[-1]["loss"],
+           "ce_first": ce[0], "ce_last": ce[-1], f"ce_last{LM_TRAIN_TAIL}"
+           "_mean": tail, "kl_last": hist[-1]["kl"],
+           "grad_norm_last": hist[-1]["grad_norm"],
+           "max_memory_allocated": peak, **syncs, **profile}
+    emit(row)
+    row["eps"] = dict(lm_eps_check(cfg, spec["steps"]), launches=launches)
+    return row
+
+
+def lm_train_card_vs_cpu() -> dict:
+    """qwen3-0.6b SMOKE through ``make_train_step`` for
+    LM_TRAIN_SMOKE's steps on the card and on the CPU from the same
+    params (drawn on the CPU from seed 0) and batches: float32, every
+    step's loss within LM_TRAIN_LOSS_ATOL and the params at the end
+    within LM_TRAIN_PARAM_ATOL (asserted); bf16's gaps reported."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipelineConfig
+    from repro_torch.kernels import grng
+    from repro_torch.launch.serve import params_init
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_batch, pull_metrics
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.utils.trees import leaves, tree_map
+    spec = LM_TRAIN_SMOKE
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(get_config(spec["arch"], smoke=True),
+                                  dtype=dtype)
+        pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                                   global_batch=spec["batch"])
+        step_fn = make_train_step(cfg, AdamWConfig(),
+                                  total_steps=spec["steps"], warmup_steps=1)
+        runs = {}
+        grng.grng_eps.launches = 0
+        for dev in ("cuda", "cpu"):
+            params = tree_map(lambda t: t.to(dev),
+                              params_init(cfg, 0, "cpu"))
+            opt = init_opt_state(params)
+            losses = []
+            for s in range(spec["steps"]):
+                params, opt, m = step_fn(params, opt,
+                                         build_batch(cfg, pipe, s, dev), s)
+                losses.append(pull_metrics(m)["loss"])
+            runs[dev] = (losses, params)
+        check(grng.grng_eps.launches == spec["steps"],
+              f"card vs CPU: {grng.grng_eps.launches} ε launches")
+        loss_gap = max(abs(a - b) for a, b in zip(runs["cuda"][0],
+                                                  runs["cpu"][0]))
+        param_gap = max(float((a.cpu().float() - b.float()).abs().max())
+                        for a, b in zip(leaves(runs["cuda"][1]),
+                                        leaves(runs["cpu"][1])))
+        key = "f32" if dtype == torch.float32 else "bf16"
+        res[key] = {"loss_card": runs["cuda"][0], "loss_cpu": runs["cpu"][0],
+                    "max_loss_gap": loss_gap, "max_param_gap": param_gap}
+        if dtype == torch.float32:
+            check(loss_gap <= LM_TRAIN_LOSS_ATOL and
+                  param_gap <= LM_TRAIN_PARAM_ATOL,
+                  f"LM training card vs CPU: loss gap {loss_gap}, param "
+                  f"gap {param_gap}")
+    emit({"lm_train_card_vs_cpu": f"{spec['arch']} SMOKE, "
+          f"{spec['steps']} steps of make_train_step from the same params "
+          f"and batches; f32: loss within {LM_TRAIN_LOSS_ATOL} a step, "
+          f"params within {LM_TRAIN_PARAM_ATOL} (asserted); bf16 gaps "
+          "reported", **res})
+    return res
+
+
+def lm_train_resume() -> dict:
+    """``train`` at SMOKE on the card: 6 steps with checkpoints every 2
+    and ``fail_at=3`` raise SystemExit; a rerun resumes from step 2 and
+    equals an uninterrupted run bit for bit (params and the losses);
+    then ``compress=True`` for 3 steps: finite losses and a nonzero error
+    state."""
+    import tempfile
+    import torch
+    from repro_torch.launch.train import train
+    from repro_torch.utils.trees import leaves
+    arch, kw = "qwen3-0.6b", dict(steps=6, batch=4, seq=16)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        whole = train(arch, **kw)
+        try:
+            train(arch, ckpt_dir=tmp, ckpt_every=2, fail_at=3, **kw)
+            failed = False
+        except SystemExit:
+            failed = True
+        check(failed, "fail_at=3 did not raise SystemExit")
+        resumed = train(arch, ckpt_dir=tmp, ckpt_every=2, **kw)
+    check([h["step"] for h in resumed["history"]] == [2, 3, 4, 5],
+          "the rerun did not resume from step 2")
+    same_loss = [h["loss"] for h in resumed["history"]] == \
+        [h["loss"] for h in whole["history"][2:]]
+    same_params = all(a.is_cuda and torch.equal(a, b) for a, b in
+                      zip(leaves(resumed["params"]), leaves(whole["params"])))
+    check(same_loss and same_params, "the resumed run differs from the "
+          f"uninterrupted one (losses equal: {same_loss}, params equal: "
+          f"{same_params})")
+    comp = train(arch, steps=3, batch=4, seq=16, compress=True)
+    err_max = max(float(e.abs().max()) for e in leaves(comp["err"]))
+    check(all(math.isfinite(h["loss"]) for h in comp["history"])
+          and err_max > 0, f"compressed training: losses "
+          f"{[h['loss'] for h in comp['history']]}, error state {err_max}")
+    row = {"lm_train_resume": f"{arch} SMOKE: train(steps=6, ckpt_every=2, "
+           "fail_at=3) raised SystemExit, the rerun resumed from step 2 "
+           "and equals an uninterrupted run bit for bit; compress=True for "
+           "3 steps", "bit_equal": True,
+           "losses": [h["loss"] for h in whole["history"]],
+           "compressed_losses": [h["loss"] for h in comp["history"]],
+           "error_state_max_abs": err_max}
+    emit(row)
+    return row
+
+
+def run_lm_train() -> dict:
+    """The lm_train phase: qwen3-0.6b and mamba2-130m trained at full
+    width on the card (each freed before the next), the training card
+    against the CPU, and the resume."""
+    t_phase = time.perf_counter()
+    models = {spec["arch"]: run_lm_train_model(spec) for spec in LM_TRAIN}
+    smoke = lm_train_card_vs_cpu()
+    resume = lm_train_resume()
+    emit({"lm_train_phase_s": time.perf_counter() - t_phase})
+    return {"models": models, "smoke": smoke, "resume": resume}
+
+
+# ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
 def call_ms(fn, iters: int, warmup: int = 50) -> float:
@@ -5309,10 +5669,21 @@ def main() -> int:
     moe = run_lm_moe()
     ssm = run_lm_ssm()
     xattn = run_lm_xattn()
+    lm_train = run_lm_train()
     cim_plan_sweep(cim_inputs)
     head_plan_sweep()
     heads = head_timing(uq_path["launches"], fig9, head_checks, train,
                         trained_uq)
+    heads[0]["launches_by_path"].update(
+        {f"lm_train/{a}": m["eps_launches"]
+         for a, m in lm_train["models"].items()})
+    heads[0]["lm_train_vocab"] = {a: m["eps"]
+                                  for a, m in lm_train["models"].items()}
+    heads[0]["lm_train_vocab_what"] = (
+        "the LM trainer's head draw at full width, [d_model, vocab_padded] "
+        "R = 1, one launch a step of launch.train.train; bit-equal to the "
+        "plain version on its first, middle and last column blocks; the "
+        "plain version timed over the whole block in column blocks")
     heads[1]["launches_lifetime_static_arms"] = lifetime["rank16_launches"]
     heads[1]["max_abs_err"] = max(heads[1]["max_abs_err"],
                                   lifetime["rank16_checks"]["max_abs_err"],

@@ -41,6 +41,13 @@ serves qwen3-0.6b, qwen3-1.7b, yi-9b or qwen1.5-110b (``configs``)
 through ``serving.LMServingEngine`` over ``models.transformer``, each
 token decided at vocabulary width through the decision kernel.
 
+The LM trainer: ``launch.train.train`` (and ``python -m
+repro_torch.launch.train``) trains any LM family through
+``launch.steps.make_train_step`` (every family's ``train_loss``, remat,
+AdamW with optional master weights, microbatches), each step's head
+draw at vocabulary width through the ε kernel, with asynchronous
+checkpoints, resume, gradient compression and a straggler monitor.
+
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``): ``resolve_device(None)`` is ``"cuda"``.  Float32
 convolutions and matrix products run in float32 on the card

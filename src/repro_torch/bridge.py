@@ -8,8 +8,13 @@ the port OIHW ``(cout, cin, k, k)``; biases and the Bayesian head's
 reference's tree and stacked layout as they are.  A chip instance crosses as the dict of
 numpy arrays its ``to_tree`` gives, a deployed serving head as its
 arrays, an AdamW state as its two moment trees (laid out like the
-params) and its int32 count, mission worlds as their arrays and,
-optionally, the reference's rendered exposures.
+params), its int32 count and, with master weights, its float32 master
+tree (a gradient-compression error state is laid out like the params
+and crosses as they do), mission worlds as their arrays and, optionally, the reference's
+rendered exposures.  numpy has no bfloat16 of its own: a bfloat16 array
+of the reference (``ml_dtypes``' type, whose name is ``bfloat16``)
+crosses by its 16-bit patterns, and ``to_numpy`` widens a bfloat16
+tensor to float32 (exactly).
 """
 
 from __future__ import annotations
@@ -48,7 +53,11 @@ def lm_params_from_jax(tree: dict, device="cpu") -> dict:
     leaves, the VLM's ``blocks_cross``), as tensors."""
     if isinstance(tree, dict):
         return {k: lm_params_from_jax(v, device) for k, v in tree.items()}
-    return torch.as_tensor(np.array(tree, copy=True), device=device)
+    arr = np.array(tree, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
 
 
 def lm_params_to_jax(params: dict) -> dict:
@@ -71,6 +80,25 @@ def opt_state_to_jax(state: dict) -> dict:
     return {"mu": params_to_jax(state["mu"]),
             "nu": params_to_jax(state["nu"]),
             "count": np.asarray(to_numpy(state["count"]), np.int32)}
+
+
+def lm_opt_state_from_jax(state: dict, device="cpu") -> dict:
+    """The reference's AdamW state of LM params (numpy: ``mu``, ``nu``,
+    ``count`` and, with master weights, ``master``) -> the port's, each
+    tree in ``lm_params_from_jax``'s layout."""
+    out = {k: lm_params_from_jax(state[k], device)
+           for k in ("mu", "nu", "master") if k in state}
+    out["count"] = torch.tensor(np.asarray(state["count"]),
+                                dtype=torch.int32, device=device)
+    return out
+
+
+def lm_opt_state_to_jax(state: dict) -> dict:
+    """Inverse of ``lm_opt_state_from_jax`` (numpy)."""
+    out = {k: to_numpy(state[k]) for k in ("mu", "nu", "master")
+           if k in state}
+    out["count"] = np.asarray(to_numpy(state["count"]), np.int32)
+    return out
 
 
 def instance_from_tree(tree: dict):
@@ -105,7 +133,9 @@ def worlds_from_jax(worlds: dict, exposures=None) -> dict:
 def to_numpy(tree):
     """Tensors (nested in dicts/lists/tuples) -> numpy arrays."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        t = tree.detach().cpu()
+        return (t.to(torch.float32) if t.dtype == torch.bfloat16
+                else t).numpy()
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -1,6 +1,8 @@
 """Checkpoints (mirrors ``repro/ckpt``): atomic, checksummed param
-trees.  ``AsyncCheckpointer`` belongs to the LM trainer, not ported."""
+trees, written synchronously (``save``) or on a background thread
+(``AsyncCheckpointer``)."""
 
-from repro_torch.ckpt.checkpoint import latest_step, restore, save
+from repro_torch.ckpt.checkpoint import (AsyncCheckpointer, latest_step,
+                                         restore, save)
 
-__all__ = ["latest_step", "restore", "save"]
+__all__ = ["AsyncCheckpointer", "latest_step", "restore", "save"]

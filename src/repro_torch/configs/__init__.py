@@ -2,8 +2,8 @@
 (port of ``repro/configs/__init__.py``) over the four dense
 architectures, the two MoE ones, the SSM (mamba2-130m), the hybrid
 (zamba2-2.7b), the audio encoder-decoder (whisper-medium) and the VLM
-(llama-3.2-vision-11b): the reference's ten.  The reference's dry-run
-shape grid (``shapes.py``) waits for the LM trainer (ROADMAP A14)."""
+(llama-3.2-vision-11b): the reference's ten.  ``shapes`` holds the
+reference's input-shape presets (the dry-run grid's cells) as data."""
 
 from repro_torch.configs import (llama_3_2_vision_11b, mamba2_130m,
                                  mixtral_8x7b, qwen1_5_110b, qwen3_0_6b,

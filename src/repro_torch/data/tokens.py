@@ -13,8 +13,13 @@ draws are the port's own, not JAX's threefry: the structure is the
 reference's, the tokens are not.  The stub audio-frontend frames and
 vision patch embeddings (``stub_frames``, ``stub_image_embeds``) are
 standard normal float32 [B, n, d], drawn the same way from (seed, salt,
-step) with a salt each.  ``host_shard`` waits for the LM trainer
-(ROADMAP A14).
+step) with a salt each.  ``host_shard`` slices a global batch into one
+host's rows, as a multi-host loader would.
+
+The LM trainer (``launch/train``) trains on these batches, not on the
+reference's: the reference draws its tokens with JAX's threefry, which
+the port does not carry, and its tests hold the two trainers to each
+other on the reference's own batches, carried over as numpy.
 """
 
 from __future__ import annotations
@@ -80,6 +85,16 @@ def batch_iterator(cfg: TokenPipelineConfig, start_step: int = 0,
     while True:
         yield step, batch_at(cfg, step, device)
         step += 1
+
+
+def host_shard(batch: dict, host_id: int, num_hosts: int) -> dict:
+    """Host ``host_id``'s contiguous slice of every leaf's leading (batch)
+    axis, of ``num_hosts`` equal slices (a remainder is dropped, as the
+    reference drops it)."""
+    def slc(x):
+        per = x.shape[0] // num_hosts
+        return x[host_id * per:(host_id + 1) * per]
+    return {k: slc(v) for k, v in batch.items()}
 
 
 def _stub_embeds(cfg: TokenPipelineConfig, salt: int, n: int, d_model: int,

@@ -69,6 +69,26 @@ def grng_eps_plain(sel, cfg: g.GRNGConfig, n_rows: int, n_cols: int,
                                  col0) for r in range(sel.shape[0])])
 
 
+# the kernel's grid: 32 columns by 16 rows a block, at most 65,535
+# blocks down the rows (CUDA's grid.y); counts are C ints, offsets into
+# the output 64-bit (a vocabulary-width head's block passes 2^31 bytes
+# from ~537 M cells)
+MAX_ROWS = 65535 * 16
+_INT_MAX = 2**31 - 1
+MAX_COLS = _INT_MAX - 31                 # blockIdx.x · 32 + lane stays an int
+
+
+def check_block(r: int, n_rows: int, n_cols: int) -> None:
+    """Raise ValueError unless the kernel's one launch takes an ε block
+    of R samples × n_rows × n_cols."""
+    if min(r, n_rows, n_cols) < 1:
+        raise ValueError("empty ε block")
+    if r > _INT_MAX or n_rows > MAX_ROWS or n_cols > MAX_COLS:
+        raise ValueError(f"ε block [{r}, {n_rows}, {n_cols}] exceeds one "
+                         f"launch (R ≤ {_INT_MAX}, rows ≤ {MAX_ROWS}, "
+                         f"columns ≤ {MAX_COLS})")
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     from repro_torch.kernels.build import load
@@ -87,8 +107,7 @@ def _launch(sel, cfg, n_rows, n_cols, row0, col0, sample0):
     if tuple(sel.shape) != (r, 16) or not sel.is_contiguous():
         raise ValueError(f"sel must be a contiguous [R, 16] tensor, got "
                          f"{tuple(sel.shape)}")
-    if min(r, n_rows, n_cols) < 1:
-        raise ValueError("empty ε block")
+    check_block(r, n_rows, n_cols)
     out = torch.empty((r, n_rows, n_cols), dtype=torch.float32, device=dev)
     params = grng_params(cfg)
     with torch.cuda.device(dev):

@@ -29,11 +29,16 @@ NEG_INF = -1e30
 
 def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     """Repeat KV heads [B, S, Hkv, dh] to the query head count: query
-    head h reads KV head h // (n_heads / Hkv)."""
-    hkv = k.shape[2]
+    head h reads KV head h // (n_heads / Hkv).  An expanded view, so the
+    backward sums a KV head's query heads as a reduction
+    (``repeat_interleave``'s backward adds them with atomics on the
+    card, in an order that changes from run to run)."""
+    b, s, hkv, dh = k.shape
     if hkv == n_heads:
         return k
-    return torch.repeat_interleave(k, n_heads // hkv, dim=2)
+    rep = n_heads // hkv
+    return k[:, :, :, None].expand(b, s, hkv, rep, dh).reshape(
+        b, s, n_heads, dh)
 
 
 def _pad_seq(x: torch.Tensor, pad: int) -> torch.Tensor:

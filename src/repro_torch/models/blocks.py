@@ -2,13 +2,15 @@
 
 Parameters are plain nested dicts of tensors; layer stacks carry a
 leading L axis on every leaf, as the reference's ``lax.scan`` stacks
-do.  The port runs forward only: ``rms_norm``'s custom backward (the
-reference keeps [B, S, D] cotangents in x.dtype) waits for the LM
-trainer, as does ``causal_cross_entropy``.
+do.
 
 Statistics (norm moments, RoPE angles) are float32; their application
 is in x.dtype, as the reference's: an f32 rotation or norm would widen
-every activation.
+every activation.  ``rms_norm`` carries the reference's custom backward
+(``_RmsNorm``): its [B, S, D] cotangents stay in x.dtype and only the
+[B, S, 1] reductions run in float32, where plain autograd of the
+forward would widen the cotangent to float32 (and round bfloat16
+gradients differently from the reference's).
 """
 
 from __future__ import annotations
@@ -18,13 +20,37 @@ import math
 import torch
 
 
+class _RmsNorm(torch.autograd.Function):
+    """x · rsqrt(mean(x²) + eps) · scale with the reference's
+    ``_rms_fwd``/``_rms_bwd`` (``repro/models/blocks.py:27-44``)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        var = x.to(torch.float32).square().mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + eps)                         # [.., 1] f32
+        ctx.save_for_backward(x, inv, scale)
+        return x * inv.to(x.dtype) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, inv, scale = ctx.saved_tensors
+        inv_x = inv.to(x.dtype)
+        sc = scale.to(x.dtype)
+        proj = (g * sc * x).to(torch.float32).sum(dim=-1, keepdim=True)
+        # inv ** 3 as lax.integer_pow expands it: inv · (inv · inv)
+        coef = (inv * (inv * inv) * proj / x.shape[-1]).to(x.dtype)
+        dx = g * sc * inv_x - x * coef
+        dscale = (g * x * inv_x).to(torch.float32).sum(
+            dim=tuple(range(g.ndim - 1))).to(scale.dtype)
+        return dx, dscale, None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """x · rsqrt(mean(x²) + eps) · scale: the statistic in float32,
-    cast to x.dtype, then applied in x.dtype."""
-    var = x.to(torch.float32).square().mean(dim=-1, keepdim=True)
-    inv = torch.rsqrt(var + eps).to(x.dtype)
-    return x * inv * scale.to(x.dtype)
+    cast to x.dtype, then applied in x.dtype; the backward in x.dtype
+    too, with float32 only in its [B, S, 1] and per-scale reductions."""
+    return _RmsNorm.apply(x, scale, eps)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -107,3 +133,18 @@ def apply_rope(x: torch.Tensor, positions, theta: float) -> torch.Tensor:
     sin = torch.sin(angles)[..., None, :].to(x.dtype)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def causal_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         vocab_real: int) -> torch.Tensor:
+    """Mean next-token cross entropy in float32: logits [B, S, Vp] (the
+    padded vocabulary; columns ≥ ``vocab_real`` set to −1e30, so they
+    take no mass), labels [B, S]."""
+    logits = logits.to(torch.float32)
+    vp = logits.shape[-1]
+    if vp > vocab_real:
+        col = torch.arange(vp, device=logits.device)
+        logits = torch.where(col < vocab_real, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()

@@ -80,12 +80,28 @@ def _causal_conv_full(x, w, b):
 
 
 def _segsum_exp(a):
-    """L[i, j] = exp(Σ_{j<t≤i} a_t) for i ≥ j, else 0.  a [..., Q]."""
+    """L[i, j] = exp(Σ_{j<t≤i} a_t) for i ≥ j, else 0.  a [..., Q].
+
+    The masked entries are set to −inf before the exp, where the
+    reference masks after it: the same values, but above the diagonal
+    the exponent is positive and at a full chunk of 256 overflows, and
+    the backward of an overflowed exp under the mask is inf · 0 = NaN
+    (ROADMAP C30)."""
     q = a.shape[-1]
     cs = torch.cumsum(a, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]               # [..., Q, Q]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
-    return torch.where(mask, torch.exp(diff), torch.zeros((), device=a.device))
+    return torch.exp(torch.where(mask, diff, float("-inf")))
+
+
+def _repeat_heads(x, rep: int):
+    """[B, Q, G, N] -> [B, Q, G·rep, N], group g's row for heads
+    g·rep … g·rep + rep − 1 (``jnp.repeat`` on axis 2).  An expanded
+    view: its backward sums the rep heads (where ``repeat_interleave``'s
+    scatters them with atomics on the card, in an order that changes
+    from run to run)."""
+    b, q, g, n = x.shape
+    return x[:, :, :, None].expand(b, q, g, rep, n).reshape(b, q, g * rep, n)
 
 
 def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int, state0=None):
@@ -108,8 +124,8 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int, state0=None):
     ys = []
     for c0 in range(0, s, chunk):
         xq, dtq = x[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]
-        bq_h = torch.repeat_interleave(b_mat[:, c0:c0 + chunk], rep, dim=2)
-        cq_h = torch.repeat_interleave(c_mat[:, c0:c0 + chunk], rep, dim=2)
+        bq_h = _repeat_heads(b_mat[:, c0:c0 + chunk], rep)
+        cq_h = _repeat_heads(c_mat[:, c0:c0 + chunk], rep)
         adt_t = (dtq * a).transpose(1, 2)                    # [B, H, Q]
         cum = torch.cumsum(adt_t, dim=-1)
         lmat = _segsum_exp(adt_t)                            # [B, H, Q, Q]

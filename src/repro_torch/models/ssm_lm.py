@@ -83,16 +83,19 @@ def trunk_forward_ssm(params: dict, tokens, cfg,
                       collect_cache: bool = False):
     """tokens [B, S] -> (hidden [B, S, D], aux 0, caches or None):
     ``collect_cache`` gives {"ssm", "conv"} stacked over the layers and,
-    for the hybrid, {"k", "v"} [sites, B, S, Hkv, dh]."""
+    for the hybrid, {"k", "v"} [sites, B, S, Hkv, dh].  The mamba
+    bodies run under ``cfg.remat`` (the shared block does not, as in
+    the reference)."""
     b, s = tokens.shape
     h = tr._embed(params, tokens, cfg)
     h0 = h
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device)[None].expand(b, s)
     ssm, conv, ks, vs = [], [], [], []
+    mamba_body = tr._maybe_remat(
+        lambda h, lp: mamba_block_full(h, lp, cfg), cfg)
     for l in range(cfg.n_layers):
-        out, (st, cst) = mamba_block_full(h, tr._layer(params["mamba"], l),
-                                          cfg)
+        out, (st, cst) = mamba_body(h, tr._layer(params["mamba"], l))
         h = h + out
         if collect_cache:
             ssm.append(st)
@@ -111,12 +114,16 @@ def trunk_forward_ssm(params: dict, tokens, cfg,
     return h, torch.zeros((), dtype=torch.float32, device=h.device), caches
 
 
-def train_loss_ssm(params, batch, cfg, step=0):
-    """The SSM LMs' training loss waits for the LM trainer (ROADMAP
-    A14)."""
-    raise NotImplementedError(
-        "the SSM LM training loss is not ported yet (ROADMAP A14: the LM "
-        "trainer, launch/train and launch/steps)")
+def train_loss_ssm(params, batch, cfg, step: int = 0):
+    """Next-token cross entropy + kl_weight · KL / tokens at stream
+    offset ``step`` (``transformer.head_logits_train``); S a multiple of
+    ``cfg.ssm_chunk``.  -> (loss, {"ce", "kl", "aux": 0})."""
+    h, aux, _ = trunk_forward_ssm(params, batch["tokens"], cfg)
+    logits, kl = tr.head_logits_train(params["head"], h, cfg, step)
+    ce = blocks.causal_cross_entropy(logits, batch["labels"], cfg.vocab)
+    n_tokens = batch["tokens"].shape[0] * batch["tokens"].shape[1]
+    return ce + cfg.kl_weight * kl / n_tokens, {"ce": ce, "kl": kl,
+                                                "aux": aux}
 
 
 def prefill_ssm(params: dict, tokens, cfg, *, cache_len: int,

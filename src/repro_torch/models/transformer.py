@@ -28,13 +28,22 @@ The SSM and hybrid families live in ``models/ssm_lm`` and reuse this
 module's blocks (``_init_block``, ``_block_full``, ``_block_decode``)
 for the hybrid's shared block.
 
-What is not here: ``train_loss`` waits for the LM trainer (ROADMAP
-A14); the MoE mesh path (``make_sharded_moe``) waits for more than one
-GPU (A10).  The reference's ``_wsc``/``_tp_linear``/remat
-helpers constrain shardings and trade memory in the backward on a TPU
-mesh; on one card in forward they have no meaning, and
-``ModelConfig``'s mesh hints (``batch_axes``, ``model_axis_size``,
-``explicit_tp``, ``remat``) are carried as data only.
+Training: ``train_loss`` is next-token cross entropy plus the head's
+KL (Bayes-by-backprop: ``head_logits_train`` draws the head's weights
+once at the step's stream offset, ε through the GRNG ε kernel on the
+card) plus the MoE aux loss.  ``cfg.remat`` is honoured as the
+reference's ``_maybe_remat`` honours it, on every layer body of the
+trunk and the encoder, whenever autograd records: ``full`` recomputes a
+layer's forward in the backward (``torch.utils.checkpoint``), ``dots``
+keeps the layer's matrix products without a batch axis (``aten.mm``,
+as ``dots_with_no_batch_dims_saveable``) and recomputes the rest,
+``none`` keeps everything.  Remat changes no value.
+
+What is not here: the MoE mesh path (``make_sharded_moe``) waits for
+more than one GPU (A10).  The reference's ``_wsc``/``_tp_linear``
+helpers constrain shardings on a TPU mesh and have no meaning on one
+card; ``ModelConfig``'s mesh hints (``batch_axes``,
+``model_axis_size``, ``explicit_tp``) are carried as data only.
 
 The decode cache is {"k", "v": [L, B, Sc, Hkv, dh] in cfg.dtype, "pos":
 a host int (the pool clock: every position it sets is a launch-time
@@ -50,10 +59,12 @@ ignores ``start`` as the reference does (ROADMAP C25).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt_util
 
 from repro_torch.core import bayes_layer
 from repro_torch.core.bayes_layer import BayesDenseConfig
@@ -116,7 +127,7 @@ class ModelConfig:
     kl_weight: float = 1e-5
     # compute
     dtype: Any = torch.bfloat16
-    remat: str = "full"          # full | dots | none (data only here)
+    remat: str = "full"          # full | dots | none
     attn_chunk_q: int = 512
     attn_chunk_kv: int = 1024
     # mesh hints of the reference's launcher (data only on one card)
@@ -289,6 +300,42 @@ def init_transformer(generator: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 # ----------------------------------------------------------------------
+# Remat
+# ----------------------------------------------------------------------
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots``: keep the products without a batch axis, recompute the
+    rest."""
+    return (ckpt_util.CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOTS
+            else ckpt_util.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` under the config's remat policy (the reference's
+    ``_maybe_remat``): checkpointed when autograd records and its first
+    argument (the hidden state) carries a gradient, else ``fn`` itself,
+    so serving never pays for it.  The bodies draw nothing at random, so
+    no RNG state is stashed."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    context_fn = (functools.partial(
+        ckpt_util.create_selective_checkpoint_contexts, _save_dots)
+        if cfg.remat == "dots" else ckpt_util.noop_context_fn)
+
+    def remat(h, *args):
+        if not (torch.is_grad_enabled() and h.requires_grad):
+            return fn(h, *args)
+        return ckpt_util.checkpoint(fn, h, *args, use_reentrant=False,
+                                    preserve_rng_state=False,
+                                    context_fn=context_fn)
+    return remat
+
+
+# ----------------------------------------------------------------------
 # Block applications
 # ----------------------------------------------------------------------
 def _layer(tree: dict, l: int) -> dict:
@@ -458,9 +505,10 @@ def _encode(params: dict, frames, cfg: ModelConfig):
     b, sf = eh.shape[:2]
     epos = torch.arange(sf, dtype=torch.int32,
                         device=eh.device)[None].expand(b, sf)
+    body = _maybe_remat(lambda h, lp: _block_full(h, lp, cfg, epos,
+                                                   causal=False)[0], cfg)
     for l in range(enc["blocks"]["ln1"].shape[0]):
-        eh, _, _, _ = _block_full(eh, _layer(enc["blocks"], l), cfg, epos,
-                                  causal=False)
+        eh = body(eh, _layer(enc["blocks"], l))
     return blocks.layer_norm(eh, enc["final_norm"], enc["final_norm_b"])
 
 
@@ -498,7 +546,8 @@ def trunk_forward(params: dict, tokens, cfg: ModelConfig, *, frames=None,
     B, Sm, Hkv, dh]}; ``kv_start``: optional [B] first valid positions
     of left-padded rows (masks self-attention only).  ``frames``
     (whisper) or ``image_embeds`` (VLM) feed the memory; a learned
-    position table adds its first S rows to the embeddings."""
+    position table adds its first S rows to the embeddings.  Each layer
+    body runs under ``cfg.remat`` (``_maybe_remat``)."""
     b, s = tokens.shape
     h = _embed(params, tokens, cfg)
     if cfg.learned_pos:
@@ -510,11 +559,14 @@ def trunk_forward(params: dict, tokens, cfg: ModelConfig, *, frames=None,
     ks, vs, xks, xvs = [], [], [], []
     n_groups = _n_groups(params, cfg)
     every = cfg.cross_attn_every if n_groups else cfg.n_layers
+    self_body = _maybe_remat(
+        lambda h, lp: _block_full(h, lp, cfg, positions, causal=True,
+                                  kv_start=kv_start, memory=memory), cfg)
+    cross_body = _maybe_remat(
+        lambda h, lp: _cross_layer_full(h, lp, cfg, memory), cfg)
     for g in range(max(n_groups, 1)):
         for l in range(g * every, (g + 1) * every):
-            h, a, (k, v), xkv = _block_full(
-                h, _layer(params["blocks"], l), cfg, positions, causal=True,
-                kv_start=kv_start, memory=memory)
+            h, a, (k, v), xkv = self_body(h, _layer(params["blocks"], l))
             aux = aux + a
             if collect_cache:
                 ks.append(k)
@@ -523,8 +575,8 @@ def trunk_forward(params: dict, tokens, cfg: ModelConfig, *, frames=None,
                     xks.append(xkv[0])
                     xvs.append(xkv[1])
         if n_groups:
-            h, a, (xk, xv) = _cross_layer_full(
-                h, _layer(params["blocks_cross"], g), cfg, memory)
+            h, a, (xk, xv) = cross_body(
+                h, _layer(params["blocks_cross"], g))
             aux = aux + a
             if collect_cache:
                 xks.append(xk)
@@ -537,11 +589,38 @@ def trunk_forward(params: dict, tokens, cfg: ModelConfig, *, frames=None,
     return _final_norm(h, params, cfg), aux, caches, memory
 
 
-def train_loss(params, batch, cfg: ModelConfig, step=0):
-    """The LM's training loss waits for the LM trainer (ROADMAP A14)."""
-    raise NotImplementedError(
-        "the LM training loss is not ported yet (ROADMAP A14: the LM "
-        "trainer, launch/train and launch/steps)")
+# ----------------------------------------------------------------------
+# Heads + losses
+# ----------------------------------------------------------------------
+def head_logits_train(params_head: dict, h, cfg: ModelConfig, step: int):
+    """One reparameterized draw of the head at stream offset ``step``
+    (Bayes-by-backprop): -> (logits h·w in h.dtype, the head's KL).  ε
+    comes from ``bayes_layer.sample_weights_at`` (on the card one ε
+    kernel launch, [d_model, vocab_padded]) and carries no gradient.
+    A non-Bayesian head gives h·w and KL 0."""
+    if not cfg.bayesian_head:
+        return (h @ params_head["w"].to(h.dtype),
+                torch.zeros((), dtype=torch.float32, device=h.device))
+    bcfg = cfg.head_bayes_cfg()
+    w = bayes_layer.sample_weights_at(params_head, bcfg, step)
+    kl = bayes_layer.kl_divergence(params_head, bcfg)
+    return h @ w.to(h.dtype), kl
+
+
+def train_loss(params, batch, cfg: ModelConfig, step: int = 0):
+    """Next-token cross entropy + kl_weight · KL / tokens +
+    aux_loss_weight · MoE aux, at stream offset ``step`` (the host's
+    step count: nothing is read back from the card).  ``batch``:
+    {"tokens", "labels": [B, S]} and, for the audio and VLM families,
+    "frames" / "image_embeds".  -> (loss, {"ce", "kl", "aux"})."""
+    h, aux, _, _ = trunk_forward(
+        params, batch["tokens"], cfg, frames=batch.get("frames"),
+        image_embeds=batch.get("image_embeds"))
+    logits, kl = head_logits_train(params["head"], h, cfg, step)
+    ce = blocks.causal_cross_entropy(logits, batch["labels"], cfg.vocab)
+    n_tokens = batch["tokens"].shape[0] * batch["tokens"].shape[1]
+    loss = ce + cfg.kl_weight * kl / n_tokens + cfg.aux_loss_weight * aux
+    return loss, {"ce": ce, "kl": kl, "aux": aux}
 
 
 # ----------------------------------------------------------------------

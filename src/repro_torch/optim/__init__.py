@@ -1,6 +1,6 @@
-"""Optimizers (mirrors ``repro/optim``): the reference's AdamW and its
-LR schedule.  ``compression.py`` belongs to the LM trainer, not ported.
-"""
+"""Optimizers (mirrors ``repro/optim``): the reference's AdamW (with
+its float32 master weights), its LR schedule and, in ``compression``,
+int8 gradient compression with error feedback."""
 
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update, global_norm,
                                      init_opt_state)

@@ -71,6 +71,10 @@ llama-3.2-vision-11b's padded vocabularies (N = 51,968 and 128,256, B 4)
 to the dense LM's tolerance, rank16 at their heads (K 1,024 and 4,096,
 R 8, bf16) to rtol/atol 1e-4, and both SMOKE configs' engines in
 float32, card against CPU, as qwen3-0.6b's.
+The LM trainer: the ε kernel at qwen3-0.6b's head width ([1,024 ×
+152,064], one launch) bit for bit on three column blocks; three float32
+SMOKE training steps card against CPU (tolerances stated in the test);
+``train``'s resume after ``fail_at`` bit for bit on the card.
 Observability: the engine's cost records against the launches the
 wrappers count (the same verdicts and syncs with the instruments on and
 off), and ``trace_capture``'s trace holding every decision and CIM
@@ -1155,3 +1159,94 @@ def test_xattn_engine_smoke_card_against_cpu(hopper, arch):
                    - b["mutual_information"]) <= 1e-5
     assert outs["cuda"]["host_syncs"] == outs["cpu"]["host_syncs"]
     assert outs["cuda"]["admissions"] == outs["cpu"]["admissions"] == 2
+
+
+# ----------------------------------------------------------------------
+# the LM trainer on the card
+# ----------------------------------------------------------------------
+LM_TRAIN_LOSS_ATOL = 1e-4
+LM_TRAIN_PARAM_ATOL = 1e-3
+
+
+def test_grng_eps_at_vocabulary_width(hopper):
+    """The LM trainer's head draw at qwen3-0.6b's full width, [1,024 ×
+    152,064] at one step's indexed selection (623 MB, one launch),
+    bit for bit against the plain version on the first, a middle and
+    the last (ragged) column block of 4,096 at their offsets."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import lfsr
+    cfg = get_config("qwen3-0.6b")
+    ideal = dataclasses.replace(cfg.grng, read_sigma=0.0, imprint=0.0)
+    k, n, step = cfg.d_model, cfg.vocab_padded, 29
+    sel = lfsr.indexed_selections(ideal.lfsr_seed, torch.full(
+        (1,), step, dtype=torch.int64, device=hopper))
+    before = grng.grng_eps.launches
+    got = grng.grng_eps(sel, ideal, k, n, sample0=step)
+    assert grng.grng_eps.launches == before + 1
+    assert got.shape == (1, k, n)
+    for c0 in (0, 77824, 151552):
+        c1 = min(c0 + 4096, n)
+        want = grng.grng_eps_plain(sel, ideal, k, c1 - c0, col0=c0,
+                                   sample0=step)
+        assert torch.equal(got[:, :, c0:c1], want), (c0, c1)
+
+
+def test_lm_train_steps_card_against_cpu(hopper):
+    """Three float32 training steps of qwen3-0.6b SMOKE through
+    ``make_train_step`` on the card and on the CPU from the same params
+    (drawn on the CPU) and batches: one ε launch a step on the card,
+    each step's loss within LM_TRAIN_LOSS_ATOL and the params within
+    LM_TRAIN_PARAM_ATOL (the float order of sums; AdamW's normalized
+    update carries a last-bit gradient difference at lr's scale)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipelineConfig
+    from repro_torch.launch.serve import params_init
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_batch, pull_metrics
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.utils.trees import leaves, tree_map
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", smoke=True),
+                              dtype=torch.float32)
+    pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    step_fn = make_train_step(cfg, AdamWConfig(), total_steps=3,
+                              warmup_steps=1)
+    runs = {}
+    grng.grng_eps.launches = 0
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev), params_init(cfg, 0, "cpu"))
+        opt = init_opt_state(params)
+        losses = []
+        for s in range(3):
+            params, opt, m = step_fn(params, opt,
+                                     build_batch(cfg, pipe, s, dev), s)
+            losses.append(pull_metrics(m)["loss"])
+        runs[dev] = (losses, params)
+    assert grng.grng_eps.launches == 3
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=0,
+                               atol=LM_TRAIN_LOSS_ATOL)
+    for a, b in zip(leaves(runs["cuda"][1]), leaves(runs["cpu"][1])):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=LM_TRAIN_PARAM_ATOL)
+
+
+def test_lm_train_resume_on_the_card(hopper, tmp_path):
+    """``train`` at SMOKE on the card: failing at step 3 with
+    checkpoints every 2 steps, then rerun, equals an uninterrupted run
+    bit for bit (params and losses)."""
+    from repro_torch.launch.train import train
+    from repro_torch.utils.trees import leaves
+    kw = dict(steps=5, batch=4, seq=16)
+    whole = train("qwen3-0.6b", **kw)
+    with pytest.raises(SystemExit):
+        train("qwen3-0.6b", ckpt_dir=str(tmp_path), ckpt_every=2, fail_at=3,
+              **kw)
+    resumed = train("qwen3-0.6b", ckpt_dir=str(tmp_path), ckpt_every=2,
+                    **kw)
+    assert [h["step"] for h in resumed["history"]] == [2, 3, 4]
+    assert [h["loss"] for h in resumed["history"]] == \
+        [h["loss"] for h in whole["history"][2:]]
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in
+               zip(leaves(resumed["params"]), leaves(whole["params"])))

@@ -34,7 +34,8 @@ Inputs are numpy arrays from a seed; params are the reference's
   * ``serve()``'s summary and the CLI (whisper-medium's SMOKE config
     among the archs); ``data/tokens``' bigram and its purity in (seed,
     step); the ``lm_params`` bridge; the audio and VLM families taken
-    by the registry (``train_loss`` raising, naming ROADMAP A14);
+    by the registry (``train_loss`` refusing a batch without the
+    memory input);
     importing every module of the port loads neither jax nor the
     reference.
 """
@@ -596,8 +597,8 @@ def test_lm_params_bridge_round_trip():
 def test_audio_and_vlm_families_are_ported(arch):
     """get_config, get_api and init_transformer take both archs (the
     memory's leaves in the params: whisper's encoder, the VLM's cross
-    layers); train_loss raises naming ROADMAP A14; a prefill without
-    the memory input raises."""
+    layers); train_loss and a prefill without the memory input
+    raise."""
     cfg = get_config(arch, smoke=True)
     assert get_config(arch).family == cfg.family
     api = get_api(cfg)
@@ -607,8 +608,9 @@ def test_audio_and_vlm_families_are_ported(arch):
     params = ttr.init_transformer(torch.Generator().manual_seed(0), cfg)
     assert ("encoder" in params) == (arch == "whisper-medium")
     assert ("blocks_cross" in params) == (arch != "whisper-medium")
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        api.train_loss(params, {}, cfg)
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="stub"):
+        api.train_loss(params, {"tokens": tokens, "labels": tokens}, cfg)
     with pytest.raises(ValueError, match="stub"):
         ttr.prefill(params, torch.zeros((1, 4), dtype=torch.int32), cfg,
                     cache_len=8)

@@ -33,7 +33,7 @@ them to 0 or 1).
     1e-5 (ROADMAP C6).
   * ``serve()`` and the CLI on both archs, the params' tree and scales,
     the bridge's round trip, the registry and configs, and
-    ``train_loss_ssm`` raising.
+    ``train_loss_ssm`` refusing a sequence of part of a chunk.
 """
 
 import dataclasses
@@ -562,6 +562,13 @@ def test_serve_and_cli_take_the_ssm_archs(capsys):
 
 
 def test_train_loss_ssm_raises():
+    """The registry hands out the SSM training loss; it refuses a
+    sequence that is not a whole number of SSD chunks (its parity with
+    the reference is in tests/test_torch_lm_train.py)."""
     cfg = get_config("mamba2-130m", smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        get_api(cfg).train_loss({}, {}, cfg)
+    assert get_api(cfg).train_loss is ts.train_loss_ssm
+    params = get_api(cfg).init(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.zeros((1, cfg.ssm_chunk + 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="chunk-aligned"):
+        get_api(cfg).train_loss(params, {"tokens": tokens,
+                                         "labels": tokens}, cfg)
