@@ -252,6 +252,31 @@ JSON line):
      within 1e-3, asserted; bf16 reported); ``train`` at SMOKE failing
      at step 3 and resumed, bit for bit an uninterrupted run, and
      ``compress=True`` leaving a nonzero error state;
+  7m. the fleet and slot sharding (lines ``kernel_check sharded_*``,
+     ``sharded_pool``, ``fleet``, ``fleet_open_loop``, ``fleet_mixed``,
+     ``mission_sharded``, ``fleet_phase_s``); one card holds every shard
+     and pool (cuda:0 repeated), so these show bit-identity, launch
+     counts and host syncs a tick, not scaling across cards:
+     ``decision_stats_sharded`` over 2 and 4 shards at SAR's shape (B 32,
+     N 2, R 4 and 20, with and without read noise, half the slots
+     masked) and over 2 at B 4, N 152,064, R 20, each bit-equal to the
+     unsharded launch and within TOL (N ≤ 32) or 7h's relative
+     tolerance of its plain version, timed by graph replay beside the
+     unsharded launch; the slot-sharded pool (192 requests, 2 shards)
+     on the ideal and the gate die, records equal to the unsharded
+     pool's bit for bit, one sharded call a round and two launches in
+     it (counts zeroed before, read after); ``serve_sar_fleet`` (4 pools
+     of 32 slots, 256 requests, 25 % fog) gang against sequential on
+     both dies: verdicts and routes equal, gang syncs = ticks < the
+     sequential's, energy = the records' sum (asserted), decisions/s and
+     syncs a decision reported; an open-loop run at half the gang's
+     rate (poisson) with the SLO fleet block (a queue peak a pool) and
+     one stitched trace (a flow from the router to a slot track for
+     every request); a 2-pool gang fleet on cuda:0 and the CPU (the
+     packed results gathered on the card, one pull), each pool equal to
+     a standalone engine on its device; ``fly_mission`` at
+     mission_bench's default scale on both dies over 2 shards against
+     1, logs equal lane for lane, sharded calls = steps × rounds;
   8. kernel timing: device time from CUDA graph replays and per-call
      time of eager calls (CUDA events), beside the plain version's and
      the card's byte/flop bound: decision and CIM at the serving path's
@@ -285,6 +310,9 @@ JSON line):
      of their own (``previous_design``).  The ε entry counts its launches
      on the training paths (one a step: the SAR detector's
      and, under ``lm_train_vocab``, the LM trainer's at full width);
+     ``decision_stats_sharded``'s entry: the whole sharded call at the
+     gate die's round (2 shards) with its plain version, its bound and
+     its launches on the sharded pool and the sharded mission;
   9. last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the reference package.
 """
@@ -5098,6 +5126,399 @@ def run_lm_train() -> dict:
 # ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
+# ----------------------------------------------------------------------
+# the fleet: slot-sharded rounds, the sharded pool, SarServingFleet, the
+# sharded mission.  One card holds every shard and every pool (cuda:0
+# repeated): these runs show bit-identity and host syncs a tick, not
+# scaling across cards.
+# ----------------------------------------------------------------------
+FLEET = dict(n_requests=256, n_pools=4, slots_per_pool=32,
+             corrupt_frac=0.25)
+SHARDED_CASES = {                 # SAR's shape, half the slots masked
+    "sar_r4": dict(b=32, n=2, r=4),
+    "sar_r20": dict(b=32, n=2, r=20),
+    "sar_r4_noise": dict(b=32, n=2, r=4, read_sigma=0.4),
+    "sar_r20_noise": dict(b=32, n=2, r=20, read_sigma=0.4),
+    "lm_vocab_r20": dict(b=4, n=152064, r=20),
+}
+SHARDED_TIMED = "sar_r4_noise"    # the gate die's round, the kernels line
+FLEET_OPEN_LOOP = 0.5             # open loop at this share of closed loop
+
+
+def sharded_check(name: str, args: dict, shards: int) -> dict:
+    """``decision_stats_sharded`` over ``shards`` shards on cuda:0 against
+    one unsharded launch (bit for bit) and against its plain version
+    (TOL at N ≤ 32, LM_RTOL with the LM's floors above); device ms of
+    the sharded call, its plain version and the unsharded launch by
+    graph replay.  Emits the case; -> the line."""
+    import torch
+    from repro_torch.kernels.decision import (decision_stats,
+                                              decision_stats_sharded,
+                                              decision_stats_sharded_plain)
+    a = args            # rows None: the wrapper keys global slot ids
+    devices = ["cuda:0"] * shards
+    got = decision_stats_sharded(**a, devices=devices)
+    whole = decision_stats(**a)
+    plain = decision_stats_sharded_plain(**a, shards=shards)
+    torch.cuda.synchronize()
+    same = all(torch.equal(got[k], whole[k]) for k in STAT_KEYS)
+    check(same, f"sharded_{name} x{shards}: the shards differ from the "
+                f"unsharded launch")
+    n, r = a["y_mu"].shape[1], a["sel"].shape[0]
+    err = max(float((got[k] - plain[k]).abs().max()) for k in STAT_KEYS)
+    if n > 32:
+        rel = relative_errors(f"sharded_{name}", got, plain, r, n)
+    else:
+        rel = None
+        for key in STAT_KEYS:
+            check(torch.allclose(got[key], plain[key], **TOL),
+                  f"sharded_{name} x{shards}: {key} off its plain version "
+                  f"by {float((got[key] - plain[key]).abs().max())}")
+    check(bool((got["sum_p"][~a["mask"]] == 0).all()),
+          f"sharded_{name} x{shards}: masked slots advanced")
+    iters = 200 if n <= 32 else 20
+    work = decision_args_work(args)
+    line = {"kernel_check": f"sharded_{name}", "shards": shards,
+            "devices": devices, "B": a["y_mu"].shape[0], "N": n, "R": r,
+            "read_sigma": a["cfg"].read_sigma, "masked_slots":
+            int((~a["mask"]).sum()), "bit_equal_unsharded": same,
+            "max_abs_err": err, "rtol": TOL["rtol"], "atol": TOL["atol"],
+            **({"relative": {"rtol": LM_RTOL, "errors": rel}} if rel
+               else {}),
+            "ms": device_ms(lambda: decision_stats_sharded(
+                **a, devices=devices), iters),
+            "plain_ms": device_ms(lambda: decision_stats_sharded_plain(
+                **a, shards=shards), iters),
+            "unsharded_ms": device_ms(lambda: decision_stats(**a), iters),
+            **{k: work[k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                                    "bound_ops")}}
+    emit(line)
+    return line
+
+
+def run_sharded_kernel_checks() -> dict:
+    lines = {}
+    for i, (name, spec) in enumerate(SHARDED_CASES.items()):
+        args = decision_case(seed=40 + i, **spec)
+        for shards in ((2,) if spec["n"] > 32 else (2, 4)):
+            lines[(name, shards)] = sharded_check(name, args, shards)
+    return lines
+
+
+def run_sharded_pool() -> dict:
+    """The slot-sharded pool: 192 fog-mixed requests in 32 slots, slot
+    shards 2 (cuda:0 twice) against the unsharded pool, on the ideal die
+    and the gate die; records equal request for request, floats bit for
+    bit; one sharded call a round, two kernel launches in it (counts
+    zeroed before, read after)."""
+    from repro_torch.kernels.decision import (decision_stats,
+                                              decision_stats_sharded)
+    from repro_torch.launch.serve import serve_sar
+    from repro_torch.serving import TriagePolicy
+    policy = TriagePolicy(**POLICY)
+    out = {"sharded_launches": 0, "decision_launches": 0}
+    for die_name, chip in (("ideal", None), ("gate_die", gate_die())):
+        kw = dict(STREAM, policy=policy, chip_instance=chip, device="cuda")
+        serve_sar(n_requests=32, slot_devices=["cuda:0"] * 2, **kw)  # warm
+        whole = serve_sar(n_requests=192, **kw)
+        decision_stats.launches = decision_stats_sharded.launches = 0
+        sharded = serve_sar(n_requests=192, slot_devices=["cuda:0"] * 2,
+                            **kw)
+        n_sh, n_dec = decision_stats_sharded.launches, decision_stats.launches
+        check(sharded["shards"] == 2, f"sharded pool {die_name}: "
+              f"{sharded.get('shards')} shards ran")
+        check(sharded["decisions"] == 192, f"sharded pool {die_name}: "
+              f"{sharded['decisions']} decisions")
+        same_decisions(whole, sharded, f"sharded pool {die_name}",
+                       atol=0.0)
+        check(n_sh == sharded["rounds_launched"] > 0 and n_dec == 2 * n_sh,
+              f"sharded pool {die_name}: {n_sh} sharded calls, {n_dec} "
+              f"kernel launches, {sharded['rounds_launched']} rounds")
+        check(whole["host_syncs"] == sharded["host_syncs"],
+              f"sharded pool {die_name}: host syncs differ")
+        out["sharded_launches"] += n_sh
+        out["decision_launches"] += n_dec
+        emit({"sharded_pool": die_name, "requests": 192, "shards": 2,
+              "devices": ["cuda:0", "cuda:0"],
+              "decisions_per_s_wall": sharded["decisions"]
+              / sharded["wall_s"],
+              "unsharded_decisions_per_s_wall": whole["decisions"]
+              / whole["wall_s"],
+              "host_syncs": sharded["host_syncs"],
+              "rounds_launched": sharded["rounds_launched"],
+              "sharded_calls": n_sh, "decision_kernel_launches": n_dec,
+              "records_equal_bitwise": True,
+              "what": "one card holds both shards: bit-identity and "
+                      "launch counts, not scaling"})
+    return out
+
+
+def fleet_energy_check(out: dict, what: str) -> float:
+    """The fleet's energy against the sum over its records (one fixed
+    sweep a decision plus the samples, ``request_energy``)."""
+    from repro_torch.hw import compile_network
+    from repro_torch.launch.serve import sar_layer_shapes
+    from repro_torch.models.sar_cnn import SarCnnConfig
+    from repro_torch.serving import energy_terms
+    layers = sar_layer_shapes(SarCnnConfig())
+    t = energy_terms(layers, compile_network(layers))
+    per_record = sum(t["e_fixed"] + v["n_samples"] * t["e_per_sample"]
+                     for v in out["verdicts"])
+    check(math.isclose(out["energy_total_J"], per_record, rel_tol=1e-9),
+          f"{what}: energy {out['energy_total_J']} != records' "
+          f"{per_record}")
+    return per_record
+
+
+def run_fleet() -> dict:
+    """``serve_sar_fleet`` (4 pools of 32 slots, 256 requests, 25 % fog)
+    gang against sequential on both dies: verdicts and routes equal,
+    fewer host syncs, energy = the records' sum; then an open-loop run
+    with the SLO fleet block and a stitched trace (ideal die)."""
+    import torch
+    from repro_torch.kernels.cim import cim_mvm
+    from repro_torch.kernels.decision import decision_stats
+    from repro_torch.launch.serve import serve_sar_fleet
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serving import TriagePolicy
+    policy = TriagePolicy(**POLICY)
+    launches = {"decision": 0, "cim": 0}
+    rates = {}
+    for die_name, chip in (("ideal", None), ("gate_die", gate_die())):
+        kw = dict(FLEET, policy=policy, chip_instance=chip)
+        serve_sar_fleet(**dict(kw, n_requests=64))                # warm-up
+        runs = {}
+        for gang in (True, False):
+            torch.cuda.synchronize()
+            decision_stats.launches = cim_mvm.launches = 0
+            out = serve_sar_fleet(gang=gang, **kw)
+            runs[gang] = (out, decision_stats.launches, cim_mvm.launches)
+            check(out["gang"] is gang and out["decisions"] == 256,
+                  f"fleet {die_name} gang={gang}: {out['decisions']} "
+                  f"decisions")
+            check(out["devices"] == ["cuda:0"] * 4,
+                  f"fleet {die_name}: pools on {out['devices']}")
+            check(runs[gang][1] > 0, f"fleet {die_name} gang={gang}: "
+                  f"no decision launch")
+            check(chip is None or runs[gang][2] > 0,
+                  f"fleet {die_name} gang={gang}: no CIM launch")
+            fleet_energy_check(out, f"fleet {die_name} gang={gang}")
+            launches["decision"] += runs[gang][1]
+            launches["cim"] += runs[gang][2]
+        (g, g_dec, g_cim), (q, q_dec, q_cim) = runs[True], runs[False]
+        check(g["verdicts"] == q["verdicts"],
+              f"fleet {die_name}: gang verdicts != sequential")
+        check(g["routed_per_pool"] == q["routed_per_pool"],
+              f"fleet {die_name}: routes differ")
+        check(g["host_syncs"] < q["host_syncs"],
+              f"fleet {die_name}: gang syncs {g['host_syncs']} not below "
+              f"sequential {q['host_syncs']}")
+        check(g["host_syncs"] == g["ticks"],
+              f"fleet {die_name}: gang syncs {g['host_syncs']} != ticks "
+              f"{g['ticks']}")
+        rates[die_name] = g["decisions_per_s"]
+        emit({"fleet": die_name, "n_pools": 4, "slots_per_pool": 32,
+              "requests": 256, "devices": g["devices"],
+              "verdicts_equal": True,
+              "routed_per_pool": g["routed_per_pool"],
+              "backlog_peak": g["backlog_peak"],
+              **{f"{arm}_{k}": run[k] for arm, run in (("gang", g),
+                                                       ("sequential", q))
+                 for k in ("decisions_per_s", "wall_s", "host_syncs",
+                           "host_syncs_per_decision", "ticks")},
+              "gang_decision_launches": g_dec,
+              "sequential_decision_launches": q_dec,
+              "gang_cim_launches": g_cim, "sequential_cim_launches": q_cim,
+              "mean_samples_per_decision": g["mean_samples_per_decision"],
+              "flag_fraction": g["flag_fraction"],
+              "energy_total_J": g["energy_total_J"],
+              "energy_reconciles": True,
+              "max_trips_per_tick": max(max(t["trips"])
+                                        for t in g["tick_log"]),
+              "what": "four pools on one card: bit-identity and host "
+                      "syncs a tick, not scaling across cards"})
+    rate = FLEET_OPEN_LOOP * rates["ideal"]
+    tracer = Tracer("fleet")
+    decision_stats.launches = 0
+    ol = serve_sar_fleet(**FLEET, policy=policy, arrival=f"poisson:{rate}",
+                         tracer=tracer, slo=("0.25:p99",))
+    launches["decision"] += decision_stats.launches
+    check(ol["decisions"] == 256, f"open-loop fleet: {ol['decisions']}")
+    fleet_block = ol["slo"]["fleet"]
+    check(len(fleet_block["queue_depth_peak"]) == 4,
+          f"open-loop fleet: queue peaks {fleet_block['queue_depth_peak']}")
+    ev = tracer.to_chrome()["traceEvents"]
+    pnames = {e["pid"]: e["args"]["name"] for e in ev
+              if e["ph"] == "M" and e["name"] == "process_name"}
+    starts = {e["id"]: e for e in ev if e["ph"] == "s"}
+    ends = {e["id"]: e for e in ev if e["ph"] == "f"}
+    check(pnames == {0: "router", **{p + 1: f"pool {p}" for p in range(4)}},
+          f"fleet trace: processes {pnames}")
+    check(set(starts) == set(ends) == set(range(256))
+          and all(s["pid"] == 0 for s in starts.values())
+          and all(e["pid"] in range(1, 5) and e["tid"] >= 1
+                  for e in ends.values()),
+          "fleet trace: a flow does not go from the router to a slot")
+    emit({"fleet_open_loop": "ideal", "arrival": ol["arrival"],
+          "offered_rps": ol["offered"]["offered_rps"],
+          "decisions_per_s": ol["decisions_per_s"],
+          "host_syncs_per_decision": ol["host_syncs_per_decision"],
+          "ticks": ol["ticks"],
+          "time_to_verdict_s": {k: ol["slo"][k]
+                                for k in ("p50_s", "p95_s", "p99_s")},
+          "slo_fleet": fleet_block,
+          "backpressure_ticks": ol.get("backpressure_ticks"),
+          "trace_events": len(ev), "trace_flows": len(starts),
+          "trace_processes": pnames})
+    return {"launches": launches, "rates": rates}
+
+
+def run_fleet_mixed() -> None:
+    """A 2-pool gang fleet on cuda:0 and the CPU: the packed results of
+    both pools gathered on cuda:0, then one pull.  48 requests fill each
+    pool in its first tick, so a standalone engine on the same device
+    fed that pool's requests admits the same batch; records equal bit
+    for bit, pool for pool."""
+    from repro_torch.launch.serve import make_sar_stream
+    from repro_torch.models.sar_cnn import SarCnnConfig
+    from repro_torch.serving import (SarServingEngine, SarServingFleet,
+                                     TriagePolicy)
+    cfg, params = sar_params("cpu")
+    policy = TriagePolicy(**POLICY)
+    fleet = SarServingFleet(params, cfg, n_pools=2, slots_per_pool=32,
+                            policy=policy, gang=True,
+                            devices=["cuda:0", "cpu"])
+    reqs = make_sar_stream(48, **{k: STREAM[k] for k in
+                                  ("corrupt_frac", "corruption")})
+    for r in reqs:
+        fleet.submit(r)
+    out = fleet.run()
+    check(out["host_syncs"] == out["ticks"] and out["decisions"] == 48,
+          f"fleet_mixed: {out['host_syncs']} syncs, {out['ticks']} ticks")
+    per_pool = []
+    for p, dev in enumerate(("cuda:0", "cpu")):
+        eng = SarServingEngine(params, SarCnnConfig(), n_slots=32,
+                               policy=policy, device=dev)
+        mine = [r for r in make_sar_stream(48, **{
+            k: STREAM[k] for k in ("corrupt_frac", "corruption")})
+            if fleet.routes[r.rid] == p]
+        for r in mine:
+            eng.submit(r)
+        eng.run()
+
+        def recs(e):
+            return {r.rid: (r.verdict, r.prediction, r.n_samples,
+                            r.confidence, r.mutual_information)
+                    for r in e.metrics.records}
+
+        check(recs(eng) == recs(fleet.engines[p]),
+              f"fleet_mixed: pool {p} on {dev} differs from a standalone "
+              f"engine")
+        per_pool.append(len(mine))
+    emit({"fleet_mixed": "gang over cuda:0 and the CPU",
+          "devices": ["cuda:0", "cpu"], "requests_per_pool": per_pool,
+          "ticks": out["ticks"], "host_syncs": out["host_syncs"],
+          "pools_equal_standalone_engines": True})
+
+
+def run_mission_sharded(params) -> dict:
+    """``fly_mission`` at mission_bench's default scale (bayes_adaptive)
+    on the ideal die and the mission die, each die group's 8 lanes over
+    2 slot shards on cuda:0 against the unsharded mission: logs equal
+    lane for lane (floats bit for bit); one sharded call a decision
+    round (counts zeroed before, read after)."""
+    import numpy as np
+    from repro_torch.kernels.decision import (decision_stats,
+                                              decision_stats_sharded)
+    from repro_torch.mission import MissionPolicy, fly_mission
+    wcfg, ucfg = mission_configs(MISSION_BENCH)
+    steps, episodes = MISSION_BENCH["steps"], MISSION_BENCH["episodes"]
+    pol = MissionPolicy()
+    per_step, _ = mission_step_counts(pol)
+    total = total_dec = 0
+    for die_name, chip in (("ideal", None), ("die", mission_die())):
+        kw = dict(params=params, chips=chip, n_episodes=episodes,
+                  device="cuda")
+        t0 = time.perf_counter()
+        whole = fly_mission(wcfg, ucfg, pol, n_steps=steps, **kw)
+        whole_s = time.perf_counter() - t0
+        decision_stats.launches = decision_stats_sharded.launches = 0
+        t0 = time.perf_counter()
+        sharded = fly_mission(wcfg, ucfg, pol, n_steps=steps,
+                              devices=["cuda:0"] * 2, **kw)
+        sharded_s = time.perf_counter() - t0
+        n_sh, n_dec = decision_stats_sharded.launches, decision_stats.launches
+        check(n_sh == per_step * steps and n_dec == 2 * n_sh,
+              f"mission_sharded {die_name}: {n_sh} sharded calls, {n_dec} "
+              f"launches, expected {per_step} x {steps} and twice that")
+        for k in whole.logs:
+            check(np.array_equal(whole.logs[k], sharded.logs[k]),
+                  f"mission_sharded {die_name}: logs {k} differ")
+        check(whole.summary == sharded.summary,
+              f"mission_sharded {die_name}: summaries differ")
+        total += n_sh
+        total_dec += n_dec
+        emit({"mission_sharded": die_name, "shards": 2,
+              "lanes": episodes * ucfg.n_drones, "steps": steps,
+              "logs_equal": True, "sharded_calls": n_sh,
+              "decision_kernel_launches": n_dec,
+              "host_syncs": sharded.host_syncs,
+              "wall_s": sharded_s, "unsharded_wall_s": whole_s})
+    return {"sharded_launches": total, "decision_launches": total_dec}
+
+
+def run_fleet_phase(params) -> dict:
+    """The fleet phase: the sharded kernel's checks, the sharded pool,
+    the fleet (gang, sequential, open loop, trace), the mixed-device
+    fleet and the sharded mission.  -> launch counts and the kernels
+    line's ``decision_stats_sharded`` entry."""
+    t0 = time.perf_counter()
+    checks = run_sharded_kernel_checks()
+    pool = run_sharded_pool()
+    fleet = run_fleet()
+    run_fleet_mixed()
+    mission = run_mission_sharded(params)
+    timed = checks[(SHARDED_TIMED, 2)]
+    entry = {
+        "name": "decision_stats_sharded",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/decision.py",
+        "body": "src/repro_torch/kernels/csrc/decision.cu",
+        "replaces": "src/repro/kernels/decision_kernel.py:263",
+        "design": "the slot axis cut into contiguous shards, one "
+                  "decision.cu launch a shard on its device (cuda:0 "
+                  "repeated on one card), read noise keyed on global slot "
+                  "ids, the deltas concatenated",
+        "launches": pool["sharded_launches"] + mission["sharded_launches"],
+        "launches_by_path": {"sharded_pool": pool["sharded_launches"],
+                             "mission_sharded":
+                                 mission["sharded_launches"]},
+        "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+        "shape": f"B=32 N=2 R=4, read_sigma 0.4, half the slots masked, "
+                 f"2 shards on cuda:0 ({SHARDED_TIMED})",
+        "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+        "unsharded_ms": timed["unsharded_ms"],
+        "timing": "device time per call of the whole sharded call "
+                  "(slices, launches, concatenation), 200 calls replayed "
+                  "from one CUDA graph",
+        **{k: timed[k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                                 "bound_ops")},
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the fused "
+                        "mix -> softmax -> masked statistic sums",
+        "cases": {f"{name}_x{shards}": {k: c[k] for k in (
+            "ms", "plain_ms", "unsharded_ms", "bound_ms", "max_abs_err")}
+            for (name, shards), c in checks.items()},
+    }
+    emit({"fleet_phase_s": time.perf_counter() - t0})
+    return {"kernel": entry,
+            "decision_launches": {
+                "sharded_pool": pool["decision_launches"],
+                "serve_sar_fleet": fleet["launches"]["decision"],
+                "mission_sharded": mission["decision_launches"]},
+            "cim_launches": fleet["launches"]["cim"]}
+
+
 def call_ms(fn, iters: int, warmup: int = 50) -> float:
     """Per-call time of eager calls, host included: CUDA events around a
     Python loop of ``iters`` calls."""
@@ -5503,7 +5924,8 @@ def sharded_body_timing(args: dict) -> dict:
 
 def run_timing(inputs: dict, launches: dict, worst: float,
                cim_line: dict, head_lines: list, lm_vocab: dict,
-               moe_vocab: dict, ssm_vocab: dict, xattn_vocab: dict) -> None:
+               moe_vocab: dict, ssm_vocab: dict, xattn_vocab: dict,
+               sharded_line: dict) -> None:
     from repro_torch.kernels.decision import (decision_plan, decision_stats,
                                               decision_stats_plain)
     times = {}
@@ -5590,7 +6012,7 @@ def run_timing(inputs: dict, launches: dict, worst: float,
         "lm_ssm_vocab": ssm_vocab,
         "lm_xattn_vocab": xattn_vocab,
         "sharded_body_rows": sharded_body,
-    }, cim_line, *head_lines]})
+    }, cim_line, *head_lines, sharded_line]})
 
 
 def main() -> int:
@@ -5665,6 +6087,7 @@ def main() -> int:
     run_moment()
     run_tiled_hoist()
     emit({"population_and_modes_phases_s": time.perf_counter() - t0})
+    fleet = run_fleet_phase(train["params"])
     lm = run_lm_serving()
     moe = run_lm_moe()
     ssm = run_lm_ssm()
@@ -5729,6 +6152,7 @@ def main() -> int:
                         "mission_aged_arms": aged["launches"]["decision"],
                         "observability": obs["decision"],
                         "die_population": population["decision"],
+                        **fleet["decision_launches"],
                         "lm_serving": lm["launches"],
                         **{f"lm_moe/{a}": m["launches"]
                            for a, m in moe["models"].items()},
@@ -5748,7 +6172,8 @@ def main() -> int:
                            "serve_sar_lifetime": lifetime["launches"]["cim"],
                            "mission_aged_arms": aged["launches"]["cim"],
                            "observability": obs["cim"],
-                           "die_population": population["cim"]},
+                           "die_population": population["cim"],
+                           "serve_sar_fleet": fleet["cim_launches"]},
                           cim_summary),
                heads, lm_times["decision"],
                {a: {"shape": m["shape"], **m["times"]["decision"]}
@@ -5756,7 +6181,8 @@ def main() -> int:
                {a: {"shape": m["shape"], **m["times"]["decision"]}
                 for a, m in ssm["models"].items()},
                {a: {"shape": m["shape"], **m["times"]["decision"]}
-                for a, m in xattn["models"].items()})
+                for a, m in xattn["models"].items()},
+               fleet["kernel"])
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -32,6 +32,12 @@ the tiled variant's float64 entropies above N = 32); CUDA
 tensors launch the kernel or raise.  There is no fallback.
 ``decision_stats.launches`` counts wrapper calls that launched (one a
 round piece, whatever number of kernels the plan runs).
+
+``decision_stats_sharded`` replaces ``decision_stats_sharded``
+(``decision_kernel.py:263``): the slot axis cut over a list of torch
+devices (one card may hold every shard), one ``decision_stats`` call a
+shard, read noise keyed on global slot ids, bit for bit the unsharded
+launch.
 """
 
 from __future__ import annotations
@@ -121,6 +127,14 @@ def _plain_samples(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq,
     return y_mu.to(torch.float32)[None] + out / cfg.sum_std
 
 
+def _sum_samples(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading sample axis, each slot's R terms reduced as
+    one contiguous row: ``sum(0)`` over an outer axis picks its order by
+    the whole tensor's shape, so a slot's sum would change with B and a
+    slot-sharded round would not give the unsharded round's bits."""
+    return x.movedim(0, -1).contiguous().sum(-1)
+
+
 def _masked(p, ent, mask) -> dict:
     """The four deltas of [R, B, N] probabilities and [R, B] entropies,
     multiplied by the [B] mask (None = all active); the entropies' sums
@@ -129,10 +143,10 @@ def _masked(p, ent, mask) -> dict:
     mk = (torch.ones((b,), dtype=torch.float32, device=p.device)
           if mask is None
           else torch.as_tensor(mask, device=p.device).to(torch.float32))
-    return {"sum_p": p.sum(0) * mk[:, None],
-            "sum_psq": (p * p).sum(0) * mk[:, None],
-            "sum_ent": (ent.sum(0) * mk).to(torch.float32),
-            "sum_entsq": ((ent * ent).sum(0) * mk).to(torch.float32)}
+    return {"sum_p": _sum_samples(p) * mk[:, None],
+            "sum_psq": _sum_samples(p * p) * mk[:, None],
+            "sum_ent": (_sum_samples(ent) * mk).to(torch.float32),
+            "sum_entsq": (_sum_samples(ent * ent) * mk).to(torch.float32)}
 
 
 def decision_stats_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
@@ -300,3 +314,92 @@ def decision_stats(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq=None,
 
 
 decision_stats.launches = 0
+
+
+def _split_slots(k: int, y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq,
+                 sample_idx, mask, rows) -> list[dict]:
+    """The round's operands cut into ``k`` contiguous slot shards (views
+    on the caller's device): shared selections and stream indices
+    broadcast per slot, the mask defaulted to all-True and, with read
+    noise, ``rows`` to the GLOBAL slot ids arange(B) before the cut."""
+    b, _ = y_mu.shape
+    if k < 1:
+        raise ValueError("a sharded round needs at least one shard")
+    if b % k:
+        raise ValueError(f"batch {b} not divisible over {k} shards")
+    home = y_mu.device
+    r = sel.shape[0]
+    if sel.ndim == 2:
+        sel = sel[:, None, :].expand(r, b, 16)
+    if mask is None:
+        mask = torch.ones((b,), dtype=torch.bool, device=home)
+    if cfg.read_sigma:
+        if x_sigsq is None or sample_idx is None:
+            raise ValueError("read noise needs x_sigsq and sample_idx")
+        if sample_idx.ndim == 1:
+            sample_idx = sample_idx[:, None].expand(r, b)
+        if rows is None:
+            rows = torch.arange(b, dtype=torch.int64, device=home)
+    else:
+        x_sigsq = sample_idx = rows = None
+    s = b // k
+
+    def cut(t, i, slot_dim=0):
+        if t is None:
+            return None
+        sl = slice(i * s, (i + 1) * s)
+        return t[sl] if slot_dim == 0 else t[:, sl]
+
+    return [dict(y_mu=cut(y_mu, i), x_sigma=cut(x_sigma, i), m=cut(m, i),
+                 sel=cut(sel, i, 1), x_sigsq=cut(x_sigsq, i),
+                 sample_idx=cut(sample_idx, i, 1), mask=cut(mask, i),
+                 rows=cut(rows, i)) for i in range(k)]
+
+
+def decision_stats_sharded(y_mu, x_sigma, m, sel, cfg: GRNGConfig, *,
+                           devices, x_sigsq=None, sample_idx=None,
+                           mask=None, rows=None) -> dict:
+    """``decision_stats`` over the slot axis cut into ``len(devices)``
+    contiguous shards (port of ``decision_stats_sharded``,
+    ``repro/kernels/decision_kernel.py:263``): shard k runs
+    ``decision_stats`` on ``devices[k]`` (the kernel on a CUDA device,
+    the plain version on the CPU) over slots [k·B/K, (k+1)·B/K), and the
+    deltas are concatenated on y_mu's device.
+
+    ``devices`` stands where the reference's mesh axis does; it may
+    repeat a device (one card holds every shard).  Every statistic is
+    slot-local and the kernel's launch plan scales only its block count
+    with B, so the shards give the unsharded launch's bits, provided each
+    hashes its read noise with its GLOBAL slot ids: ``rows`` defaults to
+    arange(B) before the split.  Shared selections [R, 16] and stream
+    indices [R] are broadcast to [R, B, 16] and [R, B] before the split,
+    as the reference's.  Raises when B does not divide over the shards
+    (callers route such a round to the unsharded kernel).
+    ``decision_stats_sharded.launches`` counts calls that launched the
+    kernel on at least one shard."""
+    devices = [torch.device(d) for d in devices]
+    parts = _split_slots(len(devices), y_mu, x_sigma, m, sel, cfg, x_sigsq,
+                         sample_idx, mask, rows)
+    outs = [decision_stats(cfg=cfg, **{
+        key: None if t is None else t.to(dev).contiguous()
+        for key, t in part.items()}) for part, dev in zip(parts, devices)]
+    if any(dev.type == "cuda" for dev in devices):
+        decision_stats_sharded.launches += 1
+    return {key: torch.cat([o[key].to(y_mu.device) for o in outs])
+            for key in ("sum_p", "sum_psq", "sum_ent", "sum_entsq")}
+
+
+decision_stats_sharded.launches = 0
+
+
+def decision_stats_sharded_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig, *,
+                                 shards: int, x_sigsq=None, sample_idx=None,
+                                 mask=None, rows=None) -> dict:
+    """The sharded round's plain version: ``decision_stats_plain`` on
+    each of ``shards`` slot shards, on y_mu's device, the deltas
+    concatenated."""
+    parts = _split_slots(shards, y_mu, x_sigma, m, sel, cfg, x_sigsq,
+                         sample_idx, mask, rows)
+    outs = [decision_stats_plain(cfg=cfg, **part) for part in parts]
+    return {key: torch.cat([o[key] for o in outs])
+            for key in ("sum_p", "sum_psq", "sum_ent", "sum_entsq")}

@@ -13,7 +13,8 @@ from repro_torch.core.quant import QuantConfig, adc_full_scale
 from repro_torch.kernels import bayes
 from repro_torch.kernels import grng as grng_kernel
 from repro_torch.kernels.cim import cim_mvm
-from repro_torch.kernels.decision import MAX_SAMPLES, decision_stats
+from repro_torch.kernels.decision import (MAX_SAMPLES, decision_stats,
+                                          decision_stats_sharded)
 
 
 def grng_eps(cfg: g.GRNGConfig, n_rows: int, n_cols: int, num_samples: int,
@@ -84,7 +85,7 @@ def bayes_head_mvm(x: torch.Tensor, mu_prime: torch.Tensor,
 
 def decision_update(stats: dict, abasis: dict, sel: torch.Tensor,
                     cfg: g.GRNGConfig, sample_idx=None, mask=None,
-                    rows=None) -> dict:
+                    rows=None, shard=None) -> dict:
     """Fused drop-in for ``update_stats(stats, mix_samples(...), mask)``.
 
     Folds one escalation round into the running statistics through the
@@ -98,16 +99,23 @@ def decision_update(stats: dict, abasis: dict, sel: torch.Tensor,
     PLACE (the serving pool keeps one copy of its statistics) and
     ``stats`` is returned.  ``mask`` [B] bool: False rows keep their
     sums and count.
+
+    ``shard``: a sequence of torch devices (may repeat one) — each piece
+    goes through ``decision_stats_sharded`` over that many slot shards,
+    read noise keyed on global slot ids (``rows``, default arange(B)),
+    so the round's bits are the unsharded round's.
     """
     r = sel.shape[0]
     for r0 in range(0, r, MAX_SAMPLES):
         piece = slice(r0, min(r, r0 + MAX_SAMPLES))
-        delta = decision_stats(
-            abasis["y_mu"], abasis["x_sigma"], abasis["m"],
-            sel[piece].contiguous(), cfg, x_sigsq=abasis.get("x_sigsq"),
-            sample_idx=(None if sample_idx is None
-                        else sample_idx[piece].contiguous()),
-            mask=mask, rows=rows)
+        args = (abasis["y_mu"], abasis["x_sigma"], abasis["m"],
+                sel[piece].contiguous(), cfg)
+        kw = dict(x_sigsq=abasis.get("x_sigsq"),
+                  sample_idx=(None if sample_idx is None
+                              else sample_idx[piece].contiguous()),
+                  mask=mask, rows=rows)
+        delta = (decision_stats(*args, **kw) if shard is None
+                 else decision_stats_sharded(*args, devices=shard, **kw))
         for key in ("sum_p", "sum_psq", "sum_ent", "sum_entsq"):
             stats[key] += delta[key]
     if mask is None:

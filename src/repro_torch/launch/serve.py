@@ -65,8 +65,16 @@ Usage:
       --arrival poisson:1000 --trace out/trace.json \\
       --metrics-out out/serve --profile out/prof
 
-The reference CLI's fleets (``--pools``, ``--mesh``) wait for more than
-one GPU (ROADMAP A10).
+``--pools P`` serves ``sar_cnn`` through a fleet of P pools of
+``--slots-per-pool`` slots behind the least-loaded router
+(``serve_sar_fleet``, ``serving/fleet.py``): one gang dispatch and one
+pull a tick, pool p on ``cuda:{p mod device_count}`` (with ``--device``
+every pool on that device).  On one card every pool shares it.  The
+reference's ``--mesh N`` re-executes JAX with N fake host devices; the
+port needs none and has no such flag.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch sar_cnn \\
+      --pools 4 --slots-per-pool 32 --requests 256 --corrupt-frac 0.25
 """
 
 from __future__ import annotations
@@ -300,7 +308,7 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
                     calibrated: bool = True, fused: bool = True,
                     telemetry: bool | TelemetryConfig = True, head=None,
                     hcfg=None, tracer=None, profiler=True, slo=True,
-                    device=None) -> SarServingEngine:
+                    device=None, slot_devices=None) -> SarServingEngine:
     """The engine ``serve_sar`` drives: untrained params from
     ``init_sar_cnn`` seeded ``3 + seed`` unless ``params`` is given,
     tilemap-true energy accounting (placed blocks of the compiled layer
@@ -314,7 +322,8 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
     golden factory transform).  The summary gains the die's metadata.
     ``head``/``hcfg``: a head already deployed on that die (the lifetime
     controller's), used as given.  ``tracer``/``profiler``/``slo``: the
-    engine's host instruments (``SarServingEngine``).
+    engine's host instruments (``SarServingEngine``); ``slot_devices``:
+    its slot shards (the reference's ``slot_axis``), None for none.
     """
     from repro_torch.models.sar_cnn import SarCnnConfig, init_sar_cnn
     cfg = cfg or SarCnnConfig()
@@ -349,7 +358,8 @@ def make_sar_engine(*, n_slots: int = 32, adaptive: bool = True,
                             adaptive_mode=adaptive, metrics=metrics,
                             head=head, hcfg=hcfg, chip=chip_instance,
                             fused=fused, telemetry=telemetry, tracer=tracer,
-                            profiler=profiler, slo=slo, device=device)
+                            profiler=profiler, slo=slo, device=device,
+                            slot_devices=slot_devices)
 
 
 def _engine_summary(out: dict, engine: SarServingEngine) -> dict:
@@ -379,7 +389,8 @@ def serve_sar(*, n_requests: int = 128, n_slots: int = 32,
               calibrated: bool = True, fused: bool = True,
               telemetry: bool | TelemetryConfig = True, tracer=None,
               profiler=True, slo=(), arrival=None,
-              cost_records: bool = False, device=None) -> dict:
+              cost_records: bool = False, device=None,
+              slot_devices=None) -> dict:
     """SAR image-stream serving on ``device`` (None = the card) through
     ``make_sar_engine`` (``chip_instance``/``calibrated``: serve on a
     sampled die, see there).  Returns the metrics summary plus host
@@ -400,7 +411,9 @@ def serve_sar(*, n_requests: int = 128, n_slots: int = 32,
     ``seed`` instead of queued at once; ``cost_records``: add the
     kernels' cost records (``"compiled_costs"``) and, on the card, the
     caching allocator's peak since the process started or its last
-    reset (``"max_memory_allocated"``)."""
+    reset (``"max_memory_allocated"``); ``slot_devices``: shard the
+    pool's slots over these devices (``SarServingEngine``; the summary's
+    ``shards`` says how many the rounds ran over)."""
     from repro_torch.obs.slo import SloTracker
     slo_tracker = (SloTracker(slos=tuple(slo)) if slo
                    else slo is not False)
@@ -410,7 +423,7 @@ def serve_sar(*, n_requests: int = 128, n_slots: int = 32,
                              calibrated=calibrated, fused=fused,
                              telemetry=telemetry, tracer=tracer,
                              profiler=profiler, slo=slo_tracker,
-                             device=device)
+                             device=device, slot_devices=slot_devices)
     reqs = make_sar_stream(n_requests, corrupt_frac=corrupt_frac,
                            corruption=corruption,
                            image_size=engine.cfg.image_size)
@@ -446,6 +459,95 @@ def serve_sar(*, n_requests: int = 128, n_slots: int = 32,
         if out["drift"]["advisory"]:
             log.warning(out["drift"]["advisory"])
     collect_alerts(out, "serve_sar")
+    return out
+
+
+def serve_sar_fleet(*, n_requests: int = 256, n_pools: int = 4,
+                    slots_per_pool: int = 32, adaptive: bool = True,
+                    policy: TriagePolicy | None = None,
+                    corrupt_frac: float = 0.0, corruption: str = "fog",
+                    params=None, cfg=None, seed: int = 0,
+                    chip_instance=None, calibrated: bool = True,
+                    fused: bool = True, gang: bool | None = None,
+                    queue_cap: int | None = None,
+                    telemetry: bool | TelemetryConfig = True,
+                    tracer=None, profiler=True, slo=(), arrival=None,
+                    devices=None) -> dict:
+    """Fleet SAR serving (``serving/fleet.SarServingFleet``): ``n_pools``
+    complete pools of ``slots_per_pool`` slots behind the least-loaded
+    router, pool p on ``devices[p]`` (default ``cuda:{p mod
+    device_count}``; ``["cpu"] * n_pools`` on purpose).  ``gang``: one
+    gang dispatch and one pull a tick (the default with more than one
+    pool), False for one pull a pool.  Verdicts are those of standalone
+    pools fed the same admissions; the summary is the exact sum of the
+    pools' reports plus the router's (``routed_per_pool``,
+    ``backlog_peak``), and ``verdicts`` (sorted by rid) carry each
+    request's pool.
+
+    ``chip_instance``/``calibrated``: every pool serves the same die (an
+    int seed: one die from the default ``VariationSpec``), its head
+    deployed on the first pool's device.  ``tracer``: one stitched
+    timeline (router pid 0, pool p pid p + 1, a flow per request).
+    ``slo``/``arrival``: as in ``serve_sar``; the SLO tracker is the
+    fleet's, with its router latency, queue depths and backpressure."""
+    from repro_torch.models.sar_cnn import SarCnnConfig, init_sar_cnn
+    from repro_torch.obs.slo import SloTracker
+    from repro_torch.serving import SarServingFleet
+    from repro_torch.serving.fleet import pool_devices
+    cfg = cfg or SarCnnConfig()
+    devices = pool_devices(n_pools, devices)
+    if params is None:
+        params = init_sar_cnn(torch.Generator().manual_seed(3 + seed), cfg)
+    policy = policy or TriagePolicy(conf_threshold=0.7, mi_threshold=0.05)
+    layers = sar_layer_shapes(cfg)
+    head = hcfg = None
+    if chip_instance is not None:
+        from repro_torch.core.bayes_layer import sigma_of
+        from repro_torch.core.sampling import BayesHeadConfig
+        from repro_torch.hw import prepare_instance_head, sample_instances
+        if not hasattr(chip_instance, "grng"):
+            chip_instance = sample_instances(int(chip_instance), 1)[0]
+        base_hcfg = BayesHeadConfig(
+            num_samples=policy.r_max, mode="rank16", grng=cfg.grng,
+            compute_dtype=torch.float32, hoist_basis=True)
+        dev_head = {k: v.to(devices[0]) for k, v in params["head"].items()}
+        head, hcfg = prepare_instance_head(
+            dev_head["mu"], sigma_of(dev_head), base_hcfg, chip_instance,
+            calibrated=calibrated)
+    slo_tracker = SloTracker(slos=tuple(slo)) if slo else True
+    fleet = SarServingFleet(
+        params, cfg, n_pools=n_pools, slots_per_pool=slots_per_pool,
+        policy=policy, adaptive_mode=adaptive, head=head, hcfg=hcfg,
+        chip=chip_instance, fused=fused, telemetry=telemetry,
+        layers=layers, tile_program=compile_network(layers),
+        queue_cap=queue_cap, gang=gang, tracer=tracer, profiler=profiler,
+        slo=slo_tracker, devices=devices)
+    reqs = make_sar_stream(n_requests, corrupt_frac=corrupt_frac,
+                           corruption=corruption, image_size=cfg.image_size)
+    if arrival is not None:
+        from repro_torch.serving.load import ArrivalSpec, run_open_loop
+        spec = (ArrivalSpec.parse(arrival) if isinstance(arrival, str)
+                else arrival)
+        out = run_open_loop(fleet, reqs, spec.offsets(len(reqs), seed=seed))
+        out["arrival"] = spec.to_dict()
+    else:
+        for r in reqs:
+            fleet.submit(r)
+        out = fleet.run()
+    if chip_instance is not None:
+        out["chip_id"] = chip_instance.chip_id
+        out["chip_device_seed"] = chip_instance.device_seed
+        out["calibrated"] = bool(calibrated)
+    out["devices"] = [str(d) for d in devices]
+    out["flagged_fraction"] = out.get("flag_fraction", float("nan"))
+    out["verdicts"] = sorted(
+        ({"rid": r.rid, "pool": fleet.routes.get(r.rid),
+          "verdict": r.verdict, "confidence": r.confidence,
+          "mutual_information": r.mutual_information,
+          "n_samples": r.n_samples}
+         for eng in fleet.engines for r in eng.metrics.records),
+        key=lambda v: v["rid"])
+    collect_alerts(out, "serve_sar_fleet")
     return out
 
 
@@ -582,6 +684,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--mi-threshold", type=float, default=0.5)
     ap.add_argument("--r-min", type=int, default=4)
     ap.add_argument("--r-max", type=int, default=20)
+    ap.add_argument("--pools", type=int, default=None,
+                    help="sar_cnn only: serve through a fleet of this many "
+                         "engine pools behind the least-loaded router "
+                         "(serving/fleet.py; one gang dispatch and one "
+                         "pull a tick; pool p on cuda:{p mod devices}). "
+                         "The reference's --mesh N (fake JAX host "
+                         "devices) has no counterpart here")
+    ap.add_argument("--slots-per-pool", type=int, default=32,
+                    help="slots per fleet pool (with --pools)")
     ap.add_argument("--corrupt-frac", type=float, default=0.0)
     ap.add_argument("--corruption", default="fog",
                     choices=("fog", "frost", "motion", "snow"))
@@ -610,7 +721,9 @@ def main(argv=None) -> dict:
                          "(obs/telemetry) and its drift check")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome/Perfetto trace JSON of the run's "
-                         "request spans to PATH")
+                         "request spans to PATH (with --pools: one "
+                         "stitched fleet timeline, router ticks, per-pool "
+                         "dispatch tracks and a flow arrow per request)")
     ap.add_argument("--arrival", default=None, metavar="SPEC",
                     help="drive serving open-loop on a seeded arrival "
                          "schedule instead of queueing everything at "
@@ -653,6 +766,29 @@ def main(argv=None) -> dict:
               fused=args.fused, telemetry=args.telemetry, tracer=tracer,
               device=args.device)
     from repro_torch.obs.prof import trace_capture
+    if args.pools:
+        with trace_capture(args.profile) as captured:
+            out = serve_sar_fleet(
+                n_requests=args.requests or 128, n_pools=args.pools,
+                slots_per_pool=args.slots_per_pool,
+                adaptive=not args.fixed, policy=policy,
+                corrupt_frac=args.corrupt_frac, corruption=args.corruption,
+                chip_instance=chip, calibrated=not args.uncalibrated,
+                fused=args.fused, telemetry=args.telemetry, tracer=tracer,
+                slo=tuple(args.slo or ()), arrival=args.arrival,
+                devices=(None if args.device is None
+                         else [args.device] * args.pools))
+        print(f"[sar fleet] {out['decisions']} decisions in "
+              f"{out['wall_s']:.2f}s ({out['decisions_per_s']:.1f}/s) over "
+              f"{out['n_pools']} pools on {','.join(out['devices'])} "
+              f"({'gang' if out['gang'] else 'sequential'}); routed "
+              f"{out['routed_per_pool']}; backlog peak "
+              f"{out['backlog_peak']}; host syncs/decision "
+              f"{out['host_syncs_per_decision']:.3f}; "
+              f"{100 * out['flagged_fraction']:.1f}% flagged")
+        out["profile_trace"] = captured.path
+        _write_outputs(args, out, tracer)
+        return out
     with trace_capture(args.profile) as captured:
         if args.age_rate > 0.0 or args.auto_recalibrate:
             from repro_torch.hw.redeploy import LifetimeConfig

@@ -15,7 +15,7 @@ the serving steps.
 What has no twin on one card: ``mesh_hinted_config`` and the
 ``jit_train_step``/``jit_prefill_step``/``jit_decode_step`` builders
 place a step's inputs and outputs over a device mesh (they wait for
-more than one GPU, ROADMAP A10); ``abstract_params`` and
+more than one GPU, ROADMAP A10b); ``abstract_params`` and
 ``abstract_cache`` are ``jax.eval_shape`` stand-ins for the reference's
 multi-pod dry run, which lowers and costs XLA programs and has nothing
 to lower here.

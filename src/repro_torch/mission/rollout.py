@@ -41,7 +41,12 @@ LifetimeConfig``) each die group is flown in ``epochs`` segments over
 ABSOLUTE step indices, so its decisions draw the streams of the
 unsegmented mission; between segments the die ages, its drift monitor
 folds the telemetry, and an advisory may heal it: one pull a segment.
-A device mesh waits for the multi-GPU fleet (ROADMAP A10).
+``devices`` (the reference's ``slot_axis``/``mesh``) cuts each die
+group's episodes × drones batch into slot shards, one a device (the
+list may repeat one): every decision round goes through
+``decision_stats_sharded`` with read noise keyed on global lanes, so
+the logs are the unsharded mission's bit for bit; a batch that does not
+divide takes the unsharded kernel, as the reference's.
 """
 
 from __future__ import annotations
@@ -81,7 +86,7 @@ def sar_mission_cost(cfg) -> DecisionCost:
 def _episode_fn(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
                 cfg, hcfg, trunk, cost: DecisionCost, fused: bool,
                 n_steps: int, tcfg: TelemetryConfig | None = None,
-                step0: int = 0):
+                step0: int = 0, devices=None):
     """-> episode(params, head, logit_bias, worlds, fleet0, maps0, bind,
     telem0=None) -> (fleet, maps, logs {name: [n_steps, B]}), all on the
     device, plus the telemetry when ``telem0`` is given.
@@ -92,7 +97,8 @@ def _episode_fn(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
     lifetime loop) scans absolute steps, so every decision keeps the
     stream base of the unsegmented mission.  ``tcfg``: the telemetry's
     config; ``telem0`` is updated in place, the other inputs are not
-    modified."""
+    modified.  ``devices``: the decision rounds' slot shards
+    (``token_decision``'s ``shard``), None for none."""
     tri = pol.triage
     grid, n_cells = wcfg.grid, wcfg.n_cells
     decide = orbit = None
@@ -105,7 +111,8 @@ def _episode_fn(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
             out = token_decision(rows, base, active, hcfg=hcfg, policy=tri,
                                  adaptive_mode=adaptive_mode,
                                  schedule=schedule, fused=fused,
-                                 telem=telem, tcfg=tcfg, launched=launched)
+                                 telem=telem, tcfg=tcfg, launched=launched,
+                                 shard=devices)
             return out[:3]
 
         if pol.flag_action == "orbit":
@@ -114,7 +121,7 @@ def _episode_fn(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
                                      policy=tri, adaptive_mode=False,
                                      schedule=(tri.r_max,), fused=fused,
                                      telem=telem, tcfg=tcfg,
-                                     launched=launched)
+                                     launched=launched, shard=devices)
                 return out[:3]
 
     def step(params, head, logit_bias, worlds, bind, fleet, maps, t, telem):
@@ -395,10 +402,11 @@ def _group_bias(params, cfg, head, chip, calibrated: bool) -> torch.Tensor:
 def group_episode(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
                   params, cfg, chip, calibrated: bool, cost: DecisionCost,
                   fused: bool, n_steps: int,
-                  tcfg: TelemetryConfig | None = None):
+                  tcfg: TelemetryConfig | None = None, devices=None):
     """One die group's deployment, on the params' device: the head
     (``_prepare_group_head``), the operating-point bias (zeros
-    uncalibrated), the die's trunk arrays, and the episode over them.
+    uncalibrated), the die's trunk arrays, and the episode over them
+    (its decisions over the slot shards ``devices``, None for none).
     -> (episode, head, bias, hcfg); ``episode(params, head, bias,
     worlds, fleet0, maps0, bind[, telem0])`` runs the step loop with no
     host sync."""
@@ -407,14 +415,14 @@ def group_episode(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
                                      calibrated)
     trunk = None if chip is None else program_trunk(params, cfg, chip)
     episode = _episode_fn(wcfg, ucfg, pol, cfg, hcfg, trunk, cost, fused,
-                          n_steps, tcfg)
+                          n_steps, tcfg, devices=devices)
     return episode, head, _group_bias(params, cfg, head, chip,
                                       calibrated), hcfg
 
 
 def _fly_group_lifetime(wcfg, ucfg, pol, cfg, chip, cost, fused,
                         n_steps, tcfg, params, calibrated, worlds,
-                        fleet0_g, maps0, bind_g, lifetime):
+                        fleet0_g, maps0, bind_g, lifetime, devices=None):
     """One AGED die group's mission: ``lifetime.epochs`` segments over
     absolute steps.  Between segments the die moves to the age its step
     count implies (the stale view keeps the bias, a µ'-only quantity),
@@ -446,7 +454,7 @@ def _fly_group_lifetime(wcfg, ucfg, pol, cfg, chip, cost, fused,
         if step0:
             head, hcfg = ctl.advance(lifetime.age_rate * step0)
         fn = _episode_fn(wcfg, ucfg, pol, cfg, hcfg, trunk, cost, fused,
-                         ns, tcfg, step0)
+                         ns, tcfg, step0, devices)
         fleet, maps, logs, telem = fn(params, head, bias, worlds, fleet,
                                       maps, bind_g, telem)
         # the single blocking pull of this segment
@@ -475,7 +483,7 @@ def fly_mission(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
                 calibrated: bool = True, n_steps: int = 96,
                 n_episodes: int = 1, fused: bool = True,
                 telemetry: bool | TelemetryConfig = True, lifetime=None,
-                mesh=None, device=None) -> MissionResult:
+                devices=None, mesh=None, device=None) -> MissionResult:
     """Fly ``n_episodes`` independent missions for the whole fleet on
     ``device`` (None = the card; "cpu" on purpose).
 
@@ -493,15 +501,19 @@ def fly_mission(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
     ages ``lifetime.age_rate`` field seconds a step, flown in
     ``lifetime.epochs`` segments (one pull each) with drift watch and,
     with ``auto_recalibrate``, heals in flight; ideal groups and
-    inactive lifetimes keep the one-pull path.  ``mesh`` is not ported
-    yet (ROADMAP A10/B4) and raises.
+    inactive lifetimes keep the one-pull path.  ``devices``: shard each
+    die group's episodes × drones batch over these torch devices (may
+    repeat one; module docstring), the reference's ``slot_axis``/
+    ``mesh``; a JAX ``mesh`` has no counterpart and raises.
     """
     if mesh is not None:
         raise NotImplementedError(
-            "a sharded mission waits for the multi-GPU fleet (ROADMAP "
-            "A10/B4)")
+            "the port shards a mission over devices=[torch devices], not "
+            "a JAX mesh")
     from repro_torch.models.sar_cnn import SarCnnConfig, init_sar_cnn
     dev = resolve_device(device)
+    if devices is not None:
+        devices = [resolve_device(x) for x in devices]
     cfg = cfg or SarCnnConfig()
     if params is None:
         params = init_sar_cnn(torch.Generator().manual_seed(3), cfg)
@@ -556,7 +568,7 @@ def fly_mission(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
              advisories) = _fly_group_lifetime(
                 wcfg, ucfg, pol, cfg, chip, cost, fused, n_steps, tcfg,
                 params, calibrated, dev_worlds, sub(fleet0), maps0,
-                sub(bind), lifetime)
+                sub(bind), lifetime, devices)
             host_syncs += n_syncs
             # drift as the controller's monitor judges it: folded per
             # belief epoch, so a healed group reports its post-heal state
@@ -571,7 +583,7 @@ def fly_mission(wcfg: WorldConfig, ucfg: UavConfig, pol: MissionPolicy,
         else:
             episode, head, bias, hcfg = group_episode(
                 wcfg, ucfg, pol, params, cfg, chip, calibrated, cost,
-                fused, n_steps, tcfg)
+                fused, n_steps, tcfg, devices)
             telem0 = (init_telemetry(tcfg, pol.triage.r_max, dev)
                       if tcfg else None)
             out = episode(params, head, bias, dev_worlds, sub(fleet0),

@@ -11,7 +11,7 @@ reference; routing and dispatch are plain ``torch`` with no host sync.
 
 The reference's ``make_sharded_moe``/``_dispatch_local`` (its mesh
 path, expert- or tensor-parallel over devices) wait for more than one
-GPU (ROADMAP A10); ``ep_axis`` is a sharding constraint there and has
+GPU (ROADMAP A10b); ``ep_axis`` is a sharding constraint there and has
 no meaning on one card.
 
 Aux load-balancing loss follows Switch/Mixtral: E · Σ_e f_e · p_e.

@@ -40,7 +40,7 @@ as ``dots_with_no_batch_dims_saveable``) and recomputes the rest,
 ``none`` keeps everything.  Remat changes no value.
 
 What is not here: the MoE mesh path (``make_sharded_moe``) waits for
-more than one GPU (A10).  The reference's ``_wsc``/``_tp_linear``
+more than one GPU (A10b).  The reference's ``_wsc``/``_tp_linear``
 helpers constrain shardings on a TPU mesh and have no meaning on one
 card; ``ModelConfig``'s mesh hints (``batch_axes``,
 ``model_axis_size``, ``explicit_tp``) are carried as data only.

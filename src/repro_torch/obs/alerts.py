@@ -6,8 +6,7 @@ fact; it never touches the device path.
 
 ``observe_slo`` and ``observe_backpressure`` read an ``obs/slo``
 snapshot (``launch/serve.collect_alerts`` passes the serve summary's);
-backpressure fires only on a fleet's snapshot, which the port has no
-fleet to make yet.
+backpressure fires only on a fleet's snapshot (``serve_sar_fleet``).
 """
 
 from __future__ import annotations

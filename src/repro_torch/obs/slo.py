@@ -10,8 +10,8 @@ about, as a continuously monitored stream:
   plus the queue-wait / service split) and tracks violations against
   declared :class:`SLO` objects with error-budget burn-rate accounting.
 - The fleet hooks (router decision latency, per-pool queue depths,
-  backpressure) are plain bookkeeping and are here too; the port has no
-  fleet to call them yet.
+  backpressure) are plain bookkeeping too; ``serving/fleet.py`` calls
+  them every tick and its summary carries the ``fleet`` block.
 
 Everything is host-side bookkeeping done where the engine already is on
 the host (after its one pull a dispatch): no device tensor is touched,

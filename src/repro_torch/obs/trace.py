@@ -9,10 +9,14 @@ Track layout for serving: tid 0 is the engine loop (featurize and
 sar_rounds spans); tids 1..n_slots are request tracks, one complete
 span per request from admission to retirement with verdict /
 sample-count args.  :func:`mission_trace` builds the same format after
-the fact from mission logs on the SIMULATED mission clock.  The
-reference's instant and flow events and its named processes, which
-stitch a fleet's timeline (router → pool → slot), wait for a serving
-fleet in the port.
+the fact from mission logs on the SIMULATED mission clock.
+
+Fleet runs (``serving/fleet.py``) stitch all pools into ONE timeline:
+pid 0 is the router (fleet_tick spans, backpressure instants, flow
+starts), pid p+1 is pool p (its gang-dispatch track at tid 0 and its
+slot tracks).  Each request carries a Perfetto flow (ph "s"/"f" keyed by
+rid) from the router tick that routed it to the slot span where its
+verdict landed, so one request is followable router → pool → slot.
 
 The tracer reads host clocks only: a span never waits on the card, so
 a ``sar_rounds`` span covers the host's launches and the one pull.
@@ -36,6 +40,7 @@ class Tracer:
         self.process_name = process_name
         self.events: list[dict[str, Any]] = []
         self._thread_names: dict[tuple[int, int], str] = {}
+        self._process_names: dict[int, str] = {}
 
     @property
     def enabled(self) -> bool:
@@ -48,12 +53,27 @@ class Tracer:
     def name_thread(self, tid: int, name: str, pid: int = 0) -> None:
         self._thread_names[(int(pid), int(tid))] = name
 
+    def name_process(self, pid: int, name: str) -> None:
+        self._process_names[int(pid)] = name
+
     def complete(self, name: str, ts_s: float, dur_s: float, *,
                  tid: int = 0, pid: int = 0, **args) -> None:
         """Record a complete ("X") span at ``ts_s`` lasting ``dur_s`` (s)."""
         self.events.append({
             "name": name, "ph": "X", "pid": int(pid), "tid": int(tid),
             "ts": float(ts_s) * 1e6, "dur": max(float(dur_s), 0.0) * 1e6,
+            "args": {k: _plain(v) for k, v in args.items()},
+        })
+
+    def instant(self, name: str, ts_s: float | None = None, *,
+                tid: int = 0, pid: int = 0, **args) -> None:
+        """Record an instant ("i", thread-scoped) event at ``ts_s``
+        (now by default)."""
+        if ts_s is None:
+            ts_s = self.now()
+        self.events.append({
+            "name": name, "ph": "i", "s": "t", "pid": int(pid),
+            "tid": int(tid), "ts": float(ts_s) * 1e6,
             "args": {k: _plain(v) for k, v in args.items()},
         })
 
@@ -66,9 +86,40 @@ class Tracer:
             self.complete(name, start, self.now() - start,
                           tid=tid, pid=pid, **args)
 
+    def _flow(self, ph: str, name: str, flow_id: int, ts_s: float, *,
+              tid: int, pid: int, cat: str) -> None:
+        ev = {"name": name, "ph": ph, "cat": cat, "id": int(flow_id),
+              "pid": int(pid), "tid": int(tid), "ts": float(ts_s) * 1e6}
+        if ph == "f":
+            ev["bp"] = "e"  # bind to the enclosing slice, not the next
+        self.events.append(ev)
+
+    def flow_start(self, name: str, flow_id: int,
+                   ts_s: float | None = None, *, tid: int = 0,
+                   pid: int = 0, cat: str = "req") -> None:
+        """Open a Perfetto flow arrow at ``ts_s`` (must land inside a
+        slice on that track; Perfetto draws the arrow slice to slice)."""
+        self._flow("s", name, flow_id, self.now() if ts_s is None
+                   else ts_s, tid=tid, pid=pid, cat=cat)
+
+    def flow_step(self, name: str, flow_id: int,
+                  ts_s: float | None = None, *, tid: int = 0,
+                  pid: int = 0, cat: str = "req") -> None:
+        self._flow("t", name, flow_id, self.now() if ts_s is None
+                   else ts_s, tid=tid, pid=pid, cat=cat)
+
+    def flow_end(self, name: str, flow_id: int,
+                 ts_s: float | None = None, *, tid: int = 0,
+                 pid: int = 0, cat: str = "req") -> None:
+        self._flow("f", name, flow_id, self.now() if ts_s is None
+                   else ts_s, tid=tid, pid=pid, cat=cat)
+
     def to_chrome(self) -> dict[str, Any]:
-        meta = [{"name": "process_name", "ph": "M", "pid": 0, "tid": 0,
-                 "args": {"name": self.process_name}}]
+        pnames = dict(self._process_names)
+        pnames.setdefault(0, self.process_name)
+        meta = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+                 "args": {"name": name}}
+                for pid, name in sorted(pnames.items())]
         for (pid, tid), name in sorted(self._thread_names.items()):
             meta.append({"name": "thread_name", "ph": "M", "pid": pid,
                          "tid": tid, "args": {"name": name}})
@@ -93,7 +144,16 @@ class _NullTracer(Tracer):
     def name_thread(self, tid, name, pid=0):
         pass
 
+    def name_process(self, pid, name):
+        pass
+
     def complete(self, *a, **k):
+        pass
+
+    def instant(self, *a, **k):
+        pass
+
+    def _flow(self, *a, **k):
         pass
 
     @contextmanager

@@ -75,8 +75,19 @@ histograms, and a tracer (``obs/trace``) records featurize and
 sar_rounds spans and a span per request on its slot's track.
 ``drain`` attaches the stage profile, the build counters and the SLO
 snapshot to the summary; ``compiled_cost_records`` gives each kernel's
-work at the live shapes (``obs/prof.compiled_cost``).  Slot sharding
-waits for a call with more than one GPU.
+work at the live shapes (``obs/prof.compiled_cost``).
+
+Slot sharding (``slot_devices``, the reference's ``slot_axis``/``mesh``):
+a list of torch devices, which may repeat one, cuts every round's slot
+axis into that many contiguous shards, each folded by
+``kernels/decision.decision_stats_sharded`` on its device with read
+noise keyed on global slot ids, so the verdicts are the unsharded
+pool's bit for bit.  The pool's tensors stay whole on the engine's
+device and are split at each launch (on one card the split copies
+nothing); when ``n_slots`` does not divide over the shards the rounds
+take the unsharded kernel, as the reference's, and the summary's
+``shards`` says which ran.  ``serving/fleet.py`` runs several engines
+behind one router with one pull a tick (``_dispatch`` / ``_land``).
 
 ``LMServingEngine``: token streams.  Slots share one decode clock (the
 KV cache's ``pos``, kept on the host), and a tick decides one token for
@@ -173,7 +184,8 @@ def token_decision(abasis: dict, base: torch.Tensor, active: torch.Tensor,
                    adaptive_mode: bool, schedule: tuple,
                    fused: bool = True, telem: dict | None = None,
                    tcfg: TelemetryConfig | None = None,
-                   launched: torch.Tensor | None = None) -> tuple:
+                   launched: torch.Tensor | None = None,
+                   shard=None) -> tuple:
     """One whole decision per slot with no host sync (port of
     ``_lm_token_fn``'s ``token_decision``) -> (verdict, fin, spent), or
     (verdict, fin, spent, telem) when ``telem`` is given.
@@ -199,9 +211,16 @@ def token_decision(abasis: dict, base: torch.Tensor, active: torch.Tensor,
     every active slot's verdict is recorded once at the end, and the
     dispatch counts once, or only where the device bool ``launched``
     holds (a decision the reference would have skipped whole).
+
+    ``shard``: a sequence of torch devices (``_lm_token_fn``'s
+    ``slot_axis``/``mesh``): with ``fused`` and B divisible over them,
+    every round goes through ``decision_stats_sharded`` (bit for bit the
+    unsharded rounds); otherwise the unsharded kernel, as the reference.
     """
     b, n = abasis["y_mu"].shape
     dev = abasis["y_mu"].device
+    if shard is not None and b % len(shard):
+        shard = None
     if fused:      # the kernel takes contiguous rows
         abasis = {k: v.contiguous() for k, v in abasis.items()}
     grng = hcfg.grng
@@ -217,7 +236,7 @@ def token_decision(abasis: dict, base: torch.Tensor, active: torch.Tensor,
         sel = indexed_selections(grng.lfsr_seed, idx)
         if fused:
             decision_update(stats, abasis, sel, grng, sample_idx=idx,
-                            mask=upd)
+                            mask=upd, shard=shard)
         else:
             samples = mix_samples(abasis, sel, hcfg, sample_idx=idx)
             stats = adaptive.update_stats(stats, samples, mask=upd)
@@ -356,6 +375,10 @@ class _EngineBase:
                 tid=slot_idx + 1, pid=self.trace_pid, verdict=int(verdict),
                 n_samples=slot.n_samples,
                 n_decisions=max(slot.n_decisions, 1))
+            # close the request's flow on its slot span: a fleet's
+            # router opened it when it routed the request
+            self.tracer.flow_end(f"req {req.rid}", req.rid, start,
+                                 tid=slot_idx + 1, pid=self.trace_pid)
         slot.req = None
         slot.n_samples = slot.n_decisions = 0
         slot.first_dispatch_s = 0.0
@@ -408,7 +431,8 @@ class SarServingEngine(_EngineBase):
     (a tracker this engine owns and attaches to its summary), a shared
     ``SloTracker`` (its owner attaches it), or False; ``trace_pid``: the
     tracer's process track; ``device``: None = the card (raises without
-    CUDA), "cpu" on purpose.
+    CUDA), "cpu" on purpose; ``slot_devices``: the slot shards' devices
+    (module docstring), None for the unsharded pool.
     """
 
     def __init__(self, params, cfg, *, n_slots: int = 32,
@@ -420,11 +444,19 @@ class SarServingEngine(_EngineBase):
                  chip=None, fused: bool = True,
                  telemetry: bool | TelemetryConfig = True, tracer=None,
                  profiler: bool | StageProfiler = True, slo=True,
-                 trace_pid: int = 0, device=None):
+                 trace_pid: int = 0, device=None, slot_devices=None):
         super().__init__(n_slots, policy, metrics, telemetry, tracer,
                          profiler, slo, trace_pid, device)
         # Escalation rounds launched, wasted ones after the exit included.
         self.rounds_launched = 0
+        self._shard = None
+        self.shards = None
+        if slot_devices is not None:
+            devs = [resolve_device(d) for d in slot_devices]
+            if not devs:
+                raise ValueError("slot_devices needs at least one device")
+            self._shard = devs if n_slots % len(devs) == 0 else None
+            self.shards = len(devs) if self._shard else 1
         self.cfg = cfg
         self.adaptive_mode = adaptive_mode
         self.fused = fused
@@ -521,7 +553,7 @@ class SarServingEngine(_EngineBase):
         sel = indexed_selections(grng.lfsr_seed, idx)  # = stream_selections
         if self.fused:
             decision_update(self.stats, self.pool, sel, grng,
-                            sample_idx=idx, mask=mask)
+                            sample_idx=idx, mask=mask, shard=self._shard)
         else:
             samples = mix_samples(self.pool, sel, self.hcfg, sample_idx=idx)
             self.stats = adaptive.update_stats(self.stats, samples, mask=mask)
@@ -572,6 +604,33 @@ class SarServingEngine(_EngineBase):
         """Reset the per-run selection-stream bases."""
         self.base = np.zeros((self.n_slots,), np.uint32)
 
+    def _dispatch(self, active: np.ndarray) -> torch.Tensor:
+        """Launch one dispatch's rounds for the ``active`` [n_slots]
+        slots, no sync -> the packed result on the device: verdict,
+        prediction, confidence, mutual information [n_slots] each and
+        the round count, in one float64 tensor (exact for each)."""
+        verdict, fin, rounds = self._multi_round(
+            torch.as_tensor(self.base.astype(np.int64), device=self.device),
+            torch.as_tensor(active, device=self.device))
+        return torch.cat([
+            torch.stack([verdict.double(), fin["prediction"].double(),
+                         fin["confidence"].double(),
+                         fin["mutual_information"].double()]).reshape(-1),
+            rounds.double().reshape(1)])
+
+    def _land(self, packed: np.ndarray, active: np.ndarray,
+              verdict_s: float) -> int:
+        """Retire from a pulled ``_dispatch`` result (``verdict_s``: the
+        stamp of its pull).  Returns the dispatch's round count."""
+        b = self.n_slots
+        rounds = int(packed[4 * b])
+        host_fin = {"prediction": packed[b:2 * b].astype(np.int64),
+                    "confidence": packed[2 * b:3 * b],
+                    "mutual_information": packed[3 * b:4 * b]}
+        self._retire_decided(active, packed[:b].astype(np.int32), host_fin,
+                             self.r_step * rounds, verdict_s=verdict_s)
+        return rounds
+
     def step(self) -> bool:
         """One scheduler tick: admit, dispatch the escalation rounds,
         pull the verdicts once, retire.  False when nothing was active."""
@@ -582,37 +641,31 @@ class SarServingEngine(_EngineBase):
         self._stamp_first_dispatch(active)
         t_disp = self.tracer.now()
         with self.profiler.span("dispatch"):       # the host's launches
-            verdict, fin, rounds = self._multi_round(
-                torch.as_tensor(self.base.astype(np.int64),
-                                device=self.device),
-                torch.as_tensor(active, device=self.device))
-            # verdict, prediction, confidence, mutual information and the
-            # round count in one tensor (float64 holds each exactly)
-            packed = torch.cat([
-                torch.stack([verdict.double(), fin["prediction"].double(),
-                             fin["confidence"].double(),
-                             fin["mutual_information"].double()]
-                            ).reshape(-1),
-                rounds.double().reshape(1)])
+            packed = self._dispatch(active)
         # ONE blocking device→host pull: the wait for the card
         with self.profiler.span("triage_loop"):
             packed = packed.cpu().numpy()
         t_verdict = time.perf_counter()
         self.host_syncs += 1
-        b = self.n_slots
-        host_fin = {"prediction": packed[b:2 * b].astype(np.int64),
-                    "confidence": packed[2 * b:3 * b],
-                    "mutual_information": packed[3 * b:4 * b]}
-        spent = self.r_step * int(packed[4 * b])
         if self.tracer.enabled:
+            rounds = int(packed[4 * self.n_slots])
             self.tracer.complete(
                 "sar_rounds", t_disp, self.tracer.now() - t_disp,
-                pid=self.trace_pid, rounds=int(packed[4 * b]),
-                n_active=int(active.sum()), samples_per_slot=spent)
+                pid=self.trace_pid, rounds=rounds,
+                n_active=int(active.sum()),
+                samples_per_slot=self.r_step * rounds)
         with self.profiler.span("retirement"):
-            self._retire_decided(active, packed[:b].astype(np.int32),
-                                 host_fin, spent, verdict_s=t_verdict)
+            self._land(packed, active, t_verdict)
         return True
+
+    def drain(self) -> dict:
+        """The base summary, with ``shards`` (the slot shards the rounds
+        ran over, 1 where the pool did not divide) when ``slot_devices``
+        was given."""
+        out = super().drain()
+        if self.shards is not None:
+            out["shards"] = self.shards
+        return out
 
     def run(self, max_ticks: int = 100_000) -> dict:
         self.start()

@@ -1,17 +1,17 @@
-"""Open-loop load harness: seeded arrival processes driving one serving
-engine (port of the single-engine half of ``repro/serving/load.py``;
-plain Python and numpy, its own copy).
+"""Open-loop load harness: seeded arrival processes driving a serving
+engine or fleet (port of ``repro/serving/load.py``; plain Python and
+numpy, its own copy).
 
 Fed everything at once, an engine's queue wait measures burst
 absorption, never a traffic regime.  This module generates
 deterministic, seeded arrival-time sequences (steady Poisson, bursty,
-ramped) and drives a :class:`~repro_torch.serving.SarServingEngine`
-open-loop: each request is submitted when its arrival time comes due on
-the real clock while the engine keeps ticking, so admission-queue wait
-and time to verdict under a given offered load are measured, not
-simulated.  Arrivals do NOT wait for the system: under overload the
-queue grows and latency explodes.  The fleet target waits for a
-serving fleet in the port.
+ramped) and drives a :class:`~repro_torch.serving.SarServingEngine` or
+:class:`~repro_torch.serving.SarServingFleet` open-loop: each request is
+submitted when its arrival time comes due on the real clock while the
+target keeps ticking, so admission-queue wait, backpressure and time to
+verdict under a given offered load are measured, not simulated.
+Arrivals do NOT wait for the system: under overload the queue grows
+and latency explodes.
 
 Spec strings (CLI ``--arrival``):
 
@@ -31,12 +31,9 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import TYPE_CHECKING, Any, Sequence
+from typing import Any, Sequence
 
 import numpy as np
-
-if TYPE_CHECKING:
-    from repro_torch.serving.engine import SarServingEngine
 
 BURST_GROUP = 16  # requests per burst/lull alternation in burst mode
 
@@ -107,21 +104,26 @@ class ArrivalSpec:
         return np.cumsum(gaps)
 
 
-def run_open_loop(target: "SarServingEngine", requests: Sequence, offsets,
-                  *, max_wall_s: float = 600.0) -> dict:
-    """Drive an engine open-loop and return its summary.
+def run_open_loop(target, requests: Sequence, offsets, *,
+                  speed: float = 1.0, max_wall_s: float = 600.0) -> dict:
+    """Drive an engine or a fleet open-loop and return its summary.
 
-    Request ``i`` is submitted when ``offsets[i]`` seconds of real time
-    have elapsed; between arrivals the engine keeps stepping so
-    in-flight work drains.  Arrival stamps are taken at actual
-    submission time — queue wait is measured, not simulated.
-    ``max_wall_s`` bounds a run whose offered load the engine cannot
-    drain.
+    ``target``: anything with ``start``/``submit``/``pending``/
+    ``n_active``/``drain`` and a per-tick ``step`` (an engine) or
+    ``tick`` (a fleet).  Request ``i`` is submitted when
+    ``offsets[i] / speed`` seconds of real time have elapsed; between
+    arrivals the target keeps ticking so in-flight work drains.  Arrival
+    stamps are taken at actual submission time — queue wait is
+    measured, not simulated.  ``speed`` > 1 compresses the schedule (the
+    same sequence at a proportionally higher offered load);
+    ``max_wall_s`` bounds a run whose offered load the target cannot
+    drain.  A target with ``wall_s`` (a fleet) gets the harness's wall.
     """
-    offsets = np.asarray(offsets, np.float64)
+    offsets = np.asarray(offsets, np.float64) / float(speed)
     n = len(requests)
     if n != len(offsets):
         raise ValueError(f"{n} requests vs {len(offsets)} offsets")
+    step = getattr(target, "step", None) or target.tick
     target.start()
     i = 0
     t0 = time.perf_counter()
@@ -133,7 +135,7 @@ def run_open_loop(target: "SarServingEngine", requests: Sequence, offsets,
             req.arrival_pc = time.perf_counter()
             target.submit(req)
             i += 1
-        worked = target.step()
+        worked = step()
         if i >= n and not worked and target.pending == 0 \
                 and target.n_active == 0:
             break
@@ -145,6 +147,8 @@ def run_open_loop(target: "SarServingEngine", requests: Sequence, offsets,
             if wait > 0:
                 time.sleep(min(wait, 0.05))
     wall = time.perf_counter() - t0
+    if hasattr(target, "wall_s"):
+        target.wall_s = wall
     out = target.drain()
     out["offered"] = {
         "requests": n, "submitted": i,

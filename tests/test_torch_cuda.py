@@ -79,6 +79,12 @@ Observability: the engine's cost records against the launches the
 wrappers count (the same verdicts and syncs with the instruments on and
 off), and ``trace_capture``'s trace holding every decision and CIM
 launch under its CUDA symbol.
+Slot sharding and the fleet: ``decision_stats_sharded`` over the card
+repeated 2 and 4 times bit for bit the unsharded launch (N 2 to 4,097,
+read noise, masks) and within 1e-5 of its plain version; the
+slot-sharded pool's verdicts equal the unsharded pool's on the ideal
+die and a die; a 4-pool gang fleet equal to the sequential arm with
+fewer syncs, and a fleet with pools on the card and the CPU.
 """
 
 import numpy as np
@@ -1250,3 +1256,74 @@ def test_lm_train_resume_on_the_card(hopper, tmp_path):
         [h["loss"] for h in whole["history"][2:]]
     assert all(a.is_cuda and torch.equal(a, b) for a, b in
                zip(leaves(resumed["params"]), leaves(whole["params"])))
+
+
+# ----------------------------------------------------------------------
+# slot sharding and the fleet (one card holds every shard and pool)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("n,r,read_sigma", [(2, 4, 0.0), (2, 20, 0.4),
+                                            (300, 6, 0.4), (4097, 20, 0.0)])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_kernel_is_the_unsharded_launch(hopper, n, r, read_sigma,
+                                                shards):
+    """``decision_stats_sharded`` over cuda:0 repeated: the shards'
+    launches give the unsharded launch's bits (read noise keyed on
+    global rows), within 1e-5 of the sharded plain version; one counted
+    call, ``shards`` kernel launches."""
+    from repro_torch.kernels.decision import (decision_stats_sharded,
+                                              decision_stats_sharded_plain)
+    args = _case(hopper, 8, n, r, read_sigma, seed=3)
+    del args["rows"]
+    before = (decision_stats_sharded.launches, decision_stats.launches)
+    got = decision_stats_sharded(**args, devices=[hopper] * shards)
+    assert (decision_stats_sharded.launches - before[0],
+            decision_stats.launches - before[1]) == (1, shards)
+    whole = decision_stats(**args)
+    plain = decision_stats_sharded_plain(**args, shards=shards)
+    torch.cuda.synchronize()
+    for key in KEYS:
+        assert torch.equal(got[key], whole[key]), key
+        torch.testing.assert_close(got[key], plain[key], rtol=1e-5,
+                                   atol=1e-5, msg=key)
+
+
+def _sar_serve(**kw):
+    from repro_torch.launch.serve import serve_sar
+    from repro_torch.serving import TriagePolicy
+    return serve_sar(n_requests=64, n_slots=32, corrupt_frac=0.25,
+                     policy=TriagePolicy(conf_threshold=0.55,
+                                         mi_threshold=0.05, r_min=4,
+                                         r_max=20), **kw)
+
+
+@pytest.mark.parametrize("chip", [None, 11])
+def test_sharded_pool_on_the_card(hopper, chip):
+    """The slot-sharded pool (2 shards on the card) decides as the
+    unsharded pool, floats bit for bit, on the ideal die and a die."""
+    kw = dict(chip_instance=chip, device="cuda")
+    whole = _sar_serve(**kw)
+    sharded = _sar_serve(slot_devices=["cuda", "cuda"], **kw)
+    assert sharded["shards"] == 2
+    assert sharded["verdicts"] == whole["verdicts"]
+    assert sharded["host_syncs"] == whole["host_syncs"]
+
+
+def test_fleet_gang_on_the_card(hopper):
+    """4 pools on the card: the gang decides as the sequential arm with
+    fewer host syncs; a pool on the CPU beside them gathers onto the
+    card before the one pull."""
+    from repro_torch.launch.serve import serve_sar_fleet
+    from repro_torch.serving import TriagePolicy
+    kw = dict(n_requests=96, n_pools=4, slots_per_pool=16,
+              corrupt_frac=0.25, policy=TriagePolicy(
+                  conf_threshold=0.55, mi_threshold=0.05, r_min=4,
+                  r_max=20))
+    g = serve_sar_fleet(gang=True, **kw)
+    q = serve_sar_fleet(gang=False, **kw)
+    assert g["verdicts"] == q["verdicts"]
+    assert g["routed_per_pool"] == q["routed_per_pool"]
+    assert g["host_syncs"] == g["ticks"] < q["host_syncs"]
+    mixed = serve_sar_fleet(gang=True, devices=["cuda", "cpu", "cuda",
+                                                "cpu"], **kw)
+    assert mixed["host_syncs"] == mixed["ticks"]
+    assert [v["rid"] for v in mixed["verdicts"]] == list(range(96))

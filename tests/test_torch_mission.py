@@ -666,7 +666,7 @@ def test_per_drone_chips_one_sync_per_die(port_params):
         _fly(port_params, chips=[None])
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A10")])
+@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "devices=")])
 def test_unported_arms_raise(port_params, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _fly(port_params, **kw)

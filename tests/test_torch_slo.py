@@ -187,8 +187,8 @@ def test_null_slo_is_inert():
 
 
 def test_fleet_bookkeeping_matches_reference():
-    """The fleet hooks are plain bookkeeping; the port has no fleet to
-    call them yet, so they are held to the reference's here."""
+    """The fleet hooks are plain bookkeeping, held to the reference's
+    here (the fleet that calls them: tests/test_torch_fleet.py)."""
     port, ref = SloTracker(), jslo.SloTracker()
     for t in (port, ref):
         t.sample_queues([3, 0, 5], [8, 8, 2], 4)
