@@ -193,8 +193,8 @@ JSON line):
   7j. the SSM and hybrid LMs (lines ``lm_ssm``, ``kernel_check``
      ``ssm_*``, ``ssm_chunk_carry``, ``lm_tick_split``, ``timing``
      ``*_ssm_*``, ``lm_ssm_card_vs_cpu``, ``lm_ssm_phase_s``):
-     mamba2-130m (24 of 24 layers) and zamba2-2.7b (54 of 54) at full
-     width, float32 params drawn on the card from seed 0 and freed before
+     mamba2-130m (24 of 24 layers) and zamba2-2.7b (27 of 54; 54 of 54
+     before the mesh phase joined the script) at full width, float32 params drawn on the card from seed 0 and freed before
      the next model, through 7h's serve() with prompts of 512 (two SSD
      chunks, so the state carried between chunks runs) under
      accept-always, fixed R = 20 and the escalating policy: decision
@@ -213,8 +213,9 @@ JSON line):
      ``xattn_*``, ``lm_tick_split``, ``xattn_consistency``, ``timing``
      ``*_xattn_*``, ``lm_xattn_card_vs_cpu``, ``lm_xattn_phase_s``):
      whisper-medium (24 encoder + 24 decoder layers, 1,500 stub frames)
-     and llama-3.2-vision-11b (40 self + 8 cross layers, 1,601 stub image
-     tokens) at full width and full depth, float32 params drawn on the
+     and llama-3.2-vision-11b (20 of 40 self + 4 of 8 cross layers, full
+     depth before the mesh phase joined the script; 1,601 stub image
+     tokens) at full width, float32 params drawn on the
      card from seed 0 and freed before the next model, through 7h's
      serve(): whisper 8 requests under accept-always, fixed R = 20 and
      the escalating policy, none admitted into a decoding pool and at
@@ -277,6 +278,30 @@ JSON line):
      a standalone engine on its device; ``fly_mission`` at
      mission_bench's default scale on both dies over 2 shards against
      1, logs equal lane for lane, sharded calls = steps × rounds;
+  7n. the (data, model) mesh (lines ``mesh_place``, ``mesh_moe``,
+     ``mesh_prefill``, ``mesh_decode``, ``kernel_check bayes_rank16
+     mesh_*``, ``mesh_microbatch``, ``mesh_elastic``, ``mesh_train``,
+     ``kernel_check grng_eps mesh_train_*``, ``mesh_phase_s``); every
+     mesh coordinate on cuda:0, so these show placement, the sharded
+     paths' arithmetic and the kernels' launches, not scaling across
+     cards: mixtral-8x7b (full width, 4 of 32 layers) and qwen3-0.6b
+     placed on (2, 2) with no allocator growth and ``validate_specs``
+     empty; mixtral's MoE layer at 4 × 64 tokens through
+     ``make_sharded_moe`` on (2, 2) and (1, 4) (EP) in float32 and bf16
+     against ``moe_apply`` (capacity factor 8: no drop, float32 within
+     2e-5; factor 1: the pairs dropped a shard, reported), timed;
+     ``mesh_prefill_step`` (mixtral, capacity factor 8) and
+     ``mesh_prefill_step`` + 2 ``mesh_decode_step``s (qwen3-0.6b) on
+     (2, 2) in float32 against the unsharded steps (samples within 1e-5
+     of the largest), one rank16 launch a step, each launch held to its
+     plain version on its own operands; microbatches 4 against 1 on
+     (2, 2) (loss within 5e-2); 3 steps on (2, 2), two coordinates lost,
+     ``remesh_train_state`` and 2 more steps (params bit-equal, count
+     kept, losses within 1e-3 of an unbroken run on the shrunken mesh);
+     5 training steps of qwen3-0.6b at 8 × 64 on (1, 1) and on (2, 2)
+     with explicit TP off and on (losses within 1e-3 of (1, 1), one ε
+     launch a step, asserted; ms a step, allocator peak) and the ε
+     kernel on the mesh step's own draw against its plain version;
   8. kernel timing: device time from CUDA graph replays and per-call
      time of eager calls (CUDA events), beside the plain version's and
      the card's byte/flop bound: decision and CIM at the serving path's
@@ -2332,7 +2357,10 @@ def run_telemetry_path() -> dict:
 def recording(targets: dict):
     """Patch module attributes to record (clone) every call's arguments
     and pass it on.  ``targets``: {kind: (module, name, arg names)}.
-    -> (calls {kind: [args]}, restore())."""
+    A kernel wrapper patched in its own module increments its
+    ``launches`` count by its module-level name, the patch while it is
+    in place: the count carries over to the patch and back.  -> (calls
+    {kind: [args]}, restore())."""
     calls = {kind: [] for kind in targets}
     saved = {}
 
@@ -2341,7 +2369,6 @@ def recording(targets: dict):
 
     for kind, (mod, name, names) in targets.items():
         real = getattr(mod, name)
-        saved[kind] = (mod, name, real)
 
         def call(*args, _kind=kind, _real=real, _names=names, **kw):
             calls[_kind].append({**{k: cloned(v) for k, v in
@@ -2349,10 +2376,17 @@ def recording(targets: dict):
                                  **{k: cloned(v) for k, v in kw.items()}})
             return _real(*args, **kw)
 
+        counted = (hasattr(real, "launches")
+                   and getattr(real, "__module__", None) == mod.__name__)
+        if counted:
+            call.launches = real.launches
+        saved[kind] = (mod, name, real, call if counted else None)
         setattr(mod, name, call)
 
     def restore():
-        for mod, name, real in saved.values():
+        for mod, name, real, counted in saved.values():
+            if counted is not None:
+                real.launches = counted.launches
             setattr(mod, name, real)
 
     return calls, restore
@@ -4230,7 +4264,7 @@ def run_lm_moe() -> dict:
 
 
 # ----------------------------------------------------------------------
-# the SSM and hybrid LMs served at full width and full depth
+# the SSM and hybrid LMs served at full width (zamba2's depth cut)
 # ----------------------------------------------------------------------
 # mamba2-130m (24 layers, d 768, vocabulary 50,432 padded; 0.83 GB of
 # float32 params) and zamba2-2.7b (54 layers, d 2,560, the shared block
@@ -4239,8 +4273,12 @@ def run_lm_moe() -> dict:
 # state carried between chunks (y_off, the decayed state update) runs on
 # the card (at one chunk it multiplies a zero state).  The dense phase's
 # serve() otherwise: 4 slots, 8 new tokens, 8 requests.
+# zamba2 at 27 of its 54 layers (4 of 9 shared-block sites) since the
+# mesh phase joined the script: a serve's summary walks the tile map a
+# layer (C27), and the script's 1,200 s limit holds every phase
 SSM = (dict(LM, arch="mamba2-130m", prompt_len=512, tag="ssm_mamba2"),
-       dict(LM, arch="zamba2-2.7b", prompt_len=512, tag="ssm_zamba2"))
+       dict(LM, arch="zamba2-2.7b", prompt_len=512, tag="ssm_zamba2",
+            layers=27))
 SSM_DECISION_R = (4, 8, 20)
 # ssd_chunked at a full-width layer shape: 512 tokens at once against
 # two 256-token calls with the state carried, and the card against the
@@ -4316,20 +4354,23 @@ def placed_latency_s(cfg) -> float:
 
 
 def run_ssm_model(spec: dict) -> dict:
-    """One SSM config at full width and full depth, params drawn on the
-    card from ``spec``'s seed: serve() under accept-always, fixed R = 20
+    """One SSM config at full width and ``spec``'s depth (``layers``;
+    full by default), params drawn on the card from ``spec``'s seed: serve() under accept-always, fixed R = 20
     and the escalating policy (launch and sync counts asserted by
     ``lm_serve_run``; at least one admission into a decoding pool), the
     kernels on its live operands (``lm_kernel_checks``: decision.cu at
     R 4, 8, 20 and with read noise; rank16 on one decode_step_ssm), the
     chunk carry at its layer shape, a tick's split and the kernels'
     times; the params freed after."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import params_init, serve
     from repro_torch.serving import TriagePolicy
     card_name, _, power = card_line().partition(",")
-    cfg = get_config(spec["arch"])
+    full = get_config(spec["arch"])
+    cfg = dataclasses.replace(full, n_layers=spec.get("layers",
+                                                      full.n_layers))
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4341,7 +4382,7 @@ def run_ssm_model(spec: dict) -> dict:
     n_params = sum(t.numel() for t in leaves)
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
     del leaves
-    serve(spec["arch"], smoke=False, batch=spec["batch"],
+    serve(spec["arch"], smoke=False, cfg=cfg, batch=spec["batch"],
           prompt_len=spec["prompt_len"], gen_len=1, n_requests=1,
           params=params, device="cuda")                    # warm-up
     acc = lm_serve_run("accept_always", TriagePolicy(**LM_ACCEPT), True,
@@ -4369,7 +4410,7 @@ def run_ssm_model(spec: dict) -> dict:
     summary_s = placed_latency_s(cfg)
     for r in runs:
         emit({"lm_ssm": r["name"], "arch": spec["arch"], "smoke": False,
-              "layers": f"{cfg.n_layers} of {cfg.n_layers}",
+              "layers": f"{cfg.n_layers} of {full.n_layers}",
               "prompt_len": spec["prompt_len"],
               "gpu": card_name.strip(), "power_limit": power.strip(),
               "n_params": n_params, "param_bytes": param_bytes,
@@ -4390,7 +4431,7 @@ def run_ssm_model(spec: dict) -> dict:
     return {"runs": runs, "split": split, "times": times, "carry": carry,
             "shape": f"B={spec['batch']} N={cfg.vocab_padded}, every slot "
                      f"active, the live operands of one token decision "
-                     f"(all {cfg.n_layers} layers, prompts of "
+                     f"({cfg.n_layers} of {full.n_layers} layers, prompts of "
                      f"{spec['prompt_len']})",
             "launches": sum(r["decision_launches"] for r in runs),
             "decision_max_abs_err": checks["decision_max_abs_err"],
@@ -4484,8 +4525,8 @@ def ssm_card_vs_cpu(arch: str) -> dict:
 
 
 def run_lm_ssm() -> dict:
-    """The lm_ssm phase: mamba2-130m and zamba2-2.7b at full width and
-    full depth, each under accept-always, fixed R = 20 and an
+    """The lm_ssm phase: mamba2-130m and zamba2-2.7b at full width (SSM's
+    depths), each under accept-always, fixed R = 20 and an
     escalating policy and freed before the next; both SMOKE configs card
     against CPU."""
     t_phase = time.perf_counter()
@@ -4496,7 +4537,7 @@ def run_lm_ssm() -> dict:
 
 
 # ----------------------------------------------------------------------
-# the audio and VLM LMs served at full width and full depth
+# the audio and VLM LMs served at full width (llama-vision's depth cut)
 # ----------------------------------------------------------------------
 # whisper-medium (24 encoder + 24 decoder layers, d 1,024, 1,500 stub
 # frames, vocabulary 51,968 padded; 0.87 B params, 3.47 GB in float32)
@@ -4511,10 +4552,12 @@ def run_lm_ssm() -> dict:
 # xk/xv rows land in a decoding pool at full width) and 4 under fixed R
 # and the escalating policy, to hold the phase's time: its basis at
 # K 4,096 x N 128,256 takes seconds a tick (C22).
+# llama-vision at 20 of 40 self layers (4 of 8 cross) since the mesh
+# phase joined the script, for the reason zamba2's depth is cut (SSM)
 XATTN = (dict(LM, arch="whisper-medium", tag="xattn_whisper",
               requests=(8, 8, 8)),
          dict(LM, arch="llama-3.2-vision-11b", tag="xattn_llama",
-              requests=(8, 4, 4)))
+              requests=(8, 4, 4), layers=20))
 XATTN_DECISION_R = (4, 8, 20)
 # prefill over S + 1 tokens against prefill over S and one decode_hidden,
 # float32 with TF32 off, at full width: the worst |difference| over the
@@ -4584,8 +4627,9 @@ def xattn_consistency(arch: str) -> dict:
 
 
 def run_xattn_model(spec: dict) -> dict:
-    """One cross-attention config at full width and full depth, params
-    drawn on the card from ``spec``'s seed: serve() under accept-always,
+    """One cross-attention config at full width and ``spec``'s depth
+    (``layers`` self layers, a cross layer each ``cross_attn_every``;
+    full by default), params drawn on the card from ``spec``'s seed: serve() under accept-always,
     fixed R = 20 and the escalating policy (``spec['requests']`` each;
     launch and sync counts asserted by ``lm_serve_run``; whisper: no
     admission into a decoding pool and at least two a serve; llama-
@@ -4594,12 +4638,15 @@ def run_xattn_model(spec: dict) -> dict:
     read noise; rank16 on one decode_step), a tick's split, the
     summary's tile walk and the kernels' times; the params freed
     after."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import params_init, serve
     from repro_torch.serving import TriagePolicy
     card_name, _, power = card_line().partition(",")
-    cfg = get_config(spec["arch"])
+    full = get_config(spec["arch"])
+    cfg = dataclasses.replace(full, n_layers=spec.get("layers",
+                                                      full.n_layers))
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4611,7 +4658,7 @@ def run_xattn_model(spec: dict) -> dict:
     n_params = sum(t.numel() for t in leaves)
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
     del leaves
-    serve(spec["arch"], smoke=False, batch=spec["batch"],
+    serve(spec["arch"], smoke=False, cfg=cfg, batch=spec["batch"],
           prompt_len=spec["prompt_len"], gen_len=1, n_requests=1,
           params=params, device="cuda")                    # warm-up
     n_acc, n_fixed, n_esc = spec["requests"]
@@ -4648,12 +4695,12 @@ def run_xattn_model(spec: dict) -> dict:
     for r in runs:
         emit({"lm_xattn": r["name"], "arch": spec["arch"], "smoke": False,
               "layers": (f"{cfg.encoder_layers} encoder + {cfg.n_layers} "
-                         f"decoder of {cfg.encoder_layers} + "
-                         f"{cfg.n_layers}" if cfg.encoder_layers else
+                         f"decoder of {full.encoder_layers} + "
+                         f"{full.n_layers}" if cfg.encoder_layers else
                          f"{cfg.n_layers} self + "
                          f"{cfg.n_layers // cfg.cross_attn_every} cross of "
-                         f"{cfg.n_layers} + "
-                         f"{cfg.n_layers // cfg.cross_attn_every}"),
+                         f"{full.n_layers} + "
+                         f"{full.n_layers // full.cross_attn_every}"),
               "memory": (cfg.n_frames if cfg.encoder_layers
                          else cfg.n_image_tokens),
               "gpu": card_name.strip(), "power_limit": power.strip(),
@@ -4662,7 +4709,8 @@ def run_xattn_model(spec: dict) -> dict:
               "basis_ms_a_tick": split["basis_ms"],
               "summary_placed_latency_s": summary_s,
               **{k: v for k, v in r.items() if k != "confidences"}})
-    emit({"lm_tick_split": f"{spec['arch']} full width, full depth, "
+    emit({"lm_tick_split": f"{spec['arch']} full width, {cfg.n_layers} of "
+          f"{full.n_layers} layers, "
           f"B={spec['batch']}, N={cfg.vocab_padded}",
           "gpu": card_name.strip(), "power_limit": power.strip(), **split,
           "basis_peak_bytes": checks["basis_peak_bytes"],
@@ -4674,7 +4722,7 @@ def run_xattn_model(spec: dict) -> dict:
     return {"runs": runs, "split": split, "times": times,
             "shape": f"B={spec['batch']} N={cfg.vocab_padded}, every slot "
                      f"active, the live operands of one token decision "
-                     f"(full depth)",
+                     f"({cfg.n_layers} of {full.n_layers} layers)",
             "launches": sum(r["decision_launches"] for r in runs),
             "decision_max_abs_err": checks["decision_max_abs_err"],
             "head_max_abs_err": checks["head_max_abs_err"],
@@ -4768,7 +4816,7 @@ def xattn_card_vs_cpu(arch: str) -> dict:
 
 def run_lm_xattn() -> dict:
     """The lm_xattn phase: whisper-medium and llama-3.2-vision-11b at
-    full width and full depth, each under accept-always, fixed R = 20
+    full width (XATTN's depths), each under accept-always, fixed R = 20
     and an escalating policy and freed before the next; the
     prefill/decode consistency check at a full-width layer shape; both
     SMOKE configs card against CPU."""
@@ -4882,7 +4930,7 @@ def lm_train_profile(spec: dict, params, opt) -> dict:
                                         for k, v in top}}
 
 
-def lm_eps_check(cfg, step: int) -> dict:
+def lm_eps_check(cfg, step: int, case: str = None) -> dict:
     """The training draw's ε at ``cfg``'s full width, [d_model,
     vocab_padded] at stream offset ``step`` (the selection
     ``indexed_selections(lfsr_seed, step)``, as ``bayes_layer.eps_at``
@@ -4940,8 +4988,8 @@ def lm_eps_check(cfg, step: int) -> dict:
            "plain_timing": f"eager, CUDA events, over column blocks of "
                            f"{EPS_COL_BLOCK}",
            **grng_bound(k, n, 1, ideal)}
-    emit({"kernel_check": "grng_eps", "case": f"lm_train_{cfg.name}",
-          **row})
+    emit({"kernel_check": "grng_eps",
+          "case": case or f"lm_train_{cfg.name}", **row})
     return row
 
 
@@ -5519,6 +5567,434 @@ def run_fleet_phase(params) -> dict:
             "cim_launches": fleet["launches"]["cim"]}
 
 
+# ----------------------------------------------------------------------
+# the (data, model) mesh on one card
+# ----------------------------------------------------------------------
+# Every mesh coordinate on cuda:0 (a mesh may repeat a device), so the
+# phase shows placement without bytes, the sharded paths' arithmetic
+# against the unsharded ones and the kernels' launches, not scaling
+# across cards.  qwen3-0.6b at full width (28 layers); mixtral-8x7b at
+# full width and 4 of 32 layers (its float32 params ~25 GB).
+MESH_SHAPES = ((2, 2), (1, 4))
+MESH_TRAIN = dict(arch="qwen3-0.6b", steps=5, batch=8, seq=64)
+MESH_TRAIN_REL = 1e-3            # ROADMAP C32: bf16 losses, mesh vs (1, 1)
+MESH_MICROBATCH_ATOL = 5e-2      # tests/test_spmd.py:285-288
+MESH_MOE = dict(layers=4, batch=4, seq=64)
+MESH_MOE_ATOL = 2e-5             # tests/test_spmd.py's sharded MoE
+MESH_SAMPLES_REL = 1e-5          # float32 samples: max error / max entry
+MESH_SERVE = dict(batch=4, prompt=48, seq=64, decode=2)
+
+
+def mesh_of(shape):
+    """A (data, model) mesh of ``shape``, every coordinate on cuda:0."""
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, ("data", "model"),
+                     ["cuda:0"] * (shape[0] * shape[1]))
+
+
+def mesh_place(cfg, params) -> dict:
+    """``params`` placed on (2, 2) of cuda:0: the allocator's bytes
+    before and after (no growth, asserted) and ``validate_specs``
+    (empty, asserted)."""
+    import gc
+    import torch
+    from repro_torch.sharding import specs as S
+    mesh = mesh_of((2, 2))
+    gc.collect()               # what an earlier phase left to collect
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    placed = S.place(params, S.param_specs, mesh)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    problems = S.validate_specs(params, S.param_specs(params, mesh), mesh)
+    check(after == before, f"{cfg.name}: placing on (2, 2) of one card "
+          f"moved the allocator {before} -> {after}")
+    check(not problems, f"{cfg.name}: validate_specs {problems[:3]}")
+    flat = [x for x in tensor_leaves(placed) if isinstance(x, S.Placed)]
+    row = {"mesh_place": cfg.name, "mesh": [2, 2],
+           "layers": cfg.n_layers, "allocated_before": before,
+           "allocated_after": after, "validate_specs": problems,
+           "leaves": len(flat),
+           "leaves_sharded": sum(len(x.distinct()) > 1 for x in flat)}
+    emit(row)
+    return placed
+
+
+def moe_layer_check(cfg, lp: dict) -> dict:
+    """One full-width MoE layer (layer 0's weights) at MESH_MOE's batch ×
+    sequence through ``make_sharded_moe`` on (2, 2) and (1, 4) (EP) in
+    float32 and bf16 against ``moe_apply``: at capacity factor 8 (no
+    drop; float32 within MESH_MOE_ATOL asserted, bf16 reported), at 1
+    the pairs dropped a shard (reported); ms of each call."""
+    import torch
+    from repro_torch import float32_math
+    from repro_torch.models import moe
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x32 = torch.randn(MESH_MOE["batch"], MESH_MOE["seq"], cfg.d_model,
+                      generator=g, device="cuda")
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        w = {k: lp[k].to(dtype) for k in ("router", "wi", "wg", "wo")}
+        for cf in (8.0, 1.0):
+            with float32_math():
+                y0, aux0 = moe.moe_apply(x, w["router"], w["wi"], w["wg"],
+                                         w["wo"], top_k=cfg.top_k,
+                                         capacity_factor=cf)
+                plain_ms = call_ms(lambda: moe.moe_apply(
+                    x, w["router"], w["wi"], w["wg"], w["wo"],
+                    top_k=cfg.top_k, capacity_factor=cf), 3, warmup=1)
+            for shape in MESH_SHAPES:
+                stats = []
+                fn = moe.make_sharded_moe(
+                    mesh_of(shape), top_k=cfg.top_k, capacity_factor=cf,
+                    n_experts=cfg.n_experts, dp_axes=("data",), stats=stats)
+                with float32_math():
+                    y, aux = fn(x, w["router"], w["wi"], w["wg"], w["wo"])
+                    bare = moe.make_sharded_moe(
+                        mesh_of(shape), top_k=cfg.top_k, capacity_factor=cf,
+                        n_experts=cfg.n_experts, dp_axes=("data",))
+                    ms = call_ms(lambda: bare(x, w["router"], w["wi"],
+                                              w["wg"], w["wo"]), 3,
+                                 warmup=1)
+                err = float((y.float() - y0.float()).abs().max())
+                dropped = [s["local_pairs"] - s["kept"] for s in stats]
+                if cf == 8.0:
+                    check(sum(dropped) == 0, f"sharded MoE {shape} dropped "
+                          f"{dropped} at capacity factor 8")
+                    if dtype == torch.float32:
+                        check(err <= MESH_MOE_ATOL, f"sharded MoE {shape} "
+                              f"float32 off moe_apply by {err}")
+                row = {"mesh_moe": cfg.name, "mesh": list(shape),
+                       "ep": cfg.n_experts % shape[1] == 0,
+                       "dtype": str(dtype), "capacity_factor": cf,
+                       "tokens": x.shape[0] * x.shape[1],
+                       "max_abs_err_vs_moe_apply": err,
+                       "aux": float(aux), "aux_moe_apply": float(aux0),
+                       "dropped_pairs_per_shard": dropped,
+                       "capacity_per_shard": [s["capacity"] for s in stats],
+                       "local_pairs_per_shard": [s["local_pairs"]
+                                                 for s in stats],
+                       "dropped_pairs_moe_apply": None,
+                       "ms": ms, "moe_apply_ms": plain_ms,
+                       "timing": "eager, CUDA events, 3 calls"}
+                if cf == 1.0:
+                    cap = int(max(cfg.top_k, cf * x.shape[0] * x.shape[1]
+                                  * cfg.top_k / cfg.n_experts))
+                    xf = x.reshape(-1, cfg.d_model)
+                    _, _, experts = moe.route(xf, w["router"], cfg.top_k)
+                    counts = torch.bincount(experts.reshape(-1),
+                                            minlength=cfg.n_experts)
+                    row["dropped_pairs_moe_apply"] = int(
+                        (counts - cap).clamp(min=0).sum())
+                emit(row)
+                rows.append(row)
+            del y0
+    return {"rows": rows, "float32_max_abs_err": max(
+        r["max_abs_err_vs_moe_apply"] for r in rows
+        if r["dtype"] == "torch.float32" and r["capacity_factor"] == 8.0)}
+
+
+def mesh_serving_check(cfg, params, tag: str, decode: int,
+                       capacity_factor=None) -> dict:
+    """``mesh_prefill_step`` (then ``decode`` ``mesh_decode_step``s) on
+    (2, 2) of cuda:0 in float32 against the unsharded steps: samples
+    within MESH_SAMPLES_REL of the max entry (asserted), one rank16
+    launch a step (asserted), the rank16 kernel on each step's own head
+    operands (the rows' hidden states gathered on the first device)
+    against its plain version (TOL_HEAD, asserted; lines
+    ``kernel_check bayes_rank16 mesh_*``)."""
+    import dataclasses
+    import torch
+    from repro_torch import float32_math
+    from repro_torch.data.tokens import TokenPipelineConfig, batch_at
+    from repro_torch.kernels import bayes
+    from repro_torch.launch import steps
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, **(
+        {"capacity_factor": capacity_factor} if capacity_factor else {}))
+    b, seq = MESH_SERVE["batch"], MESH_SERVE["seq"]
+    tokens = batch_at(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=MESH_SERVE["prompt"], global_batch=b),
+        0)["tokens"].to("cuda")
+    mesh = mesh_of((2, 2))
+    pre, hinted = steps.mesh_prefill_step(cfg, mesh, seq, b)
+    dec, _ = steps.mesh_decode_step(cfg, mesh, seq, b)
+    bayes.bayes_rank16.launches = 0
+    calls, restore = recording({"rank16": (
+        bayes, "bayes_rank16", ("x", "mu_prime", "sigma", "sel", "cfg"))})
+    t0 = time.perf_counter()
+    try:
+        with float32_math():
+            cache, samples = pre(params, {"tokens": tokens})
+            got = [samples]
+            for t in range(decode):
+                samples, cache = dec(params, cache, tokens[:, t:t + 1])
+                got.append(samples)
+            torch.cuda.synchronize()
+    finally:
+        restore()
+    mesh_s = time.perf_counter() - t0
+    launches = bayes.bayes_rank16.launches
+    check(launches == 1 + decode, f"{tag}: {launches} rank16 launches in "
+          f"a prefill and {decode} decode steps on the mesh")
+    with float32_math():
+        cache0, s0 = steps.make_prefill_step(cfg, seq)(
+            params, {"tokens": tokens})
+        want = [s0]
+        dec0 = steps.make_decode_step(cfg)
+        for t in range(decode):
+            s0, cache0 = dec0(params, cache0, tokens[:, t:t + 1])
+            want.append(s0)
+    errs = [float((a - w).abs().max()) / float(w.abs().max())
+            for a, w in zip(got, want)]
+    check(max(errs) <= MESH_SAMPLES_REL, f"{tag}: mesh samples off the "
+          f"unsharded steps' by {errs} (relative)")
+    head_errs = []
+    for i, c in enumerate(calls["rank16"]):
+        pos = (c["x"], c["mu_prime"], c["sigma"], c["sel"], c["cfg"])
+        k_out = bayes.bayes_rank16(*pos)
+        p_out = bayes.bayes_rank16_plain(*pos)
+        err = float((k_out - p_out).abs().max())
+        check(torch.allclose(k_out, p_out, **TOL_HEAD),
+              f"{tag}: rank16 on the mesh step's operands off its plain "
+              f"version by {err}")
+        check(torch.equal(k_out, got[i]), f"{tag}: the mesh step's "
+              "samples differ from the kernel's on its own operands")
+        head_errs.append(err)
+        emit({"kernel_check": "bayes_rank16",
+              "case": f"mesh_{tag}_{'prefill' if i == 0 else 'decode'}",
+              "B": int(c["x"].shape[0]), "K": int(c["x"].shape[1]),
+              "N": int(c["mu_prime"].shape[1]),
+              "R": int(c["sel"].shape[0]), **TOL_HEAD,
+              "max_abs_err": err})
+    bayes.bayes_rank16.launches = launches
+    return {"samples_rel_err": errs, "rank16_launches": launches,
+            "head_max_abs_err": max(head_errs), "wall_s": mesh_s,
+            "batch_axes": list(hinted.batch_axes),
+            "model_axis_size": hinted.model_axis_size}
+
+
+def mesh_train_runs() -> dict:
+    """qwen3-0.6b at full width through ``mesh_train_step`` on (1, 1)
+    and, explicit TP off and on, (2, 2), ``train``'s loop (its batches,
+    warmup and one metrics pull a step): MESH_TRAIN's steps, losses
+    within MESH_TRAIN_REL of the (1, 1) run's and one ε launch a step
+    (asserted); ms a step (median past the first), allocator peak; the
+    ε kernel on the mesh step's own draw (recorded: [d_model,
+    vocab_padded], R = 1) against its plain version (line
+    ``kernel_check grng_eps mesh_train_*``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipelineConfig
+    from repro_torch.kernels import grng
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import params_init
+    from repro_torch.launch.train import build_batch, pull_metrics
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    spec = MESH_TRAIN
+    cfg = get_config(spec["arch"])
+    pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                               global_batch=spec["batch"])
+    card_name, _, power = card_line().partition(",")
+    runs = {}
+    for shape, tp in (((1, 1), False), ((2, 2), False), ((2, 2), True)):
+        tcfg = dataclasses.replace(cfg, explicit_tp=tp)
+        step, _ = steps.mesh_train_step(
+            tcfg, mesh_of(shape), AdamWConfig(), spec["seq"],
+            spec["batch"], total_steps=spec["steps"],
+            warmup_steps=max(1, spec["steps"] // 20))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = params_init(tcfg, 0, "cuda")
+        opt = init_opt_state(params)
+        grng.grng_eps.launches = 0
+        calls, restore = recording({"eps": (
+            grng, "grng_eps", ("sel", "cfg", "k", "n"))})
+        hist = []
+        try:
+            for s in range(spec["steps"]):
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt,
+                                      build_batch(tcfg, pipe, s, "cuda"), s)
+                hist.append((pull_metrics(m)["loss"],
+                             time.perf_counter() - t0))
+        finally:
+            restore()
+        launches = grng.grng_eps.launches
+        check(launches == spec["steps"], f"mesh {shape} tp={tp}: "
+              f"{launches} ε launches in {spec['steps']} steps")
+        key = f"{shape[0]}x{shape[1]}" + ("_tp" if tp else "")
+        runs[key] = {"losses": [h[0] for h in hist],
+                     "ms_per_step_median": statistics.median(
+                         h[1] for h in hist[1:]) * 1e3,
+                     "ms_first_step": hist[0][1] * 1e3,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "eps_launches": launches,
+                     "eps_call": {k: (list(v.shape) if hasattr(v, "shape")
+                                      else v)
+                                  for k, v in calls["eps"][-1].items()
+                                  if k != "cfg"}}
+        del params, opt, m, calls
+    base = runs["1x1"]["losses"]
+    for key, r in runs.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], base))
+        r["max_rel_loss_vs_1x1"] = rel
+        check(rel <= MESH_TRAIN_REL, f"mesh train {key}: losses off the "
+              f"(1, 1) run's by {rel} (relative)")
+        emit({"mesh_train": cfg.name, "mesh": key, "gpu": card_name.strip(),
+              "power_limit": power.strip(), "layers": cfg.n_layers,
+              "batch": spec["batch"], "seq": spec["seq"],
+              "steps": spec["steps"], "remat": cfg.remat, **r})
+    for r in runs.values():
+        check(r["eps_call"]["k"] == cfg.d_model
+              and r["eps_call"]["n"] == cfg.vocab_padded
+              and r["eps_call"]["sample0"] == spec["steps"] - 1,
+              f"the mesh step's last ε draw {r['eps_call']}")
+    eps = lm_eps_check(cfg, spec["steps"] - 1,
+                       case=f"mesh_train_{cfg.name}")
+    return {"runs": runs, "eps": eps,
+            "eps_launches": sum(r["eps_launches"] for r in runs.values())}
+
+
+def mesh_microbatch_and_elastic(cfg, params) -> dict:
+    """The (2, 2) step at microbatches 4 against 1 from the same state
+    (loss within MESH_MICROBATCH_ATOL once the KL terms' difference is
+    taken out, asserted: each microbatch divides the KL by its own
+    tokens, as the reference's step does); then 3 steps on
+    (2, 2), ``shrink_mesh`` losing coordinates (1, 0) and (1, 1),
+    ``remesh_train_state`` and 2 more steps: params bit-equal across the
+    re-mesh and the count kept (asserted), the losses within
+    MESH_TRAIN_REL of an unbroken run on the shrunken mesh from the same
+    gathered state (asserted) and of the (2, 2) run continued
+    (reported)."""
+    import torch
+    from repro_torch.data.tokens import TokenPipelineConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import build_batch
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.runtime import remesh_train_state, shrink_mesh
+    from repro_torch.sharding import specs as S
+    spec = MESH_TRAIN
+    pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                               global_batch=spec["batch"])
+    mesh = mesh_of((2, 2))
+    opt_cfg = AdamWConfig()
+    batch0 = build_batch(cfg, pipe, 0, "cuda")
+    mets = {}
+    for mb in (1, 4):
+        step, _ = steps.mesh_train_step(cfg, mesh, opt_cfg, spec["seq"],
+                                        spec["batch"], microbatches=mb)
+        _, _, m = step(params, init_opt_state(params), batch0, 0)
+        mets[mb] = {k: float(v) for k, v in m.items()}
+        del m
+    # each microbatch's loss divides the head's KL by its own tokens (the
+    # reference's make_train_step): 4 microbatches carry 3 more KL terms
+    # of kl_weight·KL/tokens; the rest is the data term, whose gap the
+    # reference's tolerance bounds
+    kl_extra = 3 * cfg.kl_weight * mets[1]["kl"] / (spec["batch"]
+                                                    * spec["seq"])
+    gap = abs(mets[4]["loss"] - kl_extra - mets[1]["loss"])
+    check(gap < MESH_MICROBATCH_ATOL, f"microbatches 4 vs 1 on (2, 2): "
+          f"{mets}, the KL terms' difference {kl_extra}")
+    emit({"mesh_microbatch": cfg.name, "mesh": [2, 2],
+          "batch": spec["batch"], "seq": spec["seq"],
+          "loss_microbatches_1": mets[1]["loss"],
+          "loss_microbatches_4": mets[4]["loss"],
+          "ce_microbatches_1": mets[1]["ce"],
+          "ce_last_microbatch_of_4": mets[4]["ce"], "kl": mets[1]["kl"],
+          "kl_terms_difference": kl_extra,
+          "abs_gap_without_kl_terms": gap,
+          "abs_gap_raw": abs(mets[4]["loss"] - mets[1]["loss"]),
+          "atol": MESH_MICROBATCH_ATOL})
+
+    step, _ = steps.mesh_train_step(cfg, mesh, opt_cfg, spec["seq"],
+                                    spec["batch"], total_steps=5,
+                                    warmup_steps=1)
+    p, o = params, init_opt_state(params)
+    before = []
+    for s in range(3):
+        p, o, m = step(p, o, build_batch(cfg, pipe, s, "cuda"), s)
+        before.append(float(m["loss"]))
+    small = shrink_mesh(mesh, {(1, 0), (1, 1)})
+    p2, o2 = remesh_train_state(p, o, small)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tensor_leaves(S.gather(p2)), tensor_leaves(S.gather(p))))
+    count = int(S.gather(o2["count"]))
+    check(same, "params changed across the re-mesh")
+    check(count == 3, f"the re-mesh kept count {count}, not 3")
+    step2, _ = steps.mesh_train_step(cfg, small, opt_cfg, spec["seq"],
+                                     spec["batch"], total_steps=5,
+                                     warmup_steps=1)
+    fresh_p, fresh_o = S.gather(p), S.gather(o)
+    after, unbroken, on_big = [], [], []
+    for s in range(3, 5):
+        batch = build_batch(cfg, pipe, s, "cuda")
+        p2, o2, m = step2(p2, o2, batch, s)
+        after.append(float(m["loss"]))
+        fresh_p, fresh_o, m = step2(fresh_p, fresh_o, batch, s)
+        unbroken.append(float(m["loss"]))
+        p, o, m = step(p, o, batch, s)
+        on_big.append(float(m["loss"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(after, unbroken))
+    check(rel <= MESH_TRAIN_REL, f"elastic: losses after the re-mesh off "
+          f"an unbroken run on {small.shape} by {rel}")
+    emit({"mesh_elastic": cfg.name, "from": [2, 2],
+          "lost": [[1, 0], [1, 1]],
+          "to": [small.shape["data"], small.shape["model"]],
+          "params_bit_equal": same, "count": count,
+          "losses_before": before, "losses_after": after,
+          "losses_unbroken_on_shrunken": unbroken,
+          "max_rel_vs_unbroken": rel, "losses_continued_on_2x2": on_big,
+          "max_rel_vs_2x2": max(abs(a - b) / abs(b)
+                                for a, b in zip(after, on_big))})
+    return {"microbatch_gap": gap, "elastic_rel": rel}
+
+
+def run_mesh_phase() -> dict:
+    """The ``mesh`` phase (docstring 7n)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import params_init
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mixtral = get_config("mixtral-8x7b")
+    mcfg = dataclasses.replace(mixtral, n_layers=MESH_MOE["layers"])
+    mparams = params_init(mcfg, 0, "cuda")
+    mesh_place(mcfg, mparams)
+    moe = moe_layer_check(mcfg, {k: v[0] for k, v in
+                                 mparams["blocks"]["moe"].items()})
+    serving = {"mixtral": mesh_serving_check(mcfg, mparams, "mixtral", 0,
+                                             capacity_factor=8.0)}
+    del mparams
+    torch.cuda.empty_cache()
+    qcfg = get_config(MESH_TRAIN["arch"])
+    qparams = params_init(qcfg, 0, "cuda")
+    mesh_place(qcfg, qparams)
+    serving["qwen3"] = mesh_serving_check(qcfg, qparams, "qwen3",
+                                          MESH_SERVE["decode"])
+    for name, r in serving.items():
+        emit({"mesh_prefill" if name == "mixtral" else "mesh_decode":
+              name, "mesh": [2, 2], "layers": (
+                  f"{MESH_MOE['layers']} of {mixtral.n_layers}"
+                  if name == "mixtral" else qcfg.n_layers),
+              "prompt": MESH_SERVE["prompt"], "cache": MESH_SERVE["seq"],
+              "batch": MESH_SERVE["batch"], "dtype": "float32", **r})
+    extra = mesh_microbatch_and_elastic(qcfg, qparams)
+    del qparams
+    torch.cuda.empty_cache()
+    train = mesh_train_runs()
+    phase_s = time.perf_counter() - t_phase
+    emit({"mesh_phase_s": phase_s})
+    return {"moe": moe, "serving": serving, "train": train, **extra,
+            "rank16_launches": sum(r["rank16_launches"]
+                                   for r in serving.values()),
+            "head_max_abs_err": max(r["head_max_abs_err"]
+                                    for r in serving.values()),
+            "phase_s": phase_s}
+
+
 def call_ms(fn, iters: int, warmup: int = 50) -> float:
     """Per-call time of eager calls, host included: CUDA events around a
     Python loop of ``iters`` calls."""
@@ -6093,6 +6569,7 @@ def main() -> int:
     ssm = run_lm_ssm()
     xattn = run_lm_xattn()
     lm_train = run_lm_train()
+    mesh = run_mesh_phase()
     cim_plan_sweep(cim_inputs)
     head_plan_sweep()
     heads = head_timing(uq_path["launches"], fig9, head_checks, train,
@@ -6102,19 +6579,34 @@ def main() -> int:
          for a, m in lm_train["models"].items()})
     heads[0]["lm_train_vocab"] = {a: m["eps"]
                                   for a, m in lm_train["models"].items()}
+    heads[0]["launches_by_path"]["mesh_train/qwen3-0.6b"] = mesh["train"][
+        "eps_launches"]
+    heads[0]["mesh_train_vocab"] = mesh["train"]["eps"]
+    heads[0]["mesh_train_vocab_what"] = (
+        "the mesh train step's head draw (train(mesh_shape=...) on (1, 1) "
+        "and (2, 2) of cuda:0, explicit TP off and on), recorded, one "
+        "launch a step on the mesh's first device; bit-equal to the plain "
+        "version on its first, middle and last column blocks")
     heads[0]["lm_train_vocab_what"] = (
         "the LM trainer's head draw at full width, [d_model, vocab_padded] "
         "R = 1, one launch a step of launch.train.train; bit-equal to the "
         "plain version on its first, middle and last column blocks; the "
         "plain version timed over the whole block in column blocks")
     heads[1]["launches_lifetime_static_arms"] = lifetime["rank16_launches"]
+    heads[1]["launches_mesh_prefill_decode"] = mesh["rank16_launches"]
+    heads[1]["mesh_prefill_decode_what"] = (
+        "mesh_prefill_step / mesh_decode_step on (2, 2) of cuda:0 (mixtral "
+        "4 of 32 layers: a prefill; qwen3-0.6b: a prefill and 2 decode "
+        "steps), one launch a step on the rows' gathered hidden states; "
+        "each launch held to the plain version on its own operands")
     heads[1]["max_abs_err"] = max(heads[1]["max_abs_err"],
                                   lifetime["rank16_checks"]["max_abs_err"],
                                   lm["checks"]["head_max_abs_err"],
                                   *(m["head_max_abs_err"]
                                     for m in (*moe["models"].values(),
                                               *ssm["models"].values(),
-                                              *xattn["models"].values())))
+                                              *xattn["models"].values())),
+                                  mesh["head_max_abs_err"])
     lm_times = lm_timing(lm)
     heads[1]["launches_lm_decode_step"] = 1
     heads[1]["lm_decode_step"] = {
@@ -6135,7 +6627,7 @@ def main() -> int:
         for a, m in ssm["models"].items()}
     heads[1]["lm_ssm_decode_step_what"] = (
         "each SSM config's vocabulary head at decode_step_ssm's shape "
-        "(full depth), bf16 operands widened by the wrapper; one launch "
+        "(SSM's depths), bf16 operands widened by the wrapper; one launch "
         "a config")
     heads[1]["launches_lm_xattn_decode_step"] = len(XATTN)
     heads[1]["lm_xattn_decode_step"] = {
@@ -6143,8 +6635,8 @@ def main() -> int:
         for a, m in xattn["models"].items()}
     heads[1]["lm_xattn_decode_step_what"] = (
         "each audio/VLM config's vocabulary head at decode_step's shape "
-        "(full depth), bf16 operands widened by the wrapper; one launch a "
-        "config")
+        "(XATTN's depths), bf16 operands widened by the wrapper; one "
+        "launch a config")
     run_timing(inputs, {"serve_sar": main_path["launches"],
                         "mission_matrix": mission["decision"],
                         "serve_sar_lifetime": lifetime["launches"]

@@ -57,6 +57,18 @@ AdamW with optional master weights, microbatches), each step's head
 draw at vocabulary width through the ε kernel, with asynchronous
 checkpoints, resume, gradient compression and a straggler monitor.
 
+The (data, model) mesh: ``launch.mesh`` (``DeviceMesh``, a grid of
+torch devices that may repeat a device; ``make_mesh``,
+``make_debug_mesh``, the collectives as list operations),
+``sharding.specs`` (the reference's rules; ``place``/``gather``: a
+``Placed`` tensor is the grid of its local pieces), the sharded MoE
+(``models.moe.make_sharded_moe``), tensor-parallel linears
+(``models.transformer._tp_linear``), the mesh steps (``launch.steps.
+mesh_train_step``/``mesh_prefill_step``/``mesh_decode_step``, the
+trainer's ``--mesh``) and elastic re-meshing (``runtime.elastic``).
+Shard bodies run once a mesh coordinate in one Python thread; no
+process group.
+
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``): ``resolve_device(None)`` is ``"cuda"``.  Float32
 convolutions and matrix products run in float32 on the card

@@ -5,7 +5,10 @@ holding JAX arrays pass ``jax.device_get(tree)``.  The one layout move
 is the conv weights: the reference keeps HWIO ``(k, k, cin, cout)``,
 the port OIHW ``(cout, cin, k, k)``; biases and the Bayesian head's
 ``mu``/``rho`` pass through.  A transformer LM's params keep the
-reference's tree and stacked layout as they are.  A chip instance crosses as the dict of
+reference's tree and stacked layout as they are; a tree placed on a
+port mesh crosses gathered whole (``placed_to_jax``) and is placed
+again after the crossing (``placed_from_jax``).  A chip instance
+crosses as the dict of
 numpy arrays its ``to_tree`` gives, a deployed serving head as its
 arrays, an AdamW state as its two moment trees (laid out like the
 params), its int32 count and, with master weights, its float32 master
@@ -64,6 +67,22 @@ def lm_params_to_jax(params: dict) -> dict:
     """Port LM params -> the reference's tree as numpy (inverse of
     ``lm_params_from_jax``)."""
     return to_numpy(params)
+
+
+def placed_from_jax(tree: dict, specs, mesh, device="cpu"):
+    """The reference's LM tree (params, AdamW state or cache; numpy)
+    placed on a port mesh: ``lm_params_from_jax`` on ``device``, then
+    ``sharding/specs.place`` by ``specs`` (a spec tree or a rule such as
+    ``param_specs``)."""
+    from repro_torch.sharding.specs import place
+    return place(lm_params_from_jax(tree, device), specs, mesh)
+
+
+def placed_to_jax(tree):
+    """A placed tree (``Placed`` leaves, or tensors) gathered whole, as
+    numpy in the reference's layout."""
+    from repro_torch.sharding.specs import gather
+    return to_numpy(gather(tree))
 
 
 def opt_state_from_jax(state: dict, device="cpu") -> dict:

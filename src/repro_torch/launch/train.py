@@ -22,15 +22,27 @@ kernel at [d_model, vocab_padded] on the card (``kernels/grng``), and
 reads one thing back to the host: the step's metrics, in one pull.
 Params start from a ``torch.Generator`` seeded 0 on the training device
 (``launch/serve.params_init``), the reference's scales with the port's
-draws.  What the reference's trainer does on its mesh
-(``make_debug_mesh``, ``mesh_hinted_config``) places arrays over
-devices and has no twin on one card.
+draws.
+
+With ``mesh_shape`` (``--mesh DATAxMODEL``) the step runs over a
+(data, model) ``DeviceMesh`` through ``launch/steps.mesh_train_step``,
+as the reference's trainer runs on ``make_debug_mesh()``: params and
+AdamW state placed by ``sharding/specs``, the batch cut over 'data',
+its rows' gradients pmean'd and the update applied piece by piece; the
+head's ε is still drawn once a step, on the mesh's first device.
+``devices`` (``--devices``) lists the mesh's devices row-major (a
+device may repeat); without it every coordinate sits on ``device``,
+one card.  Without ``mesh_shape`` the step is the one-device step,
+which a (1, 1) mesh equals bit for bit.  Checkpoints hold the gathered
+trees, so a run resumes on any mesh.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --steps 200 --batch 8 --seq 64 --ckpt-dir /tmp/ck [--fail-at 60]
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --full --steps 30
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+      --full --steps 5 --mesh 2x2        # four coordinates on one card
   (``--device cpu`` trains on the CPU; without it the card is used and
   its absence raises.)
 """
@@ -48,13 +60,16 @@ from repro_torch.ckpt import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.data.tokens import (TokenPipelineConfig, batch_at,
                                      stub_frames, stub_image_embeds)
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.serve import params_init
-from repro_torch.launch.steps import loss_and_grads, make_train_step
+from repro_torch.launch.steps import (loss_and_grads, make_train_step,
+                                      mesh_train_step)
 from repro_torch.optim import (AdamWConfig, adamw_update, init_opt_state,
                                warmup_cosine)
 from repro_torch.optim.compression import (compressed_gradients,
                                            init_error_state)
 from repro_torch.runtime import StragglerConfig, StragglerMonitor
+from repro_torch.sharding import gather
 from repro_torch.utils.trees import tree_map
 
 
@@ -96,20 +111,39 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
           batch: int = 8, seq: int = 64, ckpt_dir: str | None = None,
           ckpt_every: int = 50, fail_at: int | None = None,
           compress: bool = False, lr: float = 3e-4, log_every: int = 10,
-          metrics_path: str | None = None, device=None) -> dict:
+          metrics_path: str | None = None, device=None,
+          mesh_shape: tuple | None = None, devices=None) -> dict:
     """Train ``arch`` for ``steps`` steps (from the newest checkpoint in
-    ``ckpt_dir`` if there is one) on ``device`` (None = the card) ->
-    {params, opt, history: one dict of metrics a step (with
+    ``ckpt_dir`` if there is one) on ``device`` (None = the card), or
+    over a ``mesh_shape`` (data, model) mesh of ``devices`` (default:
+    ``device`` at every coordinate) -> {params, opt (gathered, on the
+    mesh's first device), history: one dict of metrics a step (with
     ``step_time``), final_loss, err: the compression error state or
     None}."""
-    dev = resolve_device(device)
+    mesh = None
+    if mesh_shape is None:
+        dev = resolve_device(device)
+    else:
+        n = mesh_shape[0] * mesh_shape[1]
+        mesh = make_mesh(tuple(mesh_shape), ("data", "model"),
+                         [resolve_device(d) for d in devices]
+                         if devices is not None
+                         else [resolve_device(device)] * n)
+        dev = mesh.first_device
+        if compress:
+            raise ValueError("--compress runs on one device; drop --mesh")
     cfg = get_config(arch, smoke=smoke)
     opt_cfg = AdamWConfig(lr=lr)
     pipe_cfg = TokenPipelineConfig(vocab=cfg.vocab, seq_len=seq,
                                    global_batch=batch)
     warmup = max(1, steps // 20)
-    base_step = make_train_step(cfg, opt_cfg, total_steps=steps,
-                                warmup_steps=warmup)
+    if mesh is None:
+        base_step = make_train_step(cfg, opt_cfg, total_steps=steps,
+                                    warmup_steps=warmup)
+    else:
+        base_step, _ = mesh_train_step(cfg, mesh, opt_cfg, seq, batch,
+                                       total_steps=steps,
+                                       warmup_steps=warmup)
 
     def compressed_step(params, opt_state, err, batch_, step):
         with float32_math():
@@ -157,12 +191,14 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
                 print(f"[train] step {step} loss={metrics['loss']:.4f} "
                       f"ce={metrics['ce']:.4f} t={report['duration']:.2f}s")
             if ckptr and (step + 1) % ckpt_every == 0:
-                ckptr.submit(step + 1, {"params": params, "opt": opt_state})
+                ckptr.submit(step + 1, {"params": gather(params),
+                                        "opt": gather(opt_state)})
             if fail_at is not None and step + 1 == fail_at:
                 if ckptr:
                     ckptr.wait()
                 raise SystemExit(
                     f"[train] simulated failure at step {step + 1}")
+    params, opt_state = gather(params), gather(opt_state)
     if ckptr:
         ckptr.submit(steps, {"params": params, "opt": opt_state})
         ckptr.wait()
@@ -189,12 +225,23 @@ def main(argv=None) -> dict:
                     help="append one JSON line of metrics a step here")
     ap.add_argument("--device", default=None,
                     help="'cpu' to train on the CPU (default: the card)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="train over a (data, model) mesh, e.g. 2x2")
+    ap.add_argument("--devices", default=None,
+                    help="the mesh's devices, comma-separated, row-major "
+                         "(default: --device at every coordinate)")
     args = ap.parse_args(argv)
+    mesh_shape = (tuple(int(n) for n in args.mesh.lower().split("x"))
+                  if args.mesh else None)
+    if args.devices and not mesh_shape:
+        ap.error("--devices needs --mesh")
     out = train(args.arch, smoke=args.smoke, steps=args.steps,
                 batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
                 ckpt_every=args.ckpt_every, fail_at=args.fail_at,
                 compress=args.compress, lr=args.lr,
-                metrics_path=args.metrics, device=args.device)
+                metrics_path=args.metrics, device=args.device,
+                mesh_shape=mesh_shape,
+                devices=args.devices.split(",") if args.devices else None)
     if out["final_loss"] is not None:
         print(f"[train] done, final loss {out['final_loss']:.4f}")
     return out

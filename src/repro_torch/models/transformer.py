@@ -39,11 +39,20 @@ keeps the layer's matrix products without a batch axis (``aten.mm``,
 as ``dots_with_no_batch_dims_saveable``) and recomputes the rest,
 ``none`` keeps everything.  Remat changes no value.
 
-What is not here: the MoE mesh path (``make_sharded_moe``) waits for
-more than one GPU (A10b).  The reference's ``_wsc``/``_tp_linear``
-helpers constrain shardings on a TPU mesh and have no meaning on one
-card; ``ModelConfig``'s mesh hints (``batch_axes``,
-``model_axis_size``, ``explicit_tp``) are carried as data only.
+The mesh (``launch/steps``' mesh steps): a step builder hands the
+trunk one data row's shard body at a time, its params ``Placed``
+(``sharding/specs``) and bound to the row.  ``_layer`` gathers a
+layer's placed leaves on the row's device, the FSDP all-gather GSPMD
+does, except the leaves a sharded path reads piece by piece
+(``sharded_leaf``): with the mesh hints ``batch_axes`` and
+``model_axis_size`` > 1, ``_mlp_apply`` routes an MoE layer over a
+sequence through ``models/moe.make_sharded_moe``, and with
+``explicit_tp`` the helpers ``_tp_ok``/``_tp_linear`` run q, the
+self-attention's output and a SwiGLU MLP Megatron-style over 'model'.
+``_tp_ok`` reads the mesh from the placed weight (the port has no
+ambient mesh).  ``_wsc`` (the reference's sharding constraint on
+activations) has no effect on values and returns its input: a row body
+holds its rows' activations whole.  Without a mesh nothing changes.
 
 The decode cache is {"k", "v": [L, B, Sc, Hkv, dh] in cfg.dtype, "pos":
 a host int (the pool clock: every position it sets is a launch-time
@@ -60,6 +69,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import re
 from typing import Any
 
 import torch
@@ -73,7 +83,8 @@ from repro_torch.core.hashing import as_u32
 from repro_torch.core.lfsr import indexed_selections
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
-from repro_torch.models.moe import init_moe, moe_apply
+from repro_torch.models.moe import init_moe, make_sharded_moe, moe_apply
+from repro_torch.sharding.specs import P, Placed
 
 
 # ----------------------------------------------------------------------
@@ -130,7 +141,7 @@ class ModelConfig:
     remat: str = "full"          # full | dots | none
     attn_chunk_q: int = 512
     attn_chunk_kv: int = 1024
-    # mesh hints of the reference's launcher (data only on one card)
+    # mesh hints (launch/steps.mesh_hinted_config)
     batch_axes: tuple = ()
     model_axis_size: int = 0
     explicit_tp: bool = False
@@ -339,9 +350,98 @@ def _maybe_remat(fn, cfg: ModelConfig):
 # Block applications
 # ----------------------------------------------------------------------
 def _layer(tree: dict, l: int) -> dict:
-    """Layer ``l`` of a stacked block tree."""
-    return {k: _layer(v, l) if isinstance(v, dict) else v[l]
-            for k, v in tree.items()}
+    """Layer ``l`` of a stacked block tree.  A placed leaf (a mesh
+    step's row body) is gathered on its row's device, unless it is kept
+    placed for a sharded path (``Placed.keep``: ``sharded_leaf``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _layer(v, l)
+        elif isinstance(v, Placed):
+            out[k] = v.layer(l) if v.keep else v.layer(l).gather()
+        else:
+            out[k] = v[l]
+    return out
+
+
+# ----------------------------------------------------------------------
+# The mesh: sharded leaves, constraints, tensor parallelism
+# ----------------------------------------------------------------------
+def sharded_leaf(cfg: ModelConfig, path: str) -> bool:
+    """Whether a mesh step hands the param at ``path`` (slash path) to
+    its row bodies placed rather than gathered: the MoE leaves when the
+    sharded MoE can run (the mesh hints set, 'model' > 1), and with
+    ``explicit_tp`` the linears the TP helpers read (every ``wq``, the
+    self-attention's ``wo``, a SwiGLU MLP's ``wi``/``wg``/``wo``)."""
+    hinted = bool(cfg.batch_axes) and cfg.model_axis_size > 1
+    if re.search(r"(^|/)moe/(router|wi|wg|wo)$", path):
+        return hinted
+    if not (hinted and cfg.explicit_tp):
+        return False
+    return bool(re.search(r"(^|/)(wq|attn/wo)$", path) or (
+        cfg.mlp == "swiglu" and re.search(r"(^|/)mlp/(wi|wg|wo)$", path)))
+
+
+def _local(w):
+    """A leaf kept placed where its sharded path does not run, gathered
+    on its row's device; a tensor as it is."""
+    return w.gather() if isinstance(w, Placed) else w
+
+
+def _wsc(x, cfg: ModelConfig, *rest):
+    """The reference's constraint of an activation to the DP axes (and
+    ``rest``): placement only, so ``x`` itself here."""
+    return x
+
+
+def _model_ax(cfg: ModelConfig, dim: int):
+    """'model' when the launcher told us the axis size divides ``dim``."""
+    if cfg.model_axis_size and dim % cfg.model_axis_size == 0:
+        return "model"
+    return None
+
+
+def _tp_ok(cfg: ModelConfig, w, d_in: int, d_out: int) -> bool:
+    """Whether the explicit TP path takes weight ``w``: ``explicit_tp``
+    with the mesh hints, ``w`` kept placed, and the 'model' size
+    dividing ``d_out`` and the mesh's 'data' size ``d_in``."""
+    if not (cfg.explicit_tp and cfg.batch_axes and cfg.model_axis_size > 1
+            and isinstance(w, Placed)):
+        return False
+    data = w.mesh.shape.get("data", 1)
+    return d_out % cfg.model_axis_size == 0 and d_in % data == 0
+
+
+def _tp_linear(x, w: Placed, cfg: ModelConfig, kind: str):
+    """Explicit tensor-parallel matmul (Megatron row/col parallel) in
+    the row body of ``w``'s row, one product a 'model' coordinate on its
+    device, each gathering its weight piece over 'data' (FSDP; the
+    gradient's reduce-scatter by autograd).
+
+    'col': w [D_in(fsdp:data), D_out(tp:model)]; coordinate j computes
+           the j-th block of output columns, gathered on the row's
+           device (the row body holds its activations whole).
+    'row': w [D_in(tp:model), D_out(fsdp:data)]; coordinate j takes the
+           j-th block of x's columns; the partials are added in x.dtype
+           (one psum), as the reference's bf16 psum.
+    """
+    from repro_torch.launch.mesh import all_gather, psum
+    mesh, row = w.mesh, w.row or 0
+    n_data, n_model = mesh.shape["data"], mesh.shape["model"]
+    home = x.device
+    spec, axis = (P("data", "model"), 0) if kind == "col" else (
+        P("model", "data"), 1)
+    f = x.shape[-1] // n_model
+    parts = []
+    for j in range(n_model):
+        dev = mesh.device((row, j))
+        w_full = all_gather([w.block(spec, (i, j), dev)
+                             for i in range(n_data)], mesh, "data", axis)
+        x_j = x if kind == "col" else x.narrow(-1, j * f, f)
+        parts.append(x_j.to(dev) @ w_full.to(x.dtype))
+    if kind == "col":
+        return torch.cat([y.to(home) for y in parts], -1)
+    return psum(parts, mesh, "model", home)
 
 
 def _norm(h, scale, bias, cfg: ModelConfig):
@@ -354,7 +454,10 @@ def _project_qkv(h, p: dict, cfg: ModelConfig, memory=None):
     """-> q [B, S, Hq, dh], k, v [B, Skv, Hkv, dh] in h.dtype: q from
     ``h``, k and v from ``memory`` (cross-attention) or ``h``."""
     src = h if memory is None else memory
-    q = h @ p["wq"].to(h.dtype)
+    if _tp_ok(cfg, p["wq"], h.shape[-1], cfg.n_heads * cfg.head_dim):
+        q = _tp_linear(h, p["wq"], cfg, "col")
+    else:
+        q = h @ _local(p["wq"]).to(h.dtype)
     k = src @ p["wk"].to(h.dtype)
     v = src @ p["wv"].to(h.dtype)
     if "bq" in p:
@@ -366,6 +469,9 @@ def _project_qkv(h, p: dict, cfg: ModelConfig, memory=None):
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, skv, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(b, skv, cfg.n_kv_heads, cfg.head_dim)
+    q = _wsc(q, cfg, None, _model_ax(cfg, cfg.n_heads), None)
+    k = _wsc(k, cfg, None, _model_ax(cfg, cfg.n_kv_heads), None)
+    v = _wsc(v, cfg, None, _model_ax(cfg, cfg.n_kv_heads), None)
     if cfg.qk_norm and "q_norm" in p:
         q = blocks.rms_norm(q, p["q_norm"])
         k = blocks.rms_norm(k, p["k_norm"])
@@ -378,14 +484,30 @@ def _mlp_apply(h, lp: dict, cfg: ModelConfig):
     dense MLP and aux 0."""
     if "moe" in lp:
         p = lp["moe"]
-        return moe_apply(h, p["router"].to(h.dtype), p["wi"].to(h.dtype),
-                         p["wg"].to(h.dtype), p["wo"].to(h.dtype),
+        if (isinstance(p["wi"], Placed) and cfg.batch_axes
+                and cfg.model_axis_size > 1 and h.shape[1] > 1):
+            # §Perf I1: the row's tokens to local experts, one psum
+            moe = make_sharded_moe(
+                p["wi"].mesh, top_k=cfg.top_k,
+                capacity_factor=cfg.capacity_factor,
+                n_experts=cfg.n_experts, dp_axes=tuple(cfg.batch_axes))
+            return moe(h, *(p[n].to(h.dtype)
+                            for n in ("router", "wi", "wg", "wo")),
+                       row=p["wi"].row)
+        return moe_apply(h, *(_local(p[n]).to(h.dtype)
+                              for n in ("router", "wi", "wg", "wo")),
                          top_k=cfg.top_k,
                          capacity_factor=cfg.capacity_factor)
     p = lp["mlp"]
     if cfg.mlp == "swiglu":
-        y = blocks.swiglu(h, p["wi"].to(h.dtype), p["wg"].to(h.dtype),
-                          p["wo"].to(h.dtype))
+        if _tp_ok(cfg, p["wi"], h.shape[-1], cfg.d_ff) and _tp_ok(
+                cfg, p["wo"], cfg.d_ff, p["wo"].shape[1]):
+            hi = (blocks.silu(_tp_linear(h, p["wg"], cfg, "col"))
+                  * _tp_linear(h, p["wi"], cfg, "col"))
+            y = _tp_linear(hi, p["wo"], cfg, "row")
+        else:
+            y = blocks.swiglu(h, *(_local(p[n]).to(h.dtype)
+                                   for n in ("wi", "wg", "wo")))
     else:
         y = blocks.gelu_mlp(h, p["wi"].to(h.dtype), p["bi"].to(h.dtype),
                             p["wo"].to(h.dtype), p["bo"].to(h.dtype))
@@ -399,17 +521,17 @@ def _attend_memory(h, p: dict, cfg: ModelConfig, memory):
     o = attn.chunked_attention(
         q, attn.expand_kv(k, cfg.n_heads), attn.expand_kv(v, cfg.n_heads),
         causal=False, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
-    return o.reshape(*h.shape[:2], -1) @ p["wo"].to(h.dtype), (k, v)
+    return o.reshape(*h.shape[:2], -1) @ _local(p["wo"]).to(h.dtype), (k, v)
 
 
 def _attend_cache(h, p: dict, cfg: ModelConfig, xk, xv):
     """One token's cross-attention against the memory's cached k/v
     [B, Sm, Hkv, dh]: ``decode_attention`` at the last memory position,
     GQA without expanding.  -> the output projection [B, 1, D]."""
-    q = (h @ p["wq"].to(h.dtype)).reshape(h.shape[0], 1, cfg.n_heads,
-                                          cfg.head_dim)
+    q = (h @ _local(p["wq"]).to(h.dtype)).reshape(h.shape[0], 1,
+                                                  cfg.n_heads, cfg.head_dim)
     o = attn.decode_attention(q, xk, xv, xk.shape[1] - 1)
-    return o.reshape(*h.shape[:2], -1) @ p["wo"].to(h.dtype)
+    return o.reshape(*h.shape[:2], -1) @ _local(p["wo"]).to(h.dtype)
 
 
 def _block_full(h, lp: dict, cfg: ModelConfig, positions, causal: bool,
@@ -423,11 +545,20 @@ def _block_full(h, lp: dict, cfg: ModelConfig, positions, causal: bool,
     if cfg.use_rope:
         q = blocks.apply_rope(q, positions, cfg.rope_theta)
         k = blocks.apply_rope(k, positions, cfg.rope_theta)
+    ke = _wsc(attn.expand_kv(k, cfg.n_heads), cfg, None,
+              _model_ax(cfg, cfg.n_heads), None)
+    ve = _wsc(attn.expand_kv(v, cfg.n_heads), cfg, None,
+              _model_ax(cfg, cfg.n_heads), None)
     o = attn.chunked_attention(
-        q, attn.expand_kv(k, cfg.n_heads), attn.expand_kv(v, cfg.n_heads),
-        causal=causal, window=cfg.swa_window, kv_start=kv_start,
+        q, ke, ve, causal=causal, window=cfg.swa_window, kv_start=kv_start,
         chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
-    h = h + o.reshape(*h.shape[:2], -1) @ lp["attn"]["wo"].to(h.dtype)
+    o = _wsc(o, cfg, None, _model_ax(cfg, cfg.n_heads), None)
+    of, wo = o.reshape(*h.shape[:2], -1), lp["attn"]["wo"]
+    if _tp_ok(cfg, wo, wo.shape[1], of.shape[-1]):
+        h = h + _tp_linear(of, wo, cfg, "row")
+    else:
+        h = h + of @ _local(wo).to(h.dtype)
+    h = _wsc(h, cfg, None, None)
     xkv = None
     if "xattn" in lp:
         delta, xkv = _attend_memory(_norm(h, lp["lnx"], lp.get("lnx_b"),
@@ -435,7 +566,7 @@ def _block_full(h, lp: dict, cfg: ModelConfig, positions, causal: bool,
         h = h + delta
     hn = _norm(h, lp["ln2"], lp.get("ln2_b"), cfg)
     y, aux = _mlp_apply(hn, lp, cfg)
-    return h + y, aux, (k, v), xkv
+    return _wsc(h + y, cfg, None, None), aux, (k, v), xkv
 
 
 def _block_decode(h, lp: dict, cfg: ModelConfig, ck, cv, pos: int,
@@ -453,7 +584,8 @@ def _block_decode(h, lp: dict, cfg: ModelConfig, ck, cv, pos: int,
     ck, cv = attn.cache_update(ck, cv, k, v, pos, rolling=rolling)
     o = attn.decode_attention(q, ck, cv, pos, window=cfg.swa_window,
                               rolling=rolling, start=start)
-    h = h + o.reshape(*h.shape[:2], -1) @ lp["attn"]["wo"].to(h.dtype)
+    h = h + o.reshape(*h.shape[:2], -1) @ _local(lp["attn"]["wo"]).to(
+        h.dtype)
     if "xattn" in lp:
         h = h + _attend_cache(_norm(h, lp["lnx"], lp.get("lnx_b"), cfg),
                               lp["xattn"], cfg, xk, xv)
@@ -598,13 +730,21 @@ def head_logits_train(params_head: dict, h, cfg: ModelConfig, step: int):
     comes from ``bayes_layer.sample_weights_at`` (on the card one ε
     kernel launch, [d_model, vocab_padded]) and carries no gradient.
     A non-Bayesian head gives h·w and KL 0."""
+    w, kl = head_weights_train(params_head, cfg, step, h.device)
+    return h @ w.to(h.dtype), kl
+
+
+def head_weights_train(params_head: dict, cfg: ModelConfig, step: int,
+                       device) -> tuple:
+    """``head_logits_train``'s head: (the drawn weights [d_model,
+    vocab_padded], the KL), or a non-Bayesian head's ``w`` and KL 0 (on
+    ``device``).  A mesh step draws it once, on its first device."""
     if not cfg.bayesian_head:
-        return (h @ params_head["w"].to(h.dtype),
-                torch.zeros((), dtype=torch.float32, device=h.device))
+        return (params_head["w"],
+                torch.zeros((), dtype=torch.float32, device=device))
     bcfg = cfg.head_bayes_cfg()
     w = bayes_layer.sample_weights_at(params_head, bcfg, step)
-    kl = bayes_layer.kl_divergence(params_head, bcfg)
-    return h @ w.to(h.dtype), kl
+    return w, bayes_layer.kl_divergence(params_head, bcfg)
 
 
 def train_loss(params, batch, cfg: ModelConfig, step: int = 0):
@@ -747,6 +887,7 @@ def apply_bayes_head(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if not cfg.bayesian_head:
         return (x @ params["head"]["w"].to(x.dtype))[None]
     r = cfg.uq_samples
+    x = x.contiguous()      # a prefill's last position is a strided view
     hcfg = BayesHeadConfig(num_samples=r, mode=cfg.head_mode, grng=cfg.grng,
                            compute_dtype=cfg.dtype)
     idx = as_u32(int(pos) * r + torch.arange(r, device=x.device))

@@ -55,10 +55,13 @@ def init_opt_state(params, master_weights: bool = False) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """√(Σ over leaves, in order, of Σ x²), float32."""
+    """√(Σ over leaves, in order, of Σ x²), float32, on the first
+    leaf's device (a mesh's pieces may sit on several)."""
+    flat = leaves(tree)
     total = 0
-    for x in leaves(tree):
-        total = total + torch.square(x.to(torch.float32)).sum()
+    for x in flat:
+        total = total + torch.square(x.to(torch.float32)).sum().to(
+            flat[0].device)
     return torch.sqrt(total)
 
 
@@ -79,11 +82,12 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
     lr = cfg.lr * lr_scale
 
     def upd(p, g, m, v, master):
-        g = g.to(torch.float32) * scale
+        dev = g.device
+        g = g.to(torch.float32) * scale.to(dev)
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        mh = m / c1
-        vh = v / c2
+        mh = m / c1.to(dev)
+        vh = v / c2.to(dev)
         src = master if master is not None else p.detach().to(torch.float32)
         step = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * src
         new_master = src - lr * step

@@ -1,8 +1,11 @@
 """Runtime policies of the trainer (mirrors ``repro/runtime``): the
-straggler monitor.  ``elastic`` (re-meshing a train state over fewer
-devices after a failure) has no twin on one card: it waits for more
-than one GPU (ROADMAP A10b)."""
+straggler monitor and elastic re-meshing of a train state over fewer
+devices (mesh coordinates) after a failure."""
 
+from repro_torch.runtime.elastic import (make_elastic_mesh,
+                                         remesh_train_state, remesh_tree,
+                                         shrink_mesh)
 from repro_torch.runtime.straggler import StragglerConfig, StragglerMonitor
 
-__all__ = ["StragglerConfig", "StragglerMonitor"]
+__all__ = ["StragglerConfig", "StragglerMonitor", "make_elastic_mesh",
+           "remesh_train_state", "remesh_tree", "shrink_mesh"]

@@ -79,3 +79,19 @@ def unflatten_dict(flat: Mapping[str, Any], sep: str = "/") -> dict:
         return node
 
     return fix(out)
+
+
+def tree_map_with_name(fn: Callable[[str, Any], Any], tree: Any,
+                       prefix: str = "") -> Any:
+    """``fn(path, leaf)`` over a tree, ``path`` as the reference's
+    ``tree_map_with_name`` renders it: dict keys and list indices joined
+    by '/' ('blocks/attn/wq', 'layers/0/w')."""
+    def join(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+    if isinstance(tree, Mapping):
+        return {k: tree_map_with_name(fn, v, join(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_name(fn, v, join(i))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)

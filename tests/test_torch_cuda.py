@@ -1327,3 +1327,51 @@ def test_fleet_gang_on_the_card(hopper):
                                                 "cpu"], **kw)
     assert mixed["host_syncs"] == mixed["ticks"]
     assert [v["rid"] for v in mixed["verdicts"]] == list(range(96))
+
+
+def test_mesh_steps_on_the_card(hopper):
+    """qwen3-0.6b SMOKE in float32 on a (2, 2) mesh of cuda:0: the
+    unsharded prefill step (its last position a strided view) and the
+    mesh prefill + decode steps on the card against the unsharded steps
+    on the CPU, one rank16 launch a step; one mesh train step against
+    the CPU's, one ε launch."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipelineConfig
+    from repro_torch.kernels import bayes
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import params_init
+    from repro_torch.launch.train import build_batch, pull_metrics
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.utils.trees import tree_map
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", smoke=True),
+                              dtype=torch.float32)
+    params = params_init(cfg, 0, "cpu")
+    on_card = tree_map(lambda t: t.to("cuda"), params)
+    mesh = make_mesh((2, 2), ("data", "model"), ["cuda:0"] * 4)
+    tokens = build_batch(cfg, TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=12, global_batch=4), 0)["tokens"]
+    c0, s0 = steps.make_prefill_step(cfg, 16)(params, {"tokens": tokens})
+    bayes.bayes_rank16.launches = 0
+    _, s_card = steps.make_prefill_step(cfg, 16)(
+        on_card, {"tokens": tokens.to("cuda")})
+    pre, _ = steps.mesh_prefill_step(cfg, mesh, 16, 4)
+    dec, _ = steps.mesh_decode_step(cfg, mesh, 16, 4)
+    c1, s1 = pre(on_card, {"tokens": tokens.to("cuda")})
+    s2, _ = dec(on_card, c1, tokens[:, :1].to("cuda"))
+    s3, _ = steps.make_decode_step(cfg)(params, c0, tokens[:, :1])
+    assert bayes.bayes_rank16.launches == 3
+    for got, want in ((s_card, s0), (s1, s0), (s2, s3)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    pipe = TokenPipelineConfig(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    one = steps.make_train_step(cfg, AdamWConfig())
+    mstep, _ = steps.mesh_train_step(cfg, mesh, AdamWConfig(), 16, 4)
+    grng.grng_eps.launches = 0
+    _, _, m = mstep(on_card, init_opt_state(on_card),
+                    build_batch(cfg, pipe, 0, "cuda"), 0)
+    _, _, m0 = one(params, init_opt_state(params),
+                   build_batch(cfg, pipe, 0, "cpu"), 0)
+    assert grng.grng_eps.launches == 1
+    np.testing.assert_allclose(pull_metrics(m)["loss"], float(m0["loss"]),
+                               rtol=0, atol=LM_TRAIN_LOSS_ATOL)
