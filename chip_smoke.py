@@ -158,8 +158,9 @@ JSON line):
      ``lm_vocab_*`` and ``lm_decode_step``, ``lm_tick_split``,
      ``lm_card_vs_cpu``): qwen3-0.6b at full width (N = 152,064, bf16,
      random params from seed 0 drawn on the card) through
-     ``serve(smoke=False, batch=4, prompt_len=16, gen_len=8,
-     n_requests=8)`` under accept-always, fixed R = 20 and an
+     ``serve(smoke=False, batch=4, prompt_len=16, gen_len=4,
+     n_requests=8)`` (every LM phase's serves at 4 new tokens, to
+     hold the script's time limit) under accept-always, fixed R = 20 and an
      escalating policy (its confidence threshold at the accept-always
      run's median), the decision kernel's launches zeroed before each
      run and asserted = ticks × launches a schedule after, one host
@@ -260,13 +261,17 @@ JSON line):
      counts and host syncs a tick, not scaling across cards:
      ``decision_stats_sharded`` over 2 and 4 shards at SAR's shape (B 32,
      N 2, R 4 and 20, with and without read noise, half the slots
-     masked) and over 2 at B 4, N 152,064, R 20, each bit-equal to the
-     unsharded launch and within TOL (N ≤ 32) or 7h's relative
-     tolerance of its plain version, timed by graph replay beside the
-     unsharded launch; the slot-sharded pool (192 requests, 2 shards)
-     on the ideal and the gate die, records equal to the unsharded
-     pool's bit for bit, one sharded call a round and two launches in
-     it (counts zeroed before, read after); ``serve_sar_fleet`` (4 pools
+     masked) and over 2 at B 4, N 152,064, R 20: one run on cuda:0 and
+     one launch a call (asserted), each bit-equal to the unsharded
+     launch and within TOL (N ≤ 32) or 7h's relative tolerance of its
+     plain version, its accumulating form bit for bit stats + delta,
+     timed by graph replay beside the unsharded launch; the slot-sharded
+     pool (192 requests, 2 shards) on the ideal and the gate die,
+     records equal to the unsharded pool's bit for bit, one decision
+     launch a round (counts zeroed before, read after), and over
+     cuda:0 and the CPU (two runs, each run's state on its device):
+     verdicts equal the unsharded card pool's, confidence and MI within
+     TOL's atol, one launch a round; ``serve_sar_fleet`` (4 pools
      of 32 slots, 256 requests, 25 % fog) gang against sequential on
      both dies: verdicts and routes equal, gang syncs = ticks < the
      sequential's, energy = the records' sum (asserted), decisions/s and
@@ -277,7 +282,8 @@ JSON line):
      packed results gathered on the card, one pull), each pool equal to
      a standalone engine on its device; ``fly_mission`` at
      mission_bench's default scale on both dies over 2 shards against
-     1, logs equal lane for lane, sharded calls = steps × rounds;
+     1, logs equal lane for lane, sharded calls = launches = steps ×
+     rounds;
   7n. the (data, model) mesh (lines ``mesh_place``, ``mesh_moe``,
      ``mesh_prefill``, ``mesh_decode``, ``kernel_check bayes_rank16
      mesh_*``, ``mesh_microbatch``, ``mesh_elastic``, ``mesh_train``,
@@ -335,10 +341,13 @@ JSON line):
      of their own (``previous_design``).  The ε entry counts its launches
      on the training paths (one a step: the SAR detector's
      and, under ``lm_train_vocab``, the LM trainer's at full width);
-     ``decision_stats_sharded``'s entry: the whole sharded call at the
-     gate die's round (2 shards) with its plain version, its bound and
-     its launches on the sharded pool and the sharded mission;
-  9. last line: {"ok": true, "device": {...}}.
+     ``decision_stats_sharded``'s entry: the whole sharded call in its
+     accumulating form at the gate die's round (2 shards) with its delta
+     form, its plain version, the unsharded launch, its bound and its
+     launches on the sharded pool and the sharded mission;
+  9. the script's wall and each group of phases' (line
+     ``script_wall_s``);
+  10. last line: {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the reference package.
 """
 
@@ -1906,7 +1915,9 @@ def mission_operands(params, chip) -> dict:
     """The decision and CIM kernels' operands on one step of
     ``fly_mission`` (bayes_adaptive with the orbit) at MISSION_BENCH's
     scale on ``chip``, on the card: each wrapper call, as
-    ``kernels.ops`` makes it, recorded (cloned) and passed on.  One
+    ``kernels.ops`` makes it, recorded (cloned; an accumulating call's
+    ``out`` statistics left out, so it replays as its delta form) and
+    passed on.  One
     rendered batch of E·D lanes: the schedule's rounds (R = 4, 8, 8)
     and the orbit's two full-R rounds, with their activation basis,
     selections, stream indices and masks; on a die, each trunk layer's
@@ -1926,7 +1937,8 @@ def mission_operands(params, chip) -> dict:
         def call(*args, **kw):
             calls[kind].append({**{k: cloned(v) for k, v in
                                    zip(names, args)},
-                                **{k: cloned(v) for k, v in kw.items()}})
+                                **{k: cloned(v) for k, v in kw.items()
+                                   if k != "out"}})
             return real[kind](*args, **kw)
         return call
 
@@ -2356,7 +2368,10 @@ def run_telemetry_path() -> dict:
 
 def recording(targets: dict):
     """Patch module attributes to record (clone) every call's arguments
-    and pass it on.  ``targets``: {kind: (module, name, arg names)}.
+    and pass it on; an ``out=`` destination (the statistics an
+    accumulating decision call adds into) is no operand and is not
+    recorded, so a recorded call replays as its delta form.
+    ``targets``: {kind: (module, name, arg names)}.
     A kernel wrapper patched in its own module increments its
     ``launches`` count by its module-level name, the patch while it is
     in place: the count carries over to the patch and back.  -> (calls
@@ -2373,7 +2388,8 @@ def recording(targets: dict):
         def call(*args, _kind=kind, _real=real, _names=names, **kw):
             calls[_kind].append({**{k: cloned(v) for k, v in
                                     zip(_names, args)},
-                                 **{k: cloned(v) for k, v in kw.items()}})
+                                 **{k: cloned(v) for k, v in kw.items()
+                                    if k != "out"}})
             return _real(*args, **kw)
 
         counted = (hasattr(real, "launches")
@@ -3428,10 +3444,11 @@ def run_tiled_hoist() -> dict:
 # the dense LM served at full width
 # ----------------------------------------------------------------------
 # qwen3-0.6b at full width (28 layers, d 1024, vocabulary 151,936 padded
-# to N = 152,064), bf16, random params from seed 0 drawn on the card; the
-# serve() call of the issue: 4 slots, prompts of 16, 8 new tokens, 8
-# requests (the second four admitted mid-stream).
-LM = dict(arch="qwen3-0.6b", batch=4, prompt_len=16, gen_len=8,
+# to N = 152,064), bf16, random params from seed 0 drawn on the card;
+# serve(): 4 slots, prompts of 16, 4 new tokens (8 before the script
+# had to make room under its time limit: every LM phase serves half the
+# ticks), 8 requests (the second four admitted mid-stream).
+LM = dict(arch="qwen3-0.6b", batch=4, prompt_len=16, gen_len=4,
           n_requests=8, seed=0)
 LM_ACCEPT = dict(conf_threshold=0.0, mi_threshold=1e9, r_min=4, r_max=8)
 LM_FIXED = dict(LM_ACCEPT, r_max=20)        # adaptive=False: R = 20
@@ -4272,7 +4289,7 @@ def run_lm_moe() -> dict:
 # from seed 0.  Prompts of 512 tokens: two SSD chunks of 256, so that the
 # state carried between chunks (y_off, the decayed state update) runs on
 # the card (at one chunk it multiplies a zero state).  The dense phase's
-# serve() otherwise: 4 slots, 8 new tokens, 8 requests.
+# serve() otherwise: 4 slots, 4 new tokens, 8 requests.
 # zamba2 at 27 of its 54 layers (4 of 9 shared-block sites) since the
 # mesh phase joined the script: a serve's summary walks the tile map a
 # layer (C27), and the script's 1,200 s limit holds every phase
@@ -4544,7 +4561,7 @@ def run_lm_ssm() -> dict:
 # and llama-3.2-vision-11b (40 self + 8 cross layers, d 4,096, 1,601 stub
 # image tokens, vocabulary 128,256; 12.0 B params, 48.2 GB), bf16,
 # params drawn on the card from seed 0 and freed before the next model.
-# The dense phase's serve(): 4 slots, prompts of 16, 8 new tokens.
+# The dense phase's serve(): 4 slots, prompts of 16, 4 new tokens.
 # whisper serves 8 requests under each policy; its learned positions
 # cannot be re-based, so its second admission waits for the pool to
 # drain (asserted: none into a decoding pool).  llama-vision serves 8
@@ -5194,25 +5211,48 @@ FLEET_OPEN_LOOP = 0.5             # open loop at this share of closed loop
 
 
 def sharded_check(name: str, args: dict, shards: int) -> dict:
-    """``decision_stats_sharded`` over ``shards`` shards on cuda:0 against
-    one unsharded launch (bit for bit) and against its plain version
-    (TOL at N ≤ 32, LM_RTOL with the LM's floors above); device ms of
-    the sharded call, its plain version and the unsharded launch by
-    graph replay.  Emits the case; -> the line."""
+    """``decision_stats_sharded`` over ``shards`` shards on cuda:0 (one
+    run: one launch a call, asserted) against one unsharded launch (bit
+    for bit) and against its plain version (TOL at N ≤ 32, LM_RTOL with
+    the LM's floors above); its accumulating form (``out=``, the main
+    path's) bit for bit ``stats + delta`` with masked slots untouched.
+    Device ms by graph replay of the accumulating call (``ms``, as the
+    rounds call it), of the delta form, of its plain version and of the
+    unsharded delta launch.  Emits the case; -> the line."""
     import torch
     from repro_torch.kernels.decision import (decision_stats,
                                               decision_stats_sharded,
-                                              decision_stats_sharded_plain)
+                                              decision_stats_sharded_plain,
+                                              slot_runs)
     a = args            # rows None: the wrapper keys global slot ids
     devices = ["cuda:0"] * shards
+    b, n = a["y_mu"].shape
+    r = a["sel"].shape[0]
+    before = decision_stats.launches
     got = decision_stats_sharded(**a, devices=devices)
+    per_call = decision_stats_sharded.launches_per_call
+    launched = decision_stats.launches - before
+    runs = len(slot_runs(devices, b))
+    check(per_call == launched == runs == 1,
+          f"sharded_{name} x{shards}: {launched} launches in one call "
+          f"({per_call} counted), {runs} runs")
     whole = decision_stats(**a)
     plain = decision_stats_sharded_plain(**a, shards=shards)
+    gen = torch.Generator().manual_seed(shards)
+    stats0 = {k: (torch.rand(whole[k].shape, generator=gen) * r).cuda()
+              for k in STAT_KEYS}
+    acc = {k: v.clone() for k, v in stats0.items()}
+    decision_stats_sharded(**a, devices=devices, out=acc)
     torch.cuda.synchronize()
     same = all(torch.equal(got[k], whole[k]) for k in STAT_KEYS)
     check(same, f"sharded_{name} x{shards}: the shards differ from the "
                 f"unsharded launch")
-    n, r = a["y_mu"].shape[1], a["sel"].shape[0]
+    mask = a["mask"]
+    folded = all(torch.equal(acc[k][mask], (stats0[k] + whole[k])[mask])
+                 and torch.equal(acc[k][~mask], stats0[k][~mask])
+                 for k in STAT_KEYS)
+    check(folded, f"sharded_{name} x{shards}: the accumulating call is "
+                  f"not stats + delta with masked slots untouched")
     err = max(float((got[k] - plain[k]).abs().max()) for k in STAT_KEYS)
     if n > 32:
         rel = relative_errors(f"sharded_{name}", got, plain, r, n)
@@ -5222,22 +5262,28 @@ def sharded_check(name: str, args: dict, shards: int) -> dict:
             check(torch.allclose(got[key], plain[key], **TOL),
                   f"sharded_{name} x{shards}: {key} off its plain version "
                   f"by {float((got[key] - plain[key]).abs().max())}")
-    check(bool((got["sum_p"][~a["mask"]] == 0).all()),
+    check(bool((got["sum_p"][~mask] == 0).all()),
           f"sharded_{name} x{shards}: masked slots advanced")
     iters = 200 if n <= 32 else 20
-    work = decision_args_work(args)
+    work = decision_args_work(args, accumulate=True)
+    ms = device_ms(lambda: decision_stats_sharded(**a, devices=devices,
+                                                  out=acc), iters)
+    unsharded = device_ms(lambda: decision_stats(**a), iters)
     line = {"kernel_check": f"sharded_{name}", "shards": shards,
-            "devices": devices, "B": a["y_mu"].shape[0], "N": n, "R": r,
+            "devices": devices, "runs": runs, "launches_per_call": per_call,
+            "B": b, "N": n, "R": r,
             "read_sigma": a["cfg"].read_sigma, "masked_slots":
-            int((~a["mask"]).sum()), "bit_equal_unsharded": same,
+            int((~mask).sum()), "bit_equal_unsharded": same,
+            "accumulate_bit_equal": folded,
             "max_abs_err": err, "rtol": TOL["rtol"], "atol": TOL["atol"],
             **({"relative": {"rtol": LM_RTOL, "errors": rel}} if rel
                else {}),
-            "ms": device_ms(lambda: decision_stats_sharded(
+            "ms": ms,
+            "delta_ms": device_ms(lambda: decision_stats_sharded(
                 **a, devices=devices), iters),
             "plain_ms": device_ms(lambda: decision_stats_sharded_plain(
                 **a, shards=shards), iters),
-            "unsharded_ms": device_ms(lambda: decision_stats(**a), iters),
+            "unsharded_ms": unsharded, "ms_over_unsharded": ms / unsharded,
             **{k: work[k] for k in ("bound_ms", "bound_by", "bound_bytes",
                                     "bound_ops")}}
     emit(line)
@@ -5255,49 +5301,80 @@ def run_sharded_kernel_checks() -> dict:
 
 def run_sharded_pool() -> dict:
     """The slot-sharded pool: 192 fog-mixed requests in 32 slots, slot
-    shards 2 (cuda:0 twice) against the unsharded pool, on the ideal die
-    and the gate die; records equal request for request, floats bit for
-    bit; one sharded call a round, two kernel launches in it (counts
-    zeroed before, read after)."""
+    shards 2 on cuda:0 (one run: the pool's state is the unsharded
+    pool's tensors) against the unsharded pool, on the ideal die and the
+    gate die; records equal request for request, floats bit for bit; one
+    accumulating decision launch a round (counts zeroed before, read
+    after).  Then 2 shards on cuda:0 and the CPU (two runs, each
+    holding its 16 slots' state on its device): verdicts equal the
+    unsharded card pool's request for request, confidence and MI within
+    TOL's atol (the CPU run's rounds take the plain version), one launch
+    a round (the card's run)."""
     from repro_torch.kernels.decision import (decision_stats,
                                               decision_stats_sharded)
     from repro_torch.launch.serve import serve_sar
     from repro_torch.serving import TriagePolicy
     policy = TriagePolicy(**POLICY)
-    out = {"sharded_launches": 0, "decision_launches": 0}
+    out = {"decision_launches": 0, "mixed_decision_launches": 0}
     for die_name, chip in (("ideal", None), ("gate_die", gate_die())):
         kw = dict(STREAM, policy=policy, chip_instance=chip, device="cuda")
         serve_sar(n_requests=32, slot_devices=["cuda:0"] * 2, **kw)  # warm
         whole = serve_sar(n_requests=192, **kw)
-        decision_stats.launches = decision_stats_sharded.launches = 0
-        sharded = serve_sar(n_requests=192, slot_devices=["cuda:0"] * 2,
-                            **kw)
-        n_sh, n_dec = decision_stats_sharded.launches, decision_stats.launches
-        check(sharded["shards"] == 2, f"sharded pool {die_name}: "
-              f"{sharded.get('shards')} shards ran")
-        check(sharded["decisions"] == 192, f"sharded pool {die_name}: "
-              f"{sharded['decisions']} decisions")
+        arms = {}
+        for arm, devices in (("cuda", ["cuda:0"] * 2),
+                             ("cuda_cpu", ["cuda:0", "cpu"])):
+            decision_stats.launches = decision_stats_sharded.launches = 0
+            t0 = time.perf_counter()
+            got = serve_sar(n_requests=192, slot_devices=devices, **kw)
+            arms[arm] = (got, decision_stats.launches,
+                         decision_stats_sharded.launches,
+                         time.perf_counter() - t0)
+            check(got["shards"] == 2 and got["decisions"] == 192,
+                  f"sharded pool {die_name} {arm}: {got.get('shards')} "
+                  f"shards, {got['decisions']} decisions")
+            check(got["runs"] == (1 if arm == "cuda" else 2),
+                  f"sharded pool {die_name} {arm}: {got['runs']} runs")
+            check(arms[arm][1] == got["rounds_launched"] > 0
+                  and arms[arm][2] == 0,
+                  f"sharded pool {die_name} {arm}: {arms[arm][1]} decision "
+                  f"launches, {got['rounds_launched']} rounds")
+            check(whole["host_syncs"] == got["host_syncs"],
+                  f"sharded pool {die_name} {arm}: host syncs differ")
+        sharded, n_dec = arms["cuda"][0], arms["cuda"][1]
         same_decisions(whole, sharded, f"sharded pool {die_name}",
                        atol=0.0)
-        check(n_sh == sharded["rounds_launched"] > 0 and n_dec == 2 * n_sh,
-              f"sharded pool {die_name}: {n_sh} sharded calls, {n_dec} "
-              f"kernel launches, {sharded['rounds_launched']} rounds")
-        check(whole["host_syncs"] == sharded["host_syncs"],
-              f"sharded pool {die_name}: host syncs differ")
-        out["sharded_launches"] += n_sh
+        mixed = arms["cuda_cpu"][0]
+        same_decisions(whole, mixed, f"sharded pool {die_name} cuda+cpu",
+                       atol=TOL["atol"])
+        gap = max(max(abs(x["confidence"] - y["confidence"]),
+                      abs(x["mutual_information"] - y["mutual_information"]))
+                  for x, y in zip(sorted(whole["verdicts"],
+                                         key=lambda v: v["rid"]),
+                                  sorted(mixed["verdicts"],
+                                         key=lambda v: v["rid"])))
         out["decision_launches"] += n_dec
+        out["mixed_decision_launches"] += arms["cuda_cpu"][1]
         emit({"sharded_pool": die_name, "requests": 192, "shards": 2,
-              "devices": ["cuda:0", "cuda:0"],
+              "devices": ["cuda:0", "cuda:0"], "runs": sharded["runs"],
               "decisions_per_s_wall": sharded["decisions"]
               / sharded["wall_s"],
               "unsharded_decisions_per_s_wall": whole["decisions"]
               / whole["wall_s"],
               "host_syncs": sharded["host_syncs"],
               "rounds_launched": sharded["rounds_launched"],
-              "sharded_calls": n_sh, "decision_kernel_launches": n_dec,
+              "decision_kernel_launches": n_dec,
               "records_equal_bitwise": True,
-              "what": "one card holds both shards: bit-identity and "
-                      "launch counts, not scaling"})
+              "cuda_cpu": {"devices": ["cuda:0", "cpu"],
+                           "runs": mixed["runs"],
+                           "decision_kernel_launches": arms["cuda_cpu"][1],
+                           "rounds_launched": mixed["rounds_launched"],
+                           "verdicts_equal": True,
+                           "max_confidence_mi_gap": gap,
+                           "decisions_per_s_wall": mixed["decisions"]
+                           / mixed["wall_s"]},
+              "what": "one card holds both shards: one run, the "
+                      "unsharded pool's state; bit-identity and launch "
+                      "counts, not scaling"})
     return out
 
 
@@ -5474,7 +5551,7 @@ def run_mission_sharded(params) -> dict:
     on the ideal die and the mission die, each die group's 8 lanes over
     2 slot shards on cuda:0 against the unsharded mission: logs equal
     lane for lane (floats bit for bit); one sharded call a decision
-    round (counts zeroed before, read after)."""
+    round and one launch in it (counts zeroed before, read after)."""
     import numpy as np
     from repro_torch.kernels.decision import (decision_stats,
                                               decision_stats_sharded)
@@ -5496,9 +5573,9 @@ def run_mission_sharded(params) -> dict:
                               devices=["cuda:0"] * 2, **kw)
         sharded_s = time.perf_counter() - t0
         n_sh, n_dec = decision_stats_sharded.launches, decision_stats.launches
-        check(n_sh == per_step * steps and n_dec == 2 * n_sh,
+        check(n_sh == per_step * steps and n_dec == n_sh,
               f"mission_sharded {die_name}: {n_sh} sharded calls, {n_dec} "
-              f"launches, expected {per_step} x {steps} and twice that")
+              f"launches, expected {per_step} x {steps} of each")
         for k in whole.logs:
             check(np.array_equal(whole.logs[k], sharded.logs[k]),
                   f"mission_sharded {die_name}: logs {k} differ")
@@ -5533,35 +5610,53 @@ def run_fleet_phase(params) -> dict:
         "source": "src/repro_torch/kernels/decision.py",
         "body": "src/repro_torch/kernels/csrc/decision.cu",
         "replaces": "src/repro/kernels/decision_kernel.py:263",
-        "design": "the slot axis cut into contiguous shards, one "
-                  "decision.cu launch a shard on its device (cuda:0 "
-                  "repeated on one card), read noise keyed on global slot "
-                  "ids, the deltas concatenated",
-        "launches": pool["sharded_launches"] + mission["sharded_launches"],
-        "launches_by_path": {"sharded_pool": pool["sharded_launches"],
+        "design": "consecutive shards on one device form a run; one "
+                  "decision.cu launch a run over views of its slot range "
+                  "(row0 = its first global slot for the read-noise hash, "
+                  "per-slot selections and indices read through the "
+                  "round's strides), its accumulate epilogue adding the "
+                  "deltas into the statistics on that device: no slice "
+                  "copy, no concatenation, no add kernels; the sharded "
+                  "pool keeps each run's pool and statistics on the run's "
+                  "device and folds each round with one such launch a run",
+        "launches": pool["decision_launches"]
+        + mission["sharded_launches"],
+        "launches_by_path": {"sharded_pool": pool["decision_launches"],
                              "mission_sharded":
                                  mission["sharded_launches"]},
+        "launches_what": "sharded_pool: the resident runs' accumulating "
+                         "launches (decision_stats' count, one a round on "
+                         "one card); mission_sharded: "
+                         "decision_stats_sharded's count, one launch a "
+                         "call",
+        "launches_per_call": timed["launches_per_call"],
         "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
         "shape": f"B=32 N=2 R=4, read_sigma 0.4, half the slots masked, "
                  f"2 shards on cuda:0 ({SHARDED_TIMED})",
         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
         "unsharded_ms": timed["unsharded_ms"],
-        "timing": "device time per call of the whole sharded call "
-                  "(slices, launches, concatenation), 200 calls replayed "
-                  "from one CUDA graph",
+        "delta_ms": timed["delta_ms"],
+        "ms_over_unsharded": timed["ms_over_unsharded"],
+        "timing": "device time per call of the whole sharded call in its "
+                  "accumulating form (out=stats, as the rounds call it), "
+                  "200 calls replayed from one CUDA graph; delta_ms: the "
+                  "delta form; unsharded_ms: one unsharded delta launch",
         **{k: timed[k] for k in ("bound_ms", "bound_by", "bound_bytes",
                                  "bound_ops")},
         "library_ms": None,
         "library_note": "no single PyTorch call computes the fused "
                         "mix -> softmax -> masked statistic sums",
         "cases": {f"{name}_x{shards}": {k: c[k] for k in (
-            "ms", "plain_ms", "unsharded_ms", "bound_ms", "max_abs_err")}
+            "ms", "delta_ms", "plain_ms", "unsharded_ms",
+            "ms_over_unsharded", "bound_ms", "max_abs_err",
+            "launches_per_call")}
             for (name, shards), c in checks.items()},
     }
     emit({"fleet_phase_s": time.perf_counter() - t0})
     return {"kernel": entry,
             "decision_launches": {
                 "sharded_pool": pool["decision_launches"],
+                "sharded_pool_cuda_cpu": pool["mixed_decision_launches"],
                 "serve_sar_fleet": fleet["launches"]["decision"],
                 "mission_sharded": mission["decision_launches"]},
             "cim_launches": fleet["launches"]["cim"]}
@@ -6364,9 +6459,9 @@ def head_timing(uq_launches: dict, fig9: dict, head_checks: dict,
     return [eps_line, lines["rank16"], lines["paper"]]
 
 
-def decision_args_work(args: dict) -> dict:
+def decision_args_work(args: dict, accumulate: bool = False) -> dict:
     """``kernels/bounds.decision_work`` of one ``decision_stats`` call's
-    arguments."""
+    arguments (``accumulate``: its ``out=stats`` form)."""
     from repro_torch.kernels.bounds import decision_work
     b, n = args["y_mu"].shape
     idx = args.get("sample_idx")
@@ -6375,7 +6470,7 @@ def decision_args_work(args: dict) -> dict:
         sel_per_slot=args["sel"].ndim == 3,
         read_sigma=args["cfg"].read_sigma,
         idx_per_slot=idx is not None and idx.ndim == 2,
-        rows=args.get("rows") is not None)
+        rows=args.get("rows") is not None, accumulate=accumulate)
 
 
 def sharded_body_timing(args: dict) -> dict:
@@ -6493,6 +6588,14 @@ def run_timing(inputs: dict, launches: dict, worst: float,
 
 def main() -> int:
     import torch
+    t_script = time.perf_counter()
+    walls: dict[str, float] = {}
+
+    def lap(name: str) -> None:
+        """Seconds since the previous lap (the script's start), kept
+        under ``name`` for the ``script_wall_s`` line."""
+        walls[name] = time.perf_counter() - t_script - sum(walls.values())
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -6528,18 +6631,24 @@ def main() -> int:
         over = {fn: n for fn, n in spills.items() if n}
         check(not over, f"ptxas reports spills in {name}: {over}")
 
+    lap("setup_and_build")
     worst, inputs = run_kernel_checks()
     cim_summary, cim_inputs = run_cim_checks()
     run_grng_checks()
     head_checks = run_head_checks()
+    lap("kernel_checks")
     main_path = run_main_path()
     chip_path = run_chip_path()
     run_fixed_path()
+    lap("serving_paths")
     uq_path = run_uq_path()
     fig9 = run_fig9_path()
+    lap("uq_and_fig9")
     train = run_train_path()
+    lap("training")
     run_trained_serving(train["params"])
     trained_uq = run_trained_uq(train["params"])
+    lap("trained_serving_and_uq")
     mission_checks = run_mission_kernel_checks(train["params"])
     worst = max(worst, mission_checks["decision_max_abs_err"])
     for key, v in mission_checks["cim"].items():
@@ -6550,26 +6659,37 @@ def main() -> int:
     mission = run_mission_matrix(train["params"])["launches"]
     mission_orbit_cost(train["params"])
     mission_profile(train["params"])
+    lap("missions")
     run_telemetry_path()
     lifetime = run_lifetime_serving(train["params"])
     aged = run_mission_lifetime(train["params"])
     worst = max(worst, aged["decision_max_abs_err"])
+    lap("telemetry_and_lifetime")
     t0 = time.perf_counter()
     obs = observed_launches(run_observability())
     emit({"observability_phase_s": time.perf_counter() - t0})
+    lap("observability")
     t0 = time.perf_counter()
     population = run_die_population()["launches"]
     run_granularity()
     run_moment()
     run_tiled_hoist()
     emit({"population_and_modes_phases_s": time.perf_counter() - t0})
+    lap("population_and_modes")
     fleet = run_fleet_phase(train["params"])
+    lap("fleet")
     lm = run_lm_serving()
+    lap("lm_serving")
     moe = run_lm_moe()
+    lap("lm_moe")
     ssm = run_lm_ssm()
+    lap("lm_ssm")
     xattn = run_lm_xattn()
+    lap("lm_xattn")
     lm_train = run_lm_train()
+    lap("lm_train")
     mesh = run_mesh_phase()
+    lap("mesh")
     cim_plan_sweep(cim_inputs)
     head_plan_sweep()
     heads = head_timing(uq_path["launches"], fig9, head_checks, train,
@@ -6675,6 +6795,10 @@ def main() -> int:
                {a: {"shape": m["shape"], **m["times"]["decision"]}
                 for a, m in xattn["models"].items()},
                fleet["kernel"])
+    lap("plan_sweeps_and_timing")
+    emit({"script_wall_s": time.perf_counter() - t_script,
+          "phase_walls_s": walls, "card": card,
+          "limit_s": 1200, "target_s": 950})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

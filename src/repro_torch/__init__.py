@@ -33,10 +33,12 @@ Fleet serving: ``serving.SarServingFleet`` (and ``launch.serve.
 serve_sar_fleet``, the CLI's ``--pools``) runs complete SAR pools
 behind a least-loaded router with one gang dispatch and one host pull a
 tick, a pool on each of a list of devices (one card may hold them
-all); the slot-sharded pool (``SarServingEngine(slot_devices=...)``)
-and the sharded mission (``fly_mission(devices=...)``) fold their
-rounds through ``kernels/decision.decision_stats_sharded``, one
-decision-kernel launch a shard, bit for bit the unsharded rounds.
+all); the slot-sharded pool (``SarServingEngine(slot_devices=...)``,
+its state held a run of shards on one device at a time on that device)
+and the sharded mission (``fly_mission(devices=...)``, through
+``kernels/decision.decision_stats_sharded``) fold each round with one
+accumulating decision-kernel launch a run, bit for bit the unsharded
+rounds.
 
 Observability and lifetime: device-resident telemetry (``obs.
 telemetry``, on by default in the engine, ``serve_sar`` and the

@@ -195,7 +195,7 @@ def _noise_key(sel: torch.Tensor, sample_idx) -> torch.Tensor:
 
 
 def _mix_block(m, y_mu, x_sigma, x_sigsq, sel, cfg: BayesHeadConfig,
-               key, col0: int = 0) -> torch.Tensor:
+               key, col0: int = 0, row0: int = 0) -> torch.Tensor:
     """[R, B, cn] logit samples for one column block of the basis;
     the read-noise hash is keyed on GLOBAL (slot, column) coordinates."""
     gstd, gmean = cfg.grng.sum_std, cfg.grng.sum_mean
@@ -206,7 +206,8 @@ def _mix_block(m, y_mu, x_sigma, x_sigsq, sel, cfg: BayesHeadConfig,
     out = mix - gmean * x_sigma[None]
     if cfg.grng.read_sigma:
         b, cn = x_sigma.shape
-        rows = torch.arange(b, dtype=torch.int64, device=x_sigma.device)
+        rows = torch.arange(row0, row0 + b, dtype=torch.int64,
+                            device=x_sigma.device)
         cols = col0 + torch.arange(cn, dtype=torch.int64,
                                    device=x_sigma.device)
         h = hash3(key[..., None], rows[None, :, None], cols[None, None, :],
@@ -232,14 +233,15 @@ def basis_blocks(abasis: dict):
 
 
 def mix_samples(abasis: dict, sel: torch.Tensor, cfg: BayesHeadConfig,
-                sample_idx=None) -> torch.Tensor:
+                sample_idx=None, row0: int = 0) -> torch.Tensor:
     """Selection vectors -> logit samples against a basis cache.
 
     sel: [R, 16] (shared stream) or [R, B, 16] (per-slot streams).
     sample_idx: the absolute stream indices of ``sel`` ([R] or [R, B]),
     the read-noise key on a degraded die.  Returns [R, B, N].  A basis
     in host chunks is mixed chunk by chunk (``basis_blocks``), the
-    read noise keyed on global columns.
+    read noise keyed on global columns; ``row0``: the global slot id of
+    row 0 (a slot shard's first slot).
     """
     key = _noise_key(sel, sample_idx) if cfg.grng.read_sigma else None
     y_mu, x_sigma = abasis["y_mu"], abasis["x_sigma"]
@@ -247,7 +249,7 @@ def mix_samples(abasis: dict, sel: torch.Tensor, cfg: BayesHeadConfig,
     parts = [
         _mix_block(m, y_mu[:, c0:c1], x_sigma[:, c0:c1],
                    None if x_sigsq is None else x_sigsq[:, c0:c1],
-                   sel, cfg, key, col0=c0)
+                   sel, cfg, key, col0=c0, row0=row0)
         for m, c0, c1 in basis_blocks(abasis)]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 

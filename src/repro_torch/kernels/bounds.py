@@ -28,14 +28,17 @@ def bound_line(nbytes: int, ops: int, hashes: int) -> dict:
 
 def decision_work(b: int, n: int, r: int, active: int, *,
                   sel_per_slot: bool, read_sigma: float = 0.0,
-                  idx_per_slot: bool = False, rows: bool = False) -> dict:
+                  idx_per_slot: bool = False, rows: bool = False,
+                  accumulate: bool = False) -> dict:
     """One decision round of ``r`` samples over ``b`` slots of ``n``
     classes, ``active`` of them unmasked.  A masked slot costs its mask
-    byte and its zeroed outputs; an active slot also reads its rows of
-    every per-slot input.  Per logit: the 16-term mix (32),
-    −sum_mean·x_sigma (2), /sum_std + y_mu (2); softmax, entropy and the
-    two sums (~8).  Read noise hashes one draw per (sample, active
-    slot, class)."""
+    byte and, for a delta launch, its zeroed outputs; an active slot
+    also reads its rows of every per-slot input and writes its deltas,
+    or, ``accumulate`` (the kernel's ``out=stats`` epilogue), reads and
+    writes its 2·N + 2 running sums and a masked slot writes nothing.
+    Per logit: the 16-term mix (32), −sum_mean·x_sigma (2), /sum_std +
+    y_mu (2); softmax, entropy and the two sums (~8).  Read noise hashes
+    one draw per (sample, active slot, class)."""
     per_slot = n * 4 * (2 + 16)                # y_mu, x_sigma, m rows
     shared = 0                                 # read once for all slots
     if sel_per_slot:
@@ -50,8 +53,13 @@ def decision_work(b: int, n: int, r: int, active: int, *,
             shared += r * 8
         if rows:
             per_slot += 8
+    stats = (2 * n + 2) * 4                    # sum_p, sum_psq, the two ent
+    if accumulate:
+        per_slot += stats
+        writes = active * stats
+    else:
+        writes = b * stats
     reads = b + active * per_slot + shared     # mask: one byte a slot
-    writes = 2 * b * n * 4 + 2 * b * 4
     ops = r * active * n * 44
     hashes = r * active * n if read_sigma > 0 else 0
     return bound_line(reads + writes, ops, hashes)

@@ -12,10 +12,24 @@
 //                + gauss(hash3(idx[r,b], row[b], n, seed))
 //                  * read_sigma * sqrt(max(x_sigsq[b,n], 0))) / sum_std
 //   (the read-noise term only when read_sigma > 0), then
-//   p = softmax_n(logit), ent[r] = -sum_n p*log p, and writes
+//   p = softmax_n(logit), ent[r] = -sum_n p*log p, and writes the deltas
 //   sum_p[b,n] = sum_r p, sum_psq[b,n] = sum_r p^2,
 //   sum_ent[b] = sum_r ent, sum_entsq[b] = sum_r ent^2,
-//   all zero for a slot whose mask is 0.
+//   all zero for a slot whose mask is 0.  row[b] is rows[b], or row0 + b:
+//   a slot shard hashes its read noise with its global slot ids.
+//
+// Accumulate epilogue (``accumulate`` = 1, the wrapper's ``out=stats``):
+//   the four outputs are the running statistics, and an active slot adds
+//   each delta into them in place, one float32 add an element
+//   (__fadd_rn: never contracted), exactly as ``stats[key] += delta[key]``
+//   after a delta launch; a masked slot writes nothing.  The small-N
+//   variant loads the sums it adds into with its staged operands, so the
+//   read-modify-write adds no memory round trip at the end.  One launch then
+//   folds a round into statistics that stay on the launch's device: no
+//   delta buffers, no add kernels after it, and a slot shard (a range of
+//   slots on one device, ``row0`` its first global slot, the selections
+//   and stream indices read through their leading strides ``sel_ld`` and
+//   ``idx_ld`` without a copy) needs no concatenation.
 //
 // The launcher takes the variant from kernels/decision.py
 // (decision_plan), which routes by N.  Every reduction below is a
@@ -96,7 +110,8 @@
 //   would have to be co-resident) nor a last-block election (its
 //   counter would need zeroing every call, and a stale one fails
 //   silently); an extra graph node costs about 1 µs.  A masked slot's
-//   blocks read its mask byte and stop; B's write its zeros.  Every
+//   blocks read its mask byte and stop; B's write its zeros (nothing
+//   when accumulating).  Every
 //   float32 exponential is expf, as the plain version's (the SFU's
 //   ex2.approx alone would add up to ~1e-6 of relative error a term,
 //   its argument's rounding scaled by |l - M|).  The logit scales by
@@ -125,19 +140,36 @@ struct Params {
   const uint8_t* mask;       // [B] bool, or null = all active
   const float* x_sigsq;      // [B, N] (read noise only)
   const int64_t* sample_idx; // [R, B] or [R] uint32 values (read noise only)
-  const int64_t* rows;       // [B] uint32 values, or null = arange(B)
-  float* sum_p;              // [B, N]
+  const int64_t* rows;       // [B] uint32 values, or null = row0 + arange(B)
+  float* sum_p;              // [B, N] deltas, or the running sums (accumulate)
   float* sum_psq;            // [B, N]
   float* sum_ent;            // [B]
   float* sum_entsq;          // [B]
   int B, N, R;
   int sel_per_slot, idx_per_slot;
+  int sel_ld, idx_ld;        // slots between samples' rows of sel / sample_idx
   float sum_mean, sum_std, read_sigma;
   uint32_t noise_seed;
+  uint32_t row0;             // the global slot id of slot 0
+  int accumulate;
 };
 
-// Zero deltas for an inactive slot.
+// Writes one statistic: the delta, or (accumulate) the running sum plus
+// the delta, rounded once.
+__device__ __forceinline__ void put(const Params& p, float* dst, float v) {
+  *dst = p.accumulate ? __fadd_rn(*dst, v) : v;
+}
+
+// The read-noise row of slot b.
+__device__ __forceinline__ uint32_t slot_row(const Params& p, int b) {
+  return p.rows != nullptr ? static_cast<uint32_t>(p.rows[b])
+                           : p.row0 + static_cast<uint32_t>(b);
+}
+
+// Zero deltas for an inactive slot (a delta launch only: an accumulating
+// one leaves its statistics as they are).
 __device__ __forceinline__ void write_masked(const Params& p, int b) {
+  if (p.accumulate) return;
   const size_t row0 = static_cast<size_t>(b) * p.N;
   for (int n = threadIdx.x; n < p.N; n += blockDim.x) {
     p.sum_p[row0 + n] = 0.f;
@@ -153,7 +185,7 @@ __device__ __forceinline__ void write_masked(const Params& p, int b) {
 // the reference's cast.
 __device__ __forceinline__ uint32_t sample_key(const Params& p, int r, int b) {
   return static_cast<uint32_t>(
-      p.idx_per_slot ? p.sample_idx[static_cast<size_t>(r) * p.B + b]
+      p.idx_per_slot ? p.sample_idx[static_cast<size_t>(r) * p.idx_ld + b]
                      : p.sample_idx[r]);
 }
 
@@ -175,7 +207,7 @@ __device__ __forceinline__ const float* staged_src(const Params& p, int b,
     const int r = i / kBasis, j = i % kBasis;
     *dst = st.sel_s + r * kRowPad + j;
     return p.sel_per_slot
-               ? p.sel + (static_cast<size_t>(r) * p.B + b) * kBasis + j
+               ? p.sel + (static_cast<size_t>(r) * p.sel_ld + b) * kBasis + j
                : p.sel + static_cast<size_t>(r) * kBasis + j;
   }
   i -= n_sel;
@@ -210,8 +242,9 @@ decision_stats_small_n_kernel(Params p, int np) {
   __shared__ float red_psq[kMaxSmallThreads / 32][kMaxSmallN];
   __shared__ float red_e[kMaxSmallThreads / 32], red_e2[kMaxSmallThreads / 32];
 
-  // An inactive slot reads its mask byte and writes zeros, nothing more:
-  // after round 0 most rounds of a dispatch find every slot decided.
+  // An inactive slot reads its mask byte and writes zeros (nothing when
+  // accumulating), nothing more: after round 0 most rounds of a dispatch
+  // find every slot decided.
   if (p.mask != nullptr && p.mask[b] == 0) {
     write_masked(p, b);
     return;
@@ -221,9 +254,19 @@ decision_stats_small_n_kernel(Params p, int np) {
   // memory round trip, not one per array.
   const bool noisy = p.read_sigma > 0.f;
   const uint32_t key = (noisy && tid < p.R) ? sample_key(p, tid, b) : 0u;
-  const uint32_t row = (noisy && p.rows != nullptr)
-                           ? static_cast<uint32_t>(p.rows[b])
-                           : static_cast<uint32_t>(b);
+  const uint32_t row = noisy ? slot_row(p, b) : 0u;
+  // Accumulating, the running sums this thread adds into at the end are
+  // loaded here with the rest, so their round trip hides behind staging.
+  const size_t row0 = static_cast<size_t>(b) * p.N;
+  float old_p = 0.f, old_psq = 0.f, old_e = 0.f, old_e2 = 0.f;
+  if (p.accumulate && tid < p.N) {
+    old_p = p.sum_p[row0 + tid];
+    old_psq = p.sum_psq[row0 + tid];
+  }
+  if (p.accumulate && tid == 0) {
+    old_e = p.sum_ent[b];
+    old_e2 = p.sum_entsq[b];
+  }
   const Staging st{sel_s, m_s, vec_s};
   const int items = p.R * kBasis + p.N * (kBasis + (noisy ? 3 : 2));
   for (int base = 0; base < items; base += kBatch * nthreads) {
@@ -243,7 +286,6 @@ decision_stats_small_n_kernel(Params p, int np) {
   const float* ymu_s = vec_s;
   const float* xsig_s = vec_s + kMaxSmallN;
   const float* xsq_s = vec_s + 2 * kMaxSmallN;
-  const size_t row0 = static_cast<size_t>(b) * p.N;
 
   float sp = 0.f, spsq = 0.f, se = 0.f, se2 = 0.f;
   const int pairs = p.R * np;
@@ -318,8 +360,8 @@ decision_stats_small_n_kernel(Params p, int np) {
       a += red_p[w][tid];
       a2 += red_psq[w][tid];
     }
-    p.sum_p[row0 + tid] = a;
-    p.sum_psq[row0 + tid] = a2;
+    p.sum_p[row0 + tid] = p.accumulate ? __fadd_rn(old_p, a) : a;
+    p.sum_psq[row0 + tid] = p.accumulate ? __fadd_rn(old_psq, a2) : a2;
   }
   if (tid == 0) {
     float a = 0.f, a2 = 0.f;
@@ -327,8 +369,8 @@ decision_stats_small_n_kernel(Params p, int np) {
       a += red_e[w];
       a2 += red_e2[w];
     }
-    p.sum_ent[b] = a;
-    p.sum_entsq[b] = a2;
+    p.sum_ent[b] = p.accumulate ? __fadd_rn(old_e, a) : a;
+    p.sum_entsq[b] = p.accumulate ? __fadd_rn(old_e2, a2) : a2;
   }
 }
 
@@ -381,9 +423,7 @@ struct Columns {
 template <bool kNoisy>
 __device__ __forceinline__ void load_columns(const Params& p, int b, int n0,
                                              Columns<kNoisy>& c) {
-  const uint32_t row = (kNoisy && p.rows != nullptr)
-                           ? static_cast<uint32_t>(p.rows[b])
-                           : static_cast<uint32_t>(b);
+  const uint32_t row = kNoisy ? slot_row(p, b) : 0u;
 #pragma unroll
   for (int q = 0; q < kCols; ++q) {
     const int n = n0 + q * kTiledThreads + static_cast<int>(threadIdx.x);
@@ -440,7 +480,7 @@ __device__ __forceinline__ void stage_round(const Params& p, int b,
   for (int i = threadIdx.x; i < p.R * kBasis; i += blockDim.x) {
     const int r = i / kBasis, j = i % kBasis;
     sel_s[i] = p.sel_per_slot
-                   ? p.sel[(static_cast<size_t>(r) * p.B + b) * kBasis + j]
+                   ? p.sel[(static_cast<size_t>(r) * p.sel_ld + b) * kBasis + j]
                    : p.sel[static_cast<size_t>(r) * kBasis + j];
   }
   if (kNoisy)
@@ -634,17 +674,18 @@ decision_tiled_sums_kernel(Params p, const float* lse, const double* ent) {
   const int n0 = tile * kTile;
   const size_t row0 = static_cast<size_t>(b) * p.N;
   const bool active = p.mask == nullptr || p.mask[b] != 0;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {  // rounded to float once
-    double se = 0.0, se2 = 0.0;
+  if (blockIdx.x == 0 && threadIdx.x == 0 && (active || !p.accumulate)) {
+    double se = 0.0, se2 = 0.0;                   // rounded to float once
     for (int r = 0; active && r < p.R; ++r) {
       const double e = ent[static_cast<size_t>(b) * p.R + r];
       se += e;
       se2 += e * e;
     }
-    p.sum_ent[b] = static_cast<float>(se);
-    p.sum_entsq[b] = static_cast<float>(se2);
+    put(p, p.sum_ent + b, static_cast<float>(se));
+    put(p, p.sum_entsq + b, static_cast<float>(se2));
   }
-  if (!active) {                                  // inactive slot: zeros
+  if (!active) {          // inactive slot: zeros, or nothing (accumulate)
+    if (p.accumulate) return;
 #pragma unroll
     for (int q = 0; q < kCols; ++q) {
       const int n = n0 + q * kTiledThreads + static_cast<int>(threadIdx.x);
@@ -687,8 +728,8 @@ decision_tiled_sums_kernel(Params p, const float* lse, const double* ent) {
   for (int q = 0; q < kCols; ++q) {
     if (c.valid[q]) {
       const int n = n0 + q * kTiledThreads + static_cast<int>(threadIdx.x);
-      p.sum_p[row0 + n] = sp[q];
-      p.sum_psq[row0 + n] = spsq[q];
+      put(p, p.sum_p + row0 + n, sp[q]);
+      put(p, p.sum_psq + row0 + n, spsq[q]);
     }
   }
 }
@@ -729,18 +770,25 @@ int launch_tiled(const Params& p, float* scratch, cudaStream_t s) {
 // 5·B·R·tiles + 3·B·R floats (tiles = ceil(N / tile)); ``tile`` = 0
 // runs the small-N variant:
 // ``np`` a power of two, N <= np <= 32, on ``threads`` (a multiple of
-// 32, at least R).  Returns the first launch's cudaError_t that is not
-// cudaSuccess (0); cudaErrorInvalidValue for what the kernels do not
-// take.  The wrapper has checked shapes, types, devices, contiguity and
-// 16-byte alignment of m.
+// 32, at least R).  ``sel_ld`` / ``idx_ld``: slots between consecutive
+// samples' rows of per-slot selections / stream indices (B when
+// contiguous; a slot shard's view of a wider round passes the round's);
+// ``row0``: the read-noise row of slot 0 when ``rows`` is null;
+// ``accumulate``: add the deltas of active slots into sum_* in place.
+// Returns the first launch's cudaError_t that is not cudaSuccess (0);
+// cudaErrorInvalidValue for what the kernels do not take.  The wrapper
+// has checked shapes, types, devices, strides and 16-byte alignment of m.
 extern "C" int decision_stats_launch(
     const float* y_mu, const float* x_sigma, const float* m, const float* sel,
     const uint8_t* mask, const float* x_sigsq, const int64_t* sample_idx,
     const int64_t* rows, float* sum_p, float* sum_psq, float* sum_ent,
     float* sum_entsq, int B, int N, int R, int sel_per_slot, int idx_per_slot,
-    float sum_mean, float sum_std, float read_sigma, unsigned int noise_seed,
-    int np, int threads, int tile, float* scratch, void* stream) {
+    int sel_ld, int idx_ld, float sum_mean, float sum_std, float read_sigma,
+    unsigned int noise_seed, unsigned int row0, int accumulate, int np,
+    int threads, int tile, float* scratch, void* stream) {
   if (B < 1 || N < 1 || R < 1 || R > kMaxR) return cudaErrorInvalidValue;
+  if ((sel_per_slot && sel_ld < B) || (idx_per_slot && idx_ld < B))
+    return cudaErrorInvalidValue;
   if (tile == 0 && (np < N || np > kMaxSmallN || (np & (np - 1)) != 0 ||
                     threads < 32 || threads > kMaxSmallThreads ||
                     threads % 32 != 0 || threads < R))  // a key_s[r] each
@@ -751,11 +799,11 @@ extern "C" int decision_stats_launch(
     return cudaErrorInvalidValue;
   if (read_sigma > 0.f && (x_sigsq == nullptr || sample_idx == nullptr))
     return cudaErrorInvalidValue;
-  Params p{y_mu,      x_sigma,      m,        sel,       mask,
-           x_sigsq,   sample_idx,   rows,     sum_p,     sum_psq,
-           sum_ent,   sum_entsq,    B,        N,         R,
-           sel_per_slot, idx_per_slot, sum_mean, sum_std, read_sigma,
-           noise_seed};
+  Params p{y_mu,      x_sigma,      m,        sel,        mask,
+           x_sigsq,   sample_idx,   rows,     sum_p,      sum_psq,
+           sum_ent,   sum_entsq,    B,        N,          R,
+           sel_per_slot, idx_per_slot, sel_ld, idx_ld,   sum_mean,
+           sum_std,   read_sigma,   noise_seed, row0,     accumulate};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile) {
     case 0:

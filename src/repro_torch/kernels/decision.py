@@ -31,13 +31,22 @@ masked sums, as ``repro/kernels/ref.py`` ``decision_stats_ref``, with
 the tiled variant's float64 entropies above N = 32); CUDA
 tensors launch the kernel or raise.  There is no fallback.
 ``decision_stats.launches`` counts wrapper calls that launched (one a
-round piece, whatever number of kernels the plan runs).
+round piece, whatever number of kernels the plan runs).  With
+``out=stats`` the call folds the round into the running statistics in
+place (the kernel's accumulate epilogue: an active slot's sums plus its
+deltas, one float32 add an element, a masked slot untouched), bit for
+bit ``stats[key] += delta[key]``; ``row0`` is the global slot id of
+slot 0 for the read-noise hash when ``rows`` is None.
 
 ``decision_stats_sharded`` replaces ``decision_stats_sharded``
 (``decision_kernel.py:263``): the slot axis cut over a list of torch
-devices (one card may hold every shard), one ``decision_stats`` call a
-shard, read noise keyed on global slot ids, bit for bit the unsharded
-launch.
+devices (one card may hold every shard).  Consecutive shards on one
+device form a run (``slot_runs``), and ``fold_runs`` makes one
+accumulating ``decision_stats`` call a run over views of its slot range
+(``row0`` its first global slot, shared selections and stream indices
+as they are, per-slot ones through their strides), so a round costs one
+launch a device, and read noise stays keyed on global slot ids: bit for
+bit the unsharded launch.
 """
 
 from __future__ import annotations
@@ -101,7 +110,7 @@ def decision_plan(n: int, r: int, b: int = 1) -> DecisionPlan:
 
 
 def _plain_samples(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq,
-                   sample_idx, rows) -> torch.Tensor:
+                   sample_idx, rows, row0: int = 0) -> torch.Tensor:
     """The round's [R, B, N] logit samples, as ``mix_samples``."""
     b, n = y_mu.shape
     dev = y_mu.device
@@ -116,7 +125,8 @@ def _plain_samples(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq,
         key = as_u32(sample_idx, device=dev)
         if key.ndim == 1:
             key = key[:, None]
-        row_ids = (torch.arange(b, dtype=torch.int64, device=dev)
+        row_ids = (torch.arange(row0, row0 + b, dtype=torch.int64,
+                                device=dev)
                    if rows is None else as_u32(rows, device=dev))
         cols = torch.arange(n, dtype=torch.int64, device=dev)
         h = hash3(key[..., None], row_ids[None, :, None],
@@ -149,11 +159,33 @@ def _masked(p, ent, mask) -> dict:
             "sum_entsq": (_sum_samples(ent * ent) * mk).to(torch.float32)}
 
 
+STATS = ("sum_p", "sum_psq", "sum_ent", "sum_entsq")
+
+
+def _stat_shape(key: str, b: int, n: int) -> tuple:
+    return (b, n) if key in ("sum_p", "sum_psq") else (b,)
+
+
+def _fold_into(out: dict, delta: dict, mask) -> dict:
+    """``out[key] += delta[key]`` in place on the active rows (all when
+    ``mask`` is None); masked rows keep their bits."""
+    for key in STATS:
+        if mask is None:
+            out[key].add_(delta[key])
+            continue
+        keep = torch.as_tensor(mask, device=out[key].device)
+        if out[key].ndim == 2:
+            keep = keep[:, None]
+        out[key].copy_(torch.where(keep, out[key] + delta[key], out[key]))
+    return out
+
+
 def decision_stats_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
                          x_sigsq=None, sample_idx=None, mask=None,
-                         rows=None) -> dict:
+                         rows=None, row0: int = 0, out=None) -> dict:
     """Plain PyTorch version: materializes the [R, B, N] samples, then
-    ``update_stats`` on zeroed sums, multiplied by the [B] mask.  Above
+    ``update_stats`` on zeroed sums, multiplied by the [B] mask (with
+    ``out``: added into ``out`` on the active rows, in place).  Above
     SMALL_N_MAX the entropies are the tiled variant's: in float64 from
     the float32 logits, their sums over the samples rounded to float32
     once.  A standard error the engine derives from sum_ent and
@@ -161,18 +193,21 @@ def decision_stats_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
     bits move it by ~1e-4 (ROADMAP C6), and the card's float64 ones
     would then disagree with the plain version's by that much."""
     samples = _plain_samples(y_mu, x_sigma, m, sel, cfg, x_sigsq,
-                             sample_idx, rows)
+                             sample_idx, rows, row0)
     logp = torch.log_softmax(samples, dim=-1)
     p = torch.exp(logp)
     if samples.shape[-1] > SMALL_N_MAX:
         lp = torch.log_softmax(samples.to(torch.float64), dim=-1)
-        return _masked(p, -(torch.exp(lp) * lp).sum(-1), mask)
-    return _masked(p, -(p * logp).sum(-1), mask)
+        delta = _masked(p, -(torch.exp(lp) * lp).sum(-1), mask)
+    else:
+        delta = _masked(p, -(p * logp).sum(-1), mask)
+    return delta if out is None else _fold_into(out, delta, mask)
 
 
 def decision_stats_tiled_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
                                x_sigsq=None, sample_idx=None, mask=None,
-                               rows=None, *, tile: int) -> dict:
+                               rows=None, row0: int = 0, *,
+                               tile: int) -> dict:
     """The tiled variant's algorithm in plain PyTorch (tests only): per
     (sample, slot, tile of ``tile`` columns, the last one ragged) the
     tile's max m_t, S1 = Σ e^(l−m_t) and S2 = Σ e^(l−m_t)·(l−m_t), summed
@@ -182,7 +217,7 @@ def decision_stats_tiled_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
     sums over the samples rounded to float32 once; then a second pass
     p = exp(l − lse) summed over the samples in float32."""
     logits = _plain_samples(y_mu, x_sigma, m, sel, cfg, x_sigsq,
-                            sample_idx, rows)
+                            sample_idx, rows, row0)
     r, b, n = logits.shape
     tiles = -(-n // tile)
     lt = torch.nn.functional.pad(logits, (0, tiles * tile - n),
@@ -213,14 +248,14 @@ def decision_stats_tiled_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig,
 def _launcher():
     from repro_torch.kernels.build import load
     fn = load("decision").decision_stats_launch
-    fn.argtypes = ([_P] * 12 + [ctypes.c_int] * 5
+    fn.argtypes = ([_P] * 12 + [ctypes.c_int] * 7
                    + [ctypes.c_float] * 3
-                   + [ctypes.c_uint] + [ctypes.c_int] * 3 + [_P, _P])
+                   + [ctypes.c_uint] * 2 + [ctypes.c_int] * 4 + [_P, _P])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(name, t, shape, dtype, device):
+def _check(name, t, shape, dtype, device, contiguous: bool = True):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -228,12 +263,28 @@ def _check(name, t, shape, dtype, device):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
+def _leading(name, t, shape, dtype, device) -> int:
+    """Check a per-slot operand ([R, B, ...]) whose slots may be a view
+    of a wider round's: rows of its trailing dims contiguous, samples
+    ``ld`` slots apart.  -> ld (B when contiguous)."""
+    _check(name, t, shape, dtype, device, contiguous=False)
+    inner = math.prod(shape[2:])
+    if not t[0].is_contiguous():
+        raise ValueError(f"{name}'s slots must be contiguous")
+    if shape[0] == 1:
+        return shape[1]
+    if t.stride(0) % inner or t.stride(0) < shape[1] * inner:
+        raise ValueError(f"{name}'s sample stride {t.stride(0)} does not "
+                         f"step whole slot rows")
+    return t.stride(0) // inner
+
+
 def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq, sample_idx,
-            mask, rows) -> dict:
+            mask, rows, row0, out) -> dict:
     dev = y_mu.device
     b, n = y_mu.shape
     r = sel.shape[0]
@@ -247,7 +298,11 @@ def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq, sample_idx,
     if m.data_ptr() % 16:
         raise ValueError("m must be 16-byte aligned (float4 loads)")
     sel_per_slot = sel.ndim == 3
-    _check("sel", sel, (r, b, 16) if sel_per_slot else (r, 16), f32, dev)
+    sel_ld = idx_ld = b
+    if sel_per_slot:
+        sel_ld = _leading("sel", sel, (r, b, 16), f32, dev)
+    else:
+        _check("sel", sel, (r, 16), f32, dev)
     if mask is not None:
         _check("mask", mask, (b,), torch.bool, dev)
     noisy = cfg.read_sigma > 0
@@ -257,14 +312,21 @@ def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq, sample_idx,
             raise ValueError("read noise needs x_sigsq and sample_idx")
         _check("x_sigsq", x_sigsq, (b, n), f32, dev)
         idx_per_slot = sample_idx.ndim == 2
-        _check("sample_idx", sample_idx, (r, b) if idx_per_slot else (r,),
-               torch.int64, dev)
+        if idx_per_slot:
+            idx_ld = _leading("sample_idx", sample_idx, (r, b),
+                              torch.int64, dev)
+        else:
+            _check("sample_idx", sample_idx, (r,), torch.int64, dev)
         if rows is not None:
             _check("rows", rows, (b,), torch.int64, dev)
-    out = {"sum_p": torch.empty((b, n), dtype=f32, device=dev),
-           "sum_psq": torch.empty((b, n), dtype=f32, device=dev),
-           "sum_ent": torch.empty((b,), dtype=f32, device=dev),
-           "sum_entsq": torch.empty((b,), dtype=f32, device=dev)}
+    accumulate = out is not None
+    if accumulate:
+        for key in STATS:
+            _check(f"out[{key!r}]", out[key], _stat_shape(key, b, n), f32,
+                   dev)
+    else:
+        out = {key: torch.empty(_stat_shape(key, b, n), dtype=f32,
+                                device=dev) for key in STATS}
     plan = decision_plan(n, r, b)
     scratch = (torch.empty(b * r * (5 * plan.tiles + 3), dtype=f32,
                            device=dev) if plan.variant == "tiled" else None)
@@ -281,8 +343,9 @@ def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq, sample_idx,
             ptr(rows) if noisy else None,
             ptr(out["sum_p"]), ptr(out["sum_psq"]), ptr(out["sum_ent"]),
             ptr(out["sum_entsq"]), b, n, r, int(sel_per_slot),
-            int(idx_per_slot), cfg.sum_mean, cfg.sum_std, cfg.read_sigma,
-            cfg.noise_seed & 0xFFFFFFFF, plan.np, plan.threads, plan.tile,
+            int(idx_per_slot), sel_ld, idx_ld, cfg.sum_mean, cfg.sum_std,
+            cfg.read_sigma, cfg.noise_seed & 0xFFFFFFFF, row0 & 0xFFFFFFFF,
+            int(accumulate), plan.np, plan.threads, plan.tile,
             ptr(scratch), stream)
     if err != 0:
         raise RuntimeError(f"decision kernel launch failed: cudaError {err}")
@@ -291,115 +354,176 @@ def _launch(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq, sample_idx,
 
 
 def decision_stats(y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq=None,
-                   sample_idx=None, mask=None, rows=None) -> dict:
+                   sample_idx=None, mask=None, rows=None, row0: int = 0,
+                   out=None) -> dict:
     """Fused decision-statistic deltas for one escalation round.
 
     y_mu/x_sigma: [B, N]; m: [B, N, 16] (``activation_basis``); sel:
     [R, B, 16] or [R, 16]; x_sigsq: [B, N] and sample_idx: [R, B] or
     [R] absolute stream indices (int64 holding uint32), both required
     when ``cfg.read_sigma > 0``; rows: [B] global slot ids for the
-    read-noise hash (None = arange(B)); mask: [B] bool, None = all.
+    read-noise hash (None = row0 + arange(B)); mask: [B] bool, None =
+    all.  Per-slot sel and sample_idx may be slot ranges of a wider
+    round (their samples a whole row apart); the rest is contiguous.
 
-    Returns the deltas, zero on masked rows.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (float32, contiguous, R ≤ 64)
+    Returns the deltas, zero on masked rows; with ``out`` (the running
+    statistics, float32, contiguous, on the same device) adds them into
+    ``out`` on the active rows in place and returns it.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (float32, R ≤ 64)
     or raise.
     """
     if y_mu.device.type == "cpu":
         return decision_stats_plain(y_mu, x_sigma, m, sel, cfg, x_sigsq,
-                                    sample_idx, mask, rows)
+                                    sample_idx, mask, rows, row0, out)
     if y_mu.device.type != "cuda":
         raise ValueError(f"no decision kernel for device {y_mu.device}")
     return _launch(y_mu, x_sigma, m, sel, cfg, x_sigsq, sample_idx, mask,
-                   rows)
+                   rows, row0, out)
 
 
 decision_stats.launches = 0
 
 
-def _split_slots(k: int, y_mu, x_sigma, m, sel, cfg: GRNGConfig, x_sigsq,
-                 sample_idx, mask, rows) -> list[dict]:
-    """The round's operands cut into ``k`` contiguous slot shards (views
-    on the caller's device): shared selections and stream indices
-    broadcast per slot, the mask defaulted to all-True and, with read
-    noise, ``rows`` to the GLOBAL slot ids arange(B) before the cut."""
-    b, _ = y_mu.shape
+class SlotRun(NamedTuple):
+    """Consecutive slot shards on one device: slots [start, stop)."""
+    device: torch.device
+    start: int
+    stop: int
+
+
+def _device(d) -> torch.device:
+    dev = torch.device(d)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def slot_runs(devices, b: int) -> list[SlotRun]:
+    """The slot axis of ``b`` slots cut into ``len(devices)`` contiguous
+    shards, shard k on ``devices[k]``, and consecutive shards on one
+    device merged into a run: ``['cuda:0'] * 4`` is one run,
+    ``['cuda:0', 'cuda:1', 'cuda:1', 'cuda:0']`` three.  Raises when
+    ``b`` does not divide over the shards."""
+    devices = [_device(d) for d in devices]
+    k = len(devices)
     if k < 1:
         raise ValueError("a sharded round needs at least one shard")
     if b % k:
         raise ValueError(f"batch {b} not divisible over {k} shards")
-    home = y_mu.device
-    r = sel.shape[0]
-    if sel.ndim == 2:
-        sel = sel[:, None, :].expand(r, b, 16)
-    if mask is None:
-        mask = torch.ones((b,), dtype=torch.bool, device=home)
+    s = b // k
+    runs: list[SlotRun] = []
+    for i, dev in enumerate(devices):
+        if runs and runs[-1].device == dev:
+            runs[-1] = runs[-1]._replace(stop=(i + 1) * s)
+        else:
+            runs.append(SlotRun(dev, i * s, (i + 1) * s))
+    return runs
+
+
+def fold_runs(runs, y_mu, x_sigma, m, sel, cfg: GRNGConfig, *,
+              x_sigsq=None, sample_idx=None, mask=None, rows=None,
+              out=None, plain: bool = False) -> dict:
+    """One round folded run by run: for each ``SlotRun`` (covering
+    [0, B) in order) one accumulating ``decision_stats`` call
+    (``decision_stats_plain`` with ``plain``) on the run's device over
+    its slot range, read noise keyed on the run's global slot ids
+    (``row0`` = its start, or ``rows``' range).  Operands are views where
+    they already lie on the run's device, else one copy of the run's
+    rows; shared selections [R, 16] and stream indices [R] go as they
+    are.  ``out``: the running statistics [B, ...] (any one device),
+    updated in place and returned; a run on another device adds into a
+    copy of its rows, copied back.  None: the deltas on y_mu's device
+    (one run there: its call's own; else each run's copied into its
+    rows)."""
+    b, n = y_mu.shape
+    if (not runs or runs[0].start != 0 or runs[-1].stop != b
+            or any(p.stop != q.start for p, q in zip(runs, runs[1:]))):
+        raise ValueError(f"runs {runs} do not cover {b} slots in order")
     if cfg.read_sigma:
         if x_sigsq is None or sample_idx is None:
             raise ValueError("read noise needs x_sigsq and sample_idx")
-        if sample_idx.ndim == 1:
-            sample_idx = sample_idx[:, None].expand(r, b)
-        if rows is None:
-            rows = torch.arange(b, dtype=torch.int64, device=home)
     else:
         x_sigsq = sample_idx = rows = None
-    s = b // k
+    fold = decision_stats_plain if plain else decision_stats
+    deltas = []
+    for run in runs:
+        dev, sl = run.device, slice(run.start, run.stop)
 
-    def cut(t, i, slot_dim=0):
-        if t is None:
-            return None
-        sl = slice(i * s, (i + 1) * s)
-        return t[sl] if slot_dim == 0 else t[:, sl]
+        def cut(t, per_slot=True, slot_dim=0):
+            if t is None:
+                return None
+            if per_slot:
+                t = t[sl] if slot_dim == 0 else t[:, sl]
+            return t if t.device == dev else t.to(dev)
 
-    return [dict(y_mu=cut(y_mu, i), x_sigma=cut(x_sigma, i), m=cut(m, i),
-                 sel=cut(sel, i, 1), x_sigsq=cut(x_sigsq, i),
-                 sample_idx=cut(sample_idx, i, 1), mask=cut(mask, i),
-                 rows=cut(rows, i)) for i in range(k)]
+        target = None if out is None else {key: cut(out[key])
+                                           for key in STATS}
+        got = fold(cut(y_mu), cut(x_sigma), cut(m),
+                   cut(sel, sel.ndim == 3, 1), cfg, cut(x_sigsq),
+                   cut(sample_idx, sample_idx is not None
+                       and sample_idx.ndim == 2, 1),
+                   cut(mask), cut(rows), run.start, out=target)
+        if out is None:
+            deltas.append(got)
+            continue
+        for key in STATS:
+            if got[key].device != out[key].device:
+                out[key][sl].copy_(got[key])
+    if out is not None:
+        return out
+    if len(runs) == 1 and runs[0].device == y_mu.device:
+        return deltas[0]
+    out = {key: torch.empty(_stat_shape(key, b, n), dtype=torch.float32,
+                            device=y_mu.device) for key in STATS}
+    for run, got in zip(runs, deltas):
+        for key in STATS:
+            out[key][run.start:run.stop].copy_(got[key])
+    return out
 
 
 def decision_stats_sharded(y_mu, x_sigma, m, sel, cfg: GRNGConfig, *,
                            devices, x_sigsq=None, sample_idx=None,
-                           mask=None, rows=None) -> dict:
+                           mask=None, rows=None, out=None) -> dict:
     """``decision_stats`` over the slot axis cut into ``len(devices)``
     contiguous shards (port of ``decision_stats_sharded``,
-    ``repro/kernels/decision_kernel.py:263``): shard k runs
-    ``decision_stats`` on ``devices[k]`` (the kernel on a CUDA device,
-    the plain version on the CPU) over slots [k·B/K, (k+1)·B/K), and the
-    deltas are concatenated on y_mu's device.
+    ``repro/kernels/decision_kernel.py:263``): shard k covers slots
+    [k·B/K, (k+1)·B/K) on ``devices[k]`` (the kernel on a CUDA device,
+    the plain version on the CPU), and ``fold_runs`` makes one
+    accumulating call a run of consecutive shards on one device.
 
     ``devices`` stands where the reference's mesh axis does; it may
-    repeat a device (one card holds every shard).  Every statistic is
-    slot-local and the kernel's launch plan scales only its block count
-    with B, so the shards give the unsharded launch's bits, provided each
-    hashes its read noise with its GLOBAL slot ids: ``rows`` defaults to
-    arange(B) before the split.  Shared selections [R, 16] and stream
-    indices [R] are broadcast to [R, B, 16] and [R, B] before the split,
-    as the reference's.  Raises when B does not divide over the shards
-    (callers route such a round to the unsharded kernel).
-    ``decision_stats_sharded.launches`` counts calls that launched the
-    kernel on at least one shard."""
-    devices = [torch.device(d) for d in devices]
-    parts = _split_slots(len(devices), y_mu, x_sigma, m, sel, cfg, x_sigsq,
-                         sample_idx, mask, rows)
-    outs = [decision_stats(cfg=cfg, **{
-        key: None if t is None else t.to(dev).contiguous()
-        for key, t in part.items()}) for part, dev in zip(parts, devices)]
-    if any(dev.type == "cuda" for dev in devices):
-        decision_stats_sharded.launches += 1
-    return {key: torch.cat([o[key].to(y_mu.device) for o in outs])
-            for key in ("sum_p", "sum_psq", "sum_ent", "sum_entsq")}
+    repeat a device (one card holds every shard: one launch).  Every
+    statistic is slot-local and the kernel's launch plan scales only its
+    block count with B, so the runs give the unsharded launch's bits,
+    each hashing its read noise with its GLOBAL slot ids.  ``out``: the
+    running statistics to fold into (returned); None returns the deltas.
+    Raises when B does not divide over the shards (callers route such a
+    round to the unsharded kernel).  ``decision_stats_sharded.launches``
+    counts calls that launched the kernel on at least one run,
+    ``launches_per_call`` the kernel launches the last call made."""
+    runs = slot_runs(devices, y_mu.shape[0])
+    out = fold_runs(runs, y_mu, x_sigma, m, sel, cfg, x_sigsq=x_sigsq,
+                    sample_idx=sample_idx, mask=mask, rows=rows, out=out)
+    launched = sum(run.device.type == "cuda" for run in runs)
+    decision_stats_sharded.launches_per_call = launched
+    decision_stats_sharded.launches += launched > 0
+    return out
 
 
 decision_stats_sharded.launches = 0
+decision_stats_sharded.launches_per_call = 0
 
 
 def decision_stats_sharded_plain(y_mu, x_sigma, m, sel, cfg: GRNGConfig, *,
                                  shards: int, x_sigsq=None, sample_idx=None,
                                  mask=None, rows=None) -> dict:
     """The sharded round's plain version: ``decision_stats_plain`` on
-    each of ``shards`` slot shards, on y_mu's device, the deltas
-    concatenated."""
-    parts = _split_slots(shards, y_mu, x_sigma, m, sel, cfg, x_sigsq,
-                         sample_idx, mask, rows)
-    outs = [decision_stats_plain(cfg=cfg, **part) for part in parts]
-    return {key: torch.cat([o[key] for o in outs])
-            for key in ("sum_p", "sum_psq", "sum_ent", "sum_entsq")}
+    each of ``shards`` slot shards in turn, on y_mu's device, folded
+    into zeroed sums (``fold_runs(plain=True)``, a run a shard)."""
+    b = y_mu.shape[0]
+    if shards < 1 or b % shards:
+        raise ValueError(f"batch {b} not divisible over {shards} shards")
+    s = b // shards
+    runs = [SlotRun(y_mu.device, i * s, (i + 1) * s) for i in range(shards)]
+    return fold_runs(runs, y_mu, x_sigma, m, sel, cfg, x_sigsq=x_sigsq,
+                     sample_idx=sample_idx, mask=mask, rows=rows, plain=True)

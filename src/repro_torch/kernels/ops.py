@@ -85,25 +85,29 @@ def bayes_head_mvm(x: torch.Tensor, mu_prime: torch.Tensor,
 
 def decision_update(stats: dict, abasis: dict, sel: torch.Tensor,
                     cfg: g.GRNGConfig, sample_idx=None, mask=None,
-                    rows=None, shard=None) -> dict:
+                    rows=None, shard=None, row0: int = 0) -> dict:
     """Fused drop-in for ``update_stats(stats, mix_samples(...), mask)``.
 
     Folds one escalation round into the running statistics through the
     fused decision kernel (``kernels/decision.py``): the [R, B, N]
-    logit samples never exist.  A round of R > ``MAX_SAMPLES`` samples
-    (a fixed-R round of r_max) is cut along R into consecutive pieces of
-    at most ``MAX_SAMPLES``, one ``decision_stats`` call each, whose
-    deltas are added in sample order; every draw keeps its absolute
-    stream index, so only the float order of the sums changes.  Unlike
-    the reference, which returns new arrays, the sums are updated IN
-    PLACE (the serving pool keeps one copy of its statistics) and
-    ``stats`` is returned.  ``mask`` [B] bool: False rows keep their
-    sums and count.
+    logit samples never exist, and each launch adds its deltas straight
+    into ``stats`` (the kernel's accumulate epilogue: no delta buffers,
+    no add kernels).  A round of R > ``MAX_SAMPLES`` samples (a fixed-R
+    round of r_max) is cut along R into consecutive pieces of at most
+    ``MAX_SAMPLES``, one launch each, folded in sample order; every draw
+    keeps its absolute stream index, so only the float order of the
+    sums changes.  Unlike the reference, which returns new arrays, the
+    sums are updated IN PLACE (the serving pool keeps one copy of its
+    statistics) and ``stats`` is returned.  ``mask`` [B] bool: False
+    rows keep their sums and count.  ``row0``: the global slot id of
+    row 0 for the read-noise hash (a slot shard's first slot) when
+    ``rows`` is None.
 
     ``shard``: a sequence of torch devices (may repeat one) — each piece
     goes through ``decision_stats_sharded`` over that many slot shards,
-    read noise keyed on global slot ids (``rows``, default arange(B)),
-    so the round's bits are the unsharded round's.
+    one launch a run of shards on one device, read noise keyed on global
+    slot ids (``rows``, default arange(B)), so the round's bits are the
+    unsharded round's.
     """
     r = sel.shape[0]
     for r0 in range(0, r, MAX_SAMPLES):
@@ -113,11 +117,11 @@ def decision_update(stats: dict, abasis: dict, sel: torch.Tensor,
         kw = dict(x_sigsq=abasis.get("x_sigsq"),
                   sample_idx=(None if sample_idx is None
                               else sample_idx[piece].contiguous()),
-                  mask=mask, rows=rows)
-        delta = (decision_stats(*args, **kw) if shard is None
-                 else decision_stats_sharded(*args, devices=shard, **kw))
-        for key in ("sum_p", "sum_psq", "sum_ent", "sum_entsq"):
-            stats[key] += delta[key]
+                  mask=mask, rows=rows, out=stats)
+        if shard is None:
+            decision_stats(*args, row0=row0, **kw)
+        else:
+            decision_stats_sharded(*args, devices=shard, **kw)
     if mask is None:
         stats["n"] += r
     else:

@@ -44,7 +44,8 @@ folds the telemetry, and an advisory may heal it: one pull a segment.
 ``devices`` (the reference's ``slot_axis``/``mesh``) cuts each die
 group's episodes × drones batch into slot shards, one a device (the
 list may repeat one): every decision round goes through
-``decision_stats_sharded`` with read noise keyed on global lanes, so
+``decision_stats_sharded`` (one launch a run of shards on one device)
+with read noise keyed on global lanes, so
 the logs are the unsharded mission's bit for bit; a batch that does not
 divide takes the unsharded kernel, as the reference's.
 """

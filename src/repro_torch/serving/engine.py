@@ -78,15 +78,23 @@ snapshot to the summary; ``compiled_cost_records`` gives each kernel's
 work at the live shapes (``obs/prof.compiled_cost``).
 
 Slot sharding (``slot_devices``, the reference's ``slot_axis``/``mesh``):
-a list of torch devices, which may repeat one, cuts every round's slot
-axis into that many contiguous shards, each folded by
-``kernels/decision.decision_stats_sharded`` on its device with read
-noise keyed on global slot ids, so the verdicts are the unsharded
-pool's bit for bit.  The pool's tensors stay whole on the engine's
-device and are split at each launch (on one card the split copies
-nothing); when ``n_slots`` does not divide over the shards the rounds
-take the unsharded kernel, as the reference's, and the summary's
-``shards`` says which ran.  ``serving/fleet.py`` runs several engines
+a list of torch devices, which may repeat one, cuts the slot axis into
+that many contiguous shards, and consecutive shards on one device form
+a run (``kernels/decision.slot_runs``).  The pool and its statistics
+live as one set of tensors a run, on the run's device (the reference
+constrains its pool to the slot axis): admission copies each admitted
+row into its run, and every round draws its stream indices and
+selections, folds (one accumulating decision launch a run, read noise
+keyed on the run's global slot ids through ``row0``), finalizes and
+decides run by run on the run's device.  Only the verdicts, and at the
+end of a dispatch the finalized fields (with telemetry, each round's
+selections, indices and mask) come to the engine's device, so the
+verdicts are the unsharded pool's bit for bit and a dispatch keeps its
+one pull.  An unsharded engine, or every shard on one device, is one
+run: today's whole tensors on the engine's device.  When ``n_slots``
+does not divide over the shards the pool is one run, as the
+reference's unsharded kernel, and the summary's ``shards`` says which
+ran (``runs``: the runs).  ``serving/fleet.py`` runs several engines
 behind one router with one pull a tick (``_dispatch`` / ``_land``).
 
 ``LMServingEngine``: token streams.  Slots share one decode clock (the
@@ -130,7 +138,8 @@ from repro_torch.core.sampling import (BayesHeadConfig, activation_basis,
                                        mix_samples)
 from repro_torch.kernels import bounds
 from repro_torch.kernels.cim import launch_plan
-from repro_torch.kernels.decision import MAX_SAMPLES, decision_plan
+from repro_torch.kernels.decision import (MAX_SAMPLES, decision_plan,
+                                          slot_runs)
 from repro_torch.kernels.ops import decision_update
 from repro_torch.models.sar_cnn import features, program_trunk
 from repro_torch.obs import prof
@@ -256,6 +265,14 @@ def token_decision(abasis: dict, base: torch.Tensor, active: torch.Tensor,
     record_decisions(telem, tcfg, fin, verdict, active)
     count_dispatch(telem, launched)
     return verdict, fin, spent, telem
+
+
+def _home(parts: list, device, dim: int = 0) -> torch.Tensor:
+    """Per-run tensors joined along the slot axis ``dim`` on ``device``
+    (one run: its tensor, moved if it lies elsewhere)."""
+    if len(parts) == 1:
+        return parts[0].to(device)
+    return torch.cat([t.to(device) for t in parts], dim)
 
 
 def _to_device(tree, device):
@@ -457,6 +474,8 @@ class SarServingEngine(_EngineBase):
                 raise ValueError("slot_devices needs at least one device")
             self._shard = devs if n_slots % len(devs) == 0 else None
             self.shards = len(devs) if self._shard else 1
+        # the slot runs the pool lives in, one set of tensors each
+        self.runs = slot_runs(self._shard or [self.device], n_slots)
         self.cfg = cfg
         self.adaptive_mode = adaptive_mode
         self.fused = fused
@@ -471,8 +490,8 @@ class SarServingEngine(_EngineBase):
         self.r_step = policy.r_min if adaptive_mode else policy.r_max
         self.max_rounds = (math.ceil(policy.r_max / self.r_step)
                            if adaptive_mode else 1)
-        self.pool: dict | None = None
-        self.stats: dict | None = None
+        self.pools: list[dict] | None = None      # a basis dict a run
+        self.stats: list[dict] | None = None      # statistics a run
         self.base: np.ndarray | None = None
 
     # -- lifetime -------------------------------------------------------
@@ -499,16 +518,19 @@ class SarServingEngine(_EngineBase):
                          self._trunk)
 
     def ensure_pool(self, like: dict) -> None:
-        """Allocate the (pool, stats) device state shaped like ``like``
-        (contiguous, as the decision kernel takes it)."""
-        if self.pool is not None:
+        """Allocate the (pool, stats) state of every run, rows shaped
+        like ``like``'s, on the run's device (contiguous, as the decision
+        kernel takes it)."""
+        if self.pools is not None:
             return
-        self.pool = {k: torch.zeros(v.shape, dtype=v.dtype,
-                                    device=self.device)
-                     for k, v in like.items()}
-        self.stats = adaptive.init_stats(self.n_slots,
-                                         like["y_mu"].shape[-1],
-                                         device=self.device)
+        self.pools = [{k: torch.zeros((run.stop - run.start,)
+                                      + tuple(v.shape[1:]), dtype=v.dtype,
+                                      device=run.device)
+                       for k, v in like.items()} for run in self.runs]
+        self.stats = [adaptive.init_stats(run.stop - run.start,
+                                          like["y_mu"].shape[-1],
+                                          device=run.device)
+                      for run in self.runs]
 
     def _admit(self) -> None:
         take = min(len(self.free), len(self.queue))
@@ -535,49 +557,74 @@ class SarServingEngine(_EngineBase):
                 self.slots[s].req = req
                 self.slots[s].admit_s = now
                 self.base[s] = bases[j]
-            idx = torch.as_tensor(taken, dtype=torch.int64,
-                                  device=self.device)
             self.ensure_pool(like=rows)
-            for k, v in rows.items():                 # in place
-                self.pool[k].index_copy_(0, idx, v[:take])
-            for v in self.stats.values():
-                v.index_fill_(0, idx, 0)
+            taken = np.asarray(taken)
+            for run, pool, stats in zip(self.runs, self.pools, self.stats):
+                mine = np.nonzero((taken >= run.start)
+                                  & (taken < run.stop))[0]
+                if mine.size == 0:
+                    continue
+                idx = torch.as_tensor(taken[mine] - run.start,
+                                      dtype=torch.int64, device=run.device)
+                pick = (None if mine.size == take else
+                        torch.as_tensor(mine, device=self.device))
+                for k, v in rows.items():             # in place
+                    v = v[:take] if pick is None else v.index_select(0, pick)
+                    pool[k].index_copy_(0, idx, v.to(run.device))
+                for v in stats.values():
+                    v.index_fill_(0, idx, 0)
             self.metrics.mark(now)
 
     # -- rounds ---------------------------------------------------------
-    def _one_round(self, base: torch.Tensor, mask: torch.Tensor):
+    def _one_round(self, bases: list, mask: torch.Tensor):
         """Draw r_step samples for the masked slots, fold them into the
-        statistics, finalize and decide.  -> (verdict, fin)."""
+        statistics, finalize and decide, run by run on each run's device
+        (``bases``: a run's stream bases; ``mask`` [n_slots] on the
+        engine's device).  -> (verdict on the engine's device, the runs'
+        fin dicts)."""
         grng = self.hcfg.grng
-        idx = adaptive.stream_indices(base, self.stats["n"], self.r_step)
-        sel = indexed_selections(grng.lfsr_seed, idx)  # = stream_selections
-        if self.fused:
-            decision_update(self.stats, self.pool, sel, grng,
-                            sample_idx=idx, mask=mask, shard=self._shard)
-        else:
-            samples = mix_samples(self.pool, sel, self.hcfg, sample_idx=idx)
-            self.stats = adaptive.update_stats(self.stats, samples, mask=mask)
-        fin = adaptive.finalize(self.stats)
-        if self.adaptive_mode:
-            verdict = triage.decide(fin, self.policy,
-                                    final=fin["n"] >= self.policy.r_max)
-        else:
-            verdict = triage.fixed_r_decide(fin, self.policy)
+        verdicts, fins, sels, idxs = [], [], [], []
+        for i, (run, base) in enumerate(zip(self.runs, bases)):
+            pool, stats = self.pools[i], self.stats[i]
+            upd = mask[run.start:run.stop].to(run.device)
+            idx = adaptive.stream_indices(base, stats["n"], self.r_step)
+            sel = indexed_selections(grng.lfsr_seed, idx)  # = stream_selections
+            if self.fused:
+                decision_update(stats, pool, sel, grng, sample_idx=idx,
+                                mask=upd, row0=run.start)
+            else:
+                samples = mix_samples(pool, sel, self.hcfg, sample_idx=idx,
+                                      row0=run.start)
+                stats = self.stats[i] = adaptive.update_stats(
+                    stats, samples, mask=upd)
+            fin = adaptive.finalize(stats)
+            if self.adaptive_mode:
+                verdicts.append(triage.decide(
+                    fin, self.policy, final=fin["n"] >= self.policy.r_max))
+            else:
+                verdicts.append(triage.fixed_r_decide(fin, self.policy))
+            fins.append(fin)
+            sels.append(sel)
+            idxs.append(idx)
         if self._telem is not None:
-            record_round(self._telem, self.tcfg, grng, sel, idx, mask)
-        return verdict, fin
+            record_round(self._telem, self.tcfg, grng,
+                         _home(sels, self.device, 1),
+                         _home(idxs, self.device, 1), mask)
+        return _home(verdicts, self.device), fins
 
-    def _multi_round(self, base: torch.Tensor, active: torch.Tensor):
+    def _multi_round(self, bases: list, active: torch.Tensor):
         """The fixed-length escalation loop with the device-side exit
-        flag (module docstring).  -> (verdict, fin, rounds) on device."""
-        verdict, fin = self._one_round(base, active)
+        flag (module docstring).  -> (verdict, fin, rounds) on the
+        engine's device."""
+        verdict, fins = self._one_round(bases, active)
         rounds = torch.ones((), dtype=torch.int32, device=self.device)
         looping = active.any() & ~(active & (verdict != ESCALATE)).any()
         for _ in range(self.max_rounds - 1):
-            verdict, fin = self._one_round(base, active & looping)
+            verdict, fins = self._one_round(bases, active & looping)
             rounds += looping.to(torch.int32)
             looping = looping & ~(active & (verdict != ESCALATE)).any()
         self.rounds_launched += self.max_rounds
+        fin = {k: _home([f[k] for f in fins], self.device) for k in fins[0]}
         if self._telem is not None:
             record_decisions(self._telem, self.tcfg, fin, verdict,
                              active & (verdict != ESCALATE))
@@ -610,7 +657,8 @@ class SarServingEngine(_EngineBase):
         prediction, confidence, mutual information [n_slots] each and
         the round count, in one float64 tensor (exact for each)."""
         verdict, fin, rounds = self._multi_round(
-            torch.as_tensor(self.base.astype(np.int64), device=self.device),
+            [torch.as_tensor(self.base[run.start:run.stop].astype(np.int64),
+                             device=run.device) for run in self.runs],
             torch.as_tensor(active, device=self.device))
         return torch.cat([
             torch.stack([verdict.double(), fin["prediction"].double(),
@@ -660,11 +708,13 @@ class SarServingEngine(_EngineBase):
 
     def drain(self) -> dict:
         """The base summary, with ``shards`` (the slot shards the rounds
-        ran over, 1 where the pool did not divide) when ``slot_devices``
-        was given."""
+        ran over, 1 where the pool did not divide) and ``runs`` (the
+        runs of shards on one device the pool lives in) when
+        ``slot_devices`` was given."""
         out = super().drain()
         if self.shards is not None:
             out["shards"] = self.shards
+            out["runs"] = len(self.runs)
         return out
 
     def run(self, max_ticks: int = 100_000) -> dict:
@@ -683,32 +733,42 @@ class SarServingEngine(_EngineBase):
         dispatch) and, on a die, the CIM kernel per trunk layer (one
         launch a layer an admission of ``n_slots`` images).  Each holds
         the kernel's launch plan (a cached builder) and the work of
-        ``kernels/bounds``.  A kernel this engine's route does not
-        launch (any kernel on the CPU, where the wrappers take the plain
-        versions; the decision kernel with ``fused=False``) has 0
-        launches.  Reads shapes only: nothing is launched."""
-        if self.pool is None:
+        ``kernels/bounds`` (the decision kernel accumulating into the
+        statistics).  A sharded pool's decision launches are counted a
+        run: with runs of more than one size, one record a size, B the
+        run's slots.  A kernel this engine's route does not launch (any
+        kernel on the CPU, where the wrappers take the plain versions;
+        the decision kernel with ``fused=False``) has 0 launches.  Reads
+        shapes only: nothing is launched."""
+        if self.pools is None:
             raise RuntimeError(
                 "compiled_cost_records needs live pool shapes: run the "
                 "engine (or admit once) first")
         recs = []
         on_card = self.device.type == "cuda"
-        b, n = self.pool["y_mu"].shape
+        n = self.pools[0]["y_mu"].shape[1]
+        sizes = [run.stop - run.start for run in self.runs]
         grng = self.hcfg.grng
         pieces = [min(MAX_SAMPLES, self.r_step - r0)
                   for r0 in range(0, self.r_step, MAX_SAMPLES)]
-        for r in sorted(set(pieces)):
-            work = bounds.decision_work(
-                b, n, r, b, sel_per_slot=True, read_sigma=grng.read_sigma,
-                idx_per_slot=True)
-            recs.append(prof.compiled_cost(
-                "decision_stats" if len(pieces) == 1
-                else f"decision_stats/r{r}", work, kernel="decision_stats",
-                source="src/repro_torch/kernels/csrc/decision.cu",
-                launches=(self.max_rounds * pieces.count(r)
-                          if on_card and self.fused else 0),
-                shape=f"B={b} N={n} R={r}, every slot active",
-                plan=decision_plan(n, r, b)._asdict()))
+        for b in sorted(set(sizes)):
+            cards = sum(run.device.type == "cuda" for run, size
+                        in zip(self.runs, sizes) if size == b)
+            for r in sorted(set(pieces)):
+                work = bounds.decision_work(
+                    b, n, r, b, sel_per_slot=True,
+                    read_sigma=grng.read_sigma, idx_per_slot=True,
+                    accumulate=True)
+                name = ("decision_stats" if len(pieces) == 1
+                        else f"decision_stats/r{r}")
+                recs.append(prof.compiled_cost(
+                    name if len(set(sizes)) == 1 else f"{name}/b{b}",
+                    work, kernel="decision_stats",
+                    source="src/repro_torch/kernels/csrc/decision.cu",
+                    launches=(self.max_rounds * pieces.count(r) * cards
+                              if self.fused else 0),
+                    shape=f"B={b} N={n} R={r}, every slot active",
+                    plan=decision_plan(n, r, b)._asdict()))
         if self._trunk is not None:
             h = self.cfg.image_size
             for i, layer in enumerate(self._trunk):
@@ -1010,7 +1070,7 @@ class LMServingEngine(_EngineBase):
         for r in sorted(set(pieces)):
             work = bounds.decision_work(
                 b, n, r, b, sel_per_slot=True, read_sigma=grng.read_sigma,
-                idx_per_slot=True)
+                idx_per_slot=True, accumulate=True)
             recs.append(prof.compiled_cost(
                 f"lm_token/r{r}", work, kernel="decision_stats",
                 source="src/repro_torch/kernels/csrc/decision.cu",

@@ -212,7 +212,8 @@ class SarServingFleet:
     # -- dispatch -------------------------------------------------------
     def _dispatch_gang(self, actives: list[np.ndarray]) -> list[int]:
         """Every pool's rounds, idle pools fully masked; one pull."""
-        template = next(e.pool for e in self.engines if e.pool is not None)
+        template = next(e.pools[0] for e in self.engines
+                        if e.pools is not None)
         for eng in self.engines:
             eng.ensure_pool(like=template)
         home = self.engines[0].device

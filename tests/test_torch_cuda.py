@@ -79,9 +79,14 @@ Observability: the engine's cost records against the launches the
 wrappers count (the same verdicts and syncs with the instruments on and
 off), and ``trace_capture``'s trace holding every decision and CIM
 launch under its CUDA symbol.
+The decision kernel's ``row0`` bit for bit explicit ``rows``, and its
+accumulate epilogue (``out=stats``) bit for bit ``stats + delta`` with
+masked rows untouched, in both variants.
 Slot sharding and the fleet: ``decision_stats_sharded`` over the card
 repeated 2 and 4 times bit for bit the unsharded launch (N 2 to 4,097,
-read noise, masks) and within 1e-5 of its plain version; the
+read noise, masks), one launch a call, and within 1e-5 of its plain
+version; a fold over ['cuda:0', 'cpu']: two runs, the card's rows the
+unsharded card launch's bits, the CPU's the plain version's; the
 slot-sharded pool's verdicts equal the unsharded pool's on the ideal
 die and a die; a 4-pool gang fleet equal to the sequential arm with
 fewer syncs, and a fleet with pools on the card and the CPU.
@@ -508,6 +513,71 @@ def test_decision_update_above_the_kernel_cap(hopper, r, read_sigma):
         torch.testing.assert_close(got[key], want[key], rtol=1e-5,
                                    atol=1e-5, msg=key)
     assert bool((got["n"] == args["mask"].to(got["n"].dtype) * r).all())
+
+
+@pytest.mark.parametrize("n,r", [(2, 4), (2, 20), (33, 6), (300, 6),
+                                 (4097, 20)])
+def test_decision_kernel_row0_and_accumulate(hopper, n, r):
+    """``row0`` keys the read noise as explicit ``rows = row0 + b`` bit
+    for bit; ``out=stats`` adds the deltas into the running sums of the
+    active rows, bit for bit ``stats + delta``, and leaves masked rows'
+    bits alone (NaN included): the small-N and the tiled variant."""
+    args = _case(hopper, 12, n, r, 0.4, seed=7, row_offset=1000)
+    want = decision_stats(**args)
+    got = decision_stats(**dict(args, rows=None), row0=1000)
+    local = decision_stats(**dict(args, rows=None))
+    g = torch.Generator().manual_seed(2)
+    stats0 = {k: (torch.rand(want[k].shape, generator=g) * 4).to(hopper)
+              for k in KEYS}
+    stats0["sum_p"][0, 0] = float("nan")                 # slot 0 masked
+    acc = {k: v.clone() for k, v in stats0.items()}
+    before = decision_stats.launches
+    assert decision_stats(**args, out=acc) is acc
+    torch.cuda.synchronize()
+    assert decision_stats.launches == before + 1
+    mask = args["mask"]
+    assert not bool(mask[0])
+    for key in KEYS:
+        assert torch.equal(got[key], want[key]), key
+        assert torch.equal(acc[key][mask], (stats0[key] + want[key])[mask])
+        assert torch.equal(acc[key][~mask].view(torch.int32),
+                           stats0[key][~mask].view(torch.int32)), key
+    assert not torch.equal(local["sum_p"], want["sum_p"])
+
+
+def test_fold_over_the_card_and_the_cpu(hopper):
+    """``fold_runs`` over ``slot_runs(['cuda:0', 'cpu'])``, the operands
+    on the card: two runs, one launch; the card's run (per-slot
+    selections and indices read through the round's strides, no copy)
+    gives the unsharded card launch's bits, the CPU's run the plain
+    version's; accumulating into statistics on the card too."""
+    from repro_torch.kernels.decision import (decision_stats_sharded,
+                                              decision_stats_sharded_plain,
+                                              fold_runs, slot_runs)
+    args = _case(hopper, 8, 2, 20, 0.4, seed=9)
+    del args["rows"]
+    runs = slot_runs(["cuda:0", "cpu"], 8)
+    assert [(r.device.type, r.start, r.stop) for r in runs] == [
+        ("cuda", 0, 4), ("cpu", 4, 8)]
+    whole = decision_stats(**args)
+    plain = decision_stats_sharded_plain(
+        **{k: v.cpu() if isinstance(v, torch.Tensor) else v
+           for k, v in args.items()}, shards=1)
+    before = decision_stats.launches
+    got = decision_stats_sharded(**args, devices=["cuda:0", "cpu"])
+    assert decision_stats_sharded.launches_per_call == 1
+    assert decision_stats.launches == before + 1
+    acc = fold_runs(runs, **args, out={k: torch.ones_like(v)
+                                       for k, v in whole.items()})
+    torch.cuda.synchronize()
+    mask = args["mask"]
+    for key in KEYS:
+        assert got[key].device == whole[key].device
+        assert torch.equal(got[key][:4], whole[key][:4]), key
+        assert torch.equal(got[key][4:].cpu(), plain[key][4:]), key
+        want = torch.where(mask if acc[key].ndim == 1 else mask[:, None],
+                           1 + got[key], torch.ones_like(got[key]))
+        assert torch.equal(acc[key], want), key
 
 
 def _plain_head(mode, x, mu, sigma, sel, fs, cfg, **kw):
@@ -1266,10 +1336,10 @@ def test_lm_train_resume_on_the_card(hopper, tmp_path):
 @pytest.mark.parametrize("shards", [2, 4])
 def test_sharded_kernel_is_the_unsharded_launch(hopper, n, r, read_sigma,
                                                 shards):
-    """``decision_stats_sharded`` over cuda:0 repeated: the shards'
-    launches give the unsharded launch's bits (read noise keyed on
-    global rows), within 1e-5 of the sharded plain version; one counted
-    call, ``shards`` kernel launches."""
+    """``decision_stats_sharded`` over cuda:0 repeated: one run, so one
+    launch gives the unsharded launch's bits (read noise keyed on global
+    rows), within 1e-5 of the sharded plain version; one counted call,
+    one kernel launch whatever the number of shards."""
     from repro_torch.kernels.decision import (decision_stats_sharded,
                                               decision_stats_sharded_plain)
     args = _case(hopper, 8, n, r, read_sigma, seed=3)
@@ -1277,7 +1347,8 @@ def test_sharded_kernel_is_the_unsharded_launch(hopper, n, r, read_sigma,
     before = (decision_stats_sharded.launches, decision_stats.launches)
     got = decision_stats_sharded(**args, devices=[hopper] * shards)
     assert (decision_stats_sharded.launches - before[0],
-            decision_stats.launches - before[1]) == (1, shards)
+            decision_stats.launches - before[1]) == (1, 1)
+    assert decision_stats_sharded.launches_per_call == 1
     whole = decision_stats(**args)
     plain = decision_stats_sharded_plain(**args, shards=shards)
     torch.cuda.synchronize()
@@ -1303,7 +1374,7 @@ def test_sharded_pool_on_the_card(hopper, chip):
     kw = dict(chip_instance=chip, device="cuda")
     whole = _sar_serve(**kw)
     sharded = _sar_serve(slot_devices=["cuda", "cuda"], **kw)
-    assert sharded["shards"] == 2
+    assert sharded["shards"] == 2 and sharded["runs"] == 1
     assert sharded["verdicts"] == whole["verdicts"]
     assert sharded["host_syncs"] == whole["host_syncs"]
 

@@ -7,6 +7,12 @@ and chip_smoke.py's ``fleet`` phase).
     masks, explicit and default global ``rows``, shared and per-slot
     selections, N ≤ 32 and N > 32); ``ops.decision_update(shard=...)``
     and ``token_decision(shard=...)`` bit for bit the unsharded calls;
+    ``slot_runs``' grouping of device lists; ``fold_runs`` over two
+    explicit CPU runs bit for bit one run (every CPU device is 'cpu', so
+    the public grouping gives one run here); the accumulating call
+    (``out=``) bit for bit ``stats + delta`` with masked rows untouched,
+    R > 64 cut into pieces; ``row0`` equal to explicit ``rows``; a pool
+    split into two runs by hand bit for bit the unsharded pool;
   * one subprocess with 2 fake JAX host devices runs the reference's
     ``decision_stats_sharded`` (interpret mode) and its gang fleet; the
     port matches the kernel within C6's 1e-5 and the gang's routes,
@@ -304,6 +310,94 @@ def test_token_decision_shard_is_the_unsharded_decision():
             assert torch.equal(got[3][key], outs[0][3][key]), key
 
 
+@pytest.mark.parametrize("devices,want", [
+    (["cpu"] * 4, [("cpu", 0, 8)]),
+    (["cpu", "meta", "meta", "cpu"],
+     [("cpu", 0, 2), ("meta", 2, 6), ("cpu", 6, 8)]),
+    (["meta", "cpu"], [("meta", 0, 4), ("cpu", 4, 8)])])
+def test_slot_runs_group_consecutive_shards_on_one_device(devices, want):
+    runs = tdec.slot_runs(devices, 8)
+    assert [(r.device.type, r.start, r.stop) for r in runs] == want
+    with pytest.raises(ValueError, match="not divisible"):
+        tdec.slot_runs(devices, 6 if len(devices) == 4 else 7)
+
+
+def _two_runs(b):
+    return [tdec.SlotRun(torch.device("cpu"), 0, b // 2),
+            tdec.SlotRun(torch.device("cpu"), b // 2, b)]
+
+
+def _stats0(b, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    return {"sum_p": torch.rand((b, n), generator=g) * 3,
+            "sum_psq": torch.rand((b, n), generator=g),
+            "sum_ent": torch.rand((b,), generator=g) * 5,
+            "sum_entsq": torch.rand((b,), generator=g) * 9,
+            "n": torch.full((b,), 8, dtype=torch.int32)}
+
+
+@pytest.mark.parametrize("n,r", [(3, 6), (40, 6), (3, 100)])
+def test_accumulating_call_is_stats_plus_delta(n, r):
+    """``decision_stats(out=stats)`` (plain here; the card's accumulate
+    epilogue in tests/test_torch_cuda.py) adds the deltas into the
+    running sums on the active rows, bit for bit ``stats + delta``;
+    masked rows keep their bits (NaN included).  Over R > 64,
+    ``ops.decision_update`` folds the pieces in sample order, each
+    ``stats + delta``, and over two runs the same bits."""
+    b = 8
+    args, kw = _torch_case(_kernel_case(b, n, r, 0.4, True, None, seed=4))
+    mask = kw["mask"]
+    stats0 = _stats0(b, n, seed=1)
+    stats0["sum_p"][1, 0] = float("nan")               # a masked row
+    want = {k: v.clone() for k, v in stats0.items()}
+    for r0 in range(0, r, tdec.MAX_SAMPLES):
+        piece = slice(r0, min(r, r0 + tdec.MAX_SAMPLES))
+        delta = tdec.decision_stats(
+            *args[:3], args[3][piece], args[4], kw["x_sigsq"],
+            kw["sample_idx"][piece], mask)
+        for key in STATS:
+            keep = mask if want[key].ndim == 1 else mask[:, None]
+            want[key] = torch.where(keep, want[key] + delta[key], want[key])
+    abasis = {"y_mu": args[0], "x_sigma": args[1], "m": args[2],
+              "x_sigsq": kw["x_sigsq"]}
+    for shard in (None, _two_runs(b)):
+        got = {k: v.clone() for k, v in stats0.items()}
+        if shard is None:
+            tops.decision_update(got, abasis, args[3], args[4],
+                                 sample_idx=kw["sample_idx"], mask=mask)
+        else:
+            for r0 in range(0, r, tdec.MAX_SAMPLES):
+                piece = slice(r0, min(r, r0 + tdec.MAX_SAMPLES))
+                tdec.fold_runs(shard, *args[:3], args[3][piece], args[4],
+                               x_sigsq=kw["x_sigsq"],
+                               sample_idx=kw["sample_idx"][piece],
+                               mask=mask, out=got)
+        for key in STATS:
+            assert torch.equal(got[key][mask], want[key][mask]), key
+            assert torch.equal(got[key][~mask].view(torch.int32),
+                               stats0[key][~mask].view(torch.int32)), key
+        if shard is None:
+            assert torch.equal(got["n"], stats0["n"] + r * mask)
+
+
+@pytest.mark.parametrize("n", [3, 40])
+def test_row0_is_explicit_global_rows(n):
+    """Read noise keyed on ``row0 + b`` equals ``rows = arange(row0,
+    row0 + B)``, in the plain version and the tiled algorithm's."""
+    args, kw = _torch_case(_kernel_case(6, n, 5, 0.4, False, None, seed=6))
+    rows = torch.arange(1000, 1006, dtype=torch.int64)
+    kw.pop("rows")
+    want = tdec.decision_stats_plain(*args, **kw, rows=rows)
+    got = tdec.decision_stats_plain(*args, **kw, row0=1000)
+    local = tdec.decision_stats_plain(*args, **kw)
+    for key in STATS:
+        assert torch.equal(got[key], want[key]), key
+    assert not torch.equal(local["sum_p"], want["sum_p"])
+    tiled = [tdec.decision_stats_tiled_plain(*args, **kw, tile=16, **extra)
+             for extra in ({"rows": rows}, {"row0": 1000})]
+    assert all(torch.equal(tiled[0][k], tiled[1][k]) for k in STATS)
+
+
 # ----------------------------------------------------------------------
 # the trace's fleet events, format for format
 # ----------------------------------------------------------------------
@@ -354,7 +448,7 @@ def test_sharded_pool_matches_reference_engine(narrow):
         assert got[rid][:3] == w[:3], rid
         np.testing.assert_allclose(got[rid][3:], w[3:], atol=1e-5)
     assert eng.host_syncs == ref.host_syncs
-    assert out["shards"] == 2
+    assert out["shards"] == 2 and out["runs"] == 1
     for k in ("rounds", "dispatches", "samples", "decisions"):
         assert out["telemetry"][k] == ref.metrics.summary()[
             "telemetry"][k], k
@@ -387,6 +481,24 @@ def test_sharded_pool_on_a_die_is_the_unsharded_pool(narrow, shards):
     assert die["hcfg"].grng.read_sigma > 0
     assert _records([a]) == _records([b])
     assert out["shards"] == shards and a.host_syncs == b.host_syncs
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_pool_over_two_runs_is_the_unsharded_pool(narrow, fused):
+    """A pool split by hand into two runs (the CPU has one device, so
+    ``slot_runs`` gives one run here): every run's state, rounds and
+    read noise on its global slot ids give the unsharded pool's records
+    and telemetry bit for bit on the gate die."""
+    die = _die(narrow)
+    a = _engine(narrow, fused=fused, **die)
+    b = _engine(narrow, fused=fused, slot_devices=["cpu"] * 2, **die)
+    b.runs = _two_runs(4)
+    _served(a, _port_reqs(16))
+    out = _served(b, _port_reqs(16))
+    assert _records([a]) == _records([b]) and out["runs"] == 2
+    assert [p["y_mu"].shape[0] for p in b.pools] == [2, 2]
+    assert out["telemetry"] == a.metrics.summary()["telemetry"]
+    assert a.host_syncs == b.host_syncs
 
 
 def test_sharded_pool_falls_back_when_slots_do_not_divide(narrow):
@@ -567,6 +679,26 @@ def test_sharded_kernel_matches_reference(spmd):
                                        res["kernel"][f"c{i}_{key}"],
                                        rtol=1e-5, atol=1e-5,
                                        err_msg=f"case {i} {key}")
+
+
+@pytest.mark.parametrize("case", range(len(KERNEL_CASES)))
+def test_fold_over_two_runs_is_one_run_and_the_reference(spmd, case):
+    """``fold_runs`` over two explicit CPU runs equals the fold over one
+    run and the sharded plain version bit for bit, and the reference's
+    ``decision_stats_sharded`` under a 2-device mesh within C6's 1e-5."""
+    res = spmd()
+    c = res["cases"][case]
+    args, kw = _torch_case(c)
+    b = args[0].shape[0]
+    one = tdec.fold_runs(tdec.slot_runs(["cpu"] * 2, b), *args, **kw)
+    two = tdec.fold_runs(_two_runs(b), *args, **kw)
+    plain = tdec.decision_stats_sharded_plain(*args, shards=2, **kw)
+    for key in STATS:
+        assert torch.equal(two[key], one[key]), key
+        assert torch.equal(two[key], plain[key]), key
+        np.testing.assert_allclose(two[key].numpy(),
+                                   res["kernel"][f"c{case}_{key}"],
+                                   rtol=1e-5, atol=1e-5, err_msg=key)
 
 
 # ----------------------------------------------------------------------

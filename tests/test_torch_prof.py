@@ -227,12 +227,13 @@ def test_compiled_cost_records_from_engine(narrow):
     """The engine's cost records at its live shapes come from the same
     count as chip_smoke.py's bounds (kernels/bounds).  On the CPU the
     decision wrapper takes its plain version, so the record counts no
-    launch."""
+    launch.  The engine's launches fold into its statistics (the
+    kernel's accumulate epilogue), and the record counts that."""
     eng = _run(narrow, 8)
     (rec,) = eng.compiled_cost_records()
     b, n = eng.n_slots, 2
     want = bounds.decision_work(b, n, 4, b, sel_per_slot=True,
-                                idx_per_slot=True)
+                                idx_per_slot=True, accumulate=True)
     assert rec["kernel"] == "decision_stats"
     assert eng.max_rounds == 5 and eng.rounds_launched > 0
     assert rec["launches_per_dispatch"] == 0           # a CPU engine
